@@ -1,59 +1,487 @@
-"""CARLAgent, evaluation only: the converted network driving a batch of
-worlds for `trials` episodes and the six-metric JSON of the reference
-(core/carla_agent.py:205-321).
+"""CARLAgent: PPO with a shared dynamics backbone and auxiliary losses,
+in the shipped sequential float32 configuration, and the evaluation of the
+reference's six metrics.
 
-Counterpart of `CARLAgent.evaluate` and its per-step rollout in
-carla_driving_rl_agent_tpu/agents/carla_agent.py; training comes with a
-later slice of the port.
+Counterpart of carla_driving_rl_agent_tpu/agents/carla_agent.py (reference
+core/carla_agent.py over rl/agents/ppo.py).  One update (`train_iteration`):
+  * rollout of `rollout_steps` steps over `num_envs` worlds with the old
+    policy (per step, or in blocks of past_obs_freq with `rollout_block`);
+  * targets: the bootstrap value, GAE, sign-preserving max-norm advantages
+    scaled by advantage_scale, discounted returns decomposed into
+    (base, exp);
+  * the policy phase: minibatches of a permutation, each one clipped Adam
+    step of the policy and one of the dynamics backbone;
+  * the value phase: another permutation, each minibatch one clipped Adam
+    step of the value head and one of the backbone, through the SAME
+    dynamics Adam state.
+The two phases stay apart: fusing them into one summed-gradient step was
+measured to starve the policy head (main.py:97-134).
+
+Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
+  * policy: PPO-clip on the per-action ratio averaged over the action
+    dimensions, minus entropy * entropy_regularization, plus
+    aux * 0.5 * (speed MSE + similarity MSE);
+  * value: 0.25 * MSE(base) + MSE(exp) / exp_scale^2, plus aux * (speed MSE
+    + similarity MSE) without the 0.5, the whole times 0.25.
+
+Only Adam, float32 and the unfused network are ported; the JAX package's
+other learner options raise (CARLAgentConfig.check).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv, convert_action
+from carla_driving_rl_agent_torch import REPO_ROOT
+from carla_driving_rl_agent_torch.agents import rollout as rollout_mod
+from carla_driving_rl_agent_torch.envs.carla_env import (
+    CARLAEnv, EnvState, convert_action, planes_to_image)
 from carla_driving_rl_agent_torch.models.carla_network import CARLANetwork
-from carla_driving_rl_agent_torch.utils.checkpoint import load_network_weights
+from carla_driving_rl_agent_torch.models.distributions import Beta
+from carla_driving_rl_agent_torch.models.layers import init_flax_
+from carla_driving_rl_agent_torch.utils import checkpoint as ckpt
+from carla_driving_rl_agent_torch.utils import math as um
+from carla_driving_rl_agent_torch.utils.optimizers import (
+    get_optimizer_by_name, set_learning_rate)
+from carla_driving_rl_agent_torch.utils.schedules import DynamicParameter
+
+
+# the port's checkpoints; the tracked weights/ holds the JAX package's
+DEFAULT_WEIGHTS_DIR = os.path.join(REPO_ROOT, "weights-torch")
+
+
+def full_float32() -> None:
+    """Full float32 on the card: no TF32 in cuDNN convolutions (PyTorch's
+    default) or in matmuls.  The shipped recipe trains in float32; bf16 was
+    rejected for quantising away the Beta logits' small shifts
+    (main.py:94-96)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 @dataclass
 class CARLAgentConfig:
-    # network spec (reference core/carla_agent.py:61-68), as saved in a
-    # checkpoint's config.json
-    network: Dict[str, Any] = field(default_factory=dict)
+    # parallel rollout geometry
+    num_envs: int = 64
+    rollout_steps: int = 128
+    # PPO hyper-parameters (reference rl/agents/ppo.py:26-61)
+    batch_size: int = 64
+    gamma: float = 0.9999
+    lambda_: float = 0.999
+    policy_lr: Any = 3e-4
+    value_lr: Any = 3e-4
+    dynamics_lr: Any = 3e-4
+    clip_ratio: Any = 0.2
+    entropy_regularization: Any = 0.1
+    advantage_scale: Any = 2.0
+    optimization_steps: Tuple[int, int] = (1, 1)
+    clip_norm: Tuple[float, float, float] = (1.0, 1.0, 1.0)
+    polyak: float = 1.0
+    update_dynamics: bool = True
+    optimizer: str = "adam"
+    # one forward pass and one rendered frame per past_obs_freq steps
+    rollout_block: bool = False
+    # zero the advantage of block sub-steps after a mid-block auto-reset
+    mask_post_reset: bool = True
+    aux: float = 1.0
     seed: int = 42
+    # network spec (reference core/carla_agent.py:61-68)
+    network: Dict[str, Any] = field(default_factory=dict)
+    # learner options of the JAX package that the port does not have yet;
+    # anything but these defaults raises
+    aug_intensity: float = 0.0
+    fused_update: bool = False
+    two_step_update: bool = False
+    two_step_split_adam: bool = False
+    resample_actions: bool = False
+    expert_rollout: bool = False
+    ratio_clamp: float = 0.0
+    compute_dtype: str = "float32"
+    fused_units: bool = False
+
+    def check(self) -> None:
+        unported = dict(aug_intensity=0.0, fused_update=False, two_step_update=False,
+                        two_step_split_adam=False, resample_actions=False,
+                        expert_rollout=False, ratio_clamp=0.0,
+                        compute_dtype="float32", fused_units=False)
+        for name, default in unported.items():
+            if getattr(self, name) != default:
+                raise NotImplementedError(
+                    f"CARLAgentConfig.{name}={getattr(self, name)!r} is not ported; "
+                    f"the port trains the sequential float32 update only")
 
 
 class CARLAgent:
+    """Owns the network, the three Adam optimizers (policy, value,
+    dynamics), the schedules and the agent's generator (action samples and
+    minibatch permutations; the env's generator draws the resets)."""
+
     def __init__(self, env: CARLAEnv, config: Optional[CARLAgentConfig] = None,
-                 name: str = "carla", weights_dir: str = "weights"):
+                 name: str = "carla", weights_dir: str = DEFAULT_WEIGHTS_DIR):
         self.env = env
-        self.config = config or CARLAgentConfig()
+        self.config = cfg = config or CARLAgentConfig()
+        cfg.check()
         self.name = name
         self.base_path = os.path.join(weights_dir, name)
-        spec = dict(self.config.network or {})
-        self.network = CARLANetwork(
+        spec = dict(cfg.network or {})
+        net = CARLANetwork(
             num_actions=env.config.num_actions,
             control_policy=spec.get("control_policy"),
             control_value=spec.get("control_value"),
             dynamics=spec.get("dynamics"),
             image_channels=env.config.image_shape[2],
             nav_dim=env.params.num_waypoints_for_feature,
-        ).to(env.device)
-        self.env.seed(self.config.seed)
+        )
+        # flax's initialisers from a CPU generator, so that one seed gives
+        # the same network on every device
+        init_flax_(net, torch.Generator().manual_seed(cfg.seed))
+        net.update_old_policy()
+        self.network = net.to(env.device)
+        self.env.seed(cfg.seed)
+        self.generator = torch.Generator(device=env.device)
+        self.generator.manual_seed(cfg.seed)
 
-    def load(self) -> None:
-        """Load the JAX package's checkpoint at `base_path` (params.msgpack +
-        batch_stats.msgpack), converted in memory."""
-        load_network_weights(self.network, self.base_path)
-        self.network.to(self.env.device)
+        # dynamic hyper-parameters (reference rl/agents/ppo.py:42-61,100-106)
+        self.policy_lr = DynamicParameter.create(cfg.policy_lr)
+        self.value_lr = DynamicParameter.create(cfg.value_lr)
+        self.dynamics_lr = DynamicParameter.create(cfg.dynamics_lr)
+        self.clip_ratio = DynamicParameter.create(cfg.clip_ratio)
+        self.entropy_strength = DynamicParameter.create(cfg.entropy_regularization)
+        self.adv_scale = DynamicParameter.create(cfg.advantage_scale)
 
+        self.params = dict(policy=list(self.network.policy.parameters()),
+                           value=list(self.network.value.parameters()),
+                           dynamics=list(self.network.dynamics.parameters()))
+        self.optimizers = dict(
+            policy=get_optimizer_by_name(cfg.optimizer, self.params["policy"], self.policy_lr()),
+            value=get_optimizer_by_name(cfg.optimizer, self.params["value"], self.value_lr()),
+            dynamics=get_optimizer_by_name(cfg.optimizer, self.params["dynamics"],
+                                           self.dynamics_lr()))
+        self.update_step = 0
+        # seconds of the last update's parts, each ended by a synchronise
+        self.last_timings: Dict[str, float] = {}
+
+    # ------------------------------------------------------------------
+    # objectives
+    # ------------------------------------------------------------------
+    def _policy_objective(self, pol: dict, batch: dict, hyper: dict):
+        """PPO-clip + entropy + aux on the policy head's output `pol` (JAX
+        carla_agent.py:283-330); the log-prob is of the STORED rollout
+        action (the reference's base objective, rl/agents/ppo.py:322-325)."""
+        dist: Beta = pol["dist"]
+        log_prob = dist.log_prob(dist.clip(batch["obs"]["action"]))
+        entropy = torch.mean(dist.entropy())
+        adv = batch["advantages"]
+        ratio = torch.exp(log_prob - batch["log_prob"])
+        ratio = torch.mean(ratio, dim=1)                   # per-action-ratio mean (quirk)
+        clip_v = hyper["clip_ratio"]
+        min_adv = torch.where(adv > 0.0, (1.0 + clip_v) * adv, (1.0 - clip_v) * adv)
+        policy_loss = -torch.mean(torch.minimum(ratio * adv, min_adv))
+        entropy_penalty = hyper["entropy"] * entropy
+        # the policy's aux losses carry 0.5, the value's do not (quirk)
+        speed_loss = 0.5 * torch.mean(torch.square(batch["speed"] - pol["speed"][:, 0]))
+        sim_loss = 0.5 * torch.mean(torch.square(batch["similarity"]
+                                                 - pol["similarity"][:, 0]))
+        total = policy_loss - entropy_penalty + self.config.aux * (speed_loss + sim_loss)
+        aux = dict(loss_policy=policy_loss.detach(), entropy=entropy.detach(),
+                   ratio=torch.mean(ratio).detach(),
+                   kl=torch.mean(um.kl_divergence(batch["log_prob"], log_prob)).detach())
+        return total, aux
+
+    def _value_objective(self, val: dict, batch: dict):
+        """(base, exp) value loss + aux, all times 0.25 (JAX
+        carla_agent.py:340-359)."""
+        values, returns = val["value"], batch["returns"]
+        base_loss = torch.mean(torch.square(returns[:, 0] - values[:, 0]))
+        exp_loss = torch.mean(torch.square(returns[:, 1] - values[:, 1]))
+        value_loss = 0.25 * base_loss + exp_loss / (self.network.exp_scale ** 2)
+        speed_loss = torch.mean(torch.square(batch["speed"] - val["speed"][:, 0]))
+        sim_loss = torch.mean(torch.square(batch["similarity"] - val["similarity"][:, 0]))
+        total = (value_loss + self.config.aux * (speed_loss + sim_loss)) * 0.25
+        return total, dict(loss_value=value_loss.detach())
+
+    # ------------------------------------------------------------------
+    # one update: rollout, targets, policy phase, value phase
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.env.device.type == "cuda":
+            torch.cuda.synchronize(self.env.device)
+
+    def collect(self, env_states: EnvState):
+        """The rollout with the old policy (reference core/networks.py:
+        181-193).  Returns (env_states', Trajectory, final_obs)."""
+        cfg, net, gen = self.config, self.network, self.generator
+        if cfg.rollout_block:
+            return rollout_mod.run_rollout_blocks(
+                self.env, lambda net_in, n: net.predict(net_in, gen, num_samples=n),
+                env_states, cfg.rollout_steps)
+        return rollout_mod.run_rollout(
+            self.env, lambda net_in: net.predict(net_in, gen), env_states,
+            cfg.rollout_steps)
+
+    @torch.no_grad()
+    def targets(self, traj: rollout_mod.Trajectory, final_obs: dict,
+                last_action: torch.Tensor, adv_scale: float) -> dict:
+        """Advantages and (base, exp) returns of a trajectory, flattened to
+        (S * B, ...) samples (JAX carla_agent.py:438-504)."""
+        cfg, net = self.config, self.network
+        values = um.compose_number(traj.value[..., 0], traj.value[..., 1])   # (S, B)
+        final_in = {f"state_{k}": v for k, v in final_obs.items()}
+        final_in["action"] = last_action
+        vlast = net.value_apply(net.dynamics_apply(final_in))
+        bootstrap = um.compose_number(vlast["value"][:, 0], vlast["value"][:, 1])
+
+        done = torch.clamp(traj.terminated + traj.truncated, 0.0, 1.0)
+        # truncation bootstraps from the current value estimate
+        # (reference ppo.py:540-542)
+        rewards = traj.reward + cfg.gamma * traj.truncated * values
+        adv_raw, _ = um.batched_gae(rewards, values, done, bootstrap, cfg.gamma, cfg.lambda_)
+        advantages = um.sp_norm(adv_raw) * adv_scale
+        if cfg.mask_post_reset:
+            # after sp_norm, so the normalisation statistics do not depend
+            # on the mask
+            advantages = advantages * (1.0 - traj.post_reset)
+        returns_raw = um.discounted_returns(rewards, done, bootstrap, cfg.gamma)
+        ret_base, ret_exp = um.decompose_number(returns_raw)
+
+        S, B = traj.reward.shape
+        dev = traj.reward.device
+
+        def flat(x):
+            return x.reshape((S * B,) + tuple(x.shape[2:]))
+
+        return dict(
+            advantages=flat(advantages),
+            returns=flat(torch.stack([ret_base, ret_exp], dim=-1)),
+            log_prob=flat(traj.log_prob), action=flat(traj.action),
+            speed=flat(traj.speed) / 100.0,               # carla_agent.py:328
+            similarity=flat(traj.similarity),
+            road=flat(traj.road), vehicle=flat(traj.vehicle),
+            navigation=flat(traj.navigation),
+            step=torch.arange(S, device=dev).repeat_interleave(B),
+            env=torch.arange(B, device=dev).repeat(S),
+            # not flattened: for the metrics and the image gathers
+            stats=dict(values=values, done=done, advantages=advantages,
+                       returns_raw=returns_raw),
+            timeline=rollout_mod.frame_timeline(traj), traj=traj)
+
+    def gather_batch(self, data: dict, idx: torch.Tensor) -> dict:
+        """One minibatch of samples `idx` (JAX carla_agent.py:480-504): the
+        flat fields, and the image stacks gathered from the frame timeline
+        and turned into the network's (mb, T, H, 3W, C) [0, 1] input."""
+        keys = ("advantages", "returns", "log_prob", "action", "speed", "similarity",
+                "road", "vehicle", "navigation")
+        mb = {k: data[k][idx] for k in keys}
+        img = rollout_mod.gather_image_stacks(data["traj"], data["step"][idx],
+                                              data["env"][idx], data["timeline"])
+        ry, rx = self.env.config.upsample
+        img = planes_to_image(img, ry, rx).to(torch.float32) / 255.0
+        mb["obs"] = dict(state_image=img, state_road=mb["road"],
+                         state_vehicle=mb["vehicle"], state_navigation=mb["navigation"],
+                         action=mb["action"])
+        return mb
+
+    def _apply(self, group: str, grads, clip_norm: float) -> None:
+        """One Adam step of a parameter group on its per-tensor clipped
+        gradients, then polyak averaging with the pre-step values."""
+        params = self.params[group]
+        old = ([p.detach().clone() for p in params]
+               if self.config.polyak < 1.0 and group != "dynamics" else None)
+        for p, g in zip(params, um.clip_gradients(grads, clip_norm)):
+            p.grad = g
+        self.optimizers[group].step()
+        self.optimizers[group].zero_grad(set_to_none=True)
+        if old is not None:
+            # the reference averages both heads (rl/agents/ppo.py:264-275)
+            um.polyak_average_(params, old, self.config.polyak)
+
+    def _grads(self, loss: torch.Tensor, groups):
+        params = [p for g in groups for p in self.params[g]]
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        out, i = {}, 0
+        for g in groups:
+            out[g] = grads[i:i + len(self.params[g])]
+            i += len(self.params[g])
+        return out
+
+    def policy_step(self, batch: dict, hyper: dict) -> dict:
+        """One policy-phase step on a gathered minibatch (JAX
+        carla_agent.py:711-749): the policy's and the backbone's gradients
+        of the policy objective, each tensor clipped, then one Adam step of
+        each."""
+        cfg, net = self.config, self.network
+        feat = net.dynamics_apply(batch["obs"], training=True)
+        pol = net.policy_apply(feat, training=True)
+        total, aux = self._policy_objective(pol, batch, hyper)
+        grads = self._grads(total, ("policy", "dynamics"))
+        # old_policy <- policy BEFORE the step (rl/agents/ppo.py:238-252):
+        # the next rollout samples from the policy of one minibatch ago
+        net.update_old_policy()
+        self._apply("policy", grads["policy"], cfg.clip_norm[0])
+        if cfg.update_dynamics:
+            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+        aux["loss_total"] = total.detach()
+        return aux
+
+    def value_step(self, batch: dict) -> dict:
+        """One value-phase step (JAX carla_agent.py:755-785): the backbone's
+        second clipped Adam step of the minibatch pair, through the same
+        dynamics Adam state as the policy phase."""
+        cfg, net = self.config, self.network
+        feat = net.dynamics_apply(batch["obs"], training=True)
+        val = net.value_apply(feat, training=True)
+        total, aux = self._value_objective(val, batch)
+        grads = self._grads(total, ("value", "dynamics"))
+        self._apply("value", grads["value"], cfg.clip_norm[1])
+        if cfg.update_dynamics:
+            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+        # the JAX learner reports the phase's total as loss_value
+        return dict(loss_value=total.detach())
+
+    def train_iteration(self, env_states: EnvState, hyper: dict):
+        """Rollout + targets + policy phase + value phase.  Returns
+        (env_states', metrics); self.last_timings holds the parts'
+        seconds."""
+        cfg = self.config
+        t0 = time.perf_counter()
+        env_states, traj, final_obs = self.collect(env_states)
+        self._sync()
+        t1 = time.perf_counter()
+        data = self.targets(traj, final_obs, env_states.last_action, hyper["adv_scale"])
+        n = cfg.rollout_steps * cfg.num_envs
+        n_mb = max(1, n // cfg.batch_size)
+        self._sync()
+        t2 = time.perf_counter()
+
+        perm = torch.randperm(n, generator=self.generator, device=self.env.device)
+        p_metrics = [self.policy_step(self.gather_batch(data, perm[m * cfg.batch_size:
+                                                                   (m + 1) * cfg.batch_size]), hyper)
+                     for _ in range(cfg.optimization_steps[0]) for m in range(n_mb)]
+        self._sync()
+        t3 = time.perf_counter()
+        perm = torch.randperm(n, generator=self.generator, device=self.env.device)
+        v_metrics = [self.value_step(self.gather_batch(data, perm[m * cfg.batch_size:
+                                                                  (m + 1) * cfg.batch_size]))
+                     for _ in range(cfg.optimization_steps[1]) for m in range(n_mb)]
+        self._sync()
+        t4 = time.perf_counter()
+        self.last_timings = dict(rollout=t1 - t0, targets=t2 - t1, policy=t3 - t2,
+                                 value=t4 - t3)
+
+        st = data["stats"]
+
+        def mean_of(records, key):
+            return torch.stack([r[key] for r in records]).mean() if records else \
+                torch.zeros((), device=self.env.device)
+
+        metrics = dict(
+            reward_mean=traj.reward.mean(),
+            episode_done=st["done"].sum(),
+            collision_rate=traj.terminated.sum() / torch.clamp(st["done"].sum(), min=1.0),
+            speed_mean=traj.speed.mean(),
+            similarity_mean=traj.similarity.mean(),
+            advantage_abs=st["advantages"].abs().mean(),
+            returns_mean=st["returns_raw"].mean(),
+            value_mean=st["values"].mean(),
+            loss_policy=mean_of(p_metrics, "loss_policy"),
+            loss_value=mean_of(v_metrics, "loss_value"),
+            entropy=mean_of(p_metrics, "entropy"),
+            ratio=mean_of(p_metrics, "ratio"),
+            kl=mean_of(p_metrics, "kl"))
+        values = torch.stack(list(metrics.values())).tolist()
+        return env_states, dict(zip(metrics, values))
+
+    def learn(self, num_updates: int, env_states: Optional[EnvState] = None,
+              callback=None):
+        """Main training loop (reference rl/agents/ppo.py:464-568).  One
+        update = rollout_steps x num_envs env steps and the PPO update.
+        Returns (env_states, list of metrics dicts)."""
+        full_float32()
+        if env_states is None:
+            env_states, _ = self.env.reset_batch(self.config.num_envs)
+        history = []
+        for _ in range(num_updates):
+            # read this update's learning rates and scalars, THEN step the
+            # schedules (JAX carla_agent.py:898-912)
+            for group, param in (("policy", self.policy_lr), ("value", self.value_lr),
+                                 ("dynamics", self.dynamics_lr)):
+                set_learning_rate(self.optimizers[group], param())
+            hyper = dict(clip_ratio=float(self.clip_ratio()),
+                         entropy=float(self.entropy_strength()),
+                         adv_scale=float(self.adv_scale()))
+            self.update_step += 1
+            for p in (self.policy_lr, self.value_lr, self.dynamics_lr,
+                      self.clip_ratio, self.entropy_strength, self.adv_scale):
+                p.on_episode()
+            env_states, metrics = self.train_iteration(env_states, hyper)
+            metrics.update({f"seconds_{k}": v for k, v in self.last_timings.items()})
+            history.append(metrics)
+            if callback is not None:
+                callback(self.update_step, metrics)
+        return env_states, history
+
+    # ------------------------------------------------------------------
+    # checkpointing (reference core/networks.py:297-310, rl/agents/ppo.py:601-616)
+    # ------------------------------------------------------------------
+    def save(self, path: Optional[str] = None) -> None:
+        """network.pt (the state dict), optimizers.pt (the three Adam
+        states) and config.json (schedule steps, update step, network
+        spec) under `path` (default base_path)."""
+        ckpt.save_agent(path or self.base_path, self.network.state_dict(),
+                        {g: o.state_dict() for g, o in self.optimizers.items()},
+                        self.serialize_config())
+
+    def load(self, path: Optional[str] = None, full: bool = True) -> None:
+        """Restore a checkpoint of the port (network.pt) or of the JAX
+        package (params.msgpack, converted in memory).  full=False restores
+        only the dynamics backbone, the curriculum's stage transfer
+        (reference core/networks.py:302-310).  As in the JAX package, a
+        full restore copies policy -> old_policy."""
+        path = path or self.base_path
+        loaded = ckpt.load_agent(path, self.env.device)
+        if full:
+            self.network.load_state_dict(loaded["network"], strict=True)
+            self.network.update_old_policy()
+            for g, state in (loaded.get("optimizers") or {}).items():
+                self.optimizers[g].load_state_dict(state)
+        else:
+            prefix = "dynamics."
+            self.network.dynamics.load_state_dict(
+                {k[len(prefix):]: v for k, v in loaded["network"].items()
+                 if k.startswith(prefix)}, strict=True)
+        self.load_config(loaded.get("config", {}))
+
+    def serialize_config(self) -> dict:
+        return dict(policy_lr=self.policy_lr.serialize(),
+                    value_lr=self.value_lr.serialize(),
+                    dynamics_lr=self.dynamics_lr.serialize(),
+                    adv_scale=self.adv_scale.serialize(),
+                    entropy_strength=self.entropy_strength.serialize(),
+                    clip_ratio=self.clip_ratio.serialize(),
+                    update_step=self.update_step,
+                    network=self.config.network or {})
+
+    def load_config(self, config: dict) -> None:
+        self.policy_lr.load(config.get("policy_lr", {}))
+        self.value_lr.load(config.get("value_lr", {}))
+        self.dynamics_lr.load(config.get("dynamics_lr", {}))
+        self.adv_scale.load(config.get("adv_scale", {}))
+        self.entropy_strength.load(config.get("entropy_strength", {}))
+        self.clip_ratio.load(config.get("clip_ratio", {}))
+        self.update_step = int(config.get("update_step", self.update_step))
+
+    # ------------------------------------------------------------------
+    # evaluation (reference core/carla_agent.py:205-321)
+    # ------------------------------------------------------------------
     @torch.no_grad()
     def rollout(self, num_worlds: int, timesteps: int) -> Dict[str, torch.Tensor]:
         """Per-step evaluation rollout: `num_worlds` worlds, one network
@@ -96,11 +524,7 @@ class CARLAgent:
         waypoint_distance, speed, total_reward, timesteps.  Episodes of 32
         steps or fewer are discarded (accidental first-step collisions,
         reference :284); total_reward clips at -1000 (:286)."""
-        # full float32 on the evaluation path: no TF32 in cuDNN convolutions
-        # (PyTorch's default) or in matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.set_float32_matmul_precision("highest")
+        full_float32()
         if isinstance(initial_seed, int):
             self.env.seed(initial_seed)
 

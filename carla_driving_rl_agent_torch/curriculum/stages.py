@@ -1,25 +1,197 @@
-"""The evaluation protocol driver for one town at a time.
+"""Curriculum stage s1, the Stage orchestrator, and the evaluation protocol
+for one town at a time.
 
-Counterpart of `evaluate` in carla_driving_rl_agent_tpu/curriculum/stages.py
-(reference core/learning.py:505-530).  The JAX driver builds all eight
-evaluation towns into one bank so that XLA compiles one program; PyTorch
-compiles nothing ahead, so this driver builds only the town it is asked
-for.  Traffic (regular, dense) comes with a later slice of the port.
+Counterpart of carla_driving_rl_agent_tpu/curriculum/stages.py (reference
+core/learning.py): `sample_origins` (:19-33), `define_agent`/`define_env`
+(:53-61), `Stage` (:68-189), `stage_s1` (:311-339) and `evaluate`
+(:505-530).  Stages s2-s5 need NPC traffic and come with a later slice.
+
+Parallelism mapping (as in the JAX package): an epoch runs `episodes`
+updates, each consuming a `timesteps`-step rollout (at most 128 steps)
+from `num_envs` lock-step worlds.
+
+The JAX package's evaluation builds all eight evaluation towns into one bank
+so that XLA compiles one program; PyTorch compiles nothing ahead, so this
+module builds only the town it is asked for.  Traffic (regular, dense)
+comes with a later slice of the port.
+
+Checkpoints go under weights-torch/ of the checkout by default; the port
+never writes into the tracked weights/ (utils/checkpoint.save_agent
+refuses).
 """
 
 from __future__ import annotations
 
 import json
 import os
+import random as py_random
 import warnings
-from typing import List, Optional
+from typing import List, Optional, Union
 
 from carla_driving_rl_agent_torch import REPO_ROOT
-from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent, CARLAgentConfig
+from carla_driving_rl_agent_torch.agents.carla_agent import (
+    DEFAULT_WEIGHTS_DIR, CARLAgent, CARLAgentConfig)
 from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv, CARLAEnvConfig
+from carla_driving_rl_agent_torch.envs.town import get_town
 from carla_driving_rl_agent_torch.envs.weather import (
     TEST_WEATHERS, TRAIN_WEATHERS, weather_ids)
 from carla_driving_rl_agent_torch.envs.world import WorldParams
+from carla_driving_rl_agent_torch.utils.checkpoint import copy_folder
+
+DEFAULT_TOWN = "Town03"   # the reference trains on Town03 only (README.md:112)
+
+
+def sample_origins(town: str = DEFAULT_TOWN, amount: int = 1, seed=None) -> List[int]:
+    """Seed-fixed spawn-point indices (reference core/learning.py:19-33)."""
+    if amount <= 0:
+        raise ValueError(f"amount must be positive, got {amount}")
+    rng = py_random.Random(seed)
+    points = list(range(len(get_town(town).spawn_wp)))
+    rng.shuffle(points)
+    return points[:amount]
+
+
+def define_agent(batch_size: int = 128, num_envs: int = 32, rollout_steps: int = 128,
+                 **kwargs) -> dict:
+    """Agent kwargs defaults (reference core/learning.py:53-55)."""
+    return dict(batch_size=batch_size, num_envs=num_envs,
+                rollout_steps=rollout_steps, **kwargs)
+
+
+def define_env(image_shape=(90, 120, 3), town: Union[None, str] = DEFAULT_TOWN,
+               **kwargs) -> dict:
+    """Env kwargs defaults (reference core/learning.py:58-61)."""
+    return dict(town=town or DEFAULT_TOWN, image_shape=image_shape, **kwargs)
+
+
+def build_env(town: str = DEFAULT_TOWN, image_shape=(90, 120, 3),
+              random_weathers: Optional[List[str]] = None,
+              random_towns: Optional[List[str]] = None,
+              spawn: Optional[dict] = None,
+              origins: Optional[List[int]] = None,
+              throttle_as_desired_speed: bool = True,
+              disable_reverse: bool = True,
+              time_horizon: int = 4, past_obs_freq: int = 4,
+              max_timesteps: int = 512, num_routes: int = 128,
+              render_mode: str = "pallas", stack_depth: bool = False,
+              off_road_penalty_divisor: float = 100.0,
+              reward_speed_cap: float = 150.0,
+              speed_over_cap_penalty: float = 0.0,
+              lateral_obs: bool = False,
+              fused_step: bool = False,
+              seed: int = 42, device=None, **_ignored) -> CARLAEnv:
+    """A CARLAEnv from stage-style kwargs.  `render_mode` "pallas" (the
+    JAX package's kernel renderer) is the port's CUDA renderer, the only one
+    it has; `fused_step` turns on the physics kernel (bench.py's
+    CDRL_FUSED_STEP; the JAX build_env ignores the keyword)."""
+    if render_mode != "pallas":
+        raise NotImplementedError(f"render_mode={render_mode!r}: the port renders "
+                                  f"with its CUDA kernel only")
+    if lateral_obs:
+        raise NotImplementedError("lateral_obs is not ported yet")
+    spawn = spawn or {}
+    if spawn.get("vehicles") or spawn.get("pedestrians"):
+        # no fused_step fallback either: the JAX package steps NPC worlds
+        # with its XLA path, the port has no NPC world yet
+        raise NotImplementedError(f"spawn={spawn!r}: NPC traffic is not ported yet")
+    towns = tuple(random_towns) if random_towns else (town,)
+    params = WorldParams(
+        town_names=towns, random_towns=bool(random_towns),
+        weather_ids=tuple(int(i) for i in weather_ids(random_weathers or ["ClearNoon"])),
+        throttle_as_desired_speed=throttle_as_desired_speed,
+        disable_reverse=disable_reverse,
+        max_timesteps=max_timesteps, num_routes=num_routes,
+        origin_spawns=tuple(origins) if origins else None,
+        off_road_penalty_divisor=off_road_penalty_divisor,
+        reward_speed_cap=reward_speed_cap,
+        speed_over_cap_penalty=speed_over_cap_penalty,
+        seed=seed)
+    return CARLAEnv(CARLAEnvConfig(
+        world=params, image_height=image_shape[0], image_width=image_shape[1],
+        stack_depth=stack_depth, time_horizon=time_horizon,
+        past_obs_freq=past_obs_freq, fused_step=fused_step), device=device)
+
+
+class Stage:
+    """A curriculum learning stage (reference core/learning.py:68-189):
+    RL epochs with a checkpoint and a per-epoch snapshot after each."""
+
+    def __init__(self, agent: dict, environment: dict, learning: dict,
+                 name: str = "Stage"):
+        if not isinstance(learning.get("agent"), dict):
+            raise ValueError("learning must hold an 'agent' dict")
+        self.agent_args = dict(agent)
+        self.env_args = dict(environment)
+        self.learn_args = dict(learning)
+        self.name = name
+        self.agent: Optional[CARLAgent] = None
+        self.env: Optional[CARLAEnv] = None
+        self._env_states = None
+
+    def init(self) -> None:
+        if self.env is not None:
+            return
+        self.env = build_env(**self.env_args)
+        args = dict(self.agent_args)
+        name = args.pop("name", self.name)
+        weights_dir = args.pop("weights_dir", DEFAULT_WEIGHTS_DIR)
+        load = args.pop("load", False)
+        load_full = args.pop("load_full", True)
+        cfg = CARLAgentConfig(**{k: v for k, v in args.items()
+                                 if k in CARLAgentConfig.__dataclass_fields__})
+        self.agent = CARLAgent(self.env, cfg, name=name, weights_dir=weights_dir)
+        if load and any(os.path.exists(os.path.join(self.agent.base_path, f))
+                        for f in ("network.pt", "params.msgpack")):
+            self.agent.load(full=load_full)
+
+    def run2(self, epochs: int, copy_weights: bool = True,
+             epoch_offset: int = 0, callback=None) -> "Stage":
+        """RL per epoch + per-epoch weight snapshot
+        (reference core/learning.py:144-161)."""
+        if epochs <= 0:
+            raise ValueError(f"epochs must be positive, got {epochs}")
+        self.init()
+        learn = self.learn_args["agent"]
+        updates = int(learn.get("episodes", 5))
+        for epoch in range(epochs):
+            self._env_states, _ = self.agent.learn(
+                num_updates=updates, env_states=self._env_states, callback=callback)
+            if learn.get("save_every") or copy_weights:
+                self.agent.save()
+            if copy_weights:
+                copy_folder(self.agent.base_path,
+                            f"{self.agent.base_path}-{epoch + epoch_offset}")
+        return self
+
+
+def _stage_common(kwargs: dict) -> dict:
+    return dict(
+        policy_lr=kwargs.pop("policy_lr", 3e-4),
+        value_lr=kwargs.pop("value_lr", 3e-4),
+        dynamics_lr=kwargs.pop("dynamics_lr", 3e-4),
+        clip_ratio=kwargs.pop("clip_ratio", 0.2),
+        entropy_regularization=kwargs.pop("entropy_regularization", 0.1),
+        advantage_scale=2.0, clip_norm=(1.0, 1.0, 1.0), update_dynamics=True)
+
+
+def stage_s1(episodes: int, timesteps: int, batch_size: int, save_every=None,
+             seed: int = 42, stage_name: str = "stage-s1", num_envs: int = 32,
+             town: str = DEFAULT_TOWN, env_overrides: Optional[dict] = None,
+             **kwargs) -> Stage:
+    """Stage-1: 10 seed-fixed origins, no dynamic objects
+    (reference core/learning.py:311-339).  `env_overrides` are extra
+    define_env kwargs (e.g. fused_step, device)."""
+    hp = _stage_common(kwargs)
+    agent = define_agent(batch_size=batch_size, num_envs=num_envs,
+                         rollout_steps=kwargs.pop("rollout_steps", min(timesteps, 128)),
+                         name=stage_name, seed=seed,
+                         aug_intensity=kwargs.pop("aug_intensity", 0.0), **hp, **kwargs)
+    env = define_env(town=town, origins=sample_origins(town, amount=10, seed=seed),
+                     throttle_as_desired_speed=True, disable_reverse=True,
+                     max_timesteps=timesteps, seed=seed, **(env_overrides or {}))
+    return Stage(agent=agent, environment=env, name=stage_name,
+                 learning=dict(agent=dict(episodes=episodes, timesteps=timesteps,
+                                          save_every=save_every)))
 
 
 def network_spec(weights: str, weights_dir: str) -> dict:

@@ -1,8 +1,12 @@
 """CARLAEnv: the batched driving environment.
 
-Counterpart of carla_driving_rl_agent_tpu/envs/carla_env.py in its
-per-step path: the world core, the CUDA renderer and the time-horizon frame
-stacks, with auto-reset, over a batch of worlds on one device.
+Counterpart of carla_driving_rl_agent_tpu/envs/carla_env.py: the world
+core, the CUDA renderer and the time-horizon frame stacks, with auto-reset,
+over a batch of worlds on one device.  Two paths step it: the per-step
+`step` (evaluation) and the block path of training rollouts
+(`step_physics_batch` for every tick, `push_block_frame_batch` once per
+past_obs_freq ticks), whose physics runs the CUDA kernel of
+ops/physics.py when `fused_step` is on.
 
 Observation contract (reference core/carla_env.py:128-131): dict(image
 (B, T, 90, 360, C) in [0, 1], road (B, T, 9), vehicle (B, T, 4), navigation
@@ -24,6 +28,7 @@ from carla_driving_rl_agent_torch import resolve_device
 from carla_driving_rl_agent_torch.envs import world as world_mod
 from carla_driving_rl_agent_torch.envs.weather import WEATHER_PARAMS
 from carla_driving_rl_agent_torch.envs.world import ResetDraws, WorldParams, WorldState
+from carla_driving_rl_agent_torch.ops import physics as physics_ops
 from carla_driving_rl_agent_torch.ops import render as render_ops
 
 
@@ -51,6 +56,14 @@ def ordered_image_stack(stack: torch.Tensor, stack_ids: torch.Tensor,
     return ordered * valid[..., None, None, None]
 
 
+def newest_frame(stack: torch.Tensor, stack_slot: torch.Tensor) -> torch.Tensor:
+    """(B, T, C, SH, SW) circular stack -> (B, C, SH, SW) newest frame
+    (always a valid frame; no masking needed)."""
+    idx = stack_slot.reshape(-1, 1, 1, 1, 1).expand(
+        (stack.shape[0], 1) + tuple(stack.shape[2:]))
+    return torch.gather(stack, 1, idx)[:, 0]
+
+
 class EnvState(NamedTuple):
     world: WorldState
     image_stack: torch.Tensor   # (B, T, C, SH, SW) uint8 planar, circular
@@ -71,6 +84,12 @@ class CARLAEnvConfig:
     time_horizon: int = 4
     past_obs_freq: int = 4
     num_actions: int = 2
+    # the physics tick of the block path through the CUDA kernel
+    # (ops/physics.py).  The kernel computes zero-NPC worlds with the
+    # default reward, the only worlds the port builds so far (build_env
+    # raises for traffic); the JAX package quietly takes its XLA path for
+    # other worlds, and the port will have no such fallback.
+    fused_step: bool = False
 
     @property
     def image_shape(self) -> Tuple[int, int, int]:
@@ -215,6 +234,99 @@ class CARLAEnv:
         fresh_state = self._fresh_state(merged, frame, frame_id)
         new_state = world_mod.where_state(done, fresh_state, stepped)
         return new_state, self.observe(new_state), reward, term, trunc, info
+
+    # ---- block path (training rollouts) ----
+    # The policy's input, the past-observation stack, changes only every
+    # past_obs_freq steps (reference core/carla_env.py:290-299), so the block
+    # path advances the physics past_obs_freq ticks without touching the
+    # stacks, then renders once and pushes the frame for all worlds.  As in
+    # the JAX package: the push phase is block-aligned, and a world that
+    # auto-resets mid-block gets its first frame at the block boundary, with
+    # all-zero stacks until then (reference core/carla_env.py:323-325).
+
+    def step_physics(self, state: EnvState, action: torch.Tensor,
+                     draws: Optional[ResetDraws] = None):
+        """World-only tick of every world with auto-reset, by the plain
+        PyTorch path; the stacks pass through untouched.  The reset draws
+        come from the env's generator unless given.  Returns
+        (state', reward, terminated, truncated, info, was_reset)."""
+        if draws is None:
+            draws = world_mod.reset_draws(self.generator, action.shape[0],
+                                          self.params, self.routes)
+        world, reward, term, trunc, info, done = physics_ops.step_physics_batch_plain(
+            state.world, action, self.params, self.town, self.routes, draws)
+        return state._replace(world=world), reward, term, trunc, info, done
+
+    def step_physics_batch(self, states: EnvState, actions: torch.Tensor,
+                           draws: Optional[ResetDraws] = None):
+        """step_physics, through the physics kernel when `fused_step` is on
+        (ops/physics.step_physics_batch: the kernel for CUDA tensors, the
+        plain version for CPU tensors)."""
+        if not self.config.fused_step:
+            return self.step_physics(states, actions, draws)
+        if draws is None:
+            draws = world_mod.reset_draws(self.generator, actions.shape[0],
+                                          self.params, self.routes)
+        world, reward, term, trunc, info, done = physics_ops.step_physics_batch(
+            states.world, actions, self.params, self.town, self.routes, draws)
+        return states._replace(world=world), reward, term, trunc, info, done
+
+    def _push_block_vectors(self, state: EnvState, was_reset: torch.Tensor,
+                            frame_ids: torch.Tensor, road, vehicle, navigation):
+        """The vector stacks and ids part of the block push: they stay in
+        ordered form; a world flagged `was_reset` restarts as
+        [0, ..., 0, frame]."""
+        T = self.config.time_horizon
+        keep = (~was_reset).to(torch.float32)
+
+        def push(stack, item):
+            # fresh == [0, ..., 0, item] and rolled == [s1, ..., s_{T-1}, item]
+            # share the last slot, so the reset select is a mask on the rest
+            shifted = stack[:, 1:] * keep[:, None, None]
+            return torch.cat([shifted, item[:, None]], dim=1)
+
+        ids_rolled = torch.cat([state.stack_ids[:, 1:], frame_ids[:, None]], dim=1)
+        ids_fresh = torch.full_like(state.stack_ids, -(T + 1))
+        ids_fresh[:, -1] = frame_ids
+        return state._replace(
+            road_stack=push(state.road_stack, road),
+            vehicle_stack=push(state.vehicle_stack, vehicle),
+            nav_stack=push(state.nav_stack, navigation),
+            stack_ids=torch.where(was_reset[:, None], ids_fresh, ids_rolled))
+
+    def push_block_frame_batch(self, states: EnvState, was_reset: torch.Tensor,
+                               frame_ids=-1, slot: Optional[int] = None):
+        """Render every world once (one render_planes launch), push the
+        vector stacks and ids, and write the new frames into the circular
+        image buffer.
+
+        With `slot`, the physical slot that every world's newest frame holds
+        (the block rollout keeps all worlds on one slot and tracks it on the
+        host), all frames go into slot (slot + 1) % T: the JAX package's
+        uniform write (envs/carla_env.py:630).  Without it, each world's
+        frame goes into its own next slot: the general write (:640) for
+        states assembled elsewhere.  Neither needs a host synchronisation.
+        The frames are written into `states.image_stack` in place (a rollout
+        owns its buffer: run_rollout_blocks starts from a fresh ordered
+        copy); reset worlds keep stale bytes behind sentinel ids, which
+        every reader masks."""
+        B = was_reset.shape[0]
+        T = self.config.time_horizon
+        if isinstance(frame_ids, int):
+            frame_ids = torch.full((B,), frame_ids, dtype=torch.int64, device=self.device)
+        frame = self.frame_obs(states.world)
+        states = self._push_block_vectors(states, was_reset, frame_ids,
+                                          frame["road"], frame["vehicle"],
+                                          frame["navigation"])
+        stack = states.image_stack
+        if slot is not None:
+            k = (slot + 1) % T
+            stack[:, k] = frame["image"]
+            slot_new = torch.full((B,), k, dtype=torch.int64, device=self.device)
+        else:
+            slot_new = (states.stack_slot + 1) % T
+            stack[torch.arange(B, device=self.device), slot_new] = frame["image"]
+        return states._replace(image_stack=stack, stack_slot=slot_new)
 
 
 def convert_action(action01: torch.Tensor, low: float = -1.0,

@@ -30,6 +30,16 @@ class VehicleControl(NamedTuple):
     reverse: torch.Tensor    # bool as float
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as one IEEE division on every device.  PyTorch's CUDA
+    kernels turn a division by a Python number into a multiplication by its
+    float32 reciprocal, which can differ from x / c in the last bit (and
+    then move a truncated cell index); a 0-dim tensor on x's device keeps
+    the division exact, as the CPU, the JAX package and csrc/physics.cuh
+    compute it."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def speed_kmh(v_ms: torch.Tensor) -> torch.Tensor:
     return torch.abs(v_ms) * MS_TO_KMH
 
@@ -56,8 +66,8 @@ def actions_to_control(actions: torch.Tensor, current_speed_ms: torch.Tensor,
     if throttle_as_desired_speed:
         desired = (a0 + 1.0) / 2.0 * 100.0                       # km/h
         current = current_speed_ms * MS_TO_KMH
-        throttle = torch.where(current < desired, (desired - current) / 100.0, zero)
-        brake = torch.where(current > desired, (current - desired) / 100.0, zero)
+        throttle = torch.where(current < desired, true_div(desired - current, 100.0), zero)
+        brake = torch.where(current > desired, true_div(current - desired, 100.0), zero)
 
     throttle = torch.clamp(throttle, range_throttle[0], range_throttle[1])
     brake = torch.clamp(brake, range_brake[0], range_brake[1])
@@ -78,7 +88,7 @@ def step_bicycle(x, y, yaw, v, control: VehicleControl, dt: float = DT):
     direction = 1.0 - 2.0 * control.reverse          # reverse gear flips motion
     x_new = x + direction * v_mid * torch.cos(yaw + beta) * dt
     y_new = y + direction * v_mid * torch.sin(yaw + beta) * dt
-    yaw_new = yaw + direction * (v_mid / LR) * torch.sin(beta) * dt
+    yaw_new = yaw + direction * true_div(v_mid, LR) * torch.sin(beta) * dt
     yaw_new = torch.atan2(torch.sin(yaw_new), torch.cos(yaw_new))
     return x_new, y_new, yaw_new, v_new
 

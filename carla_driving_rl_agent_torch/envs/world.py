@@ -175,8 +175,9 @@ def reset_world(draws: ResetDraws, routes: RoutesDev,
     n = s_row.shape[0]
     zeros = torch.zeros(n, dtype=torch.float32, device=s_row.device)
     izeros = torch.zeros(n, dtype=torch.int64, device=s_row.device)
+    s_cols = s_row[:, :3].t().contiguous()                          # (3, B)
     return WorldState(
-        x=s_row[:, 0], y=s_row[:, 1], yaw=s_row[:, 2], v=zeros,
+        x=s_cols[0], y=s_cols[1], yaw=s_cols[2], v=zeros,
         throttle=zeros, brake=zeros, steer=zeros,
         route_id=draws.route_id, wp_idx=izeros + 1,
         similarity=zeros + 1.0,
@@ -206,8 +207,8 @@ def off_road_distance(town: TownDev, town_id, x, y) -> torch.Tensor:
     """Distance from the ego to the nearest road centerline, over the
     town's packed per-cell candidate segments."""
     gh, gw = town.cell_segs.shape[1], town.cell_segs.shape[2]
-    cx = torch.clamp((x / town_mod.CELL_RES).to(torch.int64), 0, gw - 1)
-    cy = torch.clamp((y / town_mod.CELL_RES).to(torch.int64), 0, gh - 1)
+    cx = torch.clamp(dynamics.true_div(x, town_mod.CELL_RES).to(torch.int64), 0, gw - 1)
+    cy = torch.clamp(dynamics.true_div(y, town_mod.CELL_RES).to(torch.int64), 0, gh - 1)
     segs = tgather(town.cell_segs, town_id, cy, cx).reshape(x.shape[0], -1, 4)
     ex = segs[..., 2] - segs[..., 0]
     ey = segs[..., 3] - segs[..., 1]

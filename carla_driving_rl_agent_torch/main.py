@@ -1,0 +1,70 @@
+"""Command line of the PyTorch port: curriculum stage s1 on one GPU.
+
+    python -m carla_driving_rl_agent_torch.main --stage s1 --epochs 1 --block --fused-step
+
+Mirrors `main.py --stage s1 --epochs N [--block]` of the JAX package with the
+shipped sequential float32 trainer (main.FAST_TRAIN = dict()): 5 updates per
+epoch of 32 worlds x 128 steps (512-step episodes), batch 64, Town03 with no
+traffic.  `--fused-step` runs the physics on the CUDA kernel
+(CARLAEnvConfig.fused_step).  Checkpoints go to weights-torch/stage-s1 (and a
+per-epoch copy stage-s1-<epoch>) of the checkout, never into the tracked
+weights/.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+from carla_driving_rl_agent_torch.curriculum import stages
+
+EPISODES = 5
+TIMESTEPS = 512
+BATCH = 64
+NUM_ENVS = 32
+
+
+def make_stage(which: str, num_envs: int = NUM_ENVS, block: bool = False,
+               fused_step: bool = False, weights_dir: str = stages.DEFAULT_WEIGHTS_DIR,
+               device=None) -> stages.Stage:
+    if which != "s1":
+        raise NotImplementedError(f"stage {which!r}: the port trains stage s1 only so far")
+    return stages.stage_s1(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
+                           num_envs=num_envs, save_every="end", rollout_block=block,
+                           weights_dir=weights_dir,
+                           env_overrides=dict(fused_step=fused_step, device=device))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--stage", choices=["s1"], required=True)
+    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--num-envs", type=int, default=NUM_ENVS)
+    ap.add_argument("--block", action="store_true",
+                    help="block rollout (one forward pass and one frame per 4 steps)")
+    ap.add_argument("--fused-step", action="store_true",
+                    help="physics on the CUDA kernel (ops/physics.py)")
+    ap.add_argument("--weights-dir", default=stages.DEFAULT_WEIGHTS_DIR)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda; 'cpu' only when asked)")
+    args = ap.parse_args(argv)
+
+    stage = make_stage(args.stage, args.num_envs, block=args.block,
+                       fused_step=args.fused_step, weights_dir=args.weights_dir,
+                       device=args.device)
+    t0 = time.perf_counter()
+
+    def log(step, metrics):
+        print(json.dumps(dict(update=step, **{k: round(v, 6) for k, v in metrics.items()})),
+              flush=True)
+
+    stage.run2(epochs=args.epochs, callback=log)
+    print(f"stage-{args.stage}: {args.epochs} epochs in {time.perf_counter() - t0:.1f} s; "
+          f"weights in {stage.agent.base_path}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,5 +1,5 @@
-"""The CARLA agent network in inference mode: shared dynamics backbone,
-Beta policy (the `old_policy` copy that drives rollouts) and value head.
+"""The CARLA agent network: shared dynamics backbone, the trainable Beta
+policy, its `old_policy` copy that drives rollouts, and the value head.
 
 Counterpart of carla_driving_rl_agent_tpu/models/carla_network.py
 (reference core/networks.py, architecture spec core/carla_agent.py:61-68):
@@ -28,7 +28,7 @@ from torch import nn
 
 from carla_driving_rl_agent_torch.models.distributions import Beta
 from carla_driving_rl_agent_torch.models.layers import (
-    ControlBranch, FeatureNet, LinearCombination)
+    BatchNorm, ControlBranch, FeatureNet, LinearCombination)
 from carla_driving_rl_agent_torch.models.recurrent import GRU
 from carla_driving_rl_agent_torch.models.shufflenet import ShuffleNetV2
 
@@ -118,32 +118,81 @@ class ValueHead(nn.Module):
 
 
 class CARLANetwork(nn.Module):
-    """dynamics + old_policy + value, in inference mode (BatchNorm on the
-    running statistics)."""
+    """dynamics + policy + old_policy + value, each a module whose
+    parameters one optimizer owns (reference core/carla_agent.py:108-124).
+
+    `old_policy` has its own parameters but reads the policy's BatchNorm
+    running statistics: the JAX package keeps one `policy` statistics tree
+    for both (carla_network.policy_apply), so the policy phase's updates of
+    those statistics reach the rollout's old policy at once.  The buffers
+    are shared tensors, tied again after every device or dtype move."""
 
     def __init__(self, num_actions: int = 2, control_policy: Optional[dict] = None,
                  control_value: Optional[dict] = None, dynamics: Optional[dict] = None,
                  exp_scale: float = 6.0, image_channels: int = 3, nav_dim: int = 5):
         super().__init__()
+        self.exp_scale = exp_scale
         self.dynamics = DynamicsModel(dynamics, image_channels=image_channels,
                                       nav_dim=nav_dim)
         units = self.dynamics.LinearCombination_0.Dense_0.out_features
+        self.policy = PolicyHead(units, num_actions, control_policy)
         self.old_policy = PolicyHead(units, num_actions, control_policy)
         self.value = ValueHead(units, control_value, exp_scale)
+        self._tie_old_policy_stats()
+        self.update_old_policy()
         self.eval()
 
+    def _tie_old_policy_stats(self) -> None:
+        for bn_old, bn in zip(self.old_policy.modules(), self.policy.modules()):
+            if isinstance(bn, BatchNorm):
+                bn_old.running_mean = bn.running_mean
+                bn_old.running_var = bn.running_var
+
+    def _apply(self, fn, recurse=True):
+        super()._apply(fn, recurse)
+        self._tie_old_policy_stats()
+        return self
+
     @torch.no_grad()
-    def predict(self, obs: Dict[str, torch.Tensor], gen: torch.Generator) -> dict:
+    def update_old_policy(self) -> None:
+        """Copy policy -> old_policy (reference core/networks.py:281-285)."""
+        for o, p in zip(self.old_policy.parameters(), self.policy.parameters()):
+            o.copy_(p)
+
+    # ---- forward passes (JAX carla_network.py:180-203) ----
+    def dynamics_apply(self, obs: Dict[str, torch.Tensor], training: bool = False):
+        """The dynamics feature; in training mode the BatchNorms use and fold
+        the batch statistics."""
+        self.dynamics.train(training)
+        return self.dynamics(obs)
+
+    def policy_apply(self, feat: torch.Tensor, training: bool = False,
+                     old: bool = False) -> dict:
+        head = self.old_policy if old else self.policy
+        head.train(training)
+        return head(feat)
+
+    def value_apply(self, feat: torch.Tensor, training: bool = False) -> dict:
+        self.value.train(training)
+        return self.value(feat)
+
+    @torch.no_grad()
+    def predict(self, obs: Dict[str, torch.Tensor], gen: torch.Generator,
+                num_samples: Optional[int] = None) -> dict:
         """Rollout-time prediction (reference core/networks.py:181-193):
-        dynamics -> old_policy sample + value.  `obs` holds state_image
-        (B, T, H, W, C), state_road, state_vehicle and state_navigation
-        (B, T, D); the `action` input of the reference is never wired into
-        its graph and is not read here either."""
-        feat = self.dynamics(obs)
-        pol = self.old_policy(feat)
-        val = self.value(feat)
+        dynamics -> old_policy sample + value, in inference mode.  `obs`
+        holds state_image (B, T, H, W, C), state_road, state_vehicle and
+        state_navigation (B, T, D); the `action` input of the reference is
+        never wired into its graph and is not read here either.  With
+        `num_samples=n`, action and log_prob have a leading (n,) axis: n iid
+        draws from one forward pass, for the block rollout (the stacked
+        observation is constant between frame pushes)."""
+        feat = self.dynamics_apply(obs)
+        pol = self.policy_apply(feat, old=True)
+        val = self.value_apply(feat)
         dist: Beta = pol["dist"]
-        action = dist.clip(dist.sample(gen))
+        sample = dist.sample(gen) if num_samples is None else dist.sample_n(gen, num_samples)
+        action = dist.clip(sample)
         return dict(action=action, mean=dist.mean(), std=dist.stddev(),
                     log_prob=dist.log_prob(action), value=val["value"],
                     speed=pol["speed"], similarity=pol["similarity"])

@@ -63,6 +63,14 @@ class Beta:
         y = sample_gamma(self.beta, gen)
         return x / (x + y)
 
+    def sample_n(self, gen: torch.Generator, n: int) -> torch.Tensor:
+        """n iid samples, shape (n,) + batch shape (the block rollout draws
+        past_obs_freq actions from one forward pass)."""
+        shape = (n,) + tuple(self.alpha.shape)
+        x = sample_gamma(self.alpha.expand(shape), gen)
+        y = sample_gamma(self.beta.expand(shape), gen)
+        return x / (x + y)
+
     def clip(self, x: torch.Tensor) -> torch.Tensor:
         """Clip actions away from {0, 1} (reference core/networks.py:139-144)."""
         return torch.clamp(x, EPSILON, 1.0 - EPSILON)

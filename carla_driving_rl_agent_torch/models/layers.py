@@ -9,7 +9,10 @@ checkpoint converter maps names one to one.
 
 from __future__ import annotations
 
+import math
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from carla_driving_rl_agent_torch.utils.activations import get_activation
@@ -17,16 +20,44 @@ from carla_driving_rl_agent_torch.utils.activations import get_activation
 BN_EPS = 1e-3  # keras BatchNormalization default, as in the flax nets
 
 
-class BatchNorm(nn.BatchNorm1d):
-    """BatchNorm over the LAST axis of any input, as flax's nn.BatchNorm
-    (eps 1e-3, momentum 0.99 -> torch's 0.01)."""
+class BatchNorm(nn.Module):
+    """flax's nn.BatchNorm (epsilon 1e-3, momentum 0.99) over the channel
+    axis `channel_axis` of any input: -1 for (..., C), 1 for (N, C, H, W).
 
-    def __init__(self, features: int):
-        super().__init__(features, eps=BN_EPS, momentum=0.01)
+    In eval mode it normalises with the running statistics.  In train mode
+    it normalises with the batch mean and the BIASED batch variance over
+    every other axis (F.batch_norm without running buffers), and folds the
+    batch statistics it computes itself into the running ones as
+    0.99 * running + 0.01 * batch, with the biased variance, as flax does.
+    PyTorch's own BatchNorm folds the unbiased variance with its momentum
+    the other way round, so it never updates these buffers."""
+
+    momentum = 0.99
+
+    def __init__(self, features: int, channel_axis: int = -1):
+        super().__init__()
+        self.features = features
+        self.channel_axis = channel_axis
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        shape = x.shape
-        return super().forward(x.reshape(-1, shape[-1])).reshape(shape)
+        # (N, C, ...) for F.batch_norm
+        xx = x if self.channel_axis == 1 else x.reshape(-1, self.features)
+        if not self.training:
+            y = F.batch_norm(xx, self.running_mean, self.running_var, self.weight,
+                             self.bias, False, 0.0, BN_EPS)
+            return y.reshape(x.shape)
+        y = F.batch_norm(xx, None, None, self.weight, self.bias, True, 0.0, BN_EPS)
+        with torch.no_grad():
+            dims = [0] + list(range(2, xx.dim()))
+            var, mean = torch.var_mean(xx, dim=dims, correction=0)
+            m = self.momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return y.reshape(x.shape)
 
 
 class FeatureNet(nn.Module):
@@ -79,3 +110,57 @@ class LinearCombination(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Dense_0(self.BatchNorm_0(x))
+
+
+# ------------------------------------------------------------------
+# flax's initialisers, for training from scratch
+# ------------------------------------------------------------------
+
+def _fans(weight: torch.Tensor):
+    """flax's fans of a Dense kernel (in, out) or a Conv kernel
+    (kh, kw, in / groups, out), from the torch weight (out, in) or
+    (out, in / groups, kh, kw)."""
+    rf = weight[0, 0].numel() if weight.dim() > 2 else 1
+    return weight.shape[1] * rf, weight.shape[0] * rf
+
+
+@torch.no_grad()
+def glorot_uniform_(weight: torch.Tensor, gen: torch.Generator) -> None:
+    fan_in, fan_out = _fans(weight)
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    weight.uniform_(-limit, limit, generator=gen)
+
+
+@torch.no_grad()
+def orthogonal_(weight: torch.Tensor, gen: torch.Generator) -> None:
+    """flax's orthogonal initialiser of a square recurrent kernel: Q of the
+    QR factorisation of a normal matrix, its columns signed by R's
+    diagonal."""
+    q, r = torch.linalg.qr(torch.randn(weight.shape, generator=gen,
+                                       device=weight.device, dtype=weight.dtype))
+    weight.copy_(q * torch.sign(torch.diagonal(r))[None])
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, gen: torch.Generator) -> None:
+    """Initialise `module` as the JAX package's flax modules initialise:
+    glorot-uniform Dense and Conv kernels (every Dense and Conv of the
+    network names it), orthogonal recurrent kernels in the GRU cells, zero
+    biases, BatchNorm scale 1 and bias 0 (running mean 0, variance 1)."""
+    from carla_driving_rl_agent_torch.models.recurrent import FlaxGRUCell
+    recurrent = set()
+    for m in module.modules():          # a cell comes before its children
+        if isinstance(m, FlaxGRUCell):
+            recurrent.update(id(getattr(m, n)) for n in ("hr", "hz", "hn"))
+        elif isinstance(m, (nn.Linear, nn.Conv2d)):
+            if id(m) in recurrent:
+                orthogonal_(m.weight, gen)
+            else:
+                glorot_uniform_(m.weight, gen)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, BatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            m.running_mean.zero_()
+            m.running_var.fill_(1.0)

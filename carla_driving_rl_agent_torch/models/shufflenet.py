@@ -18,9 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from carla_driving_rl_agent_torch.models.layers import BatchNorm
 from carla_driving_rl_agent_torch.utils.activations import leaky_relu6
-
-BN_EPS = 1e-3  # keras BatchNormalization default, as in the flax nets
 
 CHANNELS = {
     0.5: [48, 96, 192],
@@ -33,8 +32,8 @@ CHANNELS = {
 }
 
 
-def _bn2d(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=0.01)
+def _bn2d(c: int) -> BatchNorm:
+    return BatchNorm(c, channel_axis=1)
 
 
 def _same_pad(x: torch.Tensor, k: int, s: int, value: float = 0.0) -> torch.Tensor:

@@ -44,14 +44,15 @@ def _lib_path(name: str, sources: Sequence[str], flags: Sequence[str]) -> str:
 
 
 def compile_library(name: str, sources: Sequence[str], compiler: str,
-                    extra_deps: Sequence[str] = ()) -> str:
+                    extra_deps: Sequence[str] = (),
+                    extra_flags: Sequence[str] = ()) -> str:
     """Compile `sources` into a shared library named by their content hash
     and return its path; an existing build of the same content is reused.
-    `compiler` is "g++" or "nvcc"."""
+    `compiler` is "g++" or "nvcc"; `extra_flags` follow its default flags."""
     if compiler == "nvcc":
-        cmd, flags = [_nvcc()], NVCC_FLAGS
+        cmd, flags = [_nvcc()], NVCC_FLAGS + list(extra_flags)
     elif compiler == "g++":
-        cmd, flags = ["g++"], GXX_FLAGS
+        cmd, flags = ["g++"], GXX_FLAGS + list(extra_flags)
     else:
         raise ValueError(f"unknown compiler {compiler!r}")
     path = _lib_path(name, list(sources) + list(extra_deps), flags)
@@ -70,17 +71,29 @@ def compile_library(name: str, sources: Sequence[str], compiler: str,
 
 def load_library(name: str, sources: List[str], compiler: str,
                  signatures: Dict[str, Tuple[object, list]],
-                 extra_deps: Sequence[str] = ()) -> ctypes.CDLL:
+                 extra_deps: Sequence[str] = (),
+                 extra_flags: Sequence[str] = ()) -> ctypes.CDLL:
     """Build (if needed) and load a library once per process, declaring
     `signatures` {function: (restype, argtypes)} on first load."""
     key = f"{compiler}:{name}"
     if key not in _LOADED:
-        lib = ctypes.CDLL(compile_library(name, sources, compiler, extra_deps))
+        lib = ctypes.CDLL(compile_library(name, sources, compiler, extra_deps,
+                                          extra_flags))
         for fn, (restype, argtypes) in signatures.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
         _LOADED[key] = lib
     return _LOADED[key]
+
+
+def build_parallel(build_fns: Sequence) -> None:
+    """Run the zero-argument `build_fns` (each builds and loads one library)
+    on one thread each, so that their compilers run at the same time;
+    re-raises the first failure."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=max(1, len(build_fns))) as pool:
+        for fut in [pool.submit(fn) for fn in build_fns]:
+            fut.result()
 
 
 def csrc(*parts: str) -> str:

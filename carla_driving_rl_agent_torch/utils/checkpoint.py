@@ -1,4 +1,10 @@
-"""Reading the JAX package's flax checkpoints without flax or msgpack.
+"""Checkpoints: the port's own (torch.save), and the JAX package's flax
+msgpack read without flax or msgpack.
+
+The port saves a directory with network.pt (the network's state_dict),
+optimizers.pt (the three Adam states) and config.json (schedule steps,
+update step, network spec); `load_agent` reads that or, where only the JAX
+package's params.msgpack and batch_stats.msgpack are there, converts those.
 
 The JAX package writes each component with flax.serialization.to_bytes:
 a msgpack map of maps whose leaves are numpy arrays encoded as msgpack
@@ -9,15 +15,18 @@ raw C-order bytes).  `read_flax_msgpack` decodes that subset of msgpack;
   * Dense kernels (in, out) -> Linear weights (out, in);
   * Conv kernels HWIO -> OIHW;
   * BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
-  * GRUCell ir/iz/in and hr/hz/hn -> weight_ih/weight_hh stacked (r, z, n),
-    with torch's hidden-side r and z biases zero (flax has none).
+  * GRUCell ir/iz/in/hr/hz/hn -> the port's FlaxGRUCell Linears of the
+    same names.
 """
 
 from __future__ import annotations
 
+import json
 import os
+import shutil
 import struct
-from typing import Any, Dict, Tuple
+from collections.abc import Mapping
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,31 +115,30 @@ def read_flax_msgpack(path: str) -> Dict[str, Any]:
     return out
 
 
-def _leaves(tree: Dict[str, Any], prefix: Tuple[str, ...] = ()):
+def _leaves(tree, prefix: Tuple[str, ...] = ()):
     for k, v in tree.items():
-        if isinstance(v, dict):
+        if isinstance(v, Mapping):
             yield from _leaves(v, prefix + (k,))
         else:
             yield prefix + (k,), v
 
 
-def _tensor(a: np.ndarray) -> torch.Tensor:
+def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def params_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """The CARLANetwork state_dict of a JAX checkpoint's parameter tree
-    (components dynamics, old_policy, value) and batch statistics
-    (dynamics, policy, value; old_policy shares the policy statistics)."""
+def params_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
+    """The CARLANetwork state_dict of a JAX parameter tree (components
+    dynamics, policy, old_policy, value) and batch-statistics tree
+    (dynamics, policy, value; old_policy reads the policy statistics).
+    Takes a checkpoint read by read_flax_msgpack or the trees that the JAX
+    package's CARLANetwork.init returns (any mapping of array-likes)."""
     sd: Dict[str, torch.Tensor] = {}
-    grus: Dict[str, Dict[str, np.ndarray]] = {}
-    for comp in ("dynamics", "old_policy", "value"):
+    for comp in ("dynamics", "policy", "old_policy", "value"):
         for path, arr in _leaves(params[comp]):
             mod, leaf = ".".join((comp,) + path[:-1]), path[-1]
-            if path[-2] in ("ir", "iz", "in", "hr", "hz", "hn"):
-                cell = ".".join((comp,) + path[:-3])       # ...GRU_i
-                grus.setdefault(cell, {})[f"{path[-2]}.{leaf}"] = arr
-            elif leaf == "kernel" and arr.ndim == 4:
+            arr = np.asarray(arr)
+            if leaf == "kernel" and arr.ndim == 4:
                 sd[f"{mod}.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
             elif leaf == "kernel":
                 sd[f"{mod}.weight"] = _tensor(arr.T)
@@ -145,19 +153,55 @@ def params_from_jax(params: Dict[str, Any], batch_stats: Dict[str, Any]) -> Dict
             mod = ".".join((comp,) + path[:-1])
             name = {"mean": "running_mean", "var": "running_var"}[path[-1]]
             sd[f"{mod}.{name}"] = _tensor(arr)
-            sd[f"{mod}.num_batches_tracked"] = torch.tensor(0)
-    for cell, p in grus.items():
-        units = p["hn.bias"].shape[0]
-        zeros = np.zeros(units, np.float32)
-        sd[f"{cell}.cell.weight_ih"] = _tensor(np.concatenate(
-            [p["ir.kernel"].T, p["iz.kernel"].T, p["in.kernel"].T]))
-        sd[f"{cell}.cell.bias_ih"] = _tensor(np.concatenate(
-            [p["ir.bias"], p["iz.bias"], p["in.bias"]]))
-        sd[f"{cell}.cell.weight_hh"] = _tensor(np.concatenate(
-            [p["hr.kernel"].T, p["hz.kernel"].T, p["hn.kernel"].T]))
-        sd[f"{cell}.cell.bias_hh"] = _tensor(np.concatenate(
-            [zeros, zeros, p["hn.bias"]]))
     return sd
+
+
+def save_agent(base_path: str, network: Dict[str, torch.Tensor],
+               optimizers: Optional[Dict[str, Any]] = None,
+               config: Optional[dict] = None) -> None:
+    from carla_driving_rl_agent_torch import REPO_ROOT
+    tracked = os.path.join(os.path.realpath(REPO_ROOT), "weights")
+    if os.path.realpath(base_path).startswith(tracked + os.sep):
+        raise ValueError(f"{base_path} is under the tracked weights/ directory; "
+                         f"the port saves under weights-torch/")
+    os.makedirs(base_path, exist_ok=True)
+    torch.save(network, os.path.join(base_path, "network.pt"))
+    if optimizers is not None:
+        torch.save(optimizers, os.path.join(base_path, "optimizers.pt"))
+    if config is not None:
+        with open(os.path.join(base_path, "config.json"), "w") as f:
+            json.dump(config, f, indent=2)
+
+
+def load_agent(base_path: str, device=None) -> Dict[str, Any]:
+    """{network: state_dict, optimizers: {group: state} or None, config:
+    dict} of the checkpoint at `base_path`: the port's network.pt, else the
+    JAX package's msgpack files (no optimizer states then)."""
+    out: Dict[str, Any] = dict(optimizers=None, config={})
+    net_path = os.path.join(base_path, "network.pt")
+    if os.path.exists(net_path):
+        out["network"] = torch.load(net_path, map_location=device)
+        opt_path = os.path.join(base_path, "optimizers.pt")
+        if os.path.exists(opt_path):
+            out["optimizers"] = torch.load(opt_path, map_location=device)
+    elif os.path.exists(os.path.join(base_path, "params.msgpack")):
+        out["network"] = params_from_jax(
+            read_flax_msgpack(os.path.join(base_path, "params.msgpack")),
+            read_flax_msgpack(os.path.join(base_path, "batch_stats.msgpack")))
+    else:
+        raise FileNotFoundError(f"no checkpoint under {base_path}")
+    cfg_path = os.path.join(base_path, "config.json")
+    if os.path.exists(cfg_path):
+        with open(cfg_path) as f:
+            out["config"] = json.load(f)
+    return out
+
+
+def copy_folder(src: str, dst: str) -> None:
+    """Per-epoch weight snapshots (reference rl/utils.py:568-570)."""
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    shutil.copytree(src, dst)
 
 
 def load_network_weights(net: torch.nn.Module, weights_dir: str) -> None:

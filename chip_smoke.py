@@ -1,31 +1,53 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (carla_driving_rl_agent_torch) on one
-GPU: the quickest proof that the port builds, agrees with itself and drives.
+GPU: the quickest proof that the port builds, agrees with itself, drives
+and trains.
 
-    python3 chip_smoke.py [--out summary.json]
+    python3 chip_smoke.py [--out summary.json] [--profile]
 
 Phases, each printed with its seconds:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — the CUDA render kernel (nvcc, sm_90a) and the C++ route
-               planner (g++), from the sources in the checkout, into
-               build/torch_kernels/;
+  2. build   — the CUDA render and physics kernels (nvcc, sm_90a) and the
+               C++ route planner (g++), from the sources in the checkout,
+               into build/torch_kernels/, all three compilers at once;
   3. setup   — the one-town Town03 evaluation env and the safe-s5 checkpoint,
                read and converted in memory by the port's own reader;
-  4. kernel  — the render kernel against its plain PyTorch version on 64
-               real reset states (|diff| <= 2 u8 on > 99 % of pixels), then
-               both timed with CUDA events at 62 worlds (the evaluation
-               batch) and 64;
+  4. kernel  — the render kernel against its plain PyTorch version on
+               real reset states (|diff| <= 2 u8 on > 99 % of pixels): with
+               depth and actors at 64 worlds, and the paths' own call at 32
+               (training), 62 (evaluation), 64 and 1024 worlds (the env
+               bench), each size then timed with CUDA events;
   5. agree   — the env stepped on the GPU and on the CPU from the same
                draws and actions, and the network's outputs on both, on a
                small input;
   6. slice   — the shipped evaluation of safe-s5 on Town03 without traffic
                (test weathers, seed 42, 512 steps, 50 trials), its six means
                beside the recorded ones, the render launch count and the
-               env-steps/s.
+               env-steps/s;
+  7. physics — the physics kernel against its plain PyTorch version on
+               Town03 at 32 and 1024 worlds, 40 steps from identical states
+               and reset draws (24-step episodes, so that worlds reset),
+               then both timed with CUDA events;
+  8. env     — the env bench at bench.py's geometry (1024 worlds, Town03,
+               64 routes, 512-step episodes, 32-step chunks of 8 blocks,
+               fused_step): env-steps/s and the launches per chunk;
+  9. train   — stage s1 at the shipped geometry (32 worlds, 128-step block
+               rollouts, batch 64, sequential float32 update, fused_step)
+               for one epoch of 5 updates from a fresh seeded network: the
+               metrics, the parameters moved, the kernel launches per
+               update, env-steps/s and the four parts of an update, then
+               the checkpoint saved and reloaded;
+ 10. train_agree — one policy-phase and one value-phase step of a small
+               network on the card and on the CPU from the same parameters
+               and minibatches, in float32 and in float64.
+With --profile, a last phase breaks an evaluation window and one training
+update down by kernel (torch.profiler).
 
-The line before the last lists every ported kernel with its launches on the
-slice run, its error against the plain version, its time, the plain
-version's time and its bound.  The last line is the JSON device record.
+Each path is driven with the kernels' launch counts set to 0 just before it
+and read just after.  The line before the last lists every ported kernel
+with its launches on the training path, and its error against the plain
+version, its time, the plain version's time and its bound at the training
+path's 32 worlds (--out also records the other sizes and paths).  The last line is the JSON device record.
 Any failed check raises, and the script exits non-zero; without a CUDA
 device it exits non-zero at once and prints no result.
 """
@@ -34,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import os
@@ -60,6 +83,15 @@ PEAK_BYTES_PER_S = 3.35e12
 RENDER_OPS_PER_PIXEL = (6 + 8 + 12 * 26 + 1 + 4 + 13 + 4 * 6 + 8 + 12
                         + 8 + 8 * 26 + 29 + 12 + 12 + 12 + 17 + 9)
 
+# Float operations of the physics kernel per world, counted from
+# csrc/physics.cuh as for the render kernel (a transcendental counts 1):
+#   control 23, bicycle 40, route window and descent 78, similarity and
+#   distances 14, collision 4, reward 12, bookkeeping 8 (= 179), plus the
+#   off-road cell index 5 and 21 per cell segment.
+def physics_ops_per_world(k_segs: int) -> int:
+    return 179 + 5 + 21 * k_segs
+
+
 TOWN = "Town03"
 WEIGHTS = "safe-s5"
 SEED = 42
@@ -69,6 +101,8 @@ REFERENCE = os.path.join("weights", WEIGHTS, "evaluation",
                          f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{TOWN}-no-{SEED}.json")
 METRICS = ("collision_rate", "similarity", "waypoint_distance", "speed",
            "total_reward", "timesteps")
+ENV_WORLDS, ENV_CHUNK, ENV_CHUNKS = 1024, 32, 5
+TRAIN_UPDATES, TRAIN_WORLDS, TRAIN_STEPS, TRAIN_BATCH = 5, 32, 128, 64
 
 
 def check(ok: bool, msg: str) -> None:
@@ -139,43 +173,54 @@ def with_actors(geom: torch.Tensor, n: int) -> torch.Tensor:
     return g
 
 
+RENDER_WORLDS = (32, 62, 64, 1024)   # training, evaluation, a full tile, env bench
+
+
 def kernel_phase(env, kernels: dict) -> None:
+    """The render kernel against its plain version on real Town03 reset
+    states: with and without depth and actors at 64 worlds, and the paths'
+    own call (3 planes, no actors) at 32 worlds (training), 62
+    (evaluation) and 1024 (the env bench); then each of those sizes timed."""
     from carla_driving_rl_agent_torch.ops import render as R
     env.seed(7)
-    states, _ = env.reset_batch(64)
+    states, _ = env.reset_batch(max(RENDER_WORLDS))
     w = states.world
     geom = R.pack_geometry_banked(env.town, w, env.weather_params[w.weather_id]).contiguous()
     worst = 0
-    for depth, actors in ((False, 0), (True, 0), (True, 2)):
-        g = with_actors(geom, actors) if actors else geom
+    cases = [(64, True, 0), (64, True, 2)] + [(n, False, 0) for n in RENDER_WORLDS]
+    for n, depth, actors in cases:
+        g = geom[:n].contiguous()
+        g = with_actors(g, actors) if actors else g
         out_k = R.render_planes(g, with_depth=depth, n_actors=actors)
         out_p = R.render_planes_plain(g, with_depth=depth, n_actors=actors)
         torch.cuda.synchronize()
         diff = (out_k.to(torch.int32) - out_p.to(torch.int32)).abs()
         within = float((diff <= 2).float().mean())
         exact = float((diff == 0).float().mean())
-        print(f"  render 64 worlds depth={depth} actors={actors}: "
+        print(f"  render {n} worlds depth={depth} actors={actors}: "
               f"exact {exact:.6f}, |diff|<=2 {within:.6f}, "
               f"max |diff| {int(diff.max())}", flush=True)
-        check(within > 0.99, f"render kernel vs plain: {within:.6f} of pixels within 2")
+        check(within > 0.99, f"render kernel vs plain at {n} worlds: {within:.6f} "
+                             f"of pixels within 2")
         worst = max(worst, int(diff.max()))
+        del out_k, out_p, diff
     times = {}
-    for n in (62, 64):
+    for n in RENDER_WORLDS:
         g = geom[:n].contiguous()
         ms = cuda_ms(lambda: R.render_planes(g), iters=200, warmup=10)
         plain_ms = cuda_ms(lambda: R.render_planes_plain(g), iters=20)
         bound, by = render_bound_ms(n)
-        times[n] = (ms, plain_ms, bound, by)
+        times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         print(f"  render {n} worlds: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-              f"bound {bound:.6f} ms ({by})", flush=True)
-    ms, plain_ms, bound, by = times[62]
+              f"bound {bound:.6f} ms ({by}); library call: none computes this "
+              f"function", flush=True)
+    # the kernels line reports the training path's size, as its launches
     kernels["render_planes"] = dict(
         name="render_planes", route="cuda",
         source="carla_driving_rl_agent_torch/csrc/render.cu",
         replaces="carla_driving_rl_agent_tpu/ops/rasterizer_pallas.py:99",
-        launches=None, max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-        bound_ms=bound, bound_by=by, library_ms=None,
-        ms_64=times[64][0], plain_ms_64=times[64][1], bound_ms_64=times[64][2])
+        launches=None, max_abs_err=worst, **times[TRAIN_WORLDS], library_ms=None,
+        by_worlds=times)
 
 
 def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
@@ -318,19 +363,412 @@ def profile_phase(agent, steps: int = 16) -> dict:
     return out
 
 
+def physics_bound_ms(n_worlds: int, n_done: int, k_segs: int) -> tuple:
+    """Least time for one physics call: the bytes it must move (the state,
+    action and reset draws read once, the gathered route window of 10 rows,
+    route length, destination and road half-width, the cell's segments, the
+    start row of each world that resets, the outputs written once) over the
+    memory rate, or its float operations over the FP32 peak."""
+    per_world = (6 * 4 + 6 * 8 + 2 * 4 + 3 * 8 + 4        # state, action, draws
+                 + 8 + 10 * 16 + 8 + 4 + k_segs * 16       # gathered banks
+                 + 18 * 4 + 6 * 8 + 5)                     # outputs
+    nbytes = n_worlds * per_world + n_done * 16
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    ops_s = n_worlds * physics_ops_per_world(k_segs) / PEAK_FP32_FLOPS
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
+
+
+def _close(x: torch.Tensor, y: torch.Tensor) -> float:
+    """Max |x - y| if every entry is within 1e-5 + 2.5e-7 |y| (floats) or
+    equal (ints, bools); raises otherwise."""
+    if x.dtype.is_floating_point:
+        err = (x - y).abs()
+        check(bool((err <= 1e-5 + 2.5e-7 * y.abs()).all()),
+              f"physics kernel vs plain: max |diff| {float(err.max())}")
+        return float(err.max())
+    check(torch.equal(x, y), "physics kernel vs plain: ints or flags differ")
+    return 0.0
+
+
+def physics_phase(env, kernels: dict) -> None:
+    """The kernel against the plain version on Town03 states, both fed the
+    same state and reset draws at every step; 24-step episodes so that
+    worlds reset."""
+    from carla_driving_rl_agent_torch.envs import world as W
+    from carla_driving_rl_agent_torch.ops import physics as P
+    params = dataclasses.replace(env.params, max_timesteps=24)
+    k_segs = env.town.cell_segs.shape[3] // 4
+    lo = torch.tensor([0.1, -0.6], device="cuda")
+    hi = torch.tensor([0.9, 0.6], device="cuda")
+    worst, times = 0.0, {}
+    for n in (TRAIN_WORLDS, ENV_WORLDS):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        world = W.reset_world(W.reset_draws(g, n, params, env.routes), env.routes)
+        resets = 0
+        for _ in range(40):
+            a = lo + (hi - lo) * torch.rand((n, 2), generator=g, device="cuda")
+            d = W.reset_draws(g, n, params, env.routes)
+            out = P.step_physics_batch(world, a, params, env.town, env.routes, d)
+            ref = P.step_physics_batch_plain(world, a, params, env.town, env.routes, d)
+            for x, y in zip(out[0], ref[0]):
+                worst = max(worst, _close(x, y))
+            for x, y in zip(out[1:4] + out[5:], ref[1:4] + ref[5:]):
+                worst = max(worst, _close(x, y))
+            for key in ref[4]:
+                worst = max(worst, _close(out[4][key], ref[4][key]))
+            resets += int(out[5].sum())
+            world = out[0]
+        check(resets > 0, f"no world reset in 40 steps at {n} worlds")
+        a = lo + (hi - lo) * torch.rand((n, 2), generator=g, device="cuda")
+        d = W.reset_draws(g, n, params, env.routes)
+        n_done = int(P.step_physics_batch(world, a, params, env.town, env.routes, d)[5].sum())
+        ms = cuda_ms(lambda: P.step_physics_batch(world, a, params, env.town, env.routes, d),
+                     iters=200, warmup=10)
+        plain_ms = cuda_ms(lambda: P.step_physics_batch_plain(world, a, params, env.town,
+                                                              env.routes, d), iters=20)
+        bound, by = physics_bound_ms(n, n_done, k_segs)
+        times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        print(f"  physics {n} worlds: 40 steps, {resets} resets, agree (ints and flags "
+              f"exact, floats within 1e-5 + 2.5e-7 rel); kernel {ms:.6f} ms, plain "
+              f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}); library call: none "
+              f"computes this function", flush=True)
+    kernels["step_physics_batch"] = dict(
+        name="step_physics_batch", route="cuda",
+        source="carla_driving_rl_agent_torch/csrc/physics.cu",
+        replaces="carla_driving_rl_agent_tpu/ops/physics_pallas.py:67",
+        launches=None, max_abs_err=worst, **times[TRAIN_WORLDS], library_ms=None,
+        by_worlds=times)
+
+
+def _zero_counts() -> None:
+    from carla_driving_rl_agent_torch.ops import physics as P, render as R
+    R.render_planes.launches = 0
+    P.step_physics_batch.launches = 0
+
+
+def _counts() -> dict:
+    from carla_driving_rl_agent_torch.ops import physics as P, render as R
+    return dict(render_planes=R.render_planes.launches,
+                step_physics_batch=P.step_physics_batch.launches)
+
+
+
+def env_phase() -> dict:
+    """The env bench of bench.py:83-91 in the port: 1024 Town03 worlds,
+    64 routes, 512-step episodes, blocks of 4 physics ticks and one push,
+    32-step chunks with one generator call each for the random actions."""
+    from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv, CARLAEnvConfig
+    from carla_driving_rl_agent_torch.envs.world import WorldParams
+    env = CARLAEnv(CARLAEnvConfig(
+        world=WorldParams(town_names=(TOWN,), num_routes=64, max_route_len=512,
+                          max_timesteps=512), fused_step=True), device="cuda", seed=0)
+    T, block = env.config.time_horizon, env.config.past_obs_freq
+    states, _ = env.reset_batch(ENV_WORLDS)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lo = torch.tensor([-0.2, -0.5], device="cuda")
+    hi = torch.tensor([0.8, 0.5], device="cuda")
+    slot = T - 1
+
+    def chunk(states, slot):
+        a_all = lo + (hi - lo) * torch.rand((ENV_CHUNK // block, block, ENV_WORLDS, 2),
+                                            generator=gen, device="cuda")
+        for b in range(ENV_CHUNK // block):
+            was_reset = torch.zeros(ENV_WORLDS, dtype=torch.bool, device="cuda")
+            for i in range(block):
+                states, _, _, _, _, did = env.step_physics_batch(states, a_all[b, i])
+                was_reset = was_reset | did
+            states = env.push_block_frame_batch(states, was_reset, slot=slot)
+            slot = (slot + 1) % T
+        return states, slot
+
+    states, slot = chunk(states, slot)              # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(ENV_CHUNKS):
+        states, slot = chunk(states, slot)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    per_chunk = {k: v / ENV_CHUNKS for k, v in counts.items()}
+    sps = ENV_WORLDS * ENV_CHUNK * ENV_CHUNKS / seconds
+    print(f"  env {ENV_WORLDS} worlds x {ENV_CHUNK * ENV_CHUNKS} steps in {seconds:.3f} s: "
+          f"{sps:.1f} env-steps/s; launches per {ENV_CHUNK}-step chunk: physics "
+          f"{per_chunk['step_physics_batch']:.0f}, render {per_chunk['render_planes']:.0f}",
+          flush=True)
+    check(per_chunk["step_physics_batch"] == ENV_CHUNK, "physics launches per chunk")
+    check(per_chunk["render_planes"] == ENV_CHUNK // block, "render launches per chunk")
+    return dict(env_steps_per_s=sps, seconds=seconds, launches=counts,
+                launches_per_chunk=per_chunk)
+
+
+
+def train_phase(out_dir: str) -> tuple:
+    """Stage s1 at the shipped geometry for one epoch (5 updates), from a
+    fresh seeded network; returns (stage, summary)."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent
+    from carla_driving_rl_agent_torch.curriculum import stages
+    stage = stages.stage_s1(episodes=TRAIN_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True,
+                            weights_dir=os.path.join(out_dir, "weights-torch"),
+                            env_overrides=dict(fused_step=True, device="cuda"))
+    stage.init()
+    agent = stage.agent
+    check(agent.config.rollout_steps == TRAIN_STEPS, "128-step rollouts")
+    before = {k: v.detach().clone() for k, v in agent.network.state_dict().items()}
+    history = []
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    stage.run2(1, callback=lambda step, m: history.append(m))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    check(len(history) == TRAIN_UPDATES, f"{len(history)} updates")
+    for m in history:
+        for k in ("loss_policy", "loss_value", "entropy", "ratio", "kl"):
+            check(math.isfinite(m[k]), f"train metric {k} = {m[k]}")
+    after = agent.network.state_dict()
+    moved = {g: max(float((after[k] - before[k]).abs().max()) for k in after
+                    if k.startswith(g + ".") and "running" not in k)
+             for g in ("policy", "value", "dynamics")}
+    for g, v in moved.items():
+        check(v > 0.0, f"{g} parameters did not move")
+    check(counts["step_physics_batch"] == TRAIN_UPDATES * TRAIN_STEPS,
+          f"physics launches {counts['step_physics_batch']}")
+    check(counts["render_planes"] == TRAIN_UPDATES * TRAIN_STEPS // 4 + 1,
+          f"render launches {counts['render_planes']}")
+    parts = {k: [m[f"seconds_{k}"] for m in history]
+             for k in ("rollout", "targets", "policy", "value")}
+    update_s = sum(sum(v) for v in parts.values())
+    sps = TRAIN_UPDATES * TRAIN_WORLDS * TRAIN_STEPS / update_s
+    print(f"  train: {TRAIN_UPDATES} updates of {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps, "
+          f"batch {TRAIN_BATCH}, in {seconds:.3f} s (save and snapshot included); "
+          f"{sps:.1f} train env-steps/s over the updates", flush=True)
+    print("  seconds per update: " + ", ".join(
+        f"{k} {np.mean(v):.4f}" for k, v in parts.items())
+        + f"; launches per update: physics {counts['step_physics_batch'] / TRAIN_UPDATES:.0f}, "
+          f"render {(counts['render_planes'] - 1) / TRAIN_UPDATES:.0f} (+1 at the reset)",
+        flush=True)
+    for i, m in enumerate(history):
+        print(f"  update {i + 1}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in ("reward_mean", "loss_policy", "loss_value",
+                                         "entropy", "ratio", "kl", "episode_done")),
+            flush=True)
+    print("  parameters moved (max |delta|): " + ", ".join(
+        f"{g} {v:.3e}" for g, v in moved.items()), flush=True)
+
+    # the checkpoint reloads equal
+    fresh = CARLAgent(stage.env, agent.config, name=agent.name,
+                      weights_dir=os.path.dirname(agent.base_path))
+    fresh.load()
+    sd = fresh.network.state_dict()
+    for k, v in after.items():
+        if not k.startswith("old_policy."):
+            check(torch.equal(sd[k], v), f"reloaded {k}")
+    for g in ("policy", "value", "dynamics"):
+        s1, s2 = agent.optimizers[g].state_dict(), fresh.optimizers[g].state_dict()
+        for i in s1["state"]:
+            check(all(torch.equal(s1["state"][i][x], s2["state"][i][x])
+                      for x in ("exp_avg", "exp_avg_sq")), f"reloaded {g} Adam state")
+    check(fresh.update_step == agent.update_step, "reloaded update step")
+    print(f"  checkpoint {os.path.basename(agent.base_path)}: reloads equal (network, "
+          f"Adam states, update step {fresh.update_step})", flush=True)
+    return stage, dict(seconds=seconds, env_steps_per_s=sps, launches=counts,
+                       parts_mean_s={k: float(np.mean(v)) for k, v in parts.items()},
+                       parts_s=parts, moved=moved, history=history)
+
+
+TINY_NET = dict(
+    control_policy=dict(units=32, num_layers=1),
+    control_value=dict(units=32, num_layers=1),
+    dynamics=dict(shufflenet=dict(g=0.5, last_channels=64),
+                  rnn=dict(image=32, road=8, vehicle=8, navigation=8),
+                  dynamics=dict(units=64),
+                  road=dict(units=8, num_layers=1, activation="relu6"),
+                  vehicle=dict(units=8, num_layers=1, activation="relu6"),
+                  navigation=dict(units=8, num_layers=1, activation="relu6")))
+
+
+# train_agree's bars, per dtype, on relative differences over a phase: the
+# loss; the gradients of the parameter tensors whose true gradient is not
+# rounding noise, the step's changes of those tensors, and the changes of
+# the BatchNorm buffers, each as ||card - cpu|| / ||cpu|| over all those
+# tensors together.  A tensor's gradient is rounding noise when its float64
+# gradient on the CPU stays below 1e-6 of the phase's largest entry (biases
+# that a training-mode BatchNorm follows: their true gradient is 0); Adam
+# turns that noise into a step of up to the learning rate, either way on
+# either side, so those tensors' changes are printed and not held.  In
+# float32 no parameter change is held either: Adam's first step moves an
+# entry by lr * g / (|g| + eps), about lr * sign(g) whatever |g|, so an
+# entry whose gradient is near its own rounding noise may step either way.
+TRAIN_AGREE_BARS = dict(float64=dict(loss=1e-9, grad=1e-9, param=1e-9, buffer=1e-9),
+                        float32=dict(loss=1e-4, grad=5e-2, param=None, buffer=1e-4))
+
+
+def _phase_step(agent, phase: str, batch: dict, hyper: dict) -> tuple:
+    """One policy-phase or value-phase step; returns (loss, {parameter
+    name: its gradient before clipping})."""
+    names = {id(p): n for n, p in agent.network.named_parameters()}
+    grads, inner = {}, agent._grads
+
+    def grab(loss, groups):
+        out = inner(loss, groups)
+        for g in groups:
+            grads.update({names[id(p)]: t.detach().cpu().clone()
+                          for p, t in zip(agent.params[g], out[g])})
+        return out
+
+    agent._grads = grab
+    if phase == "policy":
+        loss = agent.policy_step(batch, hyper)["loss_total"]
+    else:
+        loss = agent.value_step(batch)["loss_value"]
+    del agent._grads
+    return float(loss), grads
+
+
+def _rel_l2(xs: dict, refs: dict, names) -> float:
+    """||xs - refs|| / ||refs|| over the tensors `names` together."""
+    num = sum(float(((xs[k].double() - refs[k].double()) ** 2).sum()) for k in names)
+    den = sum(float((refs[k].double() ** 2).sum()) for k in names)
+    return math.sqrt(num / den) if den > 0 else (0.0 if num == 0 else math.inf)
+
+
+def train_agree_phase(env) -> dict:
+    """One policy-phase step and one value-phase step of a small network,
+    each from the same fresh parameters and minibatch, on the card and on
+    the CPU, in float64 and then in float32, held to TRAIN_AGREE_BARS.  The
+    card computes in full float32, as the trainer does (no TF32)."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import (
+        CARLAgent, CARLAgentConfig, full_float32)
+    from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
+    full_float32()
+    cpu_env = CARLAEnv(env.config, device="cpu")
+    rng = np.random.default_rng(0)
+    mb, T = 16, env.config.time_horizon
+    h, w, c = env.config.image_shape
+
+    def batch():
+        a = rng.uniform(0.05, 0.95, (mb, 2)).astype(np.float32)
+        return dict(obs=dict(state_image=rng.uniform(0, 1, (mb, T, h, w, c)).astype(np.float32),
+                             state_road=rng.uniform(0, 1, (mb, T, 9)).astype(np.float32),
+                             state_vehicle=rng.uniform(0, 1, (mb, T, 4)).astype(np.float32),
+                             state_navigation=rng.uniform(0, 3, (mb, T, 5)).astype(np.float32),
+                             action=a),
+                    advantages=rng.normal(0, 1, mb).astype(np.float32),
+                    returns=np.stack([rng.uniform(-1, 1, mb), rng.integers(0, 4, mb)],
+                                     -1).astype(np.float32),
+                    log_prob=(np.log(a) - 0.3).astype(np.float32),
+                    speed=rng.uniform(0, 0.5, mb).astype(np.float32),
+                    similarity=rng.uniform(0.5, 1, mb).astype(np.float32))
+
+    batches = dict(policy=batch(), value=batch())
+    hyper = dict(clip_ratio=0.2, entropy=0.1, adv_scale=2.0)
+    out, noise = {}, {}
+    for dtype in (torch.float64, torch.float32):    # float64 names the noise tensors
+        name = str(dtype).split(".")[1]
+        bars = TRAIN_AGREE_BARS[name]
+        for phase in ("policy", "value"):
+            runs = []
+            for e in (env, cpu_env):
+                agent = CARLAgent(e, CARLAgentConfig(network=TINY_NET, seed=3))
+                agent.network.to(dtype)
+                conv = lambda t: {k: conv(v) if isinstance(v, dict) else
+                                  torch.from_numpy(v).to(e.device, dtype) for k, v in t.items()}
+                before = {k: v.detach().cpu().clone()
+                          for k, v in agent.network.state_dict().items()}
+                loss, grads = _phase_step(agent, phase, conv(batches[phase]), hyper)
+                after = {k: v.detach().cpu() for k, v in agent.network.state_dict().items()}
+                runs.append((loss, grads, {k: after[k] - before[k] for k in after}))
+            (lg, gg, dg), (lc, gc, dc) = runs
+            if dtype == torch.float64:
+                top = max(float(g.abs().max()) for g in gc.values())
+                noise[phase] = sorted(k for k, g in gc.items() if float(g.abs().max()) < 1e-6 * top)
+            held = [k for k in gc if k not in noise[phase]]
+            buffers = [k for k in dc if "running" in k]
+            r = dict(loss_card=lg, loss_cpu=lc, loss=abs(lg - lc) / abs(lc),
+                     grad=_rel_l2(gg, gc, held), param=_rel_l2(dg, dc, held),
+                     buffer=_rel_l2(dg, dc, buffers),
+                     noise_delta=max((float((dg[k] - dc[k]).abs().max()) for k in noise[phase]),
+                                     default=0.0),
+                     max_delta_diff=max(float((dg[k] - dc[k]).abs().max()) for k in dg),
+                     held=len(held), noise=len(noise[phase]), buffers=len(buffers))
+            print(f"  train_agree {name} {phase} step: loss card {lg:.12g} cpu {lc:.12g}; "
+                  f"relative differences: loss {r['loss']:.3e}, gradients {r['grad']:.3e} "
+                  f"({r['held']} tensors), parameter changes {r['param']:.3e}, BatchNorm "
+                  f"buffer changes {r['buffer']:.3e} ({r['buffers']}); the {r['noise']} "
+                  f"noise-gradient tensors' changes differ by {r['noise_delta']:.3e}; "
+                  f"largest parameter-delta difference {r['max_delta_diff']:.3e}", flush=True)
+            for k, bar in bars.items():
+                if bar is not None:
+                    check(r[k] <= bar, f"train_agree {name} {phase}: {k} differs by "
+                                       f"{r[k]:.3e} > {bar:.0e}")
+            out[f"{name}_{phase}"] = r
+    out["noise_tensors"] = noise
+    return out
+
+
+PROFILE_ROLLOUT_STEPS = 32
+
+
+def profile_train_phase(agent) -> dict:
+    """A quarter-length training update under torch.profiler (rollouts of 32
+    steps: 8 blocks, 16 minibatches per phase, the parts in the shipped
+    proportions): device busy time, idle share, launches and the largest
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    steps = agent.config.rollout_steps
+    agent.config.rollout_steps = PROFILE_ROLLOUT_STEPS
+    states, _ = agent.env.reset_batch(agent.config.num_envs)
+    hyper = dict(clip_ratio=0.2, entropy=0.1, adv_scale=2.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        agent.train_iteration(states, hyper)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    agent.config.rollout_steps = steps
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    out = dict(rollout_steps=PROFILE_ROLLOUT_STEPS, wall_s=wall, device_busy_s=busy,
+               device_idle_share=1.0 - busy / wall,
+               kernel_launches=sum(e.count for e in kern),
+               parts_s=dict(agent.last_timings),
+               top_kernels=[dict(name=e.key[:90], count=e.count,
+                                 ms=e.self_device_time_total / 1e3)
+                            for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]])
+    for name in ("physics_kernel", "render_kernel"):
+        ev = [e for e in kern if name in e.key]
+        if ev:
+            out[f"{name}_device_ms"] = ev[0].self_device_time_total / 1e3 / ev[0].count
+    print(f"  a {PROFILE_ROLLOUT_STEPS}-step update under the profiler: wall {wall:.3f} s, "
+          f"device busy {busy:.3f} s, idle share {out['device_idle_share']:.4f}, "
+          f"{out['kernel_launches']} kernel launches; physics kernel "
+          f"{out.get('physics_kernel_device_ms', float('nan')):.6f} ms and render kernel "
+          f"{out.get('render_kernel_device_ms', float('nan')):.6f} ms device time per launch",
+          flush=True)
+    for k in out["top_kernels"]:
+        print(f"    {k['ms']:10.3f} ms {k['count']:7d}x  {k['name']}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the run's numbers to this JSON file")
     ap.add_argument("--profile", action="store_true",
-                    help="after the slice, break an evaluation window down by "
-                         "phase and kernel (torch.profiler)")
+                    help="at the end, break an evaluation window and one training "
+                         "update down by kernel (torch.profiler)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from carla_driving_rl_agent_torch import native
     from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.ops import physics as P
     from carla_driving_rl_agent_torch.ops import render as R
+    from carla_driving_rl_agent_torch.utils.build import build_parallel
 
     summary = dict(phases={})
     kernels: dict = {}
@@ -340,12 +778,11 @@ def main(argv=None) -> int:
             capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
         kind = torch.cuda.get_device_name(0)
         count = torch.cuda.device_count()
-        print(f"  {kind} x {count}; torch {torch.__version__}, CUDA {torch.version.cuda}",
-              flush=True)
+        print(f"  {kind} x {count}; {smi}; torch {torch.__version__}, CUDA "
+              f"{torch.version.cuda}", flush=True)
     summary["phases"]["device"] = p.seconds
     with Phase("build") as p:
-        R.build_kernel()
-        native._lib()
+        build_parallel([R.build_kernel, P.build_kernel, native._lib])
     summary["phases"]["build"] = p.seconds
     with Phase("setup") as p:
         agent = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda")
@@ -356,19 +793,40 @@ def main(argv=None) -> int:
     with Phase("agree") as p:
         agree_phase(agent)
     summary["phases"]["agree"] = p.seconds
+    launches = {}
     with tempfile.TemporaryDirectory() as out_dir, Phase("slice") as p:
+        _zero_counts()
         summary["slice"] = slice_phase(agent, kernels, out_dir)
+        launches["evaluate"] = _counts()
     summary["phases"]["slice"] = p.seconds
+    with Phase("physics") as p:
+        physics_phase(agent.env, kernels)
+    summary["phases"]["physics"] = p.seconds
+    with Phase("env") as p:
+        summary["env"] = env_phase()
+        launches["env"] = summary["env"].pop("launches")
+    summary["phases"]["env"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("train") as p:
+        stage, summary["train"] = train_phase(out_dir)
+        launches["train"] = summary["train"].pop("launches")
+    summary["phases"]["train"] = p.seconds
+    with Phase("train_agree") as p:
+        summary["train_agree"] = train_agree_phase(stage.env)
+    summary["phases"]["train_agree"] = p.seconds
     if args.profile:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)
+            summary["profile_train"] = profile_train_phase(stage.agent)
         summary["phases"]["profile"] = p.seconds
 
+    for name, kr in kernels.items():
+        kr["launches"] = launches["train"][name]
+        kr["launches_by_path"] = {path: c[name] for path, c in launches.items()}
     summary.update(card=smi, kernels=kernels)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump(summary, f, indent=2)
+            json.dump(summary, f, indent=2, default=float)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

@@ -156,6 +156,12 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
+need = ["carla_driving_rl_agent_torch." + m for m in (
+    "main", "ops.physics", "ops.render", "envs.carla_env", "agents.rollout",
+    "agents.carla_agent", "utils.math", "utils.optimizers", "utils.schedules",
+    "utils.checkpoint", "curriculum.stages", "models.layers", "models.recurrent")]
+missing = [m for m in need if m not in sys.modules]
+assert not missing, missing
 print("ok")
 """
 
