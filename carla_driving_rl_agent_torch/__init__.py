@@ -8,7 +8,8 @@ host modules it needs (envs/town.py, native/route_planner.cpp).
 Layout mirrors the JAX package so that each module has an obvious
 counterpart:
   envs/       — towns, routes, weather, dynamics, the batched world, CARLAEnv
-  ops/        — the render kernel's wrapper and its plain PyTorch version
+  ops/        — the CUDA kernels' wrappers (render, physics, ShuffleNet unit)
+                and their plain PyTorch versions
   models/     — ShuffleNetV2 + feature nets + GRUs + Beta policy
   agents/     — CARLAgent (evaluation only in this slice)
   curriculum/ — the one-town evaluation driver

@@ -24,8 +24,9 @@ Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
   * value: 0.25 * MSE(base) + MSE(exp) / exp_scale^2, plus aux * (speed MSE
     + similarity MSE) without the 0.5, the whole times 0.25.
 
-Only Adam, float32 and the unfused network are ported; the JAX package's
-other learner options raise (CARLAgentConfig.check).
+Only Adam and float32 are ported, with the unfused network or with
+`fused_units` (the ShuffleNet-unit kernels); the JAX package's other
+learner options raise (CARLAgentConfig.check).
 """
 
 from __future__ import annotations
@@ -95,6 +96,8 @@ class CARLAgentConfig:
     seed: int = 42
     # network spec (reference core/carla_agent.py:61-68)
     network: Dict[str, Any] = field(default_factory=dict)
+    # stride-1 ShuffleNet units as fused ops (the unit kernels on the card)
+    fused_units: bool = False
     # learner options of the JAX package that the port does not have yet;
     # anything but these defaults raises
     aug_intensity: float = 0.0
@@ -105,13 +108,12 @@ class CARLAgentConfig:
     expert_rollout: bool = False
     ratio_clamp: float = 0.0
     compute_dtype: str = "float32"
-    fused_units: bool = False
 
     def check(self) -> None:
         unported = dict(aug_intensity=0.0, fused_update=False, two_step_update=False,
                         two_step_split_adam=False, resample_actions=False,
                         expert_rollout=False, ratio_clamp=0.0,
-                        compute_dtype="float32", fused_units=False)
+                        compute_dtype="float32")
         for name, default in unported.items():
             if getattr(self, name) != default:
                 raise NotImplementedError(
@@ -139,6 +141,7 @@ class CARLAgent:
             dynamics=spec.get("dynamics"),
             image_channels=env.config.image_shape[2],
             nav_dim=env.params.num_waypoints_for_feature,
+            fused_units=cfg.fused_units,
         )
         # flax's initialisers from a CPU generator, so that one seed gives
         # the same network on every device

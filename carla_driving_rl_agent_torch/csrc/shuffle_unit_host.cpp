@@ -1,0 +1,207 @@
+// Host build of the fused ShuffleNet-unit kernels' arithmetic
+// (shuffle_unit.cuh), compiled with g++ so that the CPU tests can hold the
+// CUDA kernels' math against the plain PyTorch version and the JAX package
+// on a machine without a GPU.  Same argument layout and the same stages as
+// shuffle_unit.cu: the per-pixel functions, the 32-pixel tile partials of
+// the batch statistics and their merge, the BatchNorm backward sums and the
+// weight-gradient definitions are the kernels'; only the order of the
+// parallel sums differs (sequential here).
+
+#include <vector>
+
+#include "shuffle_unit.cuh"
+
+namespace {
+
+using namespace cdrl::unit;
+
+int64_t tiles_of(const Geo& g) { return (g.p + TILE - 1) / TILE; }
+
+// Batch mean and biased variance of channel k of an (N, hc, H, W) tensor,
+// from 32-pixel tile partials merged as the card merges them.
+template <class T>
+void channel_stats(const Geo& g, const T* t, int k, T* mean, T* var) {
+  const int64_t nt = tiles_of(g);
+  std::vector<T> sums(nt), m2s(nt);
+  for (int64_t b = 0; b < nt; ++b) {
+    const int cnt = tile_count(g.p, b);
+    T s = T(0);
+    for (int i = 0; i < cnt; ++i) s += t[at(g, b * TILE + i, k, g.hc)];
+    const T m = s / T(cnt);
+    T q = T(0);
+    for (int i = 0; i < cnt; ++i) {
+      const T d = t[at(g, b * TILE + i, k, g.hc)] - m;
+      q += d * d;
+    }
+    sums[b] = s;
+    m2s[b] = q;
+  }
+  merge(sums.data(), m2s.data(), nt, 1, g.p, mean, var);
+}
+
+// u[o] = b[o] + sum_k w[o][k] v[k] over a pixel's channel vector v
+template <class T>
+T dot_row(const T* w, const T* v, int hc, int o) {
+  T s = T(0);
+  for (int k = 0; k < hc; ++k) s += w[o * hc + k] * v[k];
+  return s;
+}
+
+template <class T>
+void branch_of(const Ops<T>& o, const Geo& g, int64_t q, std::vector<T>* v) {
+  for (int k = 0; k < g.hc; ++k) (*v)[k] = o.x[at(g, q, g.hc + k, g.c)];
+}
+
+template <class T>
+void infer(const UnitArgs& a) {
+  const Ops<T> o(a);
+  const Geo g = geometry(a);
+  const int hc = g.hc;
+  std::vector<T> v(hc), b2n(hc);
+  for (int64_t q = 0; q < g.p; ++q) {
+    branch_of(o, g, q, &v);
+    for (int k = 0; k < hc; ++k)
+      o.z1[at(g, q, k, hc)] = act(bn(dot_row(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
+                                     rstd(o.v1[k], o.eps), o.g1[k], o.be1[k]), o.leak);
+  }
+  for (int64_t q = 0; q < g.p; ++q) {
+    for (int k = 0; k < hc; ++k) {
+      const T z2 = depthwise(o, g, q, k, [&](int64_t nb) { return o.z1[at(g, nb, k, hc)]; });
+      b2n[k] = bn(z2, o.m2[k], rstd(o.v2[k], o.eps), o.g2[k], o.be2[k]);
+      o.out[at(g, q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, q, k, g.c)];
+    }
+    for (int k = 0; k < hc; ++k)
+      o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
+          act(bn(dot_row(o.w3, b2n.data(), hc, k) + o.b3[k], o.m3[k], rstd(o.v3[k], o.eps),
+                 o.g3[k], o.be3[k]), o.leak);
+  }
+}
+
+template <class T>
+void train_fwd(const UnitArgs& a) {
+  const Ops<T> o(a);
+  const Geo g = geometry(a);
+  const int hc = g.hc;
+  T* st = o.stats;
+  std::vector<T> v(hc);
+  for (int64_t q = 0; q < g.p; ++q) {
+    branch_of(o, g, q, &v);
+    for (int k = 0; k < hc; ++k) o.z1[at(g, q, k, hc)] = dot_row(o.w1, v.data(), hc, k) + o.b1[k];
+  }
+  for (int k = 0; k < hc; ++k) channel_stats(g, o.z1, k, st + k, st + hc + k);
+  for (int64_t q = 0; q < g.p; ++q)
+    for (int k = 0; k < hc; ++k) {
+      const T m1 = o.m1[k], r1 = rstd(o.v1[k], o.eps);
+      o.z2[at(g, q, k, hc)] =
+          depthwise(o, g, q, k, [&](int64_t nb) { return a1_at(o, g, nb, k, m1, r1); });
+    }
+  for (int k = 0; k < hc; ++k) channel_stats(g, o.z2, k, st + 2 * hc + k, st + 3 * hc + k);
+  for (int64_t q = 0; q < g.p; ++q) {
+    for (int k = 0; k < hc; ++k) v[k] = b2n_at(o, g, q, k, o.m2[k], rstd(o.v2[k], o.eps));
+    for (int k = 0; k < hc; ++k) o.u[at(g, q, k, hc)] = dot_row(o.w3, v.data(), hc, k) + o.b3[k];
+  }
+  for (int k = 0; k < hc; ++k) channel_stats(g, o.u, k, st + 4 * hc + k, st + 5 * hc + k);
+  for (int64_t q = 0; q < g.p; ++q)
+    for (int k = 0; k < hc; ++k) {
+      o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
+          act(bn(o.u[at(g, q, k, hc)], o.m3[k], rstd(o.v3[k], o.eps), o.g3[k], o.be3[k]),
+              o.leak);
+      o.out[at(g, q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, q, k, g.c)];
+    }
+}
+
+template <class T>
+void train_bwd(const UnitArgs& a) {
+  const Ops<T> o(a);
+  const Geo g = geometry(a);
+  const int hc = g.hc;
+  const T inv_m = T(1.0 / static_cast<double>(g.p));
+  T* dv = o.dvec;
+  for (int i = 0; i < N_DVEC * hc; ++i) dv[i] = T(0);
+  for (int i = 0; i < hc * hc; ++i) o.dw1[i] = o.dw3[i] = T(0);
+  for (int i = 0; i < hc * 9; ++i) o.ddw[i] = T(0);
+  // BN3's sums
+  for (int64_t q = 0; q < g.p; ++q)
+    for (int k = 0; k < hc; ++k) {
+      T xh;
+      const T ga = ga3_at(o, g, q, k, o.m3[k], rstd(o.v3[k], o.eps), &xh);
+      dv[D_G3 * hc + k] += ga * xh;
+      dv[D_BE3 * hc + k] += ga;
+    }
+  // g_u, its sums and dW3; g_b2n = W3^T g_u and BN2's sums
+  std::vector<T> gu(hc), b2n(hc);
+  for (int64_t q = 0; q < g.p; ++q) {
+    for (int k = 0; k < hc; ++k) {
+      gu[k] = gu_at(o, g, q, k, o.m3[k], rstd(o.v3[k], o.eps), dv[D_BE3 * hc + k],
+                    dv[D_G3 * hc + k], inv_m);
+      b2n[k] = b2n_at(o, g, q, k, o.m2[k], rstd(o.v2[k], o.eps));
+      dv[D_B3 * hc + k] += gu[k];
+    }
+    for (int oo = 0; oo < hc; ++oo)
+      for (int k = 0; k < hc; ++k) o.dw3[oo * hc + k] += gu[oo] * b2n[k];
+    for (int k = 0; k < hc; ++k) {
+      T s = T(0);
+      for (int oo = 0; oo < hc; ++oo) s += o.w3[oo * hc + k] * gu[oo];
+      const int64_t i = at(g, q, k, hc);
+      o.gb2n[i] = s;
+      dv[D_G2 * hc + k] += s * (o.z2[i] - o.m2[k]) * rstd(o.v2[k], o.eps);
+      dv[D_BE2 * hc + k] += s;
+    }
+  }
+  // g_z2, the depthwise transpose, g_pre1, BN1's sums, ddw, ddwb
+  for (int64_t q = 0; q < g.p; ++q)
+    for (int k = 0; k < hc; ++k) {
+      const T m1 = o.m1[k], r1 = rstd(o.v1[k], o.eps);
+      const T m2 = o.m2[k], r2 = rstd(o.v2[k], o.eps);
+      const T t2 = dv[D_G2 * hc + k], t1 = dv[D_BE2 * hc + k];
+      T ga1 = T(0);
+      for (int t = 0; t < 9; ++t) {
+        int64_t nb;
+        if (tap(g, q, t, -1, &nb)) ga1 += o.dw[k * 9 + t] * gz2_at(o, g, nb, k, m2, r2, t1, t2, inv_m);
+      }
+      const int64_t i = at(g, q, k, hc);
+      const T xh1 = (o.z1[i] - m1) * r1;
+      const T gp = ga1 * act_grad(affine_rn(o.g1[k], xh1, o.be1[k]), o.leak);
+      o.gpre1[i] = gp;
+      dv[D_G1 * hc + k] += gp * xh1;
+      dv[D_BE1 * hc + k] += gp;
+      const T gz = gz2_at(o, g, q, k, m2, r2, t1, t2, inv_m);
+      dv[D_DWB * hc + k] += gz;
+      for (int t = 0; t < 9; ++t) {
+        int64_t nb;
+        if (tap(g, q, t, +1, &nb)) o.ddw[k * 9 + t] += gz * a1_at(o, g, nb, k, m1, r1);
+      }
+    }
+  // g_z1, its sums and dW1; gx
+  std::vector<T> gz1(hc), v(hc);
+  for (int64_t q = 0; q < g.p; ++q) {
+    branch_of(o, g, q, &v);
+    for (int k = 0; k < hc; ++k) {
+      gz1[k] = gz1_at(o, g, q, k, o.m1[k], rstd(o.v1[k], o.eps), dv[D_BE1 * hc + k],
+                      dv[D_G1 * hc + k], inv_m);
+      dv[D_B1 * hc + k] += gz1[k];
+      o.out[at(g, q, k, g.c)] = o.gout[at(g, q, shuffle_dest(g.c, k), g.c)];
+    }
+    for (int oo = 0; oo < hc; ++oo)
+      for (int i = 0; i < hc; ++i) o.dw1[oo * hc + i] += gz1[oo] * v[i];
+    for (int i = 0; i < hc; ++i) {
+      T s = T(0);
+      for (int oo = 0; oo < hc; ++oo) s += o.w1[oo * hc + i] * gz1[oo];
+      o.out[at(g, q, hc + i, g.c)] = s;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" void cdrl_unit_infer_host(const UnitArgs* args, int dtype) {
+  dtype == 0 ? infer<float>(*args) : infer<double>(*args);
+}
+
+extern "C" void cdrl_unit_train_fwd_host(const UnitArgs* args, int dtype) {
+  dtype == 0 ? train_fwd<float>(*args) : train_fwd<double>(*args);
+}
+
+extern "C" void cdrl_unit_train_bwd_host(const UnitArgs* args, int dtype) {
+  dtype == 0 ? train_bwd<float>(*args) : train_bwd<double>(*args);
+}

@@ -180,7 +180,8 @@ def stage_s1(episodes: int, timesteps: int, batch_size: int, save_every=None,
              **kwargs) -> Stage:
     """Stage-1: 10 seed-fixed origins, no dynamic objects
     (reference core/learning.py:311-339).  `env_overrides` are extra
-    define_env kwargs (e.g. fused_step, device)."""
+    define_env kwargs (e.g. fused_step, device); the other kwargs reach the
+    agent's config (e.g. fused_units=True, the JAX FAST_TRAIN knob)."""
     hp = _stage_common(kwargs)
     agent = define_agent(batch_size=batch_size, num_envs=num_envs,
                          rollout_steps=kwargs.pop("rollout_steps", min(timesteps, 128)),
@@ -207,10 +208,12 @@ def network_spec(weights: str, weights_dir: str) -> dict:
 
 
 def build_eval_agent(mode: str, town: str, steps: int, weights: str,
-                     weights_dir: Optional[str] = None, device=None) -> CARLAgent:
+                     weights_dir: Optional[str] = None, device=None,
+                     fused_units: bool = False) -> CARLAgent:
     """A one-town, no-traffic evaluation env and the agent loaded with
     `weights`, as the JAX package's _eval_stage configures them: the seven
-    training weathers in train mode, the seven held-out ones in test mode."""
+    training weathers in train mode, the seven held-out ones in test mode.
+    `fused_units` runs the backbone's stride-1 units as fused ops."""
     if mode not in ("train", "test"):
         raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
     weights_dir = weights_dir or os.path.join(REPO_ROOT, "weights")
@@ -220,7 +223,8 @@ def build_eval_agent(mode: str, town: str, steps: int, weights: str,
         throttle_as_desired_speed=True, disable_reverse=True,
         max_timesteps=steps, seed=42)
     env = CARLAEnv(CARLAEnvConfig(world=params), device=device)
-    agent = CARLAgent(env, CARLAgentConfig(network=network_spec(weights, weights_dir)),
+    agent = CARLAgent(env, CARLAgentConfig(network=network_spec(weights, weights_dir),
+                                           fused_units=fused_units),
                       name=weights, weights_dir=weights_dir)
     agent.load()
     return agent

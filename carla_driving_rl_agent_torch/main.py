@@ -1,12 +1,16 @@
 """Command line of the PyTorch port: curriculum stage s1 on one GPU.
 
-    python -m carla_driving_rl_agent_torch.main --stage s1 --epochs 1 --block --fused-step
+    python -m carla_driving_rl_agent_torch.main --stage s1 --epochs 1 --block --fused-step \
+        [--fused-units]
 
 Mirrors `main.py --stage s1 --epochs N [--block]` of the JAX package with the
 shipped sequential float32 trainer (main.FAST_TRAIN = dict()): 5 updates per
 epoch of 32 worlds x 128 steps (512-step episodes), batch 64, Town03 with no
 traffic.  `--fused-step` runs the physics on the CUDA kernel
-(CARLAEnvConfig.fused_step).  Checkpoints go to weights-torch/stage-s1 (and a
+(CARLAEnvConfig.fused_step); `--fused-units` runs the backbone's stride-1
+ShuffleNet units on the fused unit kernels (CARLAgentConfig.fused_units,
+the counterpart of the JAX package's main.FAST_TRAIN = dict(fused_units=True)).
+Checkpoints go to weights-torch/stage-s1 (and a
 per-epoch copy stage-s1-<epoch>) of the checkout, never into the tracked
 weights/.
 """
@@ -27,13 +31,13 @@ NUM_ENVS = 32
 
 
 def make_stage(which: str, num_envs: int = NUM_ENVS, block: bool = False,
-               fused_step: bool = False, weights_dir: str = stages.DEFAULT_WEIGHTS_DIR,
-               device=None) -> stages.Stage:
+               fused_step: bool = False, fused_units: bool = False,
+               weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None) -> stages.Stage:
     if which != "s1":
         raise NotImplementedError(f"stage {which!r}: the port trains stage s1 only so far")
     return stages.stage_s1(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
                            num_envs=num_envs, save_every="end", rollout_block=block,
-                           weights_dir=weights_dir,
+                           fused_units=fused_units, weights_dir=weights_dir,
                            env_overrides=dict(fused_step=fused_step, device=device))
 
 
@@ -46,13 +50,17 @@ def main(argv=None) -> int:
                     help="block rollout (one forward pass and one frame per 4 steps)")
     ap.add_argument("--fused-step", action="store_true",
                     help="physics on the CUDA kernel (ops/physics.py)")
+    ap.add_argument("--fused-units", action="store_true",
+                    help="stride-1 ShuffleNet units on the fused unit kernels "
+                         "(ops/shuffle_unit.py)")
     ap.add_argument("--weights-dir", default=stages.DEFAULT_WEIGHTS_DIR)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' only when asked)")
     args = ap.parse_args(argv)
 
     stage = make_stage(args.stage, args.num_envs, block=args.block,
-                       fused_step=args.fused_step, weights_dir=args.weights_dir,
+                       fused_step=args.fused_step, fused_units=args.fused_units,
+                       weights_dir=args.weights_dir,
                        device=args.device)
     t0 = time.perf_counter()
 

@@ -121,6 +121,9 @@ class CARLANetwork(nn.Module):
     """dynamics + policy + old_policy + value, each a module whose
     parameters one optimizer owns (reference core/carla_agent.py:108-124).
 
+    With `fused_units=True` the backbone's stride-1 units run as fused ops
+    (models/shufflenet.ShuffleUnit); the parameter tree does not change.
+
     `old_policy` has its own parameters but reads the policy's BatchNorm
     running statistics: the JAX package keeps one `policy` statistics tree
     for both (carla_network.policy_apply), so the policy phase's updates of
@@ -129,10 +132,19 @@ class CARLANetwork(nn.Module):
 
     def __init__(self, num_actions: int = 2, control_policy: Optional[dict] = None,
                  control_value: Optional[dict] = None, dynamics: Optional[dict] = None,
-                 exp_scale: float = 6.0, image_channels: int = 3, nav_dim: int = 5):
+                 exp_scale: float = 6.0, image_channels: int = 3, nav_dim: int = 5,
+                 fused_units: bool = False):
         super().__init__()
         self.exp_scale = exp_scale
-        self.dynamics = DynamicsModel(dynamics, image_channels=image_channels,
+        dyn_spec = dict(dynamics or {})
+        if fused_units:
+            # merge the flag into the shufflenet sub-spec, keeping its g and
+            # last_channels (JAX CARLANetwork.__init__)
+            sn = dict(DEFAULT_DYNAMICS["shufflenet"])
+            sn.update(dyn_spec.get("shufflenet", {}))
+            sn["fused_units"] = True
+            dyn_spec["shufflenet"] = sn
+        self.dynamics = DynamicsModel(dyn_spec, image_channels=image_channels,
                                       nav_dim=nav_dim)
         units = self.dynamics.LinearCombination_0.Dense_0.out_features
         self.policy = PolicyHead(units, num_actions, control_policy)

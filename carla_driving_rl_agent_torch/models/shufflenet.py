@@ -1,4 +1,4 @@
-"""ShuffleNet-V2 backbone, weight-shared over the time axis (unfused path).
+"""ShuffleNet-V2 backbone, weight-shared over the time axis.
 
 Counterpart of carla_driving_rl_agent_tpu/models/shufflenet.py (reference
 core/architectures.py:30-173): frames are folded into the batch, (B, T, H,
@@ -10,6 +10,12 @@ flax's "SAME" padding puts the odd pixel of a stride-2 window at the end
 (lo = total // 2, hi = total - lo); `_same_pad` reproduces it with an
 explicit F.pad (with -inf for the max pool), since torch's symmetric
 `padding=1` would shift every stride-2 output on even sizes.
+
+With `fused_units=True` every stride-1 unit runs as one fused op
+(ops/shuffle_unit.py: the CUDA kernels on the card, their plain versions on
+the CPU), as the JAX package's `fused_units` dispatches to its Pallas
+kernels; stride-2 units stay unfused there and here.  The parameter and
+statistics tree is the same either way.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from carla_driving_rl_agent_torch.models.layers import BatchNorm
+from carla_driving_rl_agent_torch.ops import shuffle_unit as fused_unit
 from carla_driving_rl_agent_torch.utils.activations import leaky_relu6
 
 CHANNELS = {
@@ -67,13 +74,19 @@ class ShuffleUnit(nn.Module):
     """One ShuffleNet-V2 unit (reference core/architectures.py:120-145):
     1x1 conv -> BN/act -> 3x3 depthwise (stride) -> BN -> 1x1 conv -> BN/act
     on one half (stride 1) or all (stride 2) of the channels, a strided
-    depthwise + 1x1 shortcut at stride 2, concat, channel shuffle."""
+    depthwise + 1x1 shortcut at stride 2, concat, channel shuffle.
+
+    A stride-1 unit with `fused=True` runs as one fused op on its own
+    parameters (JAX ShuffleUnit._fused_call): in training mode it folds the
+    op's batch statistics into its BatchNorm buffers itself, once, as
+    0.99 * running + 0.01 * batch with the biased variance."""
 
     def __init__(self, in_channels: int, num_channels: int, stride: int,
-                 leak: float = 0.0):
+                 leak: float = 0.0, fused: bool = False):
         super().__init__()
         self.stride = stride
         self.leak = leak
+        self.fused = fused and stride == 1
         sc = in_channels // 2 if stride == 1 else in_channels   # shortcut channels
         bi = in_channels - sc if stride == 1 else in_channels   # branch input
         mid = num_channels // 2
@@ -90,6 +103,8 @@ class ShuffleUnit(nn.Module):
             self.BatchNorm_4 = _bn2d(sc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return self._fused_forward(x)
         if self.stride == 1:
             shortcut, branch = x.chunk(2, dim=1)
         else:
@@ -102,12 +117,22 @@ class ShuffleUnit(nn.Module):
             shortcut = leaky_relu6(self.BatchNorm_4(self.Conv_4(shortcut)), self.leak)
         return channel_shuffle(torch.cat([shortcut, branch], dim=1))
 
+    def _fused_forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return fused_unit.shuffle_unit_infer(x, self)
+        out, stats = fused_unit.shuffle_unit_train(x, self)
+        with torch.no_grad():
+            buffers = fused_unit.running_stats(self)
+            torch._foreach_lerp_(list(buffers), list(stats.unbind(0)),
+                                 1.0 - BatchNorm.momentum)
+        return out
+
 
 class ShuffleNetV2(nn.Module):
     """Backbone over (B, T, H, W, C) -> (B, T, last_channels)."""
 
     def __init__(self, in_channels: int = 3, g: float = 1.0, leak: float = 0.0,
-                 last_channels: int = 1024):
+                 last_channels: int = 1024, fused_units: bool = False):
         super().__init__()
         if g not in CHANNELS:
             raise ValueError(f"g={g} not in {sorted(CHANNELS)}")
@@ -119,7 +144,7 @@ class ShuffleNetV2(nn.Module):
         for c, blocks in zip(CHANNELS[g], (4, 8, 4)):
             for j in range(blocks):
                 self.add_module(f"ShuffleUnit_{i}", ShuffleUnit(
-                    c_in, c, stride=2 if j == 0 else 1, leak=leak))
+                    c_in, c, stride=2 if j == 0 else 1, leak=leak, fused=fused_units))
                 c_in, i = c, i + 1
         self.num_units = i
         self.Conv_1 = nn.Conv2d(c_in, last_channels, 1)

@@ -1,0 +1,381 @@
+"""The fused stride-1 ShuffleNet-V2 unit: the CUDA kernels' wrappers and
+their plain PyTorch versions.
+
+Counterpart of carla_driving_rl_agent_tpu/ops/shuffle_unit_pallas.py.  One
+unit on x (N, C, H, W), hc = C / 2 (the port's backbone is NCHW):
+split, 1x1 conv + BN + leaky ReLU6, 3x3 depthwise SAME + BN, 1x1 conv + BN +
+act, concat, channel shuffle (models/shufflenet.ShuffleUnit with stride 1).
+
+  * `shuffle_unit_infer(x, unit)`: BatchNorm on the running statistics
+    (csrc/shuffle_unit.cu, 2 launches per call).
+  * `shuffle_unit_train(x, unit)`: training mode; returns (out, stats), the
+    three BatchNorms' batch mean and BIASED variance in branch order as a
+    (6, hc) tensor (rows m1 v1 m2 v2 m3 v3), which feed the running
+    averages only and carry no gradient.  On the card a
+    torch.autograd.Function: the forward kernel (7 launches) saves z1, z2
+    and u; the backward kernel (`shuffle_unit_train_bwd`, 13 launches)
+    returns the gradients of x and of the unit's 12 parameter tensors.
+
+Each kernel has its plain version beside it (`*_plain`); the backward's
+starts, as the kernel does, from the forward's statistics and saved
+tensors.  Each wrapper launches its kernel for CUDA tensors (counting the call in its
+`launches`), runs the plain version for CPU tensors, and raises for
+anything else: a wrong device, dtype, shape or a non-contiguous tensor.
+The kernels compute in float32 or float64, the dtype of the unit; the
+1x1 products are computed in the kernels' own bodies, never by cuBLAS or
+cuDNN.  The kernels' arithmetic lives in csrc/shuffle_unit.cuh, which
+csrc/shuffle_unit_host.cpp also builds with g++, so that the CPU tests
+(tests/test_torch_shuffle_unit.py) hold the kernels' math against the plain
+version and the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from carla_driving_rl_agent_torch.utils.activations import leaky_relu6
+
+BN_EPS = 1e-3          # keras BatchNormalization epsilon, as the flax nets
+TILE = 32              # pixels per tile of the kernels (csrc/shuffle_unit.cuh)
+# rows of the backward kernel's vector gradients (csrc/shuffle_unit.cuh DVec)
+DVEC = ("b1", "g1", "be1", "dwb", "g2", "be2", "b3", "g3", "be3")
+
+
+class UnitOperands(NamedTuple):
+    """A stride-1 unit's parameters as the kernels read them: views of the
+    module's tensors, no copies (so gradients flow back to the module)."""
+    w1: torch.Tensor    # Conv_0 (hc, hc) [out][in]
+    b1: torch.Tensor    # Conv_0 bias (hc,)
+    g1: torch.Tensor    # BatchNorm_0 scale
+    be1: torch.Tensor   # BatchNorm_0 bias
+    dw: torch.Tensor    # Conv_1 depthwise (hc, 9) [channel][tap], taps row-major
+    dwb: torch.Tensor   # Conv_1 bias
+    g2: torch.Tensor    # BatchNorm_1 scale
+    be2: torch.Tensor   # BatchNorm_1 bias
+    w3: torch.Tensor    # Conv_2 (hc, hc)
+    b3: torch.Tensor    # Conv_2 bias
+    g3: torch.Tensor    # BatchNorm_2 scale
+    be3: torch.Tensor   # BatchNorm_2 bias
+
+
+def unit_operands(unit) -> UnitOperands:
+    """The kernels' operands of a stride-1 models.shufflenet.ShuffleUnit."""
+    hc = unit.Conv_0.weight.shape[0]
+    return UnitOperands(
+        unit.Conv_0.weight.view(hc, hc), unit.Conv_0.bias,
+        unit.BatchNorm_0.weight, unit.BatchNorm_0.bias,
+        unit.Conv_1.weight.view(hc, 9), unit.Conv_1.bias,
+        unit.BatchNorm_1.weight, unit.BatchNorm_1.bias,
+        unit.Conv_2.weight.view(hc, hc), unit.Conv_2.bias,
+        unit.BatchNorm_2.weight, unit.BatchNorm_2.bias)
+
+
+def running_stats(unit) -> Tuple[torch.Tensor, ...]:
+    """(m1, v1, m2, v2, m3, v3): the unit's three BatchNorms' running mean
+    and variance."""
+    return tuple(t for i in range(3) for t in (getattr(unit, f"BatchNorm_{i}").running_mean,
+                                                getattr(unit, f"BatchNorm_{i}").running_var))
+
+
+# ------------------------------------------------------------------
+# the plain PyTorch versions
+# ------------------------------------------------------------------
+
+def _shuffle(shortcut: torch.Tensor, branch: torch.Tensor) -> torch.Tensor:
+    """channel_shuffle(concat(shortcut, branch), groups=2), as
+    models/shufflenet.channel_shuffle."""
+    x = torch.cat([shortcut, branch], dim=1)
+    n, c, h, w = x.shape
+    return x.reshape(n, c // 2, 2, h, w).transpose(1, 2).reshape(n, c, h, w)
+
+
+def _rstd(var: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.sqrt(var + BN_EPS)
+
+
+def _plain(x: torch.Tensor, ops: UnitOperands, leak: float, running=None):
+    """The unit with BatchNorm on `running` (m1, v1, ...), or in training
+    mode on the batch statistics when `running` is None; returns (out,
+    batch stats (6, hc) or None, (z1, z2, u))."""
+    hc = x.shape[1] // 2
+    stats = []
+
+    def bn(z, i, gamma, beta):
+        if running is not None:
+            return F.batch_norm(z, running[2 * i], running[2 * i + 1], gamma, beta,
+                                False, 0.0, BN_EPS)
+        with torch.no_grad():
+            var, mean = torch.var_mean(z, dim=(0, 2, 3), correction=0)
+        stats.extend((mean, var))
+        return F.batch_norm(z, None, None, gamma, beta, True, 0.0, BN_EPS)
+
+    shortcut, branch = x[:, :hc], x[:, hc:]
+    z1 = F.conv2d(branch, ops.w1[:, :, None, None], ops.b1)
+    z2 = F.conv2d(F.pad(leaky_relu6(bn(z1, 0, ops.g1, ops.be1), leak), (1, 1, 1, 1)),
+                  ops.dw.view(hc, 1, 3, 3), ops.dwb, groups=hc)
+    u = F.conv2d(bn(z2, 1, ops.g2, ops.be2), ops.w3[:, :, None, None], ops.b3)
+    y = leaky_relu6(bn(u, 2, ops.g3, ops.be3), leak)
+    return _shuffle(shortcut, y), (torch.stack(stats) if stats else None), (z1, z2, u)
+
+
+def shuffle_unit_infer_plain(x: torch.Tensor, unit) -> torch.Tensor:
+    """The plain version of `shuffle_unit_infer`."""
+    return _plain(x, unit_operands(unit), unit.leak, running_stats(unit))[0]
+
+
+def shuffle_unit_train_plain(x: torch.Tensor, unit):
+    """The plain version of `shuffle_unit_train`: (out, stats (6, hc)),
+    differentiable through autograd."""
+    return _plain(x, unit_operands(unit), unit.leak)[:2]
+
+
+def _act_grad(pre: torch.Tensor, leak: float) -> torch.Tensor:
+    return torch.where(pre < 0.0, leak, torch.where(pre <= 6.0, 1.0, 0.0)).to(pre.dtype)
+
+
+def shuffle_unit_train_bwd_plain(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperands,
+                                 leak: float, stats: torch.Tensor, saved):
+    """The plain version of the backward kernel (`shuffle_unit_train_bwd`):
+    the gradients of x and of the 12 operands for the output gradient
+    `gout`, from the forward's batch statistics and saved (z1, z2, u).  Its
+    pre-activations round as the kernel's (one operation at a time), so
+    both take the same step of the activation's gradient."""
+    n, c, h, w = x.shape
+    hc = c // 2
+    inv_m = 1.0 / (n * h * w)
+    col = lambda v: v.view(1, hc, 1, 1)
+    z1, z2, u = saved
+    m1, v1, m2, v2, m3, v3 = (col(t) for t in stats.unbind(0))
+    r1, r2, r3 = _rstd(v1), _rstd(v2), _rstd(v3)
+    sums = lambda t: t.sum(dim=(0, 2, 3))
+    # the shuffled gradient back in concat order: shortcut, then branch
+    gcat = gout.reshape(n, 2, hc, h, w).transpose(1, 2).reshape(n, c, h, w)
+    xh3 = (u - m3) * r3
+    ga3 = gcat[:, hc:] * _act_grad(col(ops.g3) * xh3 + col(ops.be3), leak)
+    s1, s2 = sums(ga3), sums(ga3 * xh3)
+    gu = col(ops.g3) * r3 * (ga3 - (col(s1) + xh3 * col(s2)) * inv_m)
+    b2n = col(ops.g2) * ((z2 - m2) * r2) + col(ops.be2)
+    dw3 = torch.einsum("nohw,nkhw->ok", gu, b2n)
+    gb2n = torch.einsum("ok,nohw->nkhw", ops.w3, gu)
+    xh2 = (z2 - m2) * r2
+    t1, t2 = sums(gb2n), sums(gb2n * xh2)
+    gz2 = col(ops.g2) * r2 * (gb2n - (col(t1) + xh2 * col(t2)) * inv_m)
+    xh1 = (z1 - m1) * r1
+    a1p = F.pad(leaky_relu6(col(ops.g1) * xh1 + col(ops.be1), leak), (1, 1, 1, 1))
+    gz2p = F.pad(gz2, (1, 1, 1, 1))
+    ddw = torch.stack([sums(gz2 * a1p[:, :, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w])
+                       for dy in (-1, 0, 1) for dx in (-1, 0, 1)], dim=1)
+    ga1 = sum(col(ops.dw[:, (dy + 1) * 3 + dx + 1]) * gz2p[:, :, 1 - dy:1 - dy + h, 1 - dx:1 - dx + w]
+              for dy in (-1, 0, 1) for dx in (-1, 0, 1))
+    gpre1 = ga1 * _act_grad(col(ops.g1) * xh1 + col(ops.be1), leak)
+    u1, u2 = sums(gpre1), sums(gpre1 * xh1)
+    gz1 = col(ops.g1) * r1 * (gpre1 - (col(u1) + xh1 * col(u2)) * inv_m)
+    dw1 = torch.einsum("nohw,nihw->oi", gz1, x[:, hc:])
+    gx = torch.cat([gcat[:, :hc], torch.einsum("oi,nohw->nihw", ops.w1, gz1)], dim=1)
+    return (gx, dw1, sums(gz1), u2, u1, ddw, sums(gz2), t2, t1, dw3, sums(gu), s2, s1)
+
+
+# ------------------------------------------------------------------
+# the CUDA kernels and their host build
+# ------------------------------------------------------------------
+
+_POINTERS = ("x", "w1", "b1", "g1", "be1", "dw", "dwb", "g2", "be2", "w3", "b3", "g3",
+             "be3", "m1", "v1", "m2", "v2", "m3", "v3", "gout", "out", "stats", "z1",
+             "z2", "u", "gb2n", "gpre1", "dw1", "ddw", "dw3", "dvec", "partial")
+
+
+class _Args(ctypes.Structure):
+    """ctypes mirror of cdrl::unit::UnitArgs (csrc/shuffle_unit.cuh)."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
+                + [("eps", ctypes.c_double), ("leak", ctypes.c_double)]
+                + [(n, ctypes.c_int) for n in ("n", "c", "h", "w", "seg_chunks", "n_seg")])
+
+
+_DTYPES = {torch.float32: 0, torch.float64: 1}
+
+
+def _segments(p: int, hc: int) -> Tuple[int, int]:
+    """(tiles per segment, segments) of the weight gradients' pixel split:
+    about 4 blocks per SM of the card over the (hc/32)^2 output tiles."""
+    n_tiles = -(-p // TILE)
+    blocks = (-(-hc // TILE)) ** 2
+    n_seg = max(1, min(n_tiles, -(-528 // blocks)))
+    seg_chunks = -(-n_tiles // n_seg)
+    return seg_chunks, -(-n_tiles // seg_chunks)
+
+
+def _check(t: torch.Tensor, name: str, x: torch.Tensor, shape) -> int:
+    if t.device != x.device:
+        raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if t.dtype != x.dtype:
+        raise TypeError(f"{name} must be {x.dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return t.data_ptr()
+
+
+def _pack(x: torch.Tensor, ops: UnitOperands, leak: float, bn_stats=(), **bufs) -> _Args:
+    """Check x and the operands and lay out the kernels' arguments;
+    `bn_stats` is the (m1, v1, ..., v3) tuple the kernels read, `bufs` the
+    other pointers by name (tensors)."""
+    if x.dim() != 4 or x.shape[1] % 2:
+        raise ValueError(f"x must be (N, C, H, W) with C even, got {tuple(x.shape)}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"the unit kernels take float32 or float64, got {x.dtype}")
+    n, c, h, w = x.shape
+    hc = c // 2
+    a = _Args()
+    a.x = _check(x, "x", x, x.shape)
+    for name, t in zip(UnitOperands._fields, ops):
+        shape = {"w1": (hc, hc), "w3": (hc, hc), "dw": (hc, 9)}.get(name, (hc,))
+        setattr(a, name, _check(t, name, x, shape))
+    for name, t in zip(("m1", "v1", "m2", "v2", "m3", "v3"), bn_stats):
+        setattr(a, name, _check(t, name, x, (hc,)))
+    for name, t in bufs.items():
+        setattr(a, name, _check(t, name, x, t.shape))
+    a.eps, a.leak = BN_EPS, float(leak)
+    a.n, a.c, a.h, a.w = n, c, h, w
+    a.seg_chunks, a.n_seg = _segments(n * h * w, hc)
+    return a
+
+
+def _fwd_buffers(x: torch.Tensor):
+    n, c, h, w = x.shape
+    hc = c // 2
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    stats = new(6, hc)
+    bufs = dict(out=new(n, c, h, w), stats=stats, z1=new(n, hc, h, w), z2=new(n, hc, h, w),
+                u=new(n, hc, h, w), partial=new(-(-n * h * w // TILE) * 2 * hc))
+    return bufs, tuple(stats.unbind(0))
+
+
+def _bwd_buffers(x: torch.Tensor):
+    n, c, h, w = x.shape
+    hc = c // 2
+    seg_chunks, n_seg = _segments(n * h * w, hc)
+    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
+    scratch = max(-(-n * h * w // TILE) * 12 * hc, n_seg * hc * hc)
+    return dict(out=new(n, c, h, w), gb2n=new(n, hc, h, w), gpre1=new(n, hc, h, w),
+                dw1=new(hc, hc), ddw=new(hc, 9), dw3=new(hc, hc), dvec=new(len(DVEC), hc),
+                partial=new(scratch))
+
+
+def _grads(bufs: dict) -> tuple:
+    """The backward's outputs in (x, UnitOperands...) order."""
+    d = dict(zip(DVEC, bufs["dvec"].unbind(0)))
+    return (bufs["out"], bufs["dw1"], d["b1"], d["g1"], d["be1"], bufs["ddw"], d["dwb"],
+            d["g2"], d["be2"], bufs["dw3"], d["b3"], d["g3"], d["be3"])
+
+
+def _kernel_lib() -> ctypes.CDLL:
+    from carla_driving_rl_agent_torch.utils.build import csrc, load_library
+    sig = (ctypes.c_int, [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p])
+    return load_library(
+        "shuffle_unit", [csrc("shuffle_unit.cu")], "nvcc",
+        {f: sig for f in ("cdrl_unit_infer", "cdrl_unit_train_fwd", "cdrl_unit_train_bwd")},
+        extra_deps=[csrc("shuffle_unit.cuh")])
+
+
+def build_kernel() -> None:
+    """Compile (if needed) and load the CUDA unit kernels."""
+    _kernel_lib()
+
+
+def _launch(fn: str, args: _Args, x: torch.Tensor) -> None:
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(_kernel_lib(), fn)(ctypes.byref(args), _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+
+
+def _device(x: torch.Tensor) -> str:
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the unit runs on cuda or cpu, not {x.device}")
+    return x.device.type
+
+
+def shuffle_unit_infer(x: torch.Tensor, unit) -> torch.Tensor:
+    """Inference-mode fused stride-1 unit (BatchNorm on the running
+    statistics) of the module `unit`: the kernel on CUDA, the plain version
+    on the CPU."""
+    if _device(x) == "cpu":
+        return shuffle_unit_infer_plain(x, unit)
+    ops = unit_operands(unit)
+    n, c, h, w = x.shape
+    out = torch.empty_like(x)
+    a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype, device=x.device)
+    args = _pack(x, ops, unit.leak, running_stats(unit), out=out, z1=a1)
+    if x.numel():
+        _launch("cdrl_unit_infer", args, x)
+        shuffle_unit_infer.launches += 1
+    return out
+
+
+shuffle_unit_infer.launches = 0
+
+
+def _train_fwd_kernel(x: torch.Tensor, ops: UnitOperands, leak: float):
+    """The forward kernel: (out, stats, (z1, z2, u))."""
+    bufs, stats = _fwd_buffers(x)
+    args = _pack(x, ops, leak, stats, **bufs)
+    _launch("cdrl_unit_train_fwd", args, x)
+    shuffle_unit_train.launches += 1
+    return bufs["out"], bufs["stats"], (bufs["z1"], bufs["z2"], bufs["u"])
+
+
+def shuffle_unit_train_bwd(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperands,
+                           leak: float, stats: torch.Tensor, saved):
+    """The backward kernel: the gradients of x and of the 12 operands
+    (UnitOperands order) for the output gradient `gout`, from the forward
+    kernel's stats and saved (z1, z2, u).  CUDA tensors only."""
+    if _device(x) != "cuda":
+        raise ValueError("shuffle_unit_train_bwd launches the CUDA kernel: CUDA tensors only")
+    _check(gout, "gout", x, x.shape)
+    bufs = _bwd_buffers(x)
+    z1, z2, u = saved
+    args = _pack(x, ops, leak, tuple(stats.unbind(0)), gout=gout, z1=z1, z2=z2, u=u, **bufs)
+    _launch("cdrl_unit_train_bwd", args, x)
+    shuffle_unit_train_bwd.launches += 1
+    return _grads(bufs)
+
+
+shuffle_unit_train_bwd.launches = 0
+
+
+class _UnitTrain(torch.autograd.Function):
+    """The training unit on the card: forward kernel, backward kernel."""
+
+    @staticmethod
+    def forward(ctx, x, leak, *ops):
+        out, stats, saved = _train_fwd_kernel(x, UnitOperands(*ops), leak)
+        ctx.leak = leak
+        ctx.save_for_backward(x, stats, *saved, *ops)
+        ctx.mark_non_differentiable(stats)
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, gout, _gstats):
+        x, stats, z1, z2, u, *ops = ctx.saved_tensors
+        grads = shuffle_unit_train_bwd(x, gout.contiguous(), UnitOperands(*ops), ctx.leak,
+                                       stats, (z1, z2, u))
+        return (grads[0], None) + grads[1:]
+
+
+def shuffle_unit_train(x: torch.Tensor, unit):
+    """Training-mode fused stride-1 unit of the module `unit`: (out, stats
+    (6, hc)), the batch statistics for the caller to fold into the running
+    ones.  On CUDA the forward and backward kernels behind
+    torch.autograd.Function; on the CPU the plain version."""
+    if _device(x) == "cpu":
+        return shuffle_unit_train_plain(x, unit)
+    return _UnitTrain.apply(x, float(unit.leak), *unit_operands(unit))
+
+
+shuffle_unit_train.launches = 0

@@ -7,9 +7,9 @@ and trains.
 
 Phases, each printed with its seconds:
   1. device  — the card's name and power limit (nvidia-smi);
-  2. build   — the CUDA render and physics kernels (nvcc, sm_90a) and the
-               C++ route planner (g++), from the sources in the checkout,
-               into build/torch_kernels/, all three compilers at once;
+  2. build   — the CUDA render, physics and ShuffleNet-unit kernels (nvcc,
+               sm_90a) and the C++ route planner (g++), from the sources in
+               the checkout, into build/torch_kernels/, all compilers at once;
   3. setup   — the one-town Town03 evaluation env and the safe-s5 checkpoint,
                read and converted in memory by the port's own reader;
   4. kernel  — the render kernel against its plain PyTorch version on
@@ -39,15 +39,34 @@ Phases, each printed with its seconds:
                the checkpoint saved and reloaded;
  10. train_agree — one policy-phase and one value-phase step of a small
                network on the card and on the CPU from the same parameters
-               and minibatches, in float32 and in float64.
+               and minibatches, in float32 and in float64;
+ 11. unit    — the three ShuffleNet-unit kernels (inference, training
+               forward, training backward) against their plain versions at
+               the backbone's three stride-1 maps, at the paths' batches
+               (256 frames in a minibatch, 248 in an evaluation predict,
+               128 in a rollout predict) in float32, and in float64 at each
+               map end to end against autograd of the plain forward; then
+               each timed with CUDA events beside its bound;
+ 12. slice_fused — the safe-s5 evaluation of phase 6 with fused_units=True:
+               its six means beside the record and beside phase 6, and 13
+               inference-kernel launches per predict;
+ 13. train_fused — the stage-s1 epoch of phase 9 with fused_units=True: the
+               same numbers, plus the unit kernels' launches per update and
+               per minibatch;
+ 14. train_agree_fused — phase 10 with fused_units=True: the unit kernels on
+               the card against the plain versions on the CPU.
 With --profile, a last phase breaks an evaluation window and one training
-update down by kernel (torch.profiler).
+update down by kernel (torch.profiler), with and without fused units.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after.  The line before the last lists every ported kernel
-with its launches on the training path, and its error against the plain
-version, its time, the plain version's time and its bound at the training
-path's 32 worlds (--out also records the other sizes and paths).  The last line is the JSON device record.
+with its launches on the training path (the fused training path for the
+unit kernels), and its error against the plain version, its time, the plain
+version's time and its bound at the training path's size: 32 worlds for
+render and physics, the (11, 45, 116) map of a 128-frame rollout predict
+for the inference kernel and of a 256-frame minibatch for the training
+kernels (--out also records the other sizes and paths).  The last line is
+the JSON device record.
 Any failed check raises, and the script exits non-zero; without a CUDA
 device it exits non-zero at once and prints no result.
 """
@@ -269,24 +288,39 @@ def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
     check(err < 1e-3, f"network GPU vs CPU max |diff| {err}")
 
 
-def slice_phase(agent, kernels: dict, out_dir: str) -> dict:
-    from carla_driving_rl_agent_torch.ops import render as R
+# the evaluation metrics held within 4 standard errors of the record
+HELD_METRICS = ("similarity", "speed", "timesteps")
+
+
+def slice_phase(agent, out_dir: str, unfused: dict = None) -> dict:
+    """The shipped evaluation of safe-s5 on Town03 without traffic with
+    `agent` (its fused_units decides the backbone's path); with `unfused`,
+    the means of the unfused run are printed beside."""
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     num_worlds = max(TRIALS + 8, int(TRIALS * 1.25))
-    R.render_planes.launches = 0
     torch.cuda.synchronize()
+    _zero_counts()
     t0 = time.perf_counter()
     record = agent.evaluate(name=f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{TOWN}-no-{SEED}",
                             timesteps=STEPS, trials=TRIALS, initial_seed=SEED,
                             evaluation_dir=out_dir)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = R.render_planes.launches
-    kernels["render_planes"]["launches"] = launches
+    counts = _counts()
+    launches = counts["render_planes"]
     frames = STEPS + 1          # the reset frame, then one per step
     print(f"  render launches {launches}, frames rendered {frames} "
           f"(x {num_worlds} worlds); {num_worlds * STEPS / seconds:.1f} env-steps/s "
           f"({num_worlds} worlds x {STEPS} steps in {seconds:.3f} s)", flush=True)
     check(launches == frames, f"render launches {launches} != frames {frames}")
+    units = counts["shuffle_unit_infer"]
+    if agent.config.fused_units:
+        print(f"  unit inference kernel launches {units}: {units / STEPS:.1f} per predict "
+              f"({STEPS} predicts)", flush=True)
+        check(units == UNITS_PER_PASS * STEPS,
+              f"unit inference launches {units} != {UNITS_PER_PASS} x {STEPS} predicts")
+    else:
+        check(units == 0, f"unfused evaluation launched the unit kernel {units} times")
     with open(REFERENCE) as f:
         ref = json.load(f)
     for m in METRICS:
@@ -294,10 +328,13 @@ def slice_phase(agent, kernels: dict, out_dir: str) -> dict:
         check(len(v) == TRIALS and bool(np.all(np.isfinite(v))), f"{m}: {len(v)} finite values")
         se = ref[f"{m}_std"] / math.sqrt(TRIALS)
         z = (record[f"{m}_mean"] - ref[f"{m}_mean"]) / se if se > 0 else float("nan")
+        beside = (f"   unfused {unfused['means'][m]:.6f}" if unfused else "")
         print(f"  {m:18s} port {record[f'{m}_mean']:.6f} +- {record[f'{m}_std']:.6f}   "
               f"recorded {ref[f'{m}_mean']:.6f} +- {ref[f'{m}_std']:.6f}   "
-              f"(port - recorded) / SE {z:+.3f}", flush=True)
-    return dict(seconds=seconds, env_steps_per_s=num_worlds * STEPS / seconds,
+              f"(port - recorded) / SE {z:+.3f}{beside}", flush=True)
+        if m in HELD_METRICS:
+            check(abs(z) <= 4.0, f"{m} lies {z:+.3f} standard errors from the record")
+    return dict(seconds=seconds, env_steps_per_s=num_worlds * STEPS / seconds, launches=counts,
                 num_worlds=num_worlds,
                 means={m: record[f"{m}_mean"] for m in METRICS},
                 stds={m: record[f"{m}_std"] for m in METRICS},
@@ -331,9 +368,11 @@ def profile_phase(agent, steps: int = 16) -> dict:
     agent.rollout(num_worlds, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    _zero_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         agent.rollout(num_worlds, steps)
         torch.cuda.synchronize()
+    counts = _counts()
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
@@ -348,16 +387,19 @@ def profile_phase(agent, steps: int = 16) -> dict:
                device_idle_share=1.0 - busy / wall,
                kernel_launches_per_step=sum(e.count for e in kern) / steps,
                render_kernel_device_ms=render[0].self_device_time_total / 1e3 / render[0].count,
+               unit_device_ms=_unit_device_ms(kern, counts),
                top_kernels=[dict(name=e.key[:90], count=e.count,
                                  ms_per_step=e.self_device_time_total / 1e3 / steps)
                             for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]])
-    print(f"  per step: predict {out['predict_ms_per_step']:.3f} ms, env step "
+    print(f"  [{'fused_units' if agent.config.fused_units else 'unfused'}] "
+          f"per step: predict {out['predict_ms_per_step']:.3f} ms, env step "
           f"{out['env_step_ms_per_step']:.3f} ms (each synchronised); rollout "
           f"{out['rollout_ms_per_step']:.3f} ms, device busy "
           f"{out['device_busy_ms_per_step']:.3f} ms, idle share "
           f"{out['device_idle_share']:.4f}, {out['kernel_launches_per_step']:.1f} "
           f"kernel launches; render kernel {out['render_kernel_device_ms']:.6f} ms "
-          f"device time per launch", flush=True)
+          f"device time per launch; unit kernels' device ms per call: " + (", ".join(
+              f"{k} {v:.6f}" for k, v in out["unit_device_ms"].items()) or "none"), flush=True)
     for k in out["top_kernels"]:
         print(f"    {k['ms_per_step']:9.4f} ms/step {k['count']:6d}x  {k['name']}", flush=True)
     return out
@@ -440,16 +482,247 @@ def physics_phase(env, kernels: dict) -> None:
         by_worlds=times)
 
 
+# The g=1.0 backbone's stride-1 maps on 90x360 frames: (H, W, C, units).
+UNIT_MAPS = ((11, 45, 116, 3), (6, 23, 232, 7), (3, 12, 464, 3))
+UNITS_PER_PASS = sum(m[3] for m in UNIT_MAPS)
+# frames per backbone pass on the paths: a minibatch, an evaluation predict,
+# a rollout predict (4 frames per sample)
+UNIT_N = dict(train=4 * TRAIN_BATCH, evaluate=4 * max(TRIALS + 8, int(TRIALS * 1.25)),
+              rollout=4 * TRAIN_WORLDS)
+# the conv biases and BatchNorm_1's bias: followed by a training-mode
+# BatchNorm, their true gradient is 0 and what both sides compute is noise
+UNIT_NOISE = ("b1", "dwb", "be2", "b3")
+# phase unit's bars: relative L2 of outputs and batch statistics, relative
+# L2 per gradient tensor, the noise tensors' max |diff| over the unit's
+# largest gradient, and every reading of the float64 cases
+UNIT_BARS = dict(out=1e-5, grad=1e-4, noise=5e-5, float64=1e-10)
+
+
+def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4) -> tuple:
+    """Least time for one unit-kernel call: the bytes its function must move
+    (each input read once, each output written once) over the memory rate,
+    or its float operations over the FP32 peak (the tensor cores are off for
+    parity with the plain version), whichever is larger.  The function is
+    the JAX kernel's: the forward takes x and writes out and the batch
+    statistics, the backward takes x and the output gradient and writes the
+    gradients.  The tensors the port's forward saves for its backward (z1,
+    z2, u) are the kernels' own cost, not the function's.  Operations per
+    pixel: the two 1x1 products 2 * 2 hc^2 and the depthwise 2 * 9 hc
+    (inference and forward); the backward's four products (W3^T g_u, dW3,
+    W1^T g_z1, dW1) 8 hc^2 and its two depthwise passes 36 hc."""
+    hc = c // 2
+    p = n * h * w
+    act = p * c * itemsize
+    params = (2 * hc * hc + 19 * hc) * itemsize
+    stats = 6 * hc * itemsize
+    if kind == "infer":       # x, the parameters and running statistics in; out
+        nbytes, ops = 2 * act + params + stats, p * (4 * hc * hc + 18 * hc)
+    elif kind == "fwd":       # x and the parameters in; out and the batch statistics
+        nbytes, ops = 2 * act + params + stats, p * (4 * hc * hc + 18 * hc)
+    else:                     # x, gout and the parameters in; gx and their gradients
+        nbytes, ops = 3 * act + 2 * params, p * (8 * hc * hc + 36 * hc)
+    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+    return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
+
+
+def _random_unit(c: int, dtype: torch.dtype, seed: int):
+    """A stride-1 unit on the card: flax's initialisers, then random
+    BatchNorm scales, biases and running statistics and random conv biases."""
+    from carla_driving_rl_agent_torch.models.layers import init_flax_
+    from carla_driving_rl_agent_torch.models.shufflenet import ShuffleUnit
+    g = torch.Generator().manual_seed(seed)
+    unit = ShuffleUnit(c, c, 1, fused=True)
+    init_flax_(unit, g)
+    with torch.no_grad():
+        for i in range(3):
+            bn = getattr(unit, f"BatchNorm_{i}")
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+            bn.bias.normal_(0.0, 0.2, generator=g)
+            bn.running_mean.normal_(0.0, 0.3, generator=g)
+            bn.running_var.uniform_(0.5, 2.0, generator=g)
+            getattr(unit, f"Conv_{i}").bias.normal_(0.0, 0.1, generator=g)
+    return unit.to("cuda", dtype)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b||"""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _unit_inputs(n: int, h: int, w: int, c: int, dtype: torch.dtype, seed: int):
+    """x as a unit sees it (activations in [0, 6)) and an output gradient."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = 3.0 * torch.rand((n, c, h, w), generator=g, device="cuda", dtype=dtype)
+    gout = torch.randn((n, c, h, w), generator=g, device="cuda", dtype=dtype)
+    return x, gout
+
+
+def _hold_unit_grads(got, ref, what: str, grad_bar: float, noise_bar: float) -> tuple:
+    """Per-tensor relative L2 (the noise tensors: max |diff| over the
+    largest gradient); returns (worst relative, worst noise, max |diff|)."""
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+    names = ("x",) + SU.UnitOperands._fields
+    top = max(float(r.abs().max()) for r in ref)
+    worst = noise = diff = 0.0
+    for name, a, b in zip(names, got, ref):
+        d = float((a.double() - b.double()).abs().max())
+        diff = max(diff, d)
+        if name in UNIT_NOISE:
+            noise = max(noise, d / top)
+            check(d / top <= noise_bar, f"{what} {name}: max |diff| {d:.3e} over the "
+                                        f"largest gradient {top:.3e} > {noise_bar:.0e}")
+        else:
+            r = _rel(a, b)
+            worst = max(worst, r)
+            check(r <= grad_bar, f"{what} {name}: relative L2 {r:.3e} > {grad_bar:.0e}")
+    return worst, noise, diff
+
+
+def _plain_grads(x: torch.Tensor, unit, gout: torch.Tensor) -> tuple:
+    """The gradients of x and of the unit's 12 operands through autograd of
+    the plain training forward."""
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+    xr = x.detach().requires_grad_(True)
+    leaves = [t.detach().requires_grad_(True) for t in SU.unit_operands(unit)]
+    out = SU._plain(xr, SU.UnitOperands(*leaves), unit.leak)[0]
+    return torch.autograd.grad(out, [xr] + leaves, gout)
+
+
+def unit_phase(kernels: dict) -> dict:
+    """The unit kernels against their plain versions at the backbone's
+    three stride-1 maps, at the paths' batches, in float32; the backward
+    kernel against its plain version on the same saved tensors and batch
+    statistics of the forward kernel (so that both take the same steps of
+    the activation's gradient, which is a step at 0 and 6).  Then float64
+    at each map, end to end through torch.autograd (forward and backward
+    kernels) against autograd of the plain forward.  Each size timed."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import full_float32
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+    full_float32()
+    full = dict(infer={}, fwd={}, bwd={})
+    err = dict(infer=0.0, fwd=0.0, bwd=0.0)
+    for i, (h, w, c, units) in enumerate(UNIT_MAPS):
+        unit = _random_unit(c, torch.float32, seed=i)
+        ops = SU.unit_operands(unit)
+        shape = f"{h}x{w}x{c}"
+        with torch.no_grad():
+            for path in ("evaluate", "rollout"):
+                n = UNIT_N[path]
+                x, _ = _unit_inputs(n, h, w, c, torch.float32, seed=10 * i + n)
+                unit.eval()
+                k, p = SU.shuffle_unit_infer(x, unit), SU.shuffle_unit_infer_plain(x, unit)
+                r = _rel(k, p)
+                check(r <= UNIT_BARS["out"], f"inference kernel at ({n}, {shape}): {r:.3e}")
+                err["infer"] = max(err["infer"], float((k - p).abs().max()))
+                ms = cuda_ms(lambda: SU.shuffle_unit_infer(x, unit), iters=20)
+                plain_ms = cuda_ms(lambda: SU.shuffle_unit_infer_plain(x, unit), iters=10)
+                bound, by = unit_bound_ms("infer", n, h, w, c)
+                full["infer"][f"{n}x{shape}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                                     bound_by=by, rel_l2=r, units=units)
+                print(f"  unit infer ({n}, {c}, {h}, {w}) [{path}]: relative L2 {r:.3e}; "
+                      f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
+                      f"({by})", flush=True)
+            n = UNIT_N["train"]
+            x, gout = _unit_inputs(n, h, w, c, torch.float32, seed=10 * i + n)
+            out, stats, saved = SU._train_fwd_kernel(x, ops, unit.leak)
+            p_out, p_stats = SU.shuffle_unit_train_plain(x, unit)
+            r_out, r_stats = _rel(out, p_out), _rel(stats, p_stats)
+            check(r_out <= UNIT_BARS["out"] and r_stats <= UNIT_BARS["out"],
+                  f"forward kernel at ({n}, {shape}): out {r_out:.3e}, stats {r_stats:.3e}")
+            err["fwd"] = max(err["fwd"], float((out - p_out).abs().max()),
+                             float((stats - p_stats).abs().max()))
+            ms = cuda_ms(lambda: SU._train_fwd_kernel(x, ops, unit.leak), iters=20)
+            plain_ms = cuda_ms(lambda: SU.shuffle_unit_train_plain(x, unit), iters=10)
+            bound, by = unit_bound_ms("fwd", n, h, w, c)
+            full["fwd"][f"{n}x{shape}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                               bound_by=by, rel_l2=max(r_out, r_stats),
+                                               units=units)
+            print(f"  unit train forward ({n}, {c}, {h}, {w}): relative L2 out {r_out:.3e}, "
+                  f"stats {r_stats:.3e}; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms ({by})", flush=True)
+            bwd = lambda: SU.shuffle_unit_train_bwd(x, gout, ops, unit.leak, stats, saved)
+            bwd_plain = lambda: SU.shuffle_unit_train_bwd_plain(x, gout, ops, unit.leak,
+                                                                stats, saved)
+            worst, noise, diff = _hold_unit_grads(bwd(), bwd_plain(), f"backward kernel at "
+                                                  f"({n}, {shape})", UNIT_BARS["grad"],
+                                                  UNIT_BARS["noise"])
+            err["bwd"] = max(err["bwd"], diff)
+            ms, plain_ms = cuda_ms(bwd, iters=20), cuda_ms(bwd_plain, iters=10)
+            bound, by = unit_bound_ms("bwd", n, h, w, c)
+            full["bwd"][f"{n}x{shape}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                                               bound_by=by, rel_l2=worst, noise=noise,
+                                               units=units)
+            print(f"  unit train backward ({n}, {c}, {h}, {w}): gradients' relative L2 <= "
+                  f"{worst:.3e}, noise tensors {noise:.3e} of the largest; kernel {ms:.6f} "
+                  f"ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by})", flush=True)
+            del x, gout, out, stats, saved
+    # float64, end to end at each map: inference, and the autograd.Function
+    # (forward and backward kernels) against autograd of the plain forward
+    n = UNIT_N["train"]
+    bar = UNIT_BARS["float64"]
+    f64 = dict(infer=0.0, out=0.0, stats=0.0, grad=0.0, noise=0.0)
+    for i, (h, w, c, _) in enumerate(UNIT_MAPS):
+        unit = _random_unit(c, torch.float64, seed=7 + i)
+        x, gout = _unit_inputs(n, h, w, c, torch.float64, seed=7 + i)
+        with torch.no_grad():
+            r_inf = _rel(SU.shuffle_unit_infer(x, unit.eval()),
+                         SU.shuffle_unit_infer_plain(x, unit))
+        ops = SU.unit_operands(unit)
+        with torch.no_grad():
+            out, stats = SU._UnitTrain.apply(x, unit.leak, *ops)
+            p_out, p_stats = SU.shuffle_unit_train_plain(x, unit)
+        r_out, r_stats = _rel(out, p_out), _rel(stats, p_stats)
+        check(max(r_inf, r_out, r_stats) <= bar, f"float64 unit at ({n}, {h}x{w}x{c}): infer "
+                                                 f"{r_inf:.3e}, out {r_out:.3e}, stats "
+                                                 f"{r_stats:.3e}")
+        xr = x.clone().requires_grad_(True)
+        out, _ = SU._UnitTrain.apply(xr, unit.leak, *ops)
+        grads = torch.autograd.grad(out, [xr] + list(ops), gout)
+        worst, noise, _ = _hold_unit_grads(grads, _plain_grads(x, unit, gout),
+                                           f"float64 unit ({n}, {c}, {h}, {w})", bar, bar)
+        for k, v in dict(infer=r_inf, out=r_out, stats=r_stats, grad=worst, noise=noise).items():
+            f64[k] = max(f64[k], v)
+        print(f"  unit float64 ({n}, {c}, {h}, {w}), forward and backward kernels through "
+              f"autograd against autograd of the plain forward: relative L2 infer "
+              f"{r_inf:.3e}, out {r_out:.3e}, stats {r_stats:.3e}, gradients <= {worst:.3e}, "
+              f"noise tensors {noise:.3e}", flush=True)
+        del unit, x, gout, xr, out, grads
+    h, w, c, _ = UNIT_MAPS[0]
+    src = "carla_driving_rl_agent_torch/csrc/shuffle_unit.cu"
+    pallas = "carla_driving_rl_agent_tpu/ops/shuffle_unit_pallas.py"
+    # the kernels line: the training path's largest map, a rollout predict
+    # for inference and a minibatch for the training kernels
+    for name, kind, n, line in (("shuffle_unit_infer", "infer", UNIT_N["rollout"], 383),
+                                ("shuffle_unit_train", "fwd", UNIT_N["train"], 286),
+                                ("shuffle_unit_train_bwd", "bwd", UNIT_N["train"], 405)):
+        t = full[kind][f"{n}x{h}x{w}x{c}"]
+        kernels[name] = dict(name=name, route="cuda", source=src,
+                             replaces=f"{pallas}:{line}", launches=None,
+                             max_abs_err=err[kind], ms=t["ms"], plain_ms=t["plain_ms"],
+                             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                             by_shape=full[kind])
+    print("  unit kernels: library call: none computes a ShuffleNet unit", flush=True)
+    return dict(float64=f64, **full)
+
+
 def _zero_counts() -> None:
     from carla_driving_rl_agent_torch.ops import physics as P, render as R
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     R.render_planes.launches = 0
     P.step_physics_batch.launches = 0
+    SU.shuffle_unit_infer.launches = 0
+    SU.shuffle_unit_train.launches = 0
+    SU.shuffle_unit_train_bwd.launches = 0
 
 
 def _counts() -> dict:
     from carla_driving_rl_agent_torch.ops import physics as P, render as R
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     return dict(render_planes=R.render_planes.launches,
-                step_physics_batch=P.step_physics_batch.launches)
+                step_physics_batch=P.step_physics_batch.launches,
+                shuffle_unit_infer=SU.shuffle_unit_infer.launches,
+                shuffle_unit_train=SU.shuffle_unit_train.launches,
+                shuffle_unit_train_bwd=SU.shuffle_unit_train_bwd.launches)
 
 
 
@@ -503,13 +776,15 @@ def env_phase() -> dict:
 
 
 
-def train_phase(out_dir: str) -> tuple:
+def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
     """Stage s1 at the shipped geometry for one epoch (5 updates), from a
-    fresh seeded network; returns (stage, summary)."""
+    fresh seeded network, with the backbone's stride-1 units unfused or on
+    the unit kernels; returns (stage, summary)."""
     from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent
     from carla_driving_rl_agent_torch.curriculum import stages
     stage = stages.stage_s1(episodes=TRAIN_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
                             num_envs=TRAIN_WORLDS, rollout_block=True,
+                            fused_units=fused_units,
                             weights_dir=os.path.join(out_dir, "weights-torch"),
                             env_overrides=dict(fused_step=True, device="cuda"))
     stage.init()
@@ -538,6 +813,14 @@ def train_phase(out_dir: str) -> tuple:
           f"physics launches {counts['step_physics_batch']}")
     check(counts["render_planes"] == TRAIN_UPDATES * TRAIN_STEPS // 4 + 1,
           f"render launches {counts['render_planes']}")
+    # per update: a predict per 4-step block and the bootstrap value's pass
+    # (inference), and a training pass of each minibatch of the two phases
+    minibatches = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
+    passes = dict(shuffle_unit_infer=TRAIN_STEPS // 4 + 1, shuffle_unit_train=minibatches,
+                  shuffle_unit_train_bwd=minibatches)
+    for name, per_update in passes.items():
+        want = TRAIN_UPDATES * per_update * UNITS_PER_PASS if fused_units else 0
+        check(counts[name] == want, f"{name} launches {counts[name]} != {want}")
     parts = {k: [m[f"seconds_{k}"] for m in history]
              for k in ("rollout", "targets", "policy", "value")}
     update_s = sum(sum(v) for v in parts.values())
@@ -550,6 +833,12 @@ def train_phase(out_dir: str) -> tuple:
         + f"; launches per update: physics {counts['step_physics_batch'] / TRAIN_UPDATES:.0f}, "
           f"render {(counts['render_planes'] - 1) / TRAIN_UPDATES:.0f} (+1 at the reset)",
         flush=True)
+    if fused_units:
+        print("  unit kernel launches per update: " + ", ".join(
+            f"{k} {counts[k] / TRAIN_UPDATES:.0f}" for k in passes)
+            + f"; per minibatch: forward {counts['shuffle_unit_train'] / (TRAIN_UPDATES * minibatches):.0f}"
+              f", backward {counts['shuffle_unit_train_bwd'] / (TRAIN_UPDATES * minibatches):.0f}",
+            flush=True)
     for i, m in enumerate(history):
         print(f"  update {i + 1}: " + ", ".join(
             f"{k} {m[k]:.6g}" for k in ("reward_mean", "loss_policy", "loss_value",
@@ -635,11 +924,13 @@ def _rel_l2(xs: dict, refs: dict, names) -> float:
     return math.sqrt(num / den) if den > 0 else (0.0 if num == 0 else math.inf)
 
 
-def train_agree_phase(env) -> dict:
+def train_agree_phase(env, fused_units: bool = False) -> dict:
     """One policy-phase step and one value-phase step of a small network,
     each from the same fresh parameters and minibatch, on the card and on
     the CPU, in float64 and then in float32, held to TRAIN_AGREE_BARS.  The
-    card computes in full float32, as the trainer does (no TF32)."""
+    card computes in full float32, as the trainer does (no TF32).  With
+    `fused_units` the card runs the unit kernels (float32 and float64
+    instantiations) and the CPU their plain versions."""
     from carla_driving_rl_agent_torch.agents.carla_agent import (
         CARLAgent, CARLAgentConfig, full_float32)
     from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
@@ -672,13 +963,19 @@ def train_agree_phase(env) -> dict:
         for phase in ("policy", "value"):
             runs = []
             for e in (env, cpu_env):
-                agent = CARLAgent(e, CARLAgentConfig(network=TINY_NET, seed=3))
+                agent = CARLAgent(e, CARLAgentConfig(network=TINY_NET, seed=3,
+                                                     fused_units=fused_units))
                 agent.network.to(dtype)
                 conv = lambda t: {k: conv(v) if isinstance(v, dict) else
                                   torch.from_numpy(v).to(e.device, dtype) for k, v in t.items()}
                 before = {k: v.detach().cpu().clone()
                           for k, v in agent.network.state_dict().items()}
+                _zero_counts()
                 loss, grads = _phase_step(agent, phase, conv(batches[phase]), hyper)
+                if e is env and fused_units:
+                    c = _counts()
+                    check(c["shuffle_unit_train"] > 0 and c["shuffle_unit_train_bwd"] > 0,
+                          f"train_agree's card step launched the unit kernels: {c}")
                 after = {k: v.detach().cpu() for k, v in agent.network.state_dict().items()}
                 runs.append((loss, grads, {k: after[k] - before[k] for k in after}))
             (lg, gg, dg), (lc, gc, dc) = runs
@@ -694,7 +991,8 @@ def train_agree_phase(env) -> dict:
                                      default=0.0),
                      max_delta_diff=max(float((dg[k] - dc[k]).abs().max()) for k in dg),
                      held=len(held), noise=len(noise[phase]), buffers=len(buffers))
-            print(f"  train_agree {name} {phase} step: loss card {lg:.12g} cpu {lc:.12g}; "
+            print(f"  train_agree{' fused_units' if fused_units else ''} {name} {phase} step: "
+                  f"loss card {lg:.12g} cpu {lc:.12g}; "
                   f"relative differences: loss {r['loss']:.3e}, gradients {r['grad']:.3e} "
                   f"({r['held']} tensors), parameter changes {r['param']:.3e}, BatchNorm "
                   f"buffer changes {r['buffer']:.3e} ({r['buffers']}); the {r['noise']} "
@@ -712,23 +1010,67 @@ def train_agree_phase(env) -> dict:
 PROFILE_ROLLOUT_STEPS = 32
 
 
+# the launches of one call of each unit-kernel wrapper, by kernel name
+UNIT_KERNEL_NAMES = dict(
+    shuffle_unit_infer=("k_pw1<float, false>", "k_tail_infer<float>"),
+    shuffle_unit_train=("k_pw1<float, true>", "k_stats_final<float>", "k_dw_train<float>",
+                        "k_pw3_train<float>", "k_out_train<float>"),
+    shuffle_unit_train_bwd=("k_bn3_sums<float>", "k_sum_final<float>", "k_pw3_back<float>",
+                            "k_dw_back<float>", "k_pw1_back<float>", "k_wgrad<float"))
+
+
+def _unit_device_ms(kern, counts: dict) -> dict:
+    """Device milliseconds per wrapper call of each unit kernel that ran,
+    from the profiler's kernels and the wrappers' launch counts."""
+    out = {}
+    for name, keys in UNIT_KERNEL_NAMES.items():
+        if counts.get(name):
+            us = sum(e.self_device_time_total for e in kern if any(k in e.key for k in keys))
+            out[name] = us / 1e3 / counts[name]
+    return out
+
+
 def profile_train_phase(agent) -> dict:
     """A quarter-length training update under torch.profiler (rollouts of 32
     steps: 8 blocks, 16 minibatches per phase, the parts in the shipped
     proportions): device busy time, idle share, launches and the largest
-    kernels."""
+    kernels; then one policy-phase and one value-phase minibatch of that
+    rollout alone: launches, device time and wall time per minibatch."""
     from torch.profiler import ProfilerActivity, profile
     steps = agent.config.rollout_steps
     agent.config.rollout_steps = PROFILE_ROLLOUT_STEPS
     states, _ = agent.env.reset_batch(agent.config.num_envs)
     hyper = dict(clip_ratio=0.2, entropy=0.1, adv_scale=2.0)
     torch.cuda.synchronize()
+    _zero_counts()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         agent.train_iteration(states, hyper)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = _counts()
+    states, traj, final_obs = agent.collect(states)
+    data = agent.targets(traj, final_obs, states.last_action, hyper["adv_scale"])
+    batch = agent.gather_batch(data, torch.arange(agent.config.batch_size,
+                                                  device=agent.env.device))
     agent.config.rollout_steps = steps
+    agent.policy_step(batch, hyper)
+    agent.value_step(batch)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as mb_prof:
+        agent.policy_step(batch, hyper)
+        agent.value_step(batch)
+        torch.cuda.synchronize()
+    mb_wall = (time.perf_counter() - t1) / 2
+    mb_counts = _counts()
+    mb_kern = [e for e in mb_prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    mb_busy = sum(e.self_device_time_total for e in mb_kern) / 1e6 / 2
+    minibatch = dict(launches=sum(e.count for e in mb_kern) / 2, device_busy_s=mb_busy,
+                     wall_s=mb_wall, device_idle_share=1.0 - mb_busy / mb_wall,
+                     unit_device_ms=_unit_device_ms(mb_kern, mb_counts))
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
@@ -743,12 +1085,19 @@ def profile_train_phase(agent) -> dict:
         ev = [e for e in kern if name in e.key]
         if ev:
             out[f"{name}_device_ms"] = ev[0].self_device_time_total / 1e3 / ev[0].count
-    print(f"  a {PROFILE_ROLLOUT_STEPS}-step update under the profiler: wall {wall:.3f} s, "
-          f"device busy {busy:.3f} s, idle share {out['device_idle_share']:.4f}, "
-          f"{out['kernel_launches']} kernel launches; physics kernel "
-          f"{out.get('physics_kernel_device_ms', float('nan')):.6f} ms and render kernel "
+    out.update(unit_device_ms=_unit_device_ms(kern, counts), minibatch=minibatch)
+    label = "fused_units" if agent.config.fused_units else "unfused"
+    print(f"  [{label}] a {PROFILE_ROLLOUT_STEPS}-step update under the profiler: wall "
+          f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
+          f"{out['device_idle_share']:.4f}, {out['kernel_launches']} kernel launches; physics "
+          f"kernel {out.get('physics_kernel_device_ms', float('nan')):.6f} ms and render kernel "
           f"{out.get('render_kernel_device_ms', float('nan')):.6f} ms device time per launch",
           flush=True)
+    print(f"  [{label}] one minibatch (policy and value steps averaged): "
+          f"{minibatch['launches']:.0f} kernel launches, wall {mb_wall:.4f} s, device busy "
+          f"{mb_busy:.4f} s, idle share {minibatch['device_idle_share']:.4f}; unit kernels' "
+          f"device ms per call: " + (", ".join(
+              f"{k} {v:.6f}" for k, v in out["unit_device_ms"].items()) or "none"), flush=True)
     for k in out["top_kernels"]:
         print(f"    {k['ms']:10.3f} ms {k['count']:7d}x  {k['name']}", flush=True)
     return out
@@ -768,6 +1117,7 @@ def main(argv=None) -> int:
     from carla_driving_rl_agent_torch.curriculum import stages
     from carla_driving_rl_agent_torch.ops import physics as P
     from carla_driving_rl_agent_torch.ops import render as R
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     from carla_driving_rl_agent_torch.utils.build import build_parallel
 
     summary = dict(phases={})
@@ -782,7 +1132,7 @@ def main(argv=None) -> int:
               f"{torch.version.cuda}", flush=True)
     summary["phases"]["device"] = p.seconds
     with Phase("build") as p:
-        build_parallel([R.build_kernel, P.build_kernel, native._lib])
+        build_parallel([R.build_kernel, P.build_kernel, SU.build_kernel, native._lib])
     summary["phases"]["build"] = p.seconds
     with Phase("setup") as p:
         agent = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda")
@@ -795,9 +1145,8 @@ def main(argv=None) -> int:
     summary["phases"]["agree"] = p.seconds
     launches = {}
     with tempfile.TemporaryDirectory() as out_dir, Phase("slice") as p:
-        _zero_counts()
-        summary["slice"] = slice_phase(agent, kernels, out_dir)
-        launches["evaluate"] = _counts()
+        summary["slice"] = slice_phase(agent, out_dir)
+        launches["evaluate"] = summary["slice"].pop("launches")
     summary["phases"]["slice"] = p.seconds
     with Phase("physics") as p:
         physics_phase(agent.env, kernels)
@@ -813,16 +1162,56 @@ def main(argv=None) -> int:
     with Phase("train_agree") as p:
         summary["train_agree"] = train_agree_phase(stage.env)
     summary["phases"]["train_agree"] = p.seconds
+    with Phase("unit") as p:
+        summary["unit"] = unit_phase(kernels)
+    summary["phases"]["unit"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("slice_fused") as p:
+        fused_agent = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda",
+                                              fused_units=True)
+        summary["slice_fused"] = slice_phase(fused_agent, out_dir, unfused=summary["slice"])
+        launches["evaluate_fused"] = summary["slice_fused"].pop("launches")
+    summary["phases"]["slice_fused"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("train_fused") as p:
+        stage_fused, summary["train_fused"] = train_phase(out_dir, fused_units=True)
+        launches["train_fused"] = summary["train_fused"].pop("launches")
+        print("  seconds per update, fused_units on / off: " + ", ".join(
+            f"{k} {summary['train_fused']['parts_mean_s'][k]:.4f} / "
+            f"{summary['train']['parts_mean_s'][k]:.4f}" for k in summary["train"]["parts_mean_s"])
+            + f"; train env-steps/s {summary['train_fused']['env_steps_per_s']:.1f} / "
+              f"{summary['train']['env_steps_per_s']:.1f}", flush=True)
+    summary["phases"]["train_fused"] = p.seconds
+    with Phase("train_agree_fused") as p:
+        summary["train_agree_fused"] = train_agree_phase(stage.env, fused_units=True)
+    summary["phases"]["train_agree_fused"] = p.seconds
     if args.profile:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)
+            summary["profile_fused"] = profile_phase(fused_agent)
             summary["profile_train"] = profile_train_phase(stage.agent)
+            summary["profile_train_fused"] = profile_train_phase(stage_fused.agent)
         summary["phases"]["profile"] = p.seconds
 
     for name, kr in kernels.items():
-        kr["launches"] = launches["train"][name]
+        # the unit kernels run on the training path with fused_units=True
+        path = "train_fused" if name.startswith("shuffle_unit") else "train"
+        kr["launches"] = launches[path][name]
+        check(kr["launches"] > 0, f"{name} was not launched on the {path} path")
         kr["launches_by_path"] = {path: c[name] for path, c in launches.items()}
-    summary.update(card=smi, kernels=kernels)
+    # what each kernel costs a training update beyond its bound: launches per
+    # update x (ms - bound_ms), the unit kernels summed over their maps
+    excess = {}
+    for name, kr in kernels.items():
+        per_update = kr["launches"] / TRAIN_UPDATES
+        if name.startswith("shuffle_unit"):
+            n = UNIT_N["rollout" if name == "shuffle_unit_infer" else "train"]
+            rows = [kr["by_shape"][f"{n}x{h}x{w}x{c}"] for h, w, c, _ in UNIT_MAPS]
+            per_pass = sum(u * (t["ms"] - t["bound_ms"]) for (*_, u), t in zip(UNIT_MAPS, rows))
+            excess[name] = per_update / UNITS_PER_PASS * per_pass / 1e3
+        else:
+            excess[name] = per_update * (kr["ms"] - kr["bound_ms"]) / 1e3
+    print("  launches x (time - bound) per training update: " + ", ".join(
+        f"{k} {v:.6f} s" for k, v in sorted(excess.items(), key=lambda kv: -kv[1])), flush=True)
+    summary.update(card=smi, kernels=kernels, excess_s_per_update=excess)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

@@ -157,7 +157,7 @@ import chip_smoke
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 need = ["carla_driving_rl_agent_torch." + m for m in (
-    "main", "ops.physics", "ops.render", "envs.carla_env", "agents.rollout",
+    "main", "ops.physics", "ops.render", "ops.shuffle_unit", "envs.carla_env", "agents.rollout",
     "agents.carla_agent", "utils.math", "utils.optimizers", "utils.schedules",
     "utils.checkpoint", "curriculum.stages", "models.layers", "models.recurrent")]
 missing = [m for m in need if m not in sys.modules]

@@ -11,7 +11,10 @@ utils/checkpoint.params_from_jax):
     (the samples an injected permutation picks): every parameter and
     running statistic afterwards, against the JAX learner's step
     (carla_agent.py:711-785) composed from the JAX package's functions;
-  * a CPU learn() of 2 updates on Town02, save/load, and stage_s1.run2.
+  * a CPU learn() of 2 updates on Town02, save/load, and stage_s1.run2;
+  * the same two steps with fused_units=True (the backbone's stride-1
+    units through the fused op, whose plain version runs on the CPU), and
+    the CLI's --fused-units.
 
 Tolerances: BatchNorm and the objective terms (float32, the heads fed the
 same dynamics feature) 1e-5: float32 in another summation order.  The
@@ -139,13 +142,13 @@ def _f64(tree):
     return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
 
 
-def _x64(env, jnet_init):
+def _x64(env, jnet_init, **cfg):
     """The JAX network computing in float64 with float64 parameters, and a
     port agent holding the same parameters in double.  Call inside
     jax.enable_x64(True)."""
     _, params, stats = jnet_init
     jnet = JNet(**TINY_NET, compute_dtype=jnp.float64)
-    agent = _agent(env, jnet_init)
+    agent = _agent(env, jnet_init, **cfg)
     agent.network.double()
     return jnet, _f64(params), _f64(stats), agent
 
@@ -278,8 +281,20 @@ def test_phase_gradients_match_jax(env, jnet_init, phase):
 def test_policy_and_value_steps_match_jax(env, jnet_init):
     """One policy-phase step then one value-phase step, from the same
     parameters, Adam states and minibatches."""
+    _steps_match_jax(env, jnet_init)
+
+
+def test_fused_units_steps_match_jax(env, jnet_init):
+    """The same two steps with fused_units=True (the backbone's stride-1
+    units through the fused op, its plain version on the CPU: forward,
+    batch statistics, fold and backward) against the JAX learner's unfused
+    steps, at the same bars."""
+    _steps_match_jax(env, jnet_init, fused_units=True)
+
+
+def _steps_match_jax(env, jnet_init, **cfg):
     with jax.enable_x64(True):
-        jnet, params, stats, agent = _x64(env, jnet_init)
+        jnet, params, stats, agent = _x64(env, jnet_init, **cfg)
         jb_p, tb_p = _batch64(3)
         jb_v, tb_v = _batch64(4)
         # the JAX learner's policy_minibatch then value_minibatch
@@ -390,6 +405,36 @@ def test_stage_s1_run2(tmp_path):
 
 def test_unported_options_raise(env):
     for kw in (dict(fused_update=True), dict(compute_dtype="bfloat16"),
-               dict(aug_intensity=1.0), dict(fused_units=True), dict(optimizer="sgd")):
+               dict(aug_intensity=1.0), dict(optimizer="sgd")):
         with pytest.raises(NotImplementedError):
             CARLAgent(env, CARLAgentConfig(network=TINY_NET, **kw))
+
+
+def test_cli_fused_units_smoke(tmp_path, monkeypatch):
+    """`python -m carla_driving_rl_agent_torch.main --fused-units` on the CPU,
+    cut to one update of 4 worlds x 8 steps of a tiny network on Town02: the
+    flag reaches the agent, every stride-1 unit runs fused, and the
+    checkpoint is written."""
+    from carla_driving_rl_agent_torch import main as cli
+    made, stage_s1 = [], stages.stage_s1
+
+    def small_stage_s1(**kw):
+        kw.update(network=TINY_NET, town="Town02",
+                  env_overrides=dict(kw["env_overrides"], num_routes=8, image_shape=(45, 60, 3)))
+        made.append(stage_s1(**kw))
+        return made[-1]
+
+    monkeypatch.setattr(cli, "EPISODES", 1)
+    monkeypatch.setattr(cli, "TIMESTEPS", 8)
+    monkeypatch.setattr(cli, "BATCH", 16)
+    monkeypatch.setattr(cli.stages, "stage_s1", small_stage_s1)
+    rc = cli.main(["--stage", "s1", "--epochs", "1", "--num-envs", "4", "--block",
+                   "--fused-step", "--fused-units", "--device", "cpu",
+                   "--weights-dir", str(tmp_path)])
+    assert rc == 0
+    agent = made[0].agent
+    assert agent.config.fused_units and agent.update_step == 1
+    backbone = agent.network.dynamics.ShuffleNetV2_0
+    units = [getattr(backbone, f"ShuffleUnit_{i}") for i in range(backbone.num_units)]
+    assert [u.fused for u in units] == [u.stride == 1 for u in units]
+    assert (tmp_path / "stage-s1" / "network.pt").exists()

@@ -3,12 +3,15 @@ shipped safe-s5 checkpoint converted by the port's own reader.
 
 Tolerances: the checkpoint reader is exact; each ShuffleNet unit 1e-5 (one
 unit's float32 convolutions in another summation order); the whole
-backbone and predict's outputs 1e-4 absolute (BatchNorm amplifies float32
+backbone (also with fused_units=True, whose stride-1 units run their fused
+op's plain version on the CPU, in inference and in training mode) and
+predict's outputs 1e-4 absolute, the folded BatchNorm buffers 1e-5 (BatchNorm amplifies float32
 rounding ~30x per layer through the 16 units, CLAUDE.md:292-300; measured
 differences are ~1e-6); Beta log_prob/entropy 1e-5; Beta sampling moments
 within 5 standard errors of the analytic mean and variance.
 """
 
+import copy
 import os
 
 import jax
@@ -24,6 +27,7 @@ from carla_driving_rl_agent_tpu.models.distributions import Beta as JBeta
 
 from carla_driving_rl_agent_torch.models.carla_network import CARLANetwork
 from carla_driving_rl_agent_torch.models.distributions import Beta, sample_gamma
+from carla_driving_rl_agent_torch.models.shufflenet import ShuffleNetV2
 from carla_driving_rl_agent_torch.utils import checkpoint as ckpt
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -179,3 +183,70 @@ def test_gamma_sampling_mean():
     for k in (0.5, 1.0, 4.0):
         s = sample_gamma(torch.full((40000,), k), g).double()
         assert abs(float(s.mean()) - k) < 5 * (k / 40000) ** 0.5
+
+
+# ------------------------------------------------------------------
+# fused_units: the backbone's stride-1 units as fused ops (their plain
+# versions on the CPU) against the JAX package's unfused flax backbone
+# ------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def small_backbone():
+    """JAX ShuffleNetV2(g=0.5, last_channels=64) with random running
+    statistics, and the port's fused_units=True backbone holding the same
+    trees; tests/test_networks.py's 48x64 input."""
+    x = np.array(jax.random.normal(jax.random.PRNGKey(7), (2, 2, 48, 64, 3), jnp.float32))
+    jnet = jsn.ShuffleNetV2(g=0.5, last_channels=64, fused_units=False)
+    v = jnet.init(jax.random.PRNGKey(0), jnp.asarray(x), training=False)
+    rng = np.random.default_rng(0)
+    stats = jax.tree_util.tree_map(
+        lambda a: np.asarray(a) + rng.uniform(-0.2, 0.2, np.shape(a)).astype(np.float32),
+        v["batch_stats"])
+    params = jax.tree_util.tree_map(np.asarray, v["params"])
+    wrap = lambda t, comps: dict({"dynamics": {"ShuffleNetV2_0": t}}, **{c: {} for c in comps})
+    sd = ckpt.params_from_jax(wrap(params, ("policy", "old_policy", "value")),
+                              wrap(stats, ("policy", "value")))
+    prefix = "dynamics.ShuffleNetV2_0."
+    net = ShuffleNetV2(g=0.5, last_channels=64, fused_units=True)
+    net.load_state_dict({k[len(prefix):]: t for k, t in sd.items()}, strict=True)
+    return jnet, params, stats, net, x
+
+
+def test_fused_backbone_units():
+    net = ShuffleNetV2(g=0.5, last_channels=64, fused_units=True)
+    units = [getattr(net, f"ShuffleUnit_{i}") for i in range(net.num_units)]
+    assert [u.fused for u in units] == [u.stride == 1 for u in units]
+    assert sum(u.fused for u in units) == 13
+    assert set(net.state_dict()) == set(ShuffleNetV2(g=0.5, last_channels=64).state_dict())
+
+
+def test_fused_backbone_infer_matches_jax(small_backbone):
+    jnet, params, stats, net, x = small_backbone
+    ref = jnet.apply({"params": params, "batch_stats": stats}, jnp.asarray(x), training=False)
+    with torch.no_grad():
+        out = net.eval()(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+
+
+def test_fused_backbone_train_and_fold_match_jax(small_backbone):
+    """Training mode: the output and every folded BatchNorm buffer (the
+    fused units fold their three BatchNorms' batch statistics once)."""
+    jnet, params, stats, net, x = small_backbone
+    net = copy.deepcopy(net).train()
+    ref, mut = jnet.apply({"params": params, "batch_stats": stats}, jnp.asarray(x),
+                          training=True, mutable=["batch_stats"])
+    with torch.no_grad():
+        out = net(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
+    wrap = lambda t, comps: dict({"dynamics": {"ShuffleNetV2_0": t}}, **{c: {} for c in comps})
+    folded = ckpt.params_from_jax(wrap(params, ("policy", "old_policy", "value")),
+                                  wrap(mut["batch_stats"], ("policy", "value")))
+    prefix = "dynamics.ShuffleNetV2_0."
+    sd = net.state_dict()
+    n = 0
+    for k, v in folded.items():
+        if "running" in k:
+            np.testing.assert_allclose(sd[k[len(prefix):]].numpy(), v.numpy(), rtol=0,
+                                       atol=1e-5, err_msg=k)
+            n += 1
+    assert n == 2 * (2 + 13 * 3 + 3 * 5)

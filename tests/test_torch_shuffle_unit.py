@@ -1,0 +1,358 @@
+"""The port's fused stride-1 ShuffleNet unit (ops/shuffle_unit.py) against
+the JAX package on the CPU: its plain versions and the CUDA kernels' own
+arithmetic (csrc/shuffle_unit.cuh built with g++, the `_*_host` helpers),
+against JAX `shuffle_unit_infer` / `shuffle_unit_train` with interpret=True
+(the Pallas kernels, as tests/test_shuffle_halo.py runs them) and against
+the flax `ShuffleUnit`, at N, H, W, C = 4, 5, 6, 16 and at a shape whose
+half width C/2 = 9 is odd.  Parameters (random BatchNorm scales, biases and
+running statistics, random conv biases) go across through
+utils/checkpoint.params_from_jax.
+
+Tolerances (float32): outputs and batch statistics 1e-5 absolute (values
+of order 1-6; one unit's sums in another order); gradients 1e-4 relative
+per tensor (its max |diff| over its max |value|; the backward's plain
+version and the host build take the same steps of the activation's
+gradient as each other, from the same saved tensors), except the four tensors
+whose true gradient is zero (the conv biases Conv_0, Conv_1, Conv_2 and
+BatchNorm_1's bias, each followed by a training-mode BatchNorm, BN2
+through the linear W3): their gradients are rounding noise of ~1e-6
+against ~10-60 for the others, and are held absolutely, to 1e-5 of the
+unit's largest gradient.  The float64 instantiation of the host build is
+held to the plain version in float64 at 1e-10.  The `cuda`-marked test
+holds the kernels against the plain versions on the card and skips here.
+"""
+
+import ctypes
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from carla_driving_rl_agent_tpu.models.shufflenet import ShuffleUnit as JUnit
+from carla_driving_rl_agent_tpu.models.shufflenet import channel_shuffle as jshuffle
+from carla_driving_rl_agent_tpu.ops import shuffle_unit_pallas as sup
+
+from carla_driving_rl_agent_torch.models.shufflenet import ShuffleUnit, channel_shuffle
+from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+from carla_driving_rl_agent_torch.utils.build import csrc, load_library
+from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax
+
+SHAPES = {"even": (4, 5, 6, 16), "odd": (3, 4, 7, 18)}
+NAMES = ("x",) + SU.UnitOperands._fields
+NOISE = ("b1", "dwb", "be2", "b3")
+ATOL = 1e-5
+
+
+def _host_lib() -> ctypes.CDLL:
+    """The kernels' arithmetic built with g++ (csrc/shuffle_unit_host.cpp)."""
+    sig = (None, [ctypes.POINTER(SU._Args), ctypes.c_int])
+    return load_library(
+        "shuffle_unit_host", [csrc("shuffle_unit_host.cpp")], "g++",
+        {f"{f}_host": sig for f in ("cdrl_unit_infer", "cdrl_unit_train_fwd",
+                                    "cdrl_unit_train_bwd")},
+        extra_deps=[csrc("shuffle_unit.cuh")], extra_flags=["-ffp-contract=off"])
+
+
+def _infer_host(x: torch.Tensor, unit) -> torch.Tensor:
+    """The inference kernel's arithmetic on CPU tensors, through the
+    wrappers' operand checks."""
+    n, c, h, w = x.shape
+    out = torch.empty_like(x)
+    a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype)
+    args = SU._pack(x, SU.unit_operands(unit), unit.leak, SU.running_stats(unit), out=out, z1=a1)
+    _host_lib().cdrl_unit_infer_host(ctypes.byref(args), SU._DTYPES[x.dtype])
+    return out
+
+
+def _train_host(x: torch.Tensor, unit, gout: torch.Tensor):
+    """The forward and backward kernels' arithmetic on CPU tensors: (out,
+    stats, saved (z1, z2, u), gradients in shuffle_unit_train_bwd's order)."""
+    ops = SU.UnitOperands(*(t.detach() for t in SU.unit_operands(unit)))
+    bufs, stats = SU._fwd_buffers(x)
+    args = SU._pack(x, ops, unit.leak, stats, **bufs)
+    _host_lib().cdrl_unit_train_fwd_host(ctypes.byref(args), SU._DTYPES[x.dtype])
+    b = SU._bwd_buffers(x)
+    args = SU._pack(x, ops, unit.leak, stats, gout=gout, z1=bufs["z1"], z2=bufs["z2"],
+                    u=bufs["u"], **b)
+    _host_lib().cdrl_unit_train_bwd_host(ctypes.byref(args), SU._DTYPES[x.dtype])
+    return bufs["out"], bufs["stats"], (bufs["z1"], bufs["z2"], bufs["u"]), SU._grads(b)
+
+
+def _autograd_grads(x: torch.Tensor, unit, gout: torch.Tensor) -> tuple:
+    """The gradients of x and of the 12 operands through autograd of the
+    plain training forward."""
+    xr = x.detach().requires_grad_(True)
+    leaves = [t.detach().requires_grad_(True) for t in SU.unit_operands(unit)]
+    out = SU._plain(xr, SU.UnitOperands(*leaves), unit.leak)[0]
+    return torch.autograd.grad(out, [xr] + leaves, gout)
+
+
+def _to_torch_unit(params, stats, c, **kw) -> ShuffleUnit:
+    """A port ShuffleUnit holding a flax unit's trees (through
+    params_from_jax, under a dummy network path)."""
+    wrap = lambda t: {"dynamics": {"U": t}, "policy": {}, "old_policy": {}, "value": {}}
+    sd = params_from_jax(wrap(params), {"dynamics": {"U": stats}, "policy": {}, "value": {}})
+    unit = ShuffleUnit(c, c, 1, **kw)
+    unit.load_state_dict({k[len("dynamics.U."):]: v for k, v in sd.items()}, strict=True)
+    return unit
+
+
+def _nchw(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.moveaxis(np.asarray(a), -1, 1)))
+
+
+class Case:
+    """One unit and its JAX references (computed once per shape)."""
+
+    def __init__(self, shape):
+        n, h, w, c = shape
+        rng = np.random.default_rng(c)
+        self.c = c
+        self.x = rng.normal(0.0, 1.0, shape).astype(np.float32)
+        self.g = rng.normal(0.0, 1.0, shape).astype(np.float32)
+        unit = JUnit(num_channels=c, stride=1)
+        v = unit.init(jax.random.PRNGKey(c), jnp.asarray(self.x), training=False)
+        P = jax.tree_util.tree_map(np.asarray, v["params"])
+        S = jax.tree_util.tree_map(np.asarray, v["batch_stats"])
+        for i in range(3):
+            bn, k = f"BatchNorm_{i}", P[f"BatchNorm_{i}"]["scale"].shape[0]
+            P[bn] = dict(scale=rng.uniform(0.5, 1.5, k).astype(np.float32),
+                         bias=rng.normal(0.0, 0.2, k).astype(np.float32))
+            S[bn] = dict(mean=rng.normal(0.0, 0.3, k).astype(np.float32),
+                         var=rng.uniform(0.5, 2.0, k).astype(np.float32))
+        for conv in ("Conv_0", "Conv_1", "Conv_2"):
+            P[conv]["bias"] = rng.normal(0.0, 0.1, P[conv]["bias"].shape).astype(np.float32)
+        self.P, self.S, self.unit = P, S, unit
+        x, g = jnp.asarray(self.x), jnp.asarray(self.g)
+        # JAX references: the Pallas kernels in interpret mode, and flax
+        self.infer_kernel = np.asarray(sup.shuffle_unit_infer(x, P, S, interpret=True))
+        self.infer_flax = np.asarray(unit.apply({"params": P, "batch_stats": S}, x,
+                                                training=False))
+        out, bst = sup.shuffle_unit_train(x, P, interpret=True)
+        self.train_kernel = np.asarray(out)
+        self.stats_kernel = np.stack([np.asarray(bst[f"BatchNorm_{i}"][m])
+                                      for i in range(3) for m in ("mean", "var")])
+        out, mut = unit.apply({"params": P, "batch_stats": S}, x, training=True,
+                              mutable=["batch_stats"])
+        self.train_flax = np.asarray(out)
+        self.folded_flax = jax.tree_util.tree_map(np.asarray, mut["batch_stats"])
+
+        def loss_kernel(p, xx):
+            return jnp.sum(sup.shuffle_unit_train(xx, p, interpret=True)[0] * g)
+
+        def loss_flax(p, xx):
+            y, _ = unit.apply({"params": p, "batch_stats": S}, xx, training=True,
+                              mutable=["batch_stats"])
+            return jnp.sum(y * g)
+
+        self.grads_kernel = self._grads(jax.grad(loss_kernel, argnums=(0, 1))(P, x))
+        self.grads_flax = self._grads(jax.grad(loss_flax, argnums=(0, 1))(P, x))
+
+    def _grads(self, gp_gx):
+        """JAX (param grads, x grad) -> a tuple in NAMES order, the port's
+        layouts."""
+        gp, gx = gp_gx
+        holder = _to_torch_unit(jax.tree_util.tree_map(np.asarray, gp), self.S, self.c)
+        return (_nchw(gx),) + tuple(t.detach().clone() for t in SU.unit_operands(holder))
+
+    def port_unit(self, **kw) -> ShuffleUnit:
+        return _to_torch_unit(self.P, self.S, self.c, **kw)
+
+
+@pytest.fixture(scope="module", params=sorted(SHAPES))
+def case(request):
+    return Case(SHAPES[request.param])
+
+
+def _hold_grads(got, ref, what):
+    top = max(float(r.abs().max()) for r in ref)
+    for name, a, b in zip(NAMES, got, ref):
+        a, b = a.detach().double(), b.double()
+        assert a.shape == b.shape, (what, name)
+        err = float((a - b).abs().max())
+        if name in NOISE:
+            assert float(b.abs().max()) < 1e-6 * top, (what, name, "is not noise")
+            assert err <= 1e-5 * top, (what, name, err, top)
+        else:
+            assert err <= 1e-4 * float(b.abs().max()), (what, name, err, float(b.abs().max()))
+
+
+@pytest.mark.parametrize("c", [16, 18, 116, 232, 464, 14])
+def test_shuffle_destination_map(c):
+    """Concat channel i lands at (i % 2) * c/2 + i // 2, for even and odd
+    c/2, in the port's channel_shuffle, the plain unit's shuffle and JAX's
+    map and channel_shuffle."""
+    hc = c // 2
+    x = torch.arange(c, dtype=torch.float32).view(1, c, 1, 1)
+    for out in (channel_shuffle(x), SU._shuffle(x[:, :hc], x[:, hc:])):
+        for i in range(c):
+            assert int(out[0, (i % 2) * hc + i // 2, 0, 0]) == i
+    j = np.asarray(jshuffle(jnp.arange(c, dtype=jnp.float32).reshape(1, 1, 1, c)))[0, 0, 0]
+    np.testing.assert_array_equal(j, channel_shuffle(x)[0, :, 0, 0].numpy())
+    dest = np.asarray(sup._shuffle_dest(c, jnp.arange(c)))
+    np.testing.assert_array_equal(dest, [(i % 2) * hc + i // 2 for i in range(c)])
+
+
+def test_infer_matches_jax(case):
+    unit = case.port_unit(fused=True).eval()
+    x = _nchw(case.x)
+    with torch.no_grad():
+        plain = SU.shuffle_unit_infer_plain(x, unit)
+        module = unit(x)
+        host = _infer_host(x, unit)
+    for name, got in (("plain", plain), ("module", module), ("host", host)):
+        for ref in (case.infer_kernel, case.infer_flax):
+            np.testing.assert_allclose(got.numpy(), _nchw(ref).numpy(), rtol=0, atol=ATOL,
+                                       err_msg=name)
+
+
+def test_train_forward_stats_and_fold_match_jax(case):
+    unit = case.port_unit(fused=True).train()
+    x = _nchw(case.x)
+    with torch.no_grad():
+        out, stats = SU.shuffle_unit_train_plain(x, unit)
+        module = unit(x)            # folds the batch statistics once
+    for got in (out, module):
+        for ref in (case.train_kernel, case.train_flax):
+            np.testing.assert_allclose(got.numpy(), _nchw(ref).numpy(), rtol=0, atol=ATOL)
+    assert stats.shape == (6, case.c // 2)
+    np.testing.assert_allclose(stats.numpy(), case.stats_kernel, rtol=0, atol=ATOL)
+    for i in range(3):
+        bn = getattr(unit, f"BatchNorm_{i}")
+        for buf, key in ((bn.running_mean, "mean"), (bn.running_var, "var")):
+            np.testing.assert_allclose(buf.numpy(), case.folded_flax[f"BatchNorm_{i}"][key],
+                                       rtol=0, atol=1e-6, err_msg=f"BatchNorm_{i} {key}")
+
+
+def test_gradients_match_jax(case):
+    """The plain unit's autograd gradients of x and all 12 parameter
+    tensors, through the module in training mode, against jax.grad of the
+    Pallas training kernel's custom_vjp and of the flax unit."""
+    unit = case.port_unit(fused=True).train()
+    x = _nchw(case.x).requires_grad_(True)
+    out = unit(x)
+    ops = SU.unit_operands(unit)
+    torch.sum(out * _nchw(case.g)).backward()
+    got = (x.grad,) + tuple(SU.unit_operands(_GradView(unit)))
+    assert len(ops) == 12
+    for ref, what in ((case.grads_kernel, "kernel"), (case.grads_flax, "flax")):
+        _hold_grads(got, ref, what)
+    # the backward kernel's plain version, from the plain forward's saved
+    # tensors
+    ops = SU.UnitOperands(*(t.detach() for t in ops))
+    _, stats, saved = SU._plain(_nchw(case.x), ops, 0.0)
+    plain = SU.shuffle_unit_train_bwd_plain(_nchw(case.x), _nchw(case.g), ops, 0.0, stats, saved)
+    _hold_grads(plain, case.grads_kernel, "shuffle_unit_train_bwd_plain")
+
+
+class _GradView:
+    """A stand-in unit whose tensors are another unit's .grad, so that
+    unit_operands() lays the gradients out as the operands."""
+
+    def __init__(self, unit):
+        for name in ("Conv_0", "Conv_1", "Conv_2", "BatchNorm_0", "BatchNorm_1",
+                     "BatchNorm_2"):
+            mod = getattr(unit, name)
+            setattr(self, name, type("G", (), dict(weight=mod.weight.grad, bias=mod.bias.grad)))
+
+
+def test_host_build_matches_jax(case):
+    """The kernels' arithmetic (g++ build of csrc/shuffle_unit.cuh): the
+    training forward, its batch statistics and the backward."""
+    unit = case.port_unit()
+    x, g = _nchw(case.x), _nchw(case.g)
+    out, stats, saved, grads = _train_host(x, unit, g)
+    np.testing.assert_allclose(out.numpy(), _nchw(case.train_kernel).numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(stats.numpy(), case.stats_kernel, rtol=0, atol=ATOL)
+    _hold_grads(grads, case.grads_kernel, "host")
+    _hold_grads(grads, case.grads_flax, "host vs flax")
+    ops = SU.UnitOperands(*(t.detach() for t in SU.unit_operands(unit)))
+    _hold_grads(grads, SU.shuffle_unit_train_bwd_plain(x, g, ops, 0.0, stats, saved),
+                "host vs plain")
+
+
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_host_build_float64_matches_plain(shape):
+    """The kernels' float64 instantiation against the plain version in
+    float64 (the precision train_agree holds the fused update to)."""
+    n, h, w, c = SHAPES[shape]
+    g = torch.Generator().manual_seed(c)
+    unit = ShuffleUnit(c, c, 1).double()
+    with torch.no_grad():
+        for p in unit.parameters():
+            p.copy_(torch.randn(p.shape, generator=g, dtype=torch.float64) * 0.3)
+        for i in range(3):
+            bn = getattr(unit, f"BatchNorm_{i}")
+            bn.weight.add_(1.0)
+            bn.running_mean.normal_(0.0, 0.3, generator=g)
+            bn.running_var.uniform_(0.5, 2.0, generator=g)
+    x = torch.randn((n, c, h, w), generator=g, dtype=torch.float64)
+    gout = torch.randn((n, c, h, w), generator=g, dtype=torch.float64)
+    with torch.no_grad():
+        infer = _infer_host(x, unit)
+        infer_ref = SU.shuffle_unit_infer_plain(x, unit)
+        ref_out, ref_stats = SU.shuffle_unit_train_plain(x, unit)
+    torch.testing.assert_close(infer, infer_ref, rtol=0, atol=1e-10)
+    out, stats, _, grads = _train_host(x, unit, gout)
+    torch.testing.assert_close(out, ref_out, rtol=0, atol=1e-10)
+    torch.testing.assert_close(stats, ref_stats, rtol=0, atol=1e-10)
+    ref = _autograd_grads(x, unit, gout)
+    top = max(float(r.abs().max()) for r in ref)
+    for name, a, b in zip(NAMES, grads, ref):
+        assert float((a - b).abs().max()) <= 1e-10 * top, name
+
+
+def test_wrappers_check_their_operands():
+    unit = ShuffleUnit(16, 16, 1)
+    x = torch.randn(2, 16, 5, 6)
+    with pytest.raises(ValueError, match="contiguous"):
+        _infer_host(x.transpose(2, 3).contiguous().transpose(2, 3), unit)
+    with pytest.raises(TypeError):
+        _infer_host(x.half(), unit)
+    with pytest.raises(TypeError):
+        _infer_host(x.double(), unit)          # unit is float32
+    with pytest.raises(ValueError):
+        _infer_host(torch.randn(2, 15, 5, 6), unit)
+    with pytest.raises(ValueError, match="CUDA"):
+        SU.shuffle_unit_train_bwd(x, x, SU.unit_operands(unit), 0.0, torch.zeros(6, 8),
+                                  (x, x, x))
+    with pytest.raises(ValueError):
+        SU.shuffle_unit_infer(x.to("meta"), unit)
+
+
+def test_stride2_units_stay_unfused():
+    assert ShuffleUnit(16, 32, 2, fused=True).fused is False
+    assert ShuffleUnit(16, 16, 1, fused=True).fused is True
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain():
+    """On the card: the three kernels against the plain versions at a small
+    unit, in float32 and float64 (chip_smoke.py's phase `unit` runs the
+    full-width maps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        g = torch.Generator().manual_seed(0)
+        unit = ShuffleUnit(18, 18, 1, fused=True).to(dtype)
+        with torch.no_grad():
+            for p in unit.parameters():
+                p.copy_(torch.randn(p.shape, generator=g, dtype=dtype) * 0.3)
+        unit = unit.cuda()
+        x = torch.randn((3, 18, 4, 7), generator=g, dtype=dtype).cuda()
+        gout = torch.randn((3, 18, 4, 7), generator=g, dtype=dtype).cuda()
+        with torch.no_grad():
+            torch.testing.assert_close(SU.shuffle_unit_infer(x, unit.eval()),
+                                       SU.shuffle_unit_infer_plain(x, unit), rtol=tol, atol=tol)
+        ops = SU.unit_operands(unit)
+        out, stats = SU._UnitTrain.apply(x.requires_grad_(True), 0.0, *ops)
+        ref_out, ref_stats = SU.shuffle_unit_train_plain(x.detach(), unit)
+        torch.testing.assert_close(out.detach(), ref_out, rtol=tol, atol=tol)
+        torch.testing.assert_close(stats, ref_stats, rtol=tol, atol=tol)
+        grads = torch.autograd.grad(out, [x] + list(ops), gout)
+        ref = _autograd_grads(x.detach(), unit, gout)
+        top = max(float(r.abs().max()) for r in ref)
+        for name, a, b in zip(NAMES, grads, ref):
+            assert float((a - b).abs().max()) <= 10 * tol * top, name
