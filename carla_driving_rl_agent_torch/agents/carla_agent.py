@@ -42,6 +42,7 @@ import torch
 
 from carla_driving_rl_agent_torch import REPO_ROOT
 from carla_driving_rl_agent_torch.agents import rollout as rollout_mod
+from carla_driving_rl_agent_torch.envs import world as world_mod
 from carla_driving_rl_agent_torch.envs.carla_env import (
     CARLAEnv, EnvState, convert_action, planes_to_image)
 from carla_driving_rl_agent_torch.models.carla_network import CARLANetwork
@@ -127,12 +128,13 @@ class CARLAgent:
     minibatch permutations; the env's generator draws the resets)."""
 
     def __init__(self, env: CARLAEnv, config: Optional[CARLAgentConfig] = None,
-                 name: str = "carla", weights_dir: str = DEFAULT_WEIGHTS_DIR):
+                 name: str = "carla", weights_dir: Optional[str] = None):
         self.env = env
         self.config = cfg = config or CARLAgentConfig()
         cfg.check()
         self.name = name
-        self.base_path = os.path.join(weights_dir, name)
+        # checkpoints and evaluation records, default weights-torch/<name>
+        self.base_path = os.path.join(weights_dir or DEFAULT_WEIGHTS_DIR, name)
         spec = dict(cfg.network or {})
         net = CARLANetwork(
             num_actions=env.config.num_actions,
@@ -486,14 +488,16 @@ class CARLAgent:
     # evaluation (reference core/carla_agent.py:205-321)
     # ------------------------------------------------------------------
     @torch.no_grad()
-    def rollout(self, num_worlds: int, timesteps: int) -> Dict[str, torch.Tensor]:
+    def rollout(self, num_worlds: int, timesteps: int,
+                draws: Optional[world_mod.ResetDraws] = None) -> Dict[str, torch.Tensor]:
         """Per-step evaluation rollout: `num_worlds` worlds, one network
-        prediction and one env step (one rendered frame) per timestep.
-        Every random draw comes from the env's generator.  Returns the
+        prediction and one env step (one rendered frame) per timestep.  The
+        worlds start from `draws` (default: drawn from the env's generator);
+        every other random draw comes from the env's generator.  Returns the
         per-world accumulators of each world's FIRST episode."""
         env, net = self.env, self.network
         gen = env.generator
-        states, obs = env.reset_batch(num_worlds)
+        states, obs = env.reset(draws) if draws is not None else env.reset_batch(num_worlds)
         zeros = torch.zeros(num_worlds, device=env.device)
         acc = dict(active=zeros + 1.0, total_reward=zeros, similarity=zeros,
                    speed=zeros, waypoint_distance=zeros, timesteps=zeros,
@@ -528,13 +532,23 @@ class CARLAgent:
         steps or fewer are discarded (accidental first-step collisions,
         reference :284); total_reward clips at -1000 (:286)."""
         full_float32()
+        eval_dir = evaluation_dir or os.path.join(self.base_path, "evaluation")
+        ckpt.refuse_tracked(eval_dir)
         if isinstance(initial_seed, int):
             self.env.seed(initial_seed)
+            seed = initial_seed
+        else:
+            seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.env.generator,
+                                     device=self.env.device))
 
         # oversample worlds so >= trials valid episodes survive the filter
         num_worlds = max(trials + 8, int(trials * 1.25))
+        # trial i starts from its own stream, keyed by (seed, i) as the JAX
+        # package folds i into its reset key: its town, weather, route and
+        # light offset do not depend on `trials`
+        draws = world_mod.trial_draws(seed, num_worlds, self.env.params, self.env.routes)
         acc = {k: v.cpu().numpy() for k, v in
-               self.rollout(num_worlds, timesteps).items()}
+               self.rollout(num_worlds, timesteps, draws).items()}
 
         steps = np.maximum(acc["timesteps"], 1.0)
         valid = acc["timesteps"] > 32
@@ -556,7 +570,6 @@ class CARLAgent:
             record[f"{k}_mean"] = float(np.mean(v)) if len(v) else 0.0
             record[f"{k}_std"] = float(np.std(v)) if len(v) else 0.0
 
-        eval_dir = evaluation_dir or os.path.join(self.base_path, "evaluation")
         os.makedirs(eval_dir, exist_ok=True)
         with open(os.path.join(eval_dir, f"{name}.json"), "w") as f:
             json.dump(record, f, indent=2)

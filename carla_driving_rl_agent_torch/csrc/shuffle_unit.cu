@@ -11,28 +11,45 @@
 // BatchNorm sums in VMEM from one grid step to the next, padded channels to
 // 128 lanes and absorbed the split and the shuffle into placement matmuls.
 // On the card blocks run in parallel and in no order, so each kernel here
-// is a short fixed sequence of launches on one stream: a stage over tiles of
-// 32 pixels writes per-tile partial sums, a finalising launch reduces them
-// in a fixed order (no float atomics: two runs give the same bits), and the
-// next stage reads the result.  The depthwise reads its 3x3 neighbours
-// directly from the NCHW tensors (no halo), the split and the shuffle are
-// index arithmetic on the channel (shuffle_unit.cuh), and everything is in
-// true float32 (or float64), as the plain version computes on the card with
-// TF32 off.
+// is a short fixed sequence of launches on one stream, one per stage that
+// needs a batch statistic of the stage before it: inference 2 launches,
+// the training forward 4, the backward 5.
 //
-// Thread mapping: a block of 8 warps owns a tile of 32 consecutive pixels
-// (flattened n * H * W + y * W + x); a lane is a pixel, so every load and
-// store of one channel is coalesced along H * W, and a warp walks the
-// channels.  The 1x1 products stage the tile's input channels in shared
-// memory and give each warp 4 output channels at a time, the weights read as
-// warp-uniform broadcasts.  The weight gradients are tiled products over
-// pixel segments, reduced by a finalising launch.
+// The stages:
+//   * 1x1 products (`k_pw`): a block owns 64 output channels and walks a
+//     run of 64-pixel tiles; its whole weight panel sits in shared memory,
+//     the pixel operand streams through a double buffer in chunks of 32
+//     channels (the next chunk's global loads, across tiles the next
+//     tile's, in flight during this chunk's FMAs), each thread holds a
+//     4 x 4 register tile.  The operand is transformed on its way into
+//     shared memory (BN2 in the forward; g_u or g_z1 from the saved tensors
+//     in the backward, which the first channel tile's blocks also write
+//     out and sum); the output tile leaves through shared memory so that
+//     its stores are coalesced.
+//   * channel stages (depthwise forward and backward, BN3's sums): a block
+//     owns one channel of a run of images and stages zero-padded planes of
+//     its inputs in shared memory, so each neighbour is read and
+//     transformed once.
+//   * weight gradients (`k_wgrad`): dW3 and dW1 in one launch, 64 x 64
+//     output tiles split over pixel segments (split-K), both operands
+//     staged with cp.async in a three-deep ring, 4 x 4 register tiles.
+// Every reduction is per block: a block keeps its channel sums or moments
+// in registers, reduces across its lanes or warps once and writes one
+// partial row; the last block to arrive (a ticket from atomicAdd after
+// __threadfence, on counters of the call's own that its entry point zeroes
+// first) merges the rows in block order: per channel in the
+// channel stages, in two levels (groups of 16 blocks, then the groups) in
+// the products and the weight gradients, each merge's loads issued
+// together.  No float atomics and a fixed split (shuffle_unit.cuh `make_plan`):
+// two runs give the same bits.  Everything is in true float32
+// (or float64), as the plain version computes on the card with TF32 off.
 //
-// What bounds it on the H100: at the training path's largest map (256 x 58
-// x 11 x 45 per half) a unit moves ~0.1-0.3 GB and does ~2 GFLOP per pass,
-// ~0.03-0.1 ms at the card's peaks.  These first kernels are simple, not
-// tiled for the tensor cores (FP32 has none) or for TMA: their times stand
-// beside their bounds in PERF.md.
+// What bounds it on the H100: the function moves ~0.1 GB and does ~1-4
+// GFLOP per call at N = 256, 0.03-0.06 ms at the card's peaks (operations
+// at the two smaller maps, bytes at the largest); the products are
+// CUDA-core FP32 (no tensor cores, for parity with the plain version), and
+// the stages move the saved and intermediate tensors the bound does not
+// count.  The times stand beside the bounds in PERF.md.
 //
 // Built by utils/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -49,7 +66,15 @@ using namespace cdrl::unit;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int OT = 4;                 // output channels per warp and pass
+constexpr int OT = 4;                 // inference tail: output channels per warp and pass
+constexpr int PK = 32;                // products: channels per chunk of the pixel operand
+constexpr int WL = WCHUNK + 4;        // weight gradients: shared row pitch
+constexpr int WS = 3;                 // weight gradients: cp.async ring depth
+
+enum ChannelStage { CH_DW, CH_BN3B, CH_DWB };
+
+// What a kernel reads: the caller's arguments and the plan of their shape.
+struct Call : UnitArgs, Plan {};
 
 template <class T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -59,40 +84,149 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Tile partials of one channel over the warp's lanes: the sum and the sum of
-// squared deviations from the tile's mean; lane 0 writes them.
 template <class T>
-__device__ __forceinline__ void tile_stats(T z, bool valid, int cnt, T* sum, T* m2) {
-  const T s = warp_sum(valid ? z : T(0));
-  const T d = valid ? z - s / T(cnt) : T(0);
-  const T q = warp_sum(d * d);
-  if ((threadIdx.x & 31) == 0) {
-    *sum = s;
-    *m2 = q;
+__device__ __forceinline__ T* smem() {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  return reinterpret_cast<T*>(smem_raw);
+}
+
+__device__ __forceinline__ void load4(const float* p, float* v) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+
+__device__ __forceinline__ void load4(const double* p, double* v) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(double* p, const double* v) {
+  reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+}
+
+// cp.async of one element into shared memory, zero-filled when !valid.
+template <class T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? int(sizeof(T)) : 0;
+  if (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <class T>
+__device__ __forceinline__ Moments<T> shfl_down(const Moments<T>& m, int off, int width) {
+  Moments<T> r;
+  r.n = __shfl_down_sync(0xffffffffu, m.n, off, width);
+  r.mean = __shfl_down_sync(0xffffffffu, m.mean, off, width);
+  r.m2 = __shfl_down_sync(0xffffffffu, m.m2, off, width);
+  return r;
+}
+
+// The block's moments (valid in thread 0): a shuffle tree in each warp,
+// then the warps in order.
+template <class T>
+__device__ Moments<T> block_moments(Moments<T> m) {
+  __shared__ T red[3 * kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int off = 16; off > 0; off >>= 1) m = chan(m, shfl_down(m, off, 32));
+  if (lane == 0) {
+    red[3 * warp] = m.n;
+    red[3 * warp + 1] = m.mean;
+    red[3 * warp + 2] = m.m2;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < kWarps; ++w) m = chan(m, Moments<T>{red[3 * w], red[3 * w + 1], red[3 * w + 2]});
+  return m;
+}
+
+// The block's sums of R values per thread, written by threads r < R to
+// out[r * stride].
+template <class T, int R>
+__device__ void block_sums(T* v, T* out, int64_t stride) {
+  __shared__ T red[R * kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const T s = warp_sum(v[r]);
+    if (lane == 0) red[r * kWarps + warp] = s;
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    T s = T(0);
+    for (int w = 0; w < kWarps; ++w) s += red[threadIdx.x * kWarps + w];
+    out[threadIdx.x * stride] = s;
   }
 }
 
-template <class T>
-__device__ __forceinline__ void tile_sum(T v, T* out) {
-  const T s = warp_sum(v);
-  if ((threadIdx.x & 31) == 0) *out = s;
+// True in every thread of the last of `nblocks` blocks to arrive; the
+// partials written before the call are then visible to it.
+__device__ bool last_block(int* counter, int nblocks) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == nblocks - 1;
+  __syncthreads();
+  if (s_last) __threadfence();
+  return s_last;
 }
+
+// The moments of up to PGROUP consecutive blocks (rows n, mean, m2), their
+// loads issued at once; padded with empty blocks, which add nothing.
+template <class T>
+__device__ __forceinline__ Moments<T> merge16(const T* n, const T* mean, const T* m2,
+                                              int count) {
+  T a[PGROUP], b[PGROUP], c[PGROUP];
+#pragma unroll
+  for (int i = 0; i < PGROUP; ++i) {
+    const bool v = i < count;
+    a[i] = v ? n[i] : T(0);
+    b[i] = v ? mean[i] : T(0);
+    c[i] = v ? m2[i] : T(0);
+  }
+  return merge_blocks(a, b, c, PGROUP);
+}
+
+// The sum of up to PGROUP consecutive values, in order, loaded at once.
+template <class T>
+__device__ __forceinline__ T sum16(const T* v, int count) {
+  T a[PGROUP];
+#pragma unroll
+  for (int i = 0; i < PGROUP; ++i) a[i] = i < count ? v[i] : T(0);
+  return range_sum(a, PGROUP);
+}
+
+// ---------------------------------------------------------------------------
+// the inference tail (a warp per 32-pixel tile, as first ported)
+// ---------------------------------------------------------------------------
 
 struct Lane {
   int lane, warp;
-  int64_t blk, q;
+  int64_t q;
   bool valid;
-  int cnt;
 };
 
 __device__ __forceinline__ Lane lane_of(const Geo& g) {
   Lane l;
   l.lane = threadIdx.x & 31;
   l.warp = threadIdx.x >> 5;
-  l.blk = blockIdx.x;
-  l.q = l.blk * TILE + l.lane;
+  l.q = static_cast<int64_t>(blockIdx.x) * TILE + l.lane;
   l.valid = l.q < g.p;
-  l.cnt = tile_count(g.p, l.blk);
   return l;
 }
 
@@ -114,52 +248,10 @@ __device__ __forceinline__ void dot_tile(const T* w, int rs, int cs, const T* s,
   }
 }
 
-template <class T>
-__device__ __forceinline__ T* smem() {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  return reinterpret_cast<T*>(smem_raw);
-}
-
-// ---------------------------------------------------------------------------
-// stage kernels
-// ---------------------------------------------------------------------------
-
-// z1 = W1 . branch + b1.  Inference writes a1 = act(BN1(z1)) on the running
-// statistics into z1; training writes z1 and its tile partials.
-template <class T, bool kTrain>
-__global__ void __launch_bounds__(kThreads) k_pw1(UnitArgs a) {
-  const Ops<T> o(a);
-  const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  T* xs = smem<T>();
-  for (int k = l.warp; k < hc; k += kWarps)
-    xs[k * TILE + l.lane] = l.valid ? o.x[at(g, l.q, hc + k, g.c)] : T(0);
-  __syncthreads();
-  T* part = o.partial + l.blk * 2 * hc;
-  for (int o0 = l.warp * OT; o0 < hc; o0 += kWarps * OT) {
-    T acc[OT];
-    dot_tile(o.w1, hc, 1, xs, hc, o0, l.lane, acc);
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int oo = o0 + j;
-      if (oo >= hc) break;
-      const T z = acc[j] + o.b1[oo];
-      const int64_t i = at(g, l.q, oo, hc);
-      if (kTrain) {
-        if (l.valid) o.z1[i] = z;
-        tile_stats(z, l.valid, l.cnt, part + oo, part + hc + oo);
-      } else if (l.valid) {
-        o.z1[i] = act(bn(z, o.m1[oo], rstd(o.v1[oo], o.eps), o.g1[oo], o.be1[oo]), o.leak);
-      }
-    }
-  }
-}
-
 // Inference after the first product: depthwise, BN2, W3, BN3, act, written
 // to the branch's shuffled channels; the shortcut copied to its own.
 template <class T>
-__global__ void __launch_bounds__(kThreads) k_tail_infer(UnitArgs a) {
+__global__ void __launch_bounds__(kThreads) k_tail_infer(Call a) {
   const Ops<T> o(a);
   const Geo g = geometry(a);
   const Lane l = lane_of(g);
@@ -191,303 +283,722 @@ __global__ void __launch_bounds__(kThreads) k_tail_infer(UnitArgs a) {
   }
 }
 
-// Training: z2 = depthwise(act(BN1(z1))) + dwb on the batch statistics of
-// BN1, saved, with its tile partials.
+// ---------------------------------------------------------------------------
+// the 1x1 products
+// ---------------------------------------------------------------------------
+
+// PW1_*: z1 = W1 . branch + b1 (inference writes act(BN1(z1)) on the
+// running statistics; training writes z1 and BN1's statistics).
+// PW3_TRAIN: u = W3 . BN2(z2) + b3 and BN3's statistics.
+// PW3_BACK: g_b2n = W3^T g_u, with g_u from u and the output gradient
+// (written out, and summed: the gradient of b3); writes b2n and BN2's sums.
+// PW1_BACK: the branch half of gx = W1^T g_z1, with g_z1 from g_pre1 and z1
+// (written out, and summed: the gradient of b1).
+enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK };
+
+constexpr int OTP = PTILE + 4;        // products: row pitch of the output tile
+constexpr int PMP = PM + 4;           // products: row pitch of the weight panel
+
 template <class T>
-__global__ void __launch_bounds__(kThreads) k_dw_train(UnitArgs a) {
+size_t pw_smem(int hc) {
+  const int kpad = (hc + PK - 1) / PK * PK;
+  return sizeof(T) * (static_cast<size_t>(kpad) * PMP + 2 * PK * PTILE + PM * OTP + 7 * hc +
+                      5 * PM) + 4 * PTILE * sizeof(int);
+}
+
+// A block owns output channels m0 .. m0 + 63 of the pixel tiles tb .. te - 1.
+// Lanes: in the products thread (ty, tx) holds rows ty * 4 + i and pixels
+// tx * 4 + j, a warp covering 4 x 8 of them (one shared wavefront per
+// operand and step); the loader holds channels lr, lr + 16 of a chunk at
+// pixels lc + 16 j; in the epilogue warp w owns rows w + 8 i, lane l
+// pixels l and l + 32.
+template <class T, int kMode>
+__global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
+  constexpr bool kW1 = kMode == PW1_INFER || kMode == PW1_TRAIN || kMode == PW1_BACK;
+  constexpr bool kBack = kMode == PW3_BACK || kMode == PW1_BACK;
+  constexpr bool kStats = kMode == PW1_TRAIN || kMode == PW3_TRAIN;
   const Ops<T> o(a);
   const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  T* part = o.partial + l.blk * 2 * hc;
-  for (int k = l.warp; k < hc; k += kWarps) {
-    const T m1 = o.m1[k], r1 = rstd(o.v1[k], o.eps);
-    T z2 = T(0);
-    if (l.valid) {
-      z2 = depthwise(o, g, l.q, k, [&](int64_t nb) { return a1_at(o, g, nb, k, m1, r1); });
-      o.z2[at(g, l.q, k, hc)] = z2;
+  const int hc = g.hc, hw = g.hw, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
+  const int lr = tid >> 4, lc = tid & 15;
+  const int n_ot = (hc + PM - 1) / PM;
+  const int ot = blockIdx.x % n_ot, pb = blockIdx.x / n_ot, m0 = ot * PM;
+  const int kpad = (hc + PK - 1) / PK * PK, n_chunks = kpad / PK;
+  const int64_t n_tiles = (g.p + PTILE - 1) / PTILE;
+  const int64_t tb = static_cast<int64_t>(pb) * a.tpb;
+  const int64_t te = tb + a.tpb < n_tiles ? tb + a.tpb : n_tiles;
+  const bool side = kBack && ot == 0;
+  const T inv_m = T(1.0 / static_cast<double>(g.p));
+
+  T* panel = smem<T>();                    // [kpad][PMP]: A(m0 + m, k)
+  T* bs = panel + kpad * PMP;              // [2][PK][PTILE]: the pixel operand
+  T* ots = bs + 2 * PK * PTILE;            // [PM][OTP]: the output tile
+  T* prm = ots + PM * OTP;                 // [6][hc]: the operand's per-channel constants
+  T* bsum = prm + 6 * hc;                  // [hc]: the operand's sums (backward)
+  T* epi = bsum + hc;                      // [5][PM]: the epilogue's per-row constants
+  int* cb = reinterpret_cast<int*>(epi + 5 * PM);   // [2][2][PTILE]: pixel offsets
+
+  const T* wm = kW1 ? o.w1 : o.w3;
+  // coalesced along the weights' rows: W^T's rows are the panel's (the
+  // backward), W's are its columns
+  for (int e = tid; e < kpad * PM; e += kThreads) {
+    const int k = kBack ? e / PM : e % kpad, m = kBack ? e % PM : e / kpad, mm = m0 + m;
+    panel[k * PMP + m] = k < hc && mm < hc ? (kBack ? wm[k * hc + mm] : wm[mm * hc + k]) : T(0);
+  }
+  for (int k = tid; k < hc; k += kThreads) {
+    bsum[k] = T(0);
+    if (kMode == PW3_TRAIN || kBack) {
+      const bool b3 = kMode == PW3_BACK;
+      const T* mv = kMode == PW3_TRAIN ? o.m2 : (b3 ? o.m3 : o.m1);
+      const T* vv = kMode == PW3_TRAIN ? o.v2 : (b3 ? o.v3 : o.v1);
+      const T* gv = kMode == PW3_TRAIN ? o.g2 : (b3 ? o.g3 : o.g1);
+      const T* bv = kMode == PW3_TRAIN ? o.be2 : (b3 ? o.be3 : o.be1);
+      prm[k] = mv[k];
+      prm[hc + k] = rstd(vv[k], o.eps);
+      prm[2 * hc + k] = gv[k];
+      prm[3 * hc + k] = bv[k];
+      if (kBack) {   // BN3's sums (s1, s2) or BN1's (u1, u2)
+        prm[4 * hc + k] = o.dvec[(b3 ? D_BE3 : D_BE1) * hc + k];
+        prm[5 * hc + k] = o.dvec[(b3 ? D_G3 : D_G1) * hc + k];
+      }
     }
-    tile_stats(z2, l.valid, l.cnt, part + k, part + hc + k);
+  }
+  for (int r = tid; r < PM; r += kThreads) {
+    const int c = min(m0 + r, hc - 1);
+    T e[5] = {T(0), T(0), T(0), T(0), T(0)};
+    if (kMode == PW1_INFER) {
+      e[0] = o.b1[c]; e[1] = o.m1[c]; e[2] = rstd(o.v1[c], o.eps); e[3] = o.g1[c];
+      e[4] = o.be1[c];
+    } else if (kMode == PW1_TRAIN) {
+      e[0] = o.b1[c];
+    } else if (kMode == PW3_TRAIN) {
+      e[0] = o.b3[c];
+    } else if (kMode == PW3_BACK) {
+      e[0] = o.m2[c]; e[1] = rstd(o.v2[c], o.eps); e[2] = o.g2[c]; e[3] = o.be2[c];
+    }
+    for (int i = 0; i < 5; ++i) epi[i * PM + r] = e[i];
+  }
+  // the tile's pixel offsets in (N, hc, H, W) and (N, c, H, W) tensors, -1
+  // past the last pixel
+  auto fill_cb = [&](int64_t t, int buf) {
+    const int64_t q = t * PTILE + tid;
+    int oh = -1, oc = -1;
+    if (q < g.p) {
+      const int nn = static_cast<int>(q / hw), r = static_cast<int>(q - int64_t(nn) * hw);
+      oh = nn * hc * hw + r;
+      oc = nn * g.c * hw + r;
+    }
+    cb[(2 * buf) * PTILE + tid] = oh;
+    cb[(2 * buf + 1) * PTILE + tid] = oc;
+  };
+
+  // the epilogue's running moments (this lane's count, the rows' means and
+  // squared deviations) or sums of its 8 rows, per lane
+  T cnt = T(0), mu[8], m2[8], s1[8], s2[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mu[i] = m2[i] = s1[i] = s2[i] = T(0);
+
+  // this thread's loader columns lc + 16 j of a tile: offsets in (N, hc,
+  // H, W) tensors (-1 past the last pixel) and in (N, c, H, W) tensors
+  struct Cols {
+    int h[4], c[4];
+  };
+  auto cols_of = [&](int buf) {
+    Cols r;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      r.h[j] = cb[2 * buf * PTILE + lc + 16 * j];
+      r.c[j] = cb[(2 * buf + 1) * PTILE + lc + 16 * j];
+    }
+    return r;
+  };
+  T r0[2][4], r1[2][4];
+  auto load_raw = [&](const Cols& cl, int chunk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = chunk * PK + lr + 16 * h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        r0[h][j] = r1[h][j] = T(0);
+        if (k < hc && cl.h[j] >= 0) {
+          if (kW1 && !kBack) {
+            r0[h][j] = o.x[cl.c[j] + (hc + k) * hw];
+          } else if (kMode == PW3_TRAIN) {
+            r0[h][j] = o.z2[cl.h[j] + k * hw];
+          } else if (kMode == PW3_BACK) {
+            r0[h][j] = o.u[cl.h[j] + k * hw];
+            r1[h][j] = o.gout[cl.c[j] + shuffle_dest(g.c, hc + k) * hw];
+          } else {
+            r0[h][j] = o.gpre1[cl.h[j] + k * hw];
+            r1[h][j] = o.z1[cl.h[j] + k * hw];
+          }
+        }
+      }
+    }
+  };
+  auto stage = [&](const Cols& cl, int chunk, T* dst) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int k = chunk * PK + lr + 16 * h;
+      T v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] = T(0);
+        if (k < hc && cl.h[j] >= 0) {
+          if (kW1 && !kBack) {
+            v[j] = r0[h][j];
+          } else if (kMode == PW3_TRAIN) {
+            v[j] = bn(r0[h][j], prm[k], prm[hc + k], prm[2 * hc + k], prm[3 * hc + k]);
+          } else if (kMode == PW3_BACK) {
+            v[j] = gu_v(r0[h][j], r1[h][j], prm[k], prm[hc + k], prm[2 * hc + k],
+                        prm[3 * hc + k], prm[4 * hc + k], prm[5 * hc + k], inv_m, o.leak);
+          } else {
+            v[j] = gin_v(r0[h][j], r1[h][j], prm[k], prm[hc + k], prm[2 * hc + k],
+                         prm[4 * hc + k], prm[5 * hc + k], inv_m);
+          }
+        }
+      }
+      if (side) {
+        T* keep = kMode == PW3_BACK ? o.gu : o.gz1;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k < hc && cl.h[j] >= 0) keep[cl.h[j] + k * hw] = v[j];
+        T s = ((v[0] + v[1]) + v[2]) + v[3];
+        for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off, 16);
+        if (lc == 0 && k < hc) bsum[k] += s;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dst[(lr + 16 * h) * PTILE + lc + 16 * j] = v[j];
+    }
+  };
+
+  if (tid < PTILE) fill_cb(tb, 0);
+  __syncthreads();
+  Cols cur_cols = cols_of(0), next_cols = cur_cols;
+  load_raw(cur_cols, 0);
+  for (int64_t t = tb; t < te; ++t) {
+    const int cur = static_cast<int>(t - tb) & 1;
+    const int* cbh = cb + 2 * cur * PTILE;
+    if (tid < PTILE && t + 1 < te) fill_cb(t + 1, cur ^ 1);
+    stage(cur_cols, 0, bs);
+    __syncthreads();
+    if (t + 1 < te) next_cols = cols_of(cur ^ 1);
+    T acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+    for (int c = 0; c < n_chunks; ++c) {
+      // the next chunk's loads (or the next tile's first) fly during this one
+      if (c + 1 < n_chunks) load_raw(cur_cols, c + 1);
+      else if (t + 1 < te) load_raw(next_cols, 0);
+      const T* A = panel + c * PK * PMP;
+      const T* B = bs + (c & 1) * PK * PTILE;
+#pragma unroll 8
+      for (int kk = 0; kk < PK; ++kk) {
+        T av[4], bv[4];
+        load4(A + kk * PMP + ty * 4, av);
+        load4(B + kk * PTILE + tx * 4, bv);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+      }
+      if (c + 1 < n_chunks) stage(cur_cols, c + 1, bs + ((c + 1) & 1) * PK * PTILE);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) store4(ots + (ty * 4 + i) * OTP + tx * 4, acc[i]);
+    __syncthreads();
+    // epilogue: coalesced along the pixels.  Each lane's values of a row
+    // (pixels lane, lane + 32; the second valid only with the first) join
+    // its running moments as one batch (Chan et al.): one division per tile.
+    const bool ok[2] = {cbh[lane] >= 0, cbh[lane + 32] >= 0};
+    const T nb2 = T(ok[0]) + T(ok[1]);
+    const T f = kStats && ok[0] ? nb2 / (cnt + nb2) : T(0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = warp + 8 * i, oo = m0 + r;
+      if (oo >= hc) continue;
+      T v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = lane + 32 * h;
+        v[h] = ots[r * OTP + col];
+        if (!ok[h]) continue;
+        const int ih = cbh[col] + oo * hw;
+        if (kMode == PW1_INFER) {
+          o.z1[ih] = act(bn(v[h] + epi[r], epi[PM + r], epi[2 * PM + r], epi[3 * PM + r],
+                            epi[4 * PM + r]), o.leak);
+        } else if (kMode == PW1_TRAIN) {
+          v[h] += epi[r];
+          o.z1[ih] = v[h];
+        } else if (kMode == PW3_TRAIN) {
+          v[h] += epi[r];
+          o.u[ih] = v[h];
+        } else if (kMode == PW3_BACK) {
+          o.gb2n[ih] = v[h];
+          const T xh2 = (o.z2[ih] - epi[r]) * epi[PM + r];
+          o.b2n[ih] = epi[2 * PM + r] * xh2 + epi[3 * PM + r];
+          s1[i] += v[h];
+          s2[i] += v[h] * xh2;
+        } else {
+          o.out[cbh[PTILE + col] + (hc + oo) * hw] = v[h];
+        }
+      }
+      if (kStats && ok[0]) {
+        const T d2 = v[0] - v[1];
+        const T bm = ok[1] ? T(0.5) * (v[0] + v[1]) : v[0];
+        const T bq = ok[1] ? T(0.5) * d2 * d2 : T(0);
+        const T d = bm - mu[i];
+        mu[i] += d * f;
+        m2[i] += bq + d * d * cnt * f;
+      }
+    }
+    cnt += nb2;
+    cur_cols = next_cols;
+    __syncthreads();   // the tile's offsets and output tile are free
+  }
+  if (kMode == PW1_INFER) return;
+
+  // one partial row per block: a row's pixels are one warp's
+  T* part = o.partial;
+  const int64_t nb = a.n_pb;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int oo = m0 + warp + 8 * i;
+    if (kStats) {
+      Moments<T> m{cnt, mu[i], m2[i]};
+      for (int off = 16; off > 0; off >>= 1) m = chan(m, shfl_down(m, off, 32));
+      if (lane == 0 && oo < hc) {
+        part[(0 * hc + oo) * nb + pb] = m.n;
+        part[(1 * hc + oo) * nb + pb] = m.mean;
+        part[(2 * hc + oo) * nb + pb] = m.m2;
+      }
+    } else if (kMode == PW3_BACK) {
+      const T a1 = warp_sum(s1[i]), a2 = warp_sum(s2[i]);
+      if (lane == 0 && oo < hc) {
+        part[(0 * hc + oo) * nb + pb] = a2;
+        part[(1 * hc + oo) * nb + pb] = a1;
+      }
+    }
+  }
+  if (side) {
+    const int row = kMode == PW3_BACK ? 2 : 0;
+    for (int k = tid; k < hc; k += kThreads) part[(row * hc + k) * nb + pb] = bsum[k];
+  }
+  // first level: the last block of each group of PGROUP pixel blocks
+  // merges the group's rows; second level: the last group merges the groups
+  constexpr int R = kMode == PW1_BACK ? 1 : 3;
+  const int mi = kMode - PW1_TRAIN;
+  const int ng = (a.n_pb + PGROUP - 1) / PGROUP, grp = pb / PGROUP;
+  const int gb0 = grp * PGROUP, gb1 = min(gb0 + PGROUP, a.n_pb);
+  if (!last_block(o.counters + C_PWG + 64 * mi + grp, (gb1 - gb0) * n_ot)) return;
+  T* gpart = part + R * hc * nb;           // [R * hc][ng]
+  if (kStats) {
+    for (int k = tid; k < hc; k += kThreads) {
+      const Moments<T> m = merge16(part + k * nb + gb0, part + (hc + k) * nb + gb0,
+                                   part + (2 * hc + k) * nb + gb0, gb1 - gb0);
+      gpart[k * ng + grp] = m.n;
+      gpart[(hc + k) * ng + grp] = m.mean;
+      gpart[(2 * hc + k) * ng + grp] = m.m2;
+    }
+  } else {
+    for (int e = tid; e < R * hc; e += kThreads)
+      gpart[e * ng + grp] = sum16(part + e * nb + gb0, gb1 - gb0);
+  }
+  if (!last_block(o.counters + C_PW + mi, ng)) return;
+  if (kStats) {
+    T* st = o.stats + (kMode == PW1_TRAIN ? 0 : 4 * hc);
+    for (int k = tid; k < hc; k += kThreads) {
+      const Moments<T> m =
+          merge16(gpart + k * ng, gpart + (hc + k) * ng, gpart + (2 * hc + k) * ng, ng);
+      st[k] = m.mean;
+      st[hc + k] = m.m2 / T(g.p);
+    }
+  } else {
+    // PW3_BACK rows: sum g_b2n xh2 (BN2 scale), sum g_b2n (BN2 bias), sum
+    // g_u (b3); PW1_BACK: sum g_z1 (b1)
+    for (int e = tid; e < R * hc; e += kThreads) {
+      const int r = e / hc;
+      const int row = kMode == PW1_BACK ? D_B1 : r == 0 ? D_G2 : r == 1 ? D_BE2 : D_B3;
+      o.dvec[row * hc + e % hc] = sum16(gpart + e * ng, ng);
+    }
   }
 }
 
-// Training: u = W3 . BN2(z2) + b3, saved, with its tile partials.
+// ---------------------------------------------------------------------------
+// the channel stages: a block per (image segment blockIdx.x, channel
+// blockIdx.y); partial rows part[(r * hc + k) * n_s + s], merged per channel
+// by the channel's last block
+// ---------------------------------------------------------------------------
+
+// A channel block's geometry, and its index maps in shared memory (the
+// same for every pass, so the index arithmetic is done once): fo[e], the
+// offset from the pass's first plane of padded pixel e, -1 on the padding;
+// oc[e] and og[e], the padded and the plain offsets of output pixel e.
+struct ChannelBlock {
+  int k, s, n0, n1, pl, pitch, plane;
+  const int *fo, *oc, *og;
+};
+
+__device__ __forceinline__ ChannelBlock channel_block(const Call& a, const Geo& g,
+                                                      int* maps) {
+  static_assert(CH_THREADS == kThreads, "a channel block is one block of kThreads");
+  ChannelBlock b;
+  b.k = blockIdx.y;
+  b.s = blockIdx.x;
+  b.n0 = b.s * a.ipb;
+  b.n1 = min(g.n, b.n0 + a.ipb);
+  b.pl = planes_per_pass(g.h, g.w, a.ipb);
+  b.pitch = g.w + 2;
+  b.plane = (g.h + 2) * b.pitch;
+  int* fo = maps;
+  int* oc = fo + b.pl * b.plane;
+  int* og = oc + b.pl * g.hw;
+  const int plane_stride = g.hc * g.hw;
+  for (int e = threadIdx.x; e < b.pl * b.plane; e += kThreads) {
+    const int pl = e / b.plane, r = e - pl * b.plane;
+    const int y = r / b.pitch - 1, x = r % b.pitch - 1;
+    fo[e] = y >= 0 && y < g.h && x >= 0 && x < g.w ? pl * plane_stride + y * g.w + x : -1;
+  }
+  for (int e = threadIdx.x; e < b.pl * g.hw; e += kThreads) {
+    const int pl = e / g.hw, r = e - pl * g.hw, y = r / g.w, x = r - y * g.w;
+    oc[e] = pl * b.plane + (y + 1) * b.pitch + x + 1;
+    og[e] = pl * plane_stride + r;
+  }
+  b.fo = fo;
+  b.oc = oc;
+  b.og = og;
+  return b;
+}
+
+// Shared memory of a channel stage: `arrays` padded planes of T per pass,
+// then the index maps.
 template <class T>
-__global__ void __launch_bounds__(kThreads) k_pw3_train(UnitArgs a) {
+size_t channel_smem(const Call& a, int arrays) {
+  const Geo g = geometry(a);
+  const int pl = planes_per_pass(g.h, g.w, a.ipb), plane = (g.h + 2) * (g.w + 2);
+  return sizeof(T) * arrays * pl * plane + sizeof(int) * pl * (plane + 2 * g.hw);
+}
+
+// Training: z2 = depthwise(act(BN1(z1))) + dwb on BN1's batch statistics,
+// saved, and BN2's statistics.
+template <class T>
+__global__ void __launch_bounds__(kThreads) k_dw_train(Call a) {
   const Ops<T> o(a);
   const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  T* bs = smem<T>();
-  for (int k = l.warp; k < hc; k += kWarps)
-    bs[k * TILE + l.lane] =
-        l.valid ? b2n_at(o, g, l.q, k, o.m2[k], rstd(o.v2[k], o.eps)) : T(0);
-  __syncthreads();
-  T* part = o.partial + l.blk * 2 * hc;
-  for (int o0 = l.warp * OT; o0 < hc; o0 += kWarps * OT) {
-    T acc[OT];
-    dot_tile(o.w3, hc, 1, bs, hc, o0, l.lane, acc);
+  T* pad = smem<T>();
+  const int planes = planes_per_pass(g.h, g.w, a.ipb) * (g.h + 2) * (g.w + 2);
+  const ChannelBlock b = channel_block(a, g, reinterpret_cast<int*>(pad + planes));
+  const int hc = g.hc, hw = g.hw, k = b.k, tid = threadIdx.x;
+  const T m1 = o.m1[k], r1 = rstd(o.v1[k], o.eps), g1 = o.g1[k], be1 = o.be1[k];
+  T wt[9];
 #pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int oo = o0 + j;
-      if (oo >= hc) break;
-      const T u = acc[j] + o.b3[oo];
-      if (l.valid) o.u[at(g, l.q, oo, hc)] = u;
-      tile_stats(u, l.valid, l.cnt, part + oo, part + hc + oo);
+  for (int t = 0; t < 9; ++t) wt[t] = o.dw[k * 9 + t];
+  const T bias = o.dwb[k];
+  Moments<T> mom{T(0), T(0), T(0)};
+  for (int n = b.n0; n < b.n1; n += b.pl) {
+    const int np = min(b.pl, b.n1 - n);
+    const T* z1 = o.z1 + (static_cast<int64_t>(n) * hc + k) * hw;
+    T* z2 = o.z2 + (static_cast<int64_t>(n) * hc + k) * hw;
+    __syncthreads();   // the maps are written, the previous pass is done
+#pragma unroll 4
+    for (int e = tid; e < np * b.plane; e += kThreads) {
+      const int f = b.fo[e];
+      pad[e] = f >= 0 ? act(bn(z1[f], m1, r1, g1, be1), o.leak) : T(0);
     }
+    __syncthreads();
+#pragma unroll 4
+    for (int e = tid; e < np * hw; e += kThreads) {
+      const T z = dw3x3(wt, bias, pad + b.oc[e], b.pitch);
+      z2[b.og[e]] = z;
+      welford(&mom, z);
+    }
+  }
+  mom = block_moments(mom);
+  T* part = o.partial;
+  const int64_t ns = a.n_s;
+  if (tid == 0) {
+    part[(0 * hc + k) * ns + b.s] = mom.n;
+    part[(1 * hc + k) * ns + b.s] = mom.mean;
+    part[(2 * hc + k) * ns + b.s] = mom.m2;
+  }
+  if (!last_block(o.counters + C_CH + 256 * CH_DW + k, gridDim.x)) return;
+  if (tid == 0) {
+    const Moments<T> m = merge16(part + k * ns, part + (hc + k) * ns, part + (2 * hc + k) * ns,
+                                 a.n_s);
+    o.stats[2 * hc + k] = m.mean;
+    o.stats[3 * hc + k] = m.m2 / T(g.p);
   }
 }
 
 // Training: out = shuffle(concat(shortcut, act(BN3(u)))).
 template <class T>
-__global__ void __launch_bounds__(kThreads) k_out_train(UnitArgs a) {
+__global__ void __launch_bounds__(kThreads) k_out_train(Call a) {
   const Ops<T> o(a);
   const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  if (!l.valid) return;
-  const int hc = g.hc;
-  for (int k = l.warp; k < hc; k += kWarps) {
-    const T u = o.u[at(g, l.q, k, hc)];
-    o.out[at(g, l.q, shuffle_dest(g.c, hc + k), g.c)] =
-        act(bn(u, o.m3[k], rstd(o.v3[k], o.eps), o.g3[k], o.be3[k]), o.leak);
-    o.out[at(g, l.q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, l.q, k, g.c)];
-  }
-}
-
-// Mean and biased variance of each channel from the tile partials
-// [tile][sum, m2][hc]; one warp per channel, lanes striding over the tiles,
-// then the same two-step merge as shuffle_unit.cuh's `merge`.
-template <class T>
-__global__ void __launch_bounds__(kThreads) k_stats_final(UnitArgs a, T* mean, T* var) {
-  const Ops<T> o(a);
-  const Geo g = geometry(a);
-  const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (k >= g.hc) return;
-  const int64_t n_tiles = (g.p + TILE - 1) / TILE;
-  const int64_t stride = 2 * g.hc;
-  T s = T(0);
-  for (int64_t b = lane; b < n_tiles; b += 32) s += o.partial[b * stride + k];
-  const T m = warp_sum(s) / T(g.p);
-  T m2 = T(0);
-  for (int64_t b = lane; b < n_tiles; b += 32) {
-    const T nb = T(tile_count(g.p, b));
-    const T d = o.partial[b * stride + k] / nb - m;
-    m2 += o.partial[b * stride + g.hc + k] + nb * d * d;
-  }
-  m2 = warp_sum(m2);
-  if (lane == 0) {
-    mean[k] = m;
-    var[k] = m2 / T(g.p);
-  }
-}
-
-// dst[r * rs + c * cs] = sum over b of src[b * stride + r * ncols + c], for
-// r < nrows, c < ncols; one warp per entry, a fixed order.
-template <class T>
-__global__ void __launch_bounds__(kThreads) k_sum_final(const T* src, int64_t nb,
-                                                        int64_t stride, int nrows, int ncols,
-                                                        T* dst, int rs, int cs) {
-  const int lane = threadIdx.x & 31;
-  const int64_t e = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
-  if (e >= static_cast<int64_t>(nrows) * ncols) return;
-  T s = T(0);
-  for (int64_t b = lane; b < nb; b += 32) s += src[b * stride + e];
-  s = warp_sum(s);
-  if (lane == 0) dst[(e / ncols) * rs + (e % ncols) * cs] = s;
-}
-
-// Backward 1: BN3's sums, partials [tile][sum g_a3 xh3, sum g_a3][hc].
-template <class T>
-__global__ void __launch_bounds__(kThreads) k_bn3_sums(UnitArgs a) {
-  const Ops<T> o(a);
-  const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  T* part = o.partial + l.blk * 2 * hc;
-  for (int k = l.warp; k < hc; k += kWarps) {
-    T ga = T(0), xh = T(0);
-    if (l.valid) ga = ga3_at(o, g, l.q, k, o.m3[k], rstd(o.v3[k], o.eps), &xh);
-    tile_sum(ga * xh, part + k);
-    tile_sum(ga, part + hc + k);
-  }
-}
-
-// Backward 2: g_u on the tile (and its sums, the bias gradient of W3's
-// conv), g_b2n = W3^T g_u saved, BN2's sums; partials [tile][sum g_b2n xh2,
-// sum g_b2n, sum g_u][hc].
-template <class T>
-__global__ void __launch_bounds__(kThreads) k_pw3_back(UnitArgs a) {
-  const Ops<T> o(a);
-  const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  const T inv_m = T(1.0 / static_cast<double>(g.p));
-  const T* s2 = o.dvec + D_G3 * hc;
-  const T* s1 = o.dvec + D_BE3 * hc;
-  T* gs = smem<T>();
-  T* part = o.partial + l.blk * 3 * hc;
-  for (int k = l.warp; k < hc; k += kWarps) {
-    T gu = T(0);
-    if (l.valid) gu = gu_at(o, g, l.q, k, o.m3[k], rstd(o.v3[k], o.eps), s1[k], s2[k], inv_m);
-    gs[k * TILE + l.lane] = gu;
-    tile_sum(gu, part + 2 * hc + k);
+  const int hc = g.hc, hw = g.hw;
+  T* cm = smem<T>();     // [4][hc]: m3, rstd3, g3, be3
+  for (int k = threadIdx.x; k < hc; k += kThreads) {
+    cm[k] = o.m3[k];
+    cm[hc + k] = rstd(o.v3[k], o.eps);
+    cm[2 * hc + k] = o.g3[k];
+    cm[3 * hc + k] = o.be3[k];
   }
   __syncthreads();
-  for (int o0 = l.warp * OT; o0 < hc; o0 += kWarps * OT) {
-    T acc[OT];
-    dot_tile(o.w3, 1, hc, gs, hc, o0, l.lane, acc);      // column o0 + j of W3
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int kk = o0 + j;
-      if (kk >= hc) break;
-      T xh2 = T(0);
-      if (l.valid) {
-        const int64_t i = at(g, l.q, kk, hc);
-        o.gb2n[i] = acc[j];
-        xh2 = (o.z2[i] - o.m2[kk]) * rstd(o.v2[kk], o.eps);
-      }
-      const T gb = l.valid ? acc[j] : T(0);
-      tile_sum(gb * xh2, part + kk);
-      tile_sum(gb, part + hc + kk);
-    }
+  const int64_t total = static_cast<int64_t>(g.n) * hc * hw;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; e < total;
+       e += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const int64_t plane = e / hw;
+    const int r = static_cast<int>(e - plane * hw);
+    const int nn = static_cast<int>(plane / hc), k = static_cast<int>(plane - int64_t(nn) * hc);
+    const int64_t base = static_cast<int64_t>(nn) * g.c * hw + r;
+    o.out[base + shuffle_dest(g.c, hc + k) * hw] =
+        act(bn(o.u[e], cm[k], cm[hc + k], cm[2 * hc + k], cm[3 * hc + k]), o.leak);
+    o.out[base + shuffle_dest(g.c, k) * hw] = o.x[base + k * hw];
   }
+}
+
+// Backward 1: BN3's sums (sum g_a3 xh3, sum g_a3), and the shortcut half of
+// gx, the unshuffled output gradient.
+template <class T>
+__global__ void __launch_bounds__(kThreads) k_bn3_back(Call a) {
+  const Ops<T> o(a);
+  const Geo g = geometry(a);
+  const int hc = g.hc, hw = g.hw, k = blockIdx.y;
+  const int n0 = blockIdx.x * a.ipb, n1 = min(g.n, n0 + a.ipb);
+  const int dk = shuffle_dest(g.c, hc + k), ds = shuffle_dest(g.c, k);
+  const T m3 = o.m3[k], r3 = rstd(o.v3[k], o.eps), g3 = o.g3[k], be3 = o.be3[k];
+  T s[2] = {T(0), T(0)};
+  // pixel (nn, r) of the run, advanced by kThreads without a division
+  int nn = n0 + static_cast<int>(threadIdx.x) / hw, r = static_cast<int>(threadIdx.x) % hw;
+  while (nn < n1) {
+    const int64_t base = static_cast<int64_t>(nn) * g.c * hw + r;
+    T xh;
+    const T ga = ga3_v(o.u[(static_cast<int64_t>(nn) * hc + k) * hw + r], o.gout[base + dk * hw],
+                       m3, r3, g3, be3, o.leak, &xh);
+    s[0] += ga * xh;
+    s[1] += ga;
+    o.out[base + k * hw] = o.gout[base + ds * hw];
+    for (r += kThreads; r >= hw; r -= hw) ++nn;
+  }
+  const int64_t ns = a.n_s;
+  T* part = o.partial;
+  block_sums<T, 2>(s, part + static_cast<int64_t>(k) * ns + blockIdx.x, hc * ns);
+  if (!last_block(o.counters + C_CH + 256 * CH_BN3B + k, gridDim.x)) return;
+  // rows: sum g_a3 xh3 (BN3 scale), sum g_a3 (BN3 bias)
+  if (threadIdx.x < 2)
+    o.dvec[(threadIdx.x == 0 ? D_G3 : D_BE3) * hc + k] =
+        sum16(part + (threadIdx.x * hc + k) * ns, a.n_s);
 }
 
 // Backward 3: g_z2 through BN2, the depthwise transpose, the activation's
-// gradient: g_pre1 saved; partials [tile][sum g_pre1 xh1, sum g_pre1,
-// sum g_z2, sum_t g_z2 a1(tap t) for 9 taps][hc].
+// gradient: g_pre1 saved; the sums of g_pre1 xh1, g_pre1, g_z2 and
+// g_z2 a1(tap t) for the 9 taps.
 template <class T>
-__global__ void __launch_bounds__(kThreads) k_dw_back(UnitArgs a) {
+__global__ void __launch_bounds__(kThreads) k_dw_back(Call a) {
   const Ops<T> o(a);
   const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
+  const int planes = planes_per_pass(g.h, g.w, a.ipb) * (g.h + 2) * (g.w + 2);
+  T* gz = smem<T>();                  // padded planes of g_z2
+  T* a1 = gz + planes;                // padded planes of a1
+  T* z1s = a1 + planes;               // padded planes of z1
+  const ChannelBlock b = channel_block(a, g, reinterpret_cast<int*>(z1s + planes));
+  const int hc = g.hc, hw = g.hw, k = b.k, tid = threadIdx.x;
   const T inv_m = T(1.0 / static_cast<double>(g.p));
-  T* part = o.partial + l.blk * 12 * hc;
-  for (int k = l.warp; k < hc; k += kWarps) {
-    const T m1 = o.m1[k], r1 = rstd(o.v1[k], o.eps);
-    const T m2 = o.m2[k], r2 = rstd(o.v2[k], o.eps);
-    const T t2 = o.dvec[D_G2 * hc + k], t1 = o.dvec[D_BE2 * hc + k];
-    T gp = T(0), xh1 = T(0), gz = T(0);
-    T gdw[9];
+  const T m1 = o.m1[k], r1 = rstd(o.v1[k], o.eps), g1 = o.g1[k], be1 = o.be1[k];
+  const T m2 = o.m2[k], r2 = rstd(o.v2[k], o.eps), g2 = o.g2[k];
+  const T t1 = o.dvec[D_BE2 * hc + k], t2 = o.dvec[D_G2 * hc + k];
+  T wt[9];
 #pragma unroll
-    for (int t = 0; t < 9; ++t) gdw[t] = T(0);
-    if (l.valid) {
-      T ga1 = T(0);
-      for (int t = 0; t < 9; ++t) {
-        int64_t nb;
-        if (tap(g, l.q, t, -1, &nb))
-          ga1 += o.dw[k * 9 + t] * gz2_at(o, g, nb, k, m2, r2, t1, t2, inv_m);
+  for (int t = 0; t < 9; ++t) wt[t] = o.dw[k * 9 + t];
+  T s[12];
+#pragma unroll
+  for (int r = 0; r < 12; ++r) s[r] = T(0);
+  for (int n = b.n0; n < b.n1; n += b.pl) {
+    const int np = min(b.pl, b.n1 - n);
+    const int64_t base = (static_cast<int64_t>(n) * hc + k) * hw;
+    __syncthreads();   // the maps are written, the previous pass is done
+#pragma unroll 2
+    for (int e = tid; e < np * b.plane; e += kThreads) {
+      const int f = b.fo[e];
+      T vg = T(0), va = T(0), vz = T(0);
+      if (f >= 0) {
+        vg = gin_v(o.gb2n[base + f], o.z2[base + f], m2, r2, g2, t1, t2, inv_m);
+        vz = o.z1[base + f];
+        va = act(bn(vz, m1, r1, g1, be1), o.leak);
       }
-      const int64_t i = at(g, l.q, k, hc);
-      xh1 = (o.z1[i] - m1) * r1;
-      gp = ga1 * act_grad(affine_rn(o.g1[k], xh1, o.be1[k]), o.leak);
-      o.gpre1[i] = gp;
-      gz = gz2_at(o, g, l.q, k, m2, r2, t1, t2, inv_m);
-      for (int t = 0; t < 9; ++t) {
-        int64_t nb;
-        if (tap(g, l.q, t, +1, &nb)) gdw[t] = gz * a1_at(o, g, nb, k, m1, r1);
-      }
+      gz[e] = vg;
+      a1[e] = va;
+      z1s[e] = vz;
     }
-    tile_sum(gp * xh1, part + k);
-    tile_sum(gp, part + hc + k);
-    tile_sum(gz, part + 2 * hc + k);
+    __syncthreads();
+    for (int e = tid; e < np * hw; e += kThreads) {
+      const int c = b.oc[e];
+      const T ga1 = dw3x3_t(wt, gz + c, b.pitch);
+      const T xh1 = (z1s[c] - m1) * r1;
+      const T gp = ga1 * act_grad(affine_rn(g1, xh1, be1), o.leak);
+      o.gpre1[base + b.og[e]] = gp;
+      s[0] += gp * xh1;
+      s[1] += gp;
+      const T gzc = gz[c];
+      s[2] += gzc;
 #pragma unroll
-    for (int t = 0; t < 9; ++t) tile_sum(gdw[t], part + (3 + t) * hc + k);
+      for (int t = 0; t < 9; ++t) s[3 + t] += gzc * a1[c + (t / 3 - 1) * b.pitch + t % 3 - 1];
+    }
+  }
+  const int64_t ns = a.n_s;
+  T* part = o.partial;
+  block_sums<T, 12>(s, part + static_cast<int64_t>(k) * ns + b.s, hc * ns);
+  if (!last_block(o.counters + C_CH + 256 * CH_DWB + k, gridDim.x)) return;
+  // rows: sum g_pre1 xh1 (BN1 scale), sum g_pre1 (BN1 bias), sum g_z2 (dwb),
+  // then the 9 taps of ddw
+  if (tid < 12) {
+    const T v = sum16(part + (tid * hc + k) * ns, a.n_s);
+    if (tid < 3)
+      o.dvec[(tid == 0 ? D_G1 : tid == 1 ? D_BE1 : D_DWB) * hc + k] = v;
+    else
+      o.ddw[k * 9 + tid - 3] = v;
   }
 }
 
-// Backward 4: g_z1 through BN1 (its sums: the bias gradient of W1's conv),
-// gx = W1^T g_z1 on the branch channels and the unshuffled gradient on the
-// shortcut channels; partials [tile][sum g_z1][hc].
-template <class T>
-__global__ void __launch_bounds__(kThreads) k_pw1_back(UnitArgs a) {
-  const Ops<T> o(a);
-  const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  const T inv_m = T(1.0 / static_cast<double>(g.p));
-  T* gs = smem<T>();
-  T* part = o.partial + l.blk * hc;
-  for (int k = l.warp; k < hc; k += kWarps) {
-    T gz = T(0);
-    if (l.valid) {
-      gz = gz1_at(o, g, l.q, k, o.m1[k], rstd(o.v1[k], o.eps), o.dvec[D_BE1 * hc + k],
-                  o.dvec[D_G1 * hc + k], inv_m);
-      o.out[at(g, l.q, k, g.c)] = o.gout[at(g, l.q, shuffle_dest(g.c, k), g.c)];
-    }
-    gs[k * TILE + l.lane] = gz;
-    tile_sum(gz, part + k);
-  }
-  __syncthreads();
-  for (int o0 = l.warp * OT; o0 < hc; o0 += kWarps * OT) {
-    T acc[OT];
-    dot_tile(o.w1, 1, hc, gs, hc, o0, l.lane, acc);      // column o0 + j of W1
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int ii = o0 + j;
-      if (ii >= hc) break;
-      if (l.valid) o.out[at(g, l.q, hc + ii, g.c)] = acc[j];
-    }
-  }
-}
+// ---------------------------------------------------------------------------
+// the weight gradients
+// ---------------------------------------------------------------------------
 
-// Weight gradient dW[o][k] = sum_q A(o, q) B(k, q) over segment blockIdx.z of
-// the pixel tiles, for the 32 x 32 block (blockIdx.x, blockIdx.y) of (o, k);
-// partials [segment][hc][hc].  kWhich 3: A = g_u, B = b2n; kWhich 1: A = g_z1,
-// B = the branch input.
-template <class T, int kWhich>
-__global__ void __launch_bounds__(kThreads) k_wgrad(UnitArgs a) {
-  __shared__ T as[TILE][TILE + 1];
-  __shared__ T bs[TILE][TILE + 1];
+// dW[o][k] = sum_p A[o][p] B[k][p]: dW3 (A = g_u, B = b2n) and dW1 (A = g_z1,
+// B = the branch input), block = (product, segment, 64 x 64 tile), tile
+// fastest so that the blocks of one pixel segment run together.  Partials
+// part[((w * tiles + tile) * nseg + seg) * 4096 + e]; the last block of each
+// group of gsz segments adds its group's in order, and the last group of a
+// tile adds the groups' in order into dW.
+template <class T>
+__global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
+  constexpr int TT = WTILE * WTILE;
   const Ops<T> o(a);
   const Geo g = geometry(a);
-  const int hc = g.hc;
-  const T inv_m = T(1.0 / static_cast<double>(g.p));
-  const int o0 = blockIdx.x * TILE, k0 = blockIdx.y * TILE;
-  const int64_t n_tiles = (g.p + TILE - 1) / TILE;
-  const int64_t c0 = static_cast<int64_t>(blockIdx.z) * a.seg_chunks;
-  const int64_t c1 = c0 + a.seg_chunks < n_tiles ? c0 + a.seg_chunks : n_tiles;
-  const int tr = threadIdx.x / 8, tc = (threadIdx.x % 8) * 4;
-  T acc[4] = {T(0), T(0), T(0), T(0)};
+  const int hc = g.hc, hw = g.hw, tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int nt = (hc + WTILE - 1) / WTILE, tiles = nt * nt;
+  const int tile = blockIdx.x % tiles, rest = blockIdx.x / tiles;
+  const int seg = rest % a.nseg, which = rest / a.nseg;
+  const int o0 = (tile / nt) * WTILE, k0 = (tile % nt) * WTILE;
+  const T* A = which == 0 ? o.gu : o.gz1;
+  const T* B = which == 0 ? o.b2n : o.x;
+  const int bch = which == 0 ? hc : g.c, boff = which == 0 ? 0 : hc;
+  const int64_t n_chunks = (g.p + WCHUNK - 1) / WCHUNK;
+  const int64_t c0 = static_cast<int64_t>(seg) * a.cps;
+  const int64_t c1 = c0 + a.cps < n_chunks ? c0 + a.cps : n_chunks;
+  T* as = smem<T>();                 // [WS][WTILE][WL]
+  T* bs = as + WS * WTILE * WL;      // [WS][WTILE][WL]
+  const int lp = tid & 31, lr = tid >> 5;
+
+  auto issue = [&](int64_t c, int st) {
+    const int64_t q = c * WCHUNK + lp;
+    const bool v = q < g.p;
+    const int nn = v ? static_cast<int>(q / hw) : 0;
+    const int r = v ? static_cast<int>(q - int64_t(nn) * hw) : 0;
+    const T* pa = A + static_cast<int64_t>(nn) * hc * hw + r;
+    const T* pb = B + (static_cast<int64_t>(nn) * bch + boff) * hw + r;
+#pragma unroll
+    for (int i = 0; i < WTILE / kWarps; ++i) {
+      const int row = lr + kWarps * i;
+      const bool va = v && o0 + row < hc, vb = v && k0 + row < hc;
+      cp_async(as + (st * WTILE + row) * WL + lp, va ? pa + (o0 + row) * hw : A, va);
+      cp_async(bs + (st * WTILE + row) * WL + lp, vb ? pb + (k0 + row) * hw : B, vb);
+    }
+  };
+
+  T acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+#pragma unroll
+  for (int s = 0; s < WS - 1; ++s) {
+    if (c0 + s < c1) issue(c0 + s, s);
+    cp_commit();
+  }
   for (int64_t c = c0; c < c1; ++c) {
-    for (int e = threadIdx.x; e < TILE * TILE; e += kThreads) {
-      const int row = e / TILE, col = e % TILE;
-      const int64_t q = c * TILE + col;
-      const int oo = o0 + row, kk = k0 + row;
-      T av = T(0), bv = T(0);
-      if (q < g.p) {
-        if (kWhich == 3) {
-          if (oo < hc)
-            av = gu_at(o, g, q, oo, o.m3[oo], rstd(o.v3[oo], o.eps),
-                       o.dvec[D_BE3 * hc + oo], o.dvec[D_G3 * hc + oo], inv_m);
-          if (kk < hc) bv = b2n_at(o, g, q, kk, o.m2[kk], rstd(o.v2[kk], o.eps));
-        } else {
-          if (oo < hc)
-            av = gz1_at(o, g, q, oo, o.m1[oo], rstd(o.v1[oo], o.eps),
-                        o.dvec[D_BE1 * hc + oo], o.dvec[D_G1 * hc + oo], inv_m);
-          if (kk < hc) bv = o.x[at(g, q, hc + kk, g.c)];
-        }
-      }
-      as[row][col] = av;
-      bs[row][col] = bv;
-    }
+    const int i = static_cast<int>(c - c0);
+    cp_wait<WS - 2>();
     __syncthreads();
-#pragma unroll 8
-    for (int p = 0; p < TILE; ++p) {
-      const T av = as[tr][p];
+    if (c + WS - 1 < c1) issue(c + WS - 1, (i + WS - 1) % WS);
+    cp_commit();
+    const T* sa = as + (i % WS) * WTILE * WL;
+    const T* sb = bs + (i % WS) * WTILE * WL;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[j] += av * bs[tc + j][p];
+    for (int kk = 0; kk < WCHUNK; kk += 4) {
+      T av[4][4], bv[4][4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) load4(sa + (ty + 16 * ii) * WL + kk, av[ii]);
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) load4(sb + (tx + 16 * jj) * WL + kk, bv[jj]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[ii][jj] += av[ii][u] * bv[jj][u];
     }
-    __syncthreads();
   }
-  T* part = o.partial + static_cast<int64_t>(blockIdx.z) * hc * hc;
-  const int oo = o0 + tr;
-  if (oo < hc) {
+  cp_wait<0>();
+
+  T* part = o.partial;
+  const int64_t ts = static_cast<int64_t>(which) * tiles + tile;
+  T* mine = part + (ts * a.nseg + seg) * TT;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      if (k0 + tc + j < hc) part[oo * hc + k0 + tc + j] = acc[j];
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) mine[(ty + 16 * ii) * WTILE + tx + 16 * jj] = acc[ii][jj];
+
+  const int ngroups = (a.nseg + a.gsz - 1) / a.gsz, grp = seg / a.gsz;
+  const int s0 = grp * a.gsz, s1 = min(s0 + a.gsz, a.nseg);
+  int* cnt = o.counters + C_WG;
+  if (!last_block(cnt + ts * ngroups + grp, s1 - s0)) return;
+  // each thread's TT / kThreads entries, the segments in order (the
+  // entries' loads are independent)
+  constexpr int E = TT / kThreads;
+  T s[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) s[i] = T(0);
+  for (int sg = s0; sg < s1; sg += 4) {   // 4 segments' loads in flight, added in order
+    T v[4][E];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        v[u][i] = sg + u < s1 ? part[(ts * a.nseg + sg + u) * TT + tid + i * kThreads] : T(0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < E; ++i) s[i] += v[u][i];
+  }
+  T* gpart = part + static_cast<int64_t>(2) * tiles * a.nseg * TT;
+#pragma unroll
+  for (int i = 0; i < E; ++i) gpart[(ts * ngroups + grp) * TT + tid + i * kThreads] = s[i];
+  if (!last_block(cnt + 2 * tiles * ngroups + ts, ngroups)) return;
+#pragma unroll
+  for (int i = 0; i < E; ++i) s[i] = T(0);
+  for (int gr = 0; gr < ngroups; gr += 4) {
+    T v[4][E];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < E; ++i)
+        v[u][i] = gr + u < ngroups ? gpart[(ts * ngroups + gr + u) * TT + tid + i * kThreads]
+                                   : T(0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int i = 0; i < E; ++i) s[i] += v[u][i];
+  }
+  T* dst = which == 0 ? o.dw3 : o.dw1;
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    const int e = tid + i * kThreads, oo = o0 + e / WTILE, kk = k0 + e % WTILE;
+    if (oo < hc && kk < hc) dst[oo * hc + kk] = s[i];
   }
 }
 
@@ -495,99 +1006,117 @@ __global__ void __launch_bounds__(kThreads) k_wgrad(UnitArgs a) {
 // launch sequences
 // ---------------------------------------------------------------------------
 
-// Dynamic shared memory above 48 KB (float64 tiles at hc = 232) must be
-// allowed per kernel before its launch.
-template <class K>
-void allow_smem(K* kernel, size_t bytes) {
-  if (bytes > 48 * 1024)
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(bytes));
+// The first error of a launch sequence: each launch is checked right after
+// it is made.
+struct Errors {
+  cudaError_t first = cudaSuccess;
+  void operator()() {
+    const cudaError_t e = cudaGetLastError();
+    if (first == cudaSuccess) first = e;
+  }
+};
+
+// Launch `kernel` with `smem` bytes of dynamic shared memory (allowed above
+// the 48 KB default first) and record its error.
+template <class... P, class... A>
+void launch(Errors& err, void (*kernel)(P...), dim3 grid, size_t smem, cudaStream_t s,
+            A... args) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess && err.first == cudaSuccess) err.first = e;
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  err();
 }
 
+int pw_grid(const Call& a) { return (a.c / 2 + PM - 1) / PM * a.n_pb; }
+
 template <class T>
-int infer(const UnitArgs& a, cudaStream_t s) {
+int infer(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
-  const int tiles = static_cast<int>((g.p + TILE - 1) / TILE);
-  const size_t sm = sizeof(T) * g.hc * TILE;
-  allow_smem(k_pw1<T, false>, sm);
-  allow_smem(k_tail_infer<T>, sm);
-  k_pw1<T, false><<<tiles, kThreads, sm, s>>>(a);
-  k_tail_infer<T><<<tiles, kThreads, sm, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  Errors err;
+  launch(err, k_pw<T, PW1_INFER>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_tail_infer<T>, static_cast<int>((g.p + TILE - 1) / TILE),
+         sizeof(T) * g.hc * TILE, s, a);
+  return static_cast<int>(err.first);
 }
 
 template <class T>
-int train_fwd(const UnitArgs& a, cudaStream_t s) {
+int train_fwd(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
-  const int tiles = static_cast<int>((g.p + TILE - 1) / TILE);
-  const int fin = (g.hc + kWarps - 1) / kWarps;
-  const size_t sm = sizeof(T) * g.hc * TILE;
-  T* st = static_cast<T*>(a.stats);
-  allow_smem(k_pw1<T, true>, sm);
-  allow_smem(k_pw3_train<T>, sm);
-  k_pw1<T, true><<<tiles, kThreads, sm, s>>>(a);
-  k_stats_final<T><<<fin, kThreads, 0, s>>>(a, st, st + g.hc);
-  k_dw_train<T><<<tiles, kThreads, 0, s>>>(a);
-  k_stats_final<T><<<fin, kThreads, 0, s>>>(a, st + 2 * g.hc, st + 3 * g.hc);
-  k_pw3_train<T><<<tiles, kThreads, sm, s>>>(a);
-  k_stats_final<T><<<fin, kThreads, 0, s>>>(a, st + 4 * g.hc, st + 5 * g.hc);
-  k_out_train<T><<<tiles, kThreads, 0, s>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 cgrid(a.n_s, g.hc);
+  const int64_t total = static_cast<int64_t>(g.n) * g.hc * g.hw;
+  const int64_t ogrid = (total + kThreads - 1) / kThreads;
+  Errors err;
+  launch(err, k_pw<T, PW1_TRAIN>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_dw_train<T>, cgrid, channel_smem<T>(a, 1), s, a);
+  launch(err, k_pw<T, PW3_TRAIN>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_out_train<T>, static_cast<int>(ogrid < 2048 ? ogrid : 2048),
+         4 * g.hc * sizeof(T), s, a);
+  return static_cast<int>(err.first);
 }
 
 template <class T>
-void sum_final(const T* src, int64_t nb, int64_t stride, int nrows, int ncols, T* dst, int rs,
-               int cs, cudaStream_t s) {
-  const int64_t n = static_cast<int64_t>(nrows) * ncols;
-  const int blocks = static_cast<int>((n + kWarps - 1) / kWarps);
-  k_sum_final<T><<<blocks, kThreads, 0, s>>>(src, nb, stride, nrows, ncols, dst, rs, cs);
-}
-
-template <class T>
-int train_bwd(const UnitArgs& a, cudaStream_t s) {
+int train_bwd(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
-  const int hc = g.hc;
-  const int tiles = static_cast<int>((g.p + TILE - 1) / TILE);
-  const size_t sm = sizeof(T) * hc * TILE;
-  const T* part = static_cast<const T*>(a.partial);
-  T* dvec = static_cast<T*>(a.dvec);
-  allow_smem(k_pw3_back<T>, sm);
-  allow_smem(k_pw1_back<T>, sm);
-  k_bn3_sums<T><<<tiles, kThreads, 0, s>>>(a);
-  sum_final(part, tiles, 2 * hc, 2, hc, dvec + D_G3 * hc, hc, 1, s);
-  k_pw3_back<T><<<tiles, kThreads, sm, s>>>(a);
-  sum_final(part, tiles, 3 * hc, 3, hc, dvec + D_G2 * hc, hc, 1, s);
-  k_dw_back<T><<<tiles, kThreads, 0, s>>>(a);
-  sum_final(part, tiles, 12 * hc, 3, hc, dvec + D_G1 * hc, hc, 1, s);
-  sum_final(part + 3 * hc, tiles, 12 * hc, 9, hc, static_cast<T*>(a.ddw), 1, 9, s);
-  k_pw1_back<T><<<tiles, kThreads, sm, s>>>(a);
-  sum_final(part, tiles, hc, 1, hc, dvec + D_B1 * hc, hc, 1, s);
-  const dim3 grid((hc + TILE - 1) / TILE, (hc + TILE - 1) / TILE, a.n_seg);
-  k_wgrad<T, 3><<<grid, kThreads, 0, s>>>(a);
-  sum_final(part, a.n_seg, static_cast<int64_t>(hc) * hc, hc, hc, static_cast<T*>(a.dw3), hc,
-            1, s);
-  k_wgrad<T, 1><<<grid, kThreads, 0, s>>>(a);
-  sum_final(part, a.n_seg, static_cast<int64_t>(hc) * hc, hc, hc, static_cast<T*>(a.dw1), hc,
-            1, s);
-  return static_cast<int>(cudaGetLastError());
+  const dim3 cgrid(a.n_s, g.hc);
+  const int nt = (g.hc + WTILE - 1) / WTILE;
+  Errors err;
+  launch(err, k_bn3_back<T>, cgrid, 0, s, a);
+  launch(err, k_pw<T, PW3_BACK>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_dw_back<T>, cgrid, channel_smem<T>(a, 3), s, a);
+  launch(err, k_pw<T, PW1_BACK>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_wgrad<T>, 2 * nt * nt * a.nseg, sizeof(T) * 2 * WS * WTILE * WL, s, a);
+  return static_cast<int>(err.first);
+}
+
+// The call's plan on the current device, with its counters zeroed on `s`;
+// a negative PlanError when the plan refuses the shape.
+int prepare(const UnitArgs* args, cudaStream_t s, Call* call) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  static_cast<UnitArgs&>(*call) = *args;
+  const int refused = make_plan(args->n, args->c, args->h, args->w, sms, call);
+  if (refused) return -refused;
+  if (args->counters)
+    e = cudaMemsetAsync(args->counters, 0, sizeof(int) * call->n_counters, s);
+  return static_cast<int>(e);
+}
+
+int run(int (*stages)(const Call&, cudaStream_t), const UnitArgs* args, cudaStream_t s) {
+  Call call;
+  const int err = prepare(args, s, &call);
+  return err ? err : stages(call, s);
 }
 
 }  // namespace
 
+// The plan of a unit of c channels at n x h x w on CUDA device `device`
+// (the wrapper sizes a call's scratch and counters from it): 0, the
+// PlanError that refuses the shape, or -1 when the device has no SM count.
+extern "C" int cdrl_unit_plan(int device, int n, int c, int h, int w, Plan* out) {
+  int sms = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return -1;
+  return make_plan(n, c, h, w, sms, out);
+}
+
 // Entry points: `args` is read on the host and passed to the kernels by
-// value; dtype 0 is float32, 1 float64.  Each returns cudaGetLastError()
-// after its launches (0 on success).
+// value; dtype 0 is float32, 1 float64.  Each zeroes the call's ticket
+// counters and returns the first CUDA error of its launches (0 on success),
+// or a negative PlanError for a shape the kernels do not take.
 extern "C" int cdrl_unit_infer(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? infer<float>(*args, s) : infer<double>(*args, s);
+  return dtype == 0 ? run(infer<float>, args, s) : run(infer<double>, args, s);
 }
 
 extern "C" int cdrl_unit_train_fwd(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? train_fwd<float>(*args, s) : train_fwd<double>(*args, s);
+  return dtype == 0 ? run(train_fwd<float>, args, s) : run(train_fwd<double>, args, s);
 }
 
 extern "C" int cdrl_unit_train_bwd(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? train_bwd<float>(*args, s) : train_bwd<double>(*args, s);
+  return dtype == 0 ? run(train_bwd<float>, args, s) : run(train_bwd<double>, args, s);
 }

@@ -17,10 +17,12 @@
 // channel s lands at dest(s) and branch channel b at dest(hc + b).
 //
 // BatchNorm in training uses the batch mean and the BIASED variance over
-// all N*H*W pixels, eps 1e-3.  A pixel tile's partial statistics are its
-// sum and its sum of squared deviations from its own mean; `merge` combines
-// tiles (Chan et al.), which keeps the variance free of the cancellation of
-// E[z^2] - m^2.
+// all N*H*W pixels, eps 1e-3.  A block of the card (or a block of pixels of
+// the host build) keeps its moments of a channel: count, mean and the sum of
+// squared deviations from its mean (Welford, one value at a time; two are
+// combined with Chan et al.'s formula).  `merge` combines the blocks'
+// moments in block order, which keeps the variance free of the cancellation
+// of E[z^2] - m^2 and gives the same bits on every run.
 #pragma once
 
 #include <cmath>
@@ -35,12 +37,17 @@
 namespace cdrl {
 namespace unit {
 
-constexpr int TILE = 32;   // pixels per tile: one warp's lanes on the card
+constexpr int TILE = 32;   // pixels per tile of the inference tail: one warp's lanes
+constexpr int PTILE = 64;  // pixels per tile of the 1x1 products
+constexpr int PM = 64;     // output channels per block of the 1x1 products
+constexpr int WCHUNK = 32; // pixels per chunk of the weight gradients' split-K
+constexpr int WTILE = 64;  // output rows and columns of a weight-gradient tile
+constexpr int PGROUP = 16; // the most blocks one merge reads
 
 // Everything one call reads and writes.  Pointers are to contiguous arrays
 // of the unit's dtype (float or double) on the device (or the host for the
-// g++ build).  ops/shuffle_unit.py fills the same layout with ctypes
-// (pointers first, then doubles, then ints).
+// g++ build), `counters` to int32.  ops/shuffle_unit.py fills the same
+// layout with ctypes (pointers first, then doubles, then ints).
 struct UnitArgs {
   // operands: x (N, C, H, W); W1, W3 (hc, hc) as [out][in]; dw (hc, 9) as
   // [channel][tap], taps row-major over (dh, dw) in {-1, 0, 1}^2; the rest
@@ -74,17 +81,95 @@ struct UnitArgs {
   void* u;            // forward: saved u; backward: in
   void* gb2n;         // backward scratch (N, hc, H, W): gradient of b2n
   void* gpre1;        // backward scratch (N, hc, H, W): gradient of BN1's output
+  void* gu;           // backward scratch (N, hc, H, W): gradient of u
+  void* b2n;          // backward scratch (N, hc, H, W): BN2's output
+  void* gz1;          // backward scratch (N, hc, H, W): gradient of z1
   void* dw1;          // backward: (hc, hc)
   void* ddw;          // backward: (hc, 9)
   void* dw3;          // backward: (hc, hc)
   void* dvec;         // backward: (9, hc) rows, see DVec
-  void* partial;      // scratch for the two-level reductions
+  void* partial;      // scratch: the blocks' partials of every reduction
+  void* counters;     // the call's own ticket counters (Plan::n_counters),
+                      // zeroed by the entry point before its first launch
   double eps;
   double leak;
   int n, c, h, w;
-  int seg_chunks;     // weight gradients: tiles of TILE pixels per segment
-  int n_seg;          // weight gradients: number of pixel segments
 };
+
+// The reductions' ticket counters: the products' second-level tickets by
+// stage, their first-level tickets (64 groups per stage), the channel
+// stages' tickets (one per channel, 256 per stage), the weight gradients'.
+enum Slot { C_PW = 0, C_PWG = 64, C_CH = 1024, C_WG = 2048, N_COUNTERS = 4096 };
+
+// How a call's work splits into blocks.  It is fixed by the shape and the
+// card's SM count alone, so two calls on one card reduce in the same order.
+struct Plan {
+  int tpb;            // products: pixel tiles of PTILE per block
+  int n_pb;           // products: pixel blocks (at most PGROUP^2)
+  int ipb;            // channel stages: images per block
+  int n_s;            // channel stages: image segments per channel (at most PGROUP)
+  int cps;            // weight gradients: chunks of WCHUNK pixels per segment
+  int nseg;           // weight gradients: segments
+  int gsz;            // weight gradients: segments per first-level merge
+  int n_counters;     // int32 ticket counters a call needs
+  int64_t partial;    // elements of the scratch that holds every stage's partials
+};
+
+// Why make_plan refuses a shape (0: it does not).
+enum PlanError { PLAN_OK, PLAN_EMPTY, PLAN_INDEX, PLAN_MAP, PLAN_COUNTERS };
+
+constexpr int cdiv(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
+
+// A channel stage's pass over its images: at most CH_OWN output pixels and
+// CH_FILL zero-padded pixels for each of the block's CH_THREADS threads.
+constexpr int CH_THREADS = 256;
+constexpr int CH_OWN = 8;
+constexpr int CH_FILL = 12;
+
+// The plan of a unit of c channels at n x h x w on a card of `sms` SMs:
+//   * products: n_pb blocks of tpb 64-pixel tiles for each 64-channel
+//     tile, about two blocks per SM, and never more blocks than one
+//     two-level merge reads (PGROUP groups of PGROUP);
+//   * channel stages: n_s runs of ipb images per channel, 32 images (the
+//     fastest of 8-128 at the backbone's maps on the H100), at most PGROUP
+//     runs;
+//   * weight gradients: nseg segments of cps 32-pixel chunks for each
+//     64 x 64 output tile of the two gradients, at most two blocks per SM
+//     (one wave: the kernel holds 2 blocks per SM), merged in groups of gsz
+//     segments, then across the groups.
+inline int make_plan(int n, int c, int h, int w, int sms, Plan* pl) {
+  const int hc = c / 2;
+  if (n <= 0 || hc <= 0 || h <= 0 || w <= 0) return PLAN_EMPTY;
+  if (static_cast<int64_t>(n) * c * h * w >= (int64_t(1) << 31)) return PLAN_INDEX;
+  if (h * w > CH_OWN * CH_THREADS || (h + 2) * (w + 2) > CH_FILL * CH_THREADS) return PLAN_MAP;
+  const int64_t p = static_cast<int64_t>(n) * h * w;
+  const int tiles = cdiv(p, PTILE);
+  const int split = cdiv(static_cast<int64_t>(tiles) * cdiv(hc, PM), 2 * sms);
+  const int reach = cdiv(tiles, PGROUP * PGROUP);
+  pl->tpb = split > reach ? split : reach;
+  pl->tpb = pl->tpb > 1 ? pl->tpb : 1;
+  pl->n_pb = cdiv(tiles, pl->tpb);
+  const int runs = cdiv(n, PGROUP);
+  pl->ipb = runs > 32 ? runs : 32;
+  pl->ipb = pl->ipb < n ? pl->ipb : n;
+  pl->n_s = cdiv(n, pl->ipb);
+  const int chunks = cdiv(p, WCHUNK), wtiles = cdiv(hc, WTILE) * cdiv(hc, WTILE);
+  int segs = sms / wtiles;
+  segs = segs < chunks ? segs : chunks;
+  pl->cps = cdiv(chunks, segs > 1 ? segs : 1);
+  pl->nseg = cdiv(chunks, pl->cps);
+  int r = 0;   // floor(sqrt(nseg - 1))
+  while ((r + 1) * (r + 1) <= pl->nseg - 1) ++r;
+  pl->gsz = r + 1;
+  const int groups = cdiv(pl->nseg, pl->gsz);
+  if (hc > 256 || C_WG + 2 * wtiles * (groups + 1) > N_COUNTERS) return PLAN_COUNTERS;
+  pl->n_counters = N_COUNTERS;
+  const int64_t pw = 3 * int64_t(hc) * (pl->n_pb + cdiv(pl->n_pb, PGROUP));
+  const int64_t ch = 12 * int64_t(hc) * pl->n_s;
+  const int64_t wg = 2 * int64_t(wtiles) * (pl->nseg + groups) * WTILE * WTILE;
+  pl->partial = pw > ch ? (pw > wg ? pw : wg) : (ch > wg ? ch : wg);
+  return PLAN_OK;
+}
 
 // Rows of the backward's vector-gradient output `dvec`.
 enum DVec { D_B1, D_G1, D_BE1, D_DWB, D_G2, D_BE2, D_B3, D_G3, D_BE3, N_DVEC };
@@ -174,29 +259,123 @@ CDRL_HD T bn_back(T g, T xh, T s1, T s2, T gamma, T r, T inv_m) {
   return gamma * r * (g - (s1 + xh * s2) * inv_m);
 }
 
-// Pixels in tile b of p pixels.
-CDRL_HD int tile_count(int64_t p, int64_t b) {
-  const int64_t left = p - b * TILE;
-  return static_cast<int>(left < TILE ? left : TILE);
+// Gradient of act(BN3(u)) before BN3's backward, from u and the shuffled
+// output gradient go of its channel; *xh gets BN3's normalised value.
+template <class T>
+CDRL_HD T ga3_v(T u, T go, T m, T r, T gamma, T beta, T leak, T* xh) {
+  const T xh3 = (u - m) * r;
+  *xh = xh3;
+  return go * act_grad(affine_rn(gamma, xh3, beta), leak);
 }
 
-// Mean and biased variance over p pixels from per-tile partials: sums[b] and
-// m2s[b] (squared deviations from tile b's mean), read with stride `stride`.
-// Sequential over the tiles (the host build; the card merges in a warp).
+// Gradient of u (BN3's input) from u, go and the BN3 sums s1 = sum g_a3,
+// s2 = sum g_a3 xh3.
 template <class T>
-CDRL_HD void merge(const T* sums, const T* m2s, int64_t n_tiles, int64_t stride,
-                   int64_t p, T* mean, T* var) {
+CDRL_HD T gu_v(T u, T go, T m, T r, T gamma, T beta, T s1, T s2, T inv_m, T leak) {
+  T xh;
+  const T ga = ga3_v(u, go, m, r, gamma, beta, leak, &xh);
+  return bn_back(ga, xh, s1, s2, gamma, r, inv_m);
+}
+
+// Gradient of a BatchNorm's input z from the gradient g of its output and
+// its sums s1 = sum g, s2 = sum g xh (BN2: g_b2n, z2; BN1: g_pre1, z1).
+template <class T>
+CDRL_HD T gin_v(T g, T z, T m, T r, T gamma, T s1, T s2, T inv_m) {
+  return bn_back(g, (z - m) * r, s1, s2, gamma, r, inv_m);
+}
+
+// The 3x3 depthwise at the centre `c` of a zero-padded plane of row pitch
+// `pitch`: bias + sum_t w[t] c[dh, dw], taps row-major (the card's shared
+// planes).
+template <class T>
+CDRL_HD T dw3x3(const T* w, T bias, const T* c, int pitch) {
+  T z = bias;
+  for (int t = 0; t < 9; ++t) z += w[t] * c[(t / 3 - 1) * pitch + t % 3 - 1];
+  return z;
+}
+
+// The 3x3 depthwise transpose at `c`: sum_t w[t] c[-dh, -dw].
+template <class T>
+CDRL_HD T dw3x3_t(const T* w, const T* c, int pitch) {
+  T z = T(0);
+  for (int t = 0; t < 9; ++t) z += w[t] * c[-((t / 3 - 1) * pitch + t % 3 - 1)];
+  return z;
+}
+
+// A block's moments of one channel.
+template <class T>
+struct Moments {
+  T n, mean, m2;
+};
+
+template <class T>
+CDRL_HD void welford(Moments<T>* a, T v) {
+  a->n += T(1);
+  const T d = v - a->mean;
+  a->mean += d / a->n;
+  a->m2 += d * (v - a->mean);
+}
+
+// The moments of the union of two disjoint sets (Chan et al.).
+template <class T>
+CDRL_HD Moments<T> chan(const Moments<T>& a, const Moments<T>& b) {
+  if (b.n == T(0)) return a;
+  if (a.n == T(0)) return b;
+  const T n = a.n + b.n, d = b.mean - a.mean, f = b.n / n;
+  Moments<T> r;
+  r.n = n;
+  r.mean = a.mean + d * f;
+  r.m2 = a.m2 + b.m2 + d * d * a.n * f;
+  return r;
+}
+
+// Sum of v[0 .. nb), in order.
+template <class T>
+CDRL_HD T range_sum(const T* v, int64_t nb) {
   T s = T(0);
-  for (int64_t b = 0; b < n_tiles; ++b) s += sums[b * stride];
-  const T m = s / T(p);
-  T m2 = T(0);
-  for (int64_t b = 0; b < n_tiles; ++b) {
-    const T nb = T(tile_count(p, b));
-    const T d = sums[b * stride] / nb - m;
-    m2 += m2s[b * stride] + nb * d * d;
+  for (int64_t b = 0; b < nb; ++b) s += v[b];
+  return s;
+}
+
+// The moments of the union of blocks 0 .. nb-1 from their rows n, mean, m2,
+// in block order and in two passes: the merged mean mu = sum n_b mean_b /
+// sum n_b, then the squared deviations sum m2_b + n_b (mean_b - mu)^2 (Chan
+// et al.).  Empty blocks add nothing.
+template <class T>
+CDRL_HD Moments<T> merge_blocks(const T* n, const T* mean, const T* m2, int64_t nb) {
+  T cnt = T(0), s = T(0);
+  for (int64_t b = 0; b < nb; ++b) {
+    cnt += n[b];
+    s += n[b] * mean[b];
   }
-  *mean = m;
-  *var = m2 / T(p);
+  Moments<T> r;
+  r.n = cnt;
+  r.mean = cnt > T(0) ? s / cnt : T(0);
+  r.m2 = T(0);
+  for (int64_t b = 0; b < nb; ++b) {
+    const T d = mean[b] - r.mean;
+    r.m2 += m2[b] + n[b] * d * d;
+  }
+  return r;
+}
+
+// Mean and biased variance over p values from the moments of nb blocks.
+// The card merges the same way, in two levels for its 1x1 products: groups
+// of blocks, then the groups.
+template <class T>
+CDRL_HD void merge(const T* n, const T* mean, const T* m2, int64_t nb, int64_t p, T* out_mean,
+                   T* out_var) {
+  const Moments<T> r = merge_blocks(n, mean, m2, nb);
+  *out_mean = r.mean;
+  *out_var = r.m2 / T(p);
+}
+
+// Images per pass of a channel stage's zero-padded shared planes (0 when
+// one image does not fit).
+CDRL_HD int planes_per_pass(int h, int w, int ipb) {
+  const int a = CH_OWN * CH_THREADS / (h * w), b = CH_FILL * CH_THREADS / ((h + 2) * (w + 2));
+  const int pl = a < b ? a : b;
+  return pl < ipb ? pl : ipb;
 }
 
 // The typed view of UnitArgs.
@@ -204,7 +383,9 @@ template <class T>
 struct Ops {
   const T *x, *w1, *b1, *g1, *be1, *dw, *dwb, *g2, *be2, *w3, *b3, *g3, *be3;
   const T *m1, *v1, *m2, *v2, *m3, *v3, *gout;
-  T *out, *stats, *z1, *z2, *u, *gb2n, *gpre1, *dw1, *ddw, *dw3, *dvec, *partial;
+  T *out, *stats, *z1, *z2, *u, *gb2n, *gpre1, *gu, *b2n, *gz1, *dw1, *ddw, *dw3, *dvec,
+      *partial;
+  int* counters;
   T eps, leak;
 
   CDRL_HD explicit Ops(const UnitArgs& a)
@@ -214,8 +395,9 @@ struct Ops {
         g3((const T*)a.g3), be3((const T*)a.be3), m1((const T*)a.m1), v1((const T*)a.v1),
         m2((const T*)a.m2), v2((const T*)a.v2), m3((const T*)a.m3), v3((const T*)a.v3),
         gout((const T*)a.gout), out((T*)a.out), stats((T*)a.stats), z1((T*)a.z1),
-        z2((T*)a.z2), u((T*)a.u), gb2n((T*)a.gb2n), gpre1((T*)a.gpre1), dw1((T*)a.dw1),
-        ddw((T*)a.ddw), dw3((T*)a.dw3), dvec((T*)a.dvec), partial((T*)a.partial),
+        z2((T*)a.z2), u((T*)a.u), gb2n((T*)a.gb2n), gpre1((T*)a.gpre1), gu((T*)a.gu),
+        b2n((T*)a.b2n), gz1((T*)a.gz1), dw1((T*)a.dw1), ddw((T*)a.ddw), dw3((T*)a.dw3),
+        dvec((T*)a.dvec), partial((T*)a.partial), counters((int*)a.counters),
         eps(T(a.eps)), leak(T(a.leak)) {}
 };
 
@@ -246,17 +428,15 @@ template <class T>
 CDRL_HD T gz2_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T t1, T t2,
                  T inv_m) {
   const int64_t i = at(g, q, k, g.hc);
-  return bn_back(o.gb2n[i], (o.z2[i] - m) * r, t1, t2, o.g2[k], r, inv_m);
+  return gin_v(o.gb2n[i], o.z2[i], m, r, o.g2[k], t1, t2, inv_m);
 }
 
 // Gradient of act(BN3(u)) at branch channel k of pixel q, before BN3's
 // backward: the shuffled gradient times the activation's gradient.
 template <class T>
 CDRL_HD T ga3_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T* xh) {
-  const T xh3 = (o.u[at(g, q, k, g.hc)] - m) * r;
-  *xh = xh3;
-  const T pre3 = affine_rn(o.g3[k], xh3, o.be3[k]);
-  return o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)] * act_grad(pre3, o.leak);
+  return ga3_v(o.u[at(g, q, k, g.hc)], o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)], m,
+               r, o.g3[k], o.be3[k], o.leak, xh);
 }
 
 // Gradient of u (BN3's input) at channel k of pixel q, from the BN3 sums
@@ -264,9 +444,8 @@ CDRL_HD T ga3_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T* x
 template <class T>
 CDRL_HD T gu_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T s1, T s2,
                 T inv_m) {
-  T xh;
-  const T ga = ga3_at(o, g, q, k, m, r, &xh);
-  return bn_back(ga, xh, s1, s2, o.g3[k], r, inv_m);
+  return gu_v(o.u[at(g, q, k, g.hc)], o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)], m,
+              r, o.g3[k], o.be3[k], s1, s2, inv_m, o.leak);
 }
 
 // Gradient of z1 (BN1's input) at channel k of pixel q, from the saved
@@ -276,7 +455,7 @@ template <class T>
 CDRL_HD T gz1_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T u1, T u2,
                  T inv_m) {
   const int64_t i = at(g, q, k, g.hc);
-  return bn_back(o.gpre1[i], (o.z1[i] - m) * r, u1, u2, o.g1[k], r, inv_m);
+  return gin_v(o.gpre1[i], o.z1[i], m, r, o.g1[k], u1, u2, inv_m);
 }
 
 // b2n = BN2(z2) at channel k of pixel q, from the saved z2

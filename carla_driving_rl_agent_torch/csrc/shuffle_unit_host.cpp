@@ -2,10 +2,10 @@
 // (shuffle_unit.cuh), compiled with g++ so that the CPU tests can hold the
 // CUDA kernels' math against the plain PyTorch version and the JAX package
 // on a machine without a GPU.  Same argument layout and the same stages as
-// shuffle_unit.cu: the per-pixel functions, the 32-pixel tile partials of
-// the batch statistics and their merge, the BatchNorm backward sums and the
-// weight-gradient definitions are the kernels'; only the order of the
-// parallel sums differs (sequential here).
+// shuffle_unit.cu: the per-pixel functions, the blocks' moments of the
+// batch statistics and their block-order merge, the BatchNorm backward sums
+// and the weight-gradient definitions are the kernels'; only the order of
+// the parallel sums differs (sequential here).
 
 #include <vector>
 
@@ -15,28 +15,28 @@ namespace {
 
 using namespace cdrl::unit;
 
-int64_t tiles_of(const Geo& g) { return (g.p + TILE - 1) / TILE; }
+// Mean and biased variance of p values v(i): Welford over blocks of
+// `per_block` consecutive values (the last one ragged), then the blocks'
+// moments merged in block order, as the card reduces a channel.
+template <class T, class V>
+void block_stats(int64_t p, int64_t per_block, V v, T* mean, T* var) {
+  const int64_t nb = (p + per_block - 1) / per_block;
+  std::vector<T> n(nb), mu(nb), m2(nb);
+  for (int64_t b = 0; b < nb; ++b) {
+    Moments<T> m{T(0), T(0), T(0)};
+    for (int64_t i = b * per_block; i < p && i < (b + 1) * per_block; ++i) welford(&m, v(i));
+    n[b] = m.n;
+    mu[b] = m.mean;
+    m2[b] = m.m2;
+  }
+  merge(n.data(), mu.data(), m2.data(), nb, p, mean, var);
+}
 
 // Batch mean and biased variance of channel k of an (N, hc, H, W) tensor,
-// from 32-pixel tile partials merged as the card merges them.
+// in blocks of one image each (a channel stage's blocks hold whole images).
 template <class T>
 void channel_stats(const Geo& g, const T* t, int k, T* mean, T* var) {
-  const int64_t nt = tiles_of(g);
-  std::vector<T> sums(nt), m2s(nt);
-  for (int64_t b = 0; b < nt; ++b) {
-    const int cnt = tile_count(g.p, b);
-    T s = T(0);
-    for (int i = 0; i < cnt; ++i) s += t[at(g, b * TILE + i, k, g.hc)];
-    const T m = s / T(cnt);
-    T q = T(0);
-    for (int i = 0; i < cnt; ++i) {
-      const T d = t[at(g, b * TILE + i, k, g.hc)] - m;
-      q += d * d;
-    }
-    sums[b] = s;
-    m2s[b] = q;
-  }
-  merge(sums.data(), m2s.data(), nt, 1, g.p, mean, var);
+  block_stats(g.p, g.hw, [&](int64_t q) { return t[at(g, q, k, g.hc)]; }, mean, var);
 }
 
 // u[o] = b[o] + sum_k w[o][k] v[k] over a pixel's channel vector v
@@ -204,4 +204,25 @@ extern "C" void cdrl_unit_train_fwd_host(const UnitArgs* args, int dtype) {
 
 extern "C" void cdrl_unit_train_bwd_host(const UnitArgs* args, int dtype) {
   dtype == 0 ? train_bwd<float>(*args) : train_bwd<double>(*args);
+}
+
+// The reduction of the batch statistics alone: mean and biased variance of
+// v[0..p) from blocks of `per_block` values merged in block order.
+extern "C" void cdrl_unit_merge_host(const void* v, int64_t p, int64_t per_block, int dtype,
+                                     void* mean, void* var) {
+  if (dtype == 0) {
+    const float* f = static_cast<const float*>(v);
+    block_stats(p, per_block, [&](int64_t i) { return f[i]; }, static_cast<float*>(mean),
+                static_cast<float*>(var));
+  } else {
+    const double* d = static_cast<const double*>(v);
+    block_stats(p, per_block, [&](int64_t i) { return d[i]; }, static_cast<double*>(mean),
+                static_cast<double*>(var));
+  }
+}
+
+// The kernels' work split of a unit of c channels at n x h x w on a card of
+// `sms` SMs (make_plan): 0, or the PlanError that refuses the shape.
+extern "C" int cdrl_unit_plan_host(int n, int c, int h, int w, int sms, Plan* out) {
+  return make_plan(n, c, h, w, sms, out);
 }

@@ -15,9 +15,9 @@ so that XLA compiles one program; PyTorch compiles nothing ahead, so this
 module builds only the town it is asked for.  Traffic (regular, dense)
 comes with a later slice of the port.
 
-Checkpoints go under weights-torch/ of the checkout by default; the port
-never writes into the tracked weights/ (utils/checkpoint.save_agent
-refuses).
+Checkpoints and evaluation records go under weights-torch/ of the checkout
+by default; the evaluation reads the weights from the tracked weights/ by
+default, and the port never writes there (utils/checkpoint.refuse_tracked).
 """
 
 from __future__ import annotations
@@ -213,7 +213,9 @@ def build_eval_agent(mode: str, town: str, steps: int, weights: str,
     """A one-town, no-traffic evaluation env and the agent loaded with
     `weights`, as the JAX package's _eval_stage configures them: the seven
     training weathers in train mode, the seven held-out ones in test mode.
-    `fused_units` runs the backbone's stride-1 units as fused ops."""
+    `fused_units` runs the backbone's stride-1 units as fused ops.  The
+    weights are read from `weights_dir`/`weights` (default weights/); the
+    agent's records go to weights-torch/`weights`."""
     if mode not in ("train", "test"):
         raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
     weights_dir = weights_dir or os.path.join(REPO_ROOT, "weights")
@@ -224,9 +226,8 @@ def build_eval_agent(mode: str, town: str, steps: int, weights: str,
         max_timesteps=steps, seed=42)
     env = CARLAEnv(CARLAEnvConfig(world=params), device=device)
     agent = CARLAgent(env, CARLAgentConfig(network=network_spec(weights, weights_dir),
-                                           fused_units=fused_units),
-                      name=weights, weights_dir=weights_dir)
-    agent.load()
+                                           fused_units=fused_units), name=weights)
+    agent.load(os.path.join(weights_dir, weights))
     return agent
 
 
@@ -236,7 +237,8 @@ def evaluate(mode: str, town: str, seeds: list, traffic: str, steps: int = 512,
              evaluation_dir: Optional[str] = None, device=None) -> List[dict]:
     """Evaluate `weights` on one scenario for each seed, writing one JSON per
     seed named `{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}`
-    (into `evaluation_dir`, default weights/<weights>/evaluation).  Returns
+    (into `evaluation_dir`, default weights-torch/<weights>/evaluation; the
+    weights are read from `weights_dir`, default weights/).  Returns
     the records.  Equivalent to build_eval_agent() then CARLAgent.evaluate()
     per seed."""
     if traffic != "no":

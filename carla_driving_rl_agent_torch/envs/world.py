@@ -167,6 +167,25 @@ def reset_draws(gen: torch.Generator, n: int, params: WorldParams,
                       route_id=route_id, sim_time=sim_time)
 
 
+def trial_draws(seed: int, n: int, params: WorldParams, routes: RoutesDev) -> ResetDraws:
+    """The reset draws of evaluation trials 0 .. n-1, trial i from its own
+    stream keyed by (seed, i) (numpy's SeedSequence), as the JAX package
+    folds the trial index into its reset key: trial i's town, weather,
+    route and light-clock offset do not depend on n."""
+    n_towns, n_routes = len(params.town_names), routes.length.shape[1]
+    rows = []
+    for i in range(n):
+        rng = np.random.default_rng((seed, i))
+        town = int(rng.integers(n_towns)) if params.random_towns and n_towns > 1 else 0
+        weather = params.weather_ids[int(rng.integers(len(params.weather_ids)))]
+        rows.append((town, weather, int(rng.integers(n_routes)),
+                     float(rng.random()) * traffic.LIGHT_CYCLE))
+    town, weather, route, sim_time = zip(*rows)
+    col = lambda v, dt: torch.tensor(v, dtype=dt, device=routes.length.device)
+    return ResetDraws(town_id=col(town, torch.int64), weather_id=col(weather, torch.int64),
+                      route_id=col(route, torch.int64), sim_time=col(sim_time, torch.float32))
+
+
 def reset_world(draws: ResetDraws, routes: RoutesDev,
                 episode: torch.Tensor | int = 0) -> WorldState:
     """Fresh episodes from `draws`: the ego stands at rest at the start of

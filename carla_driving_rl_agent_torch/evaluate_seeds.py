@@ -1,0 +1,73 @@
+"""Evaluate a checkpoint on one no-traffic scenario at several seeds and
+hold each seed's six means against the reference's recorded evaluation of
+that scenario at seed 42 (test mode, 512 steps, 50 trials, the record
+shape under weights/<weights>/evaluation/): z = (port - record) / SE, with
+SE the record's standard deviation over the square root of its trials.
+chip_smoke.py's slice phases read their z-scores with `z_score` too.
+
+    python -m carla_driving_rl_agent_torch.evaluate_seeds \
+        [--weights safe-s5] [--town Town03] [--seeds 42 43 44 45 46]
+
+Runs on the card.  The records go to a temporary directory; nothing is
+written under weights/.  The last line is a JSON object with the means and
+z-scores of every seed.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import tempfile
+
+import torch
+
+from carla_driving_rl_agent_torch import REPO_ROOT
+from carla_driving_rl_agent_torch.curriculum import stages
+
+METRICS = ("collision_rate", "similarity", "waypoint_distance", "speed", "total_reward",
+           "timesteps")
+# the recorded evaluations' shape
+MODE, STEPS, TRIALS, RECORD_SEED = "test", 512, 50, 42
+
+
+def z_score(record: dict, ref: dict, metric: str) -> float:
+    """(record's mean - ref's mean) / SE of `metric`, with SE ref's standard
+    deviation over the square root of its trials (nan when it is 0)."""
+    se = ref[f"{metric}_std"] / math.sqrt(len(ref[metric]))
+    return (record[f"{metric}_mean"] - ref[f"{metric}_mean"]) / se if se > 0 else float("nan")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--weights", default="safe-s5")
+    ap.add_argument("--town", default="Town03")
+    ap.add_argument("--seeds", type=int, nargs="+", default=[42, 43, 44, 45, 46])
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("evaluate_seeds: no CUDA device is available")
+    name = f"{args.weights}-{MODE}-{STEPS}-{TRIALS}-{args.town}-no"
+    with open(os.path.join(REPO_ROOT, "weights", args.weights, "evaluation",
+                           f"{name}-{RECORD_SEED}.json")) as f:
+        ref = json.load(f)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    agent = stages.build_eval_agent(MODE, args.town, STEPS, args.weights, device="cuda")
+    out = dict(weights=args.weights, scenario=name, record_seed=RECORD_SEED, card=card, seeds={})
+    with tempfile.TemporaryDirectory() as tmp:
+        for seed in args.seeds:
+            rec = agent.evaluate(name=f"{name}-{seed}", timesteps=STEPS, trials=TRIALS,
+                                 initial_seed=seed, evaluation_dir=tmp)
+            row = {m: dict(mean=rec[f"{m}_mean"], z=z_score(rec, ref, m)) for m in METRICS}
+            out["seeds"][seed] = row
+            print(f"seed {seed}: " + ", ".join(
+                f"{m} {v['mean']:.6f} (z {v['z']:+.3f})" for m, v in row.items()), flush=True)
+    print(json.dumps(out))
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -12,9 +12,15 @@ act, concat, channel shuffle (models/shufflenet.ShuffleUnit with stride 1).
     three BatchNorms' batch mean and BIASED variance in branch order as a
     (6, hc) tensor (rows m1 v1 m2 v2 m3 v3), which feed the running
     averages only and carry no gradient.  On the card a
-    torch.autograd.Function: the forward kernel (7 launches) saves z1, z2
-    and u; the backward kernel (`shuffle_unit_train_bwd`, 13 launches)
+    torch.autograd.Function: the forward kernel (4 launches) saves z1, z2
+    and u; the backward kernel (`shuffle_unit_train_bwd`, 5 launches)
     returns the gradients of x and of the unit's 12 parameter tensors.
+
+The kernels split a call's work by a plan that the CUDA source computes
+from the shape and the card's SM count (csrc/shuffle_unit.cuh `make_plan`);
+the wrapper reads from it the size of the call's scratch and of its ticket
+counters, which every call allocates afresh and the kernel's entry point
+zeroes, so that calls on different streams share no state.
 
 Each kernel has its plain version beside it (`*_plain`); the backward's
 starts, as the kernel does, from the forward's statistics and saved
@@ -32,6 +38,7 @@ version and the JAX package.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -40,7 +47,6 @@ import torch.nn.functional as F
 from carla_driving_rl_agent_torch.utils.activations import leaky_relu6
 
 BN_EPS = 1e-3          # keras BatchNormalization epsilon, as the flax nets
-TILE = 32              # pixels per tile of the kernels (csrc/shuffle_unit.cuh)
 # rows of the backward kernel's vector gradients (csrc/shuffle_unit.cuh DVec)
 DVEC = ("b1", "g1", "be1", "dwb", "g2", "be2", "b3", "g3", "be3")
 
@@ -185,45 +191,71 @@ def shuffle_unit_train_bwd_plain(x: torch.Tensor, gout: torch.Tensor, ops: UnitO
 
 _POINTERS = ("x", "w1", "b1", "g1", "be1", "dw", "dwb", "g2", "be2", "w3", "b3", "g3",
              "be3", "m1", "v1", "m2", "v2", "m3", "v3", "gout", "out", "stats", "z1",
-             "z2", "u", "gb2n", "gpre1", "dw1", "ddw", "dw3", "dvec", "partial")
+             "z2", "u", "gb2n", "gpre1", "gu", "b2n", "gz1", "dw1", "ddw", "dw3", "dvec",
+             "partial", "counters")
 
 
 class _Args(ctypes.Structure):
     """ctypes mirror of cdrl::unit::UnitArgs (csrc/shuffle_unit.cuh)."""
     _fields_ = ([(n, ctypes.c_void_p) for n in _POINTERS]
                 + [("eps", ctypes.c_double), ("leak", ctypes.c_double)]
-                + [(n, ctypes.c_int) for n in ("n", "c", "h", "w", "seg_chunks", "n_seg")])
+                + [(n, ctypes.c_int) for n in ("n", "c", "h", "w")])
+
+
+class _Plan(ctypes.Structure):
+    """ctypes mirror of cdrl::unit::Plan (csrc/shuffle_unit.cuh): the
+    kernels' split of a call into blocks."""
+    _fields_ = ([(n, ctypes.c_int) for n in ("tpb", "n_pb", "ipb", "n_s", "cps", "nseg", "gsz",
+                                               "n_counters")]
+                + [("partial", ctypes.c_int64)])
 
 
 _DTYPES = {torch.float32: 0, torch.float64: 1}
+# cdrl::unit::PlanError, why the kernels' plan refuses a shape
+_REFUSED = {1: "x is empty", 2: "x has 2^31 elements or more; the kernels index with 32-bit ints",
+            3: "the map does not fit the depthwise stages' shared planes",
+            4: "the unit needs more ticket counters than the kernels have"}
 
 
-def _segments(p: int, hc: int) -> Tuple[int, int]:
-    """(tiles per segment, segments) of the weight gradients' pixel split:
-    about 4 blocks per SM of the card over the (hc/32)^2 output tiles."""
-    n_tiles = -(-p // TILE)
-    blocks = (-(-hc // TILE)) ** 2
-    n_seg = max(1, min(n_tiles, -(-528 // blocks)))
-    seg_chunks = -(-n_tiles // n_seg)
-    return seg_chunks, -(-n_tiles // seg_chunks)
+def _refuse(code: int, shape) -> None:
+    """Raise for a plan's nonzero `code` at x's `shape`."""
+    if code:
+        raise ValueError(f"the unit kernels do not take x of shape {tuple(shape)}: "
+                         f"{_REFUSED.get(code, f'the card has no SM count ({code})')}")
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch(device: int, n: int, c: int, h: int, w: int) -> Tuple[int, int]:
+    """(elements of a call's partials scratch, its ticket counters) at x's
+    shape on CUDA device `device`, from the kernels' plan."""
+    pl = _Plan()
+    _refuse(_kernel_lib().cdrl_unit_plan(device, n, c, h, w, ctypes.byref(pl)), (n, c, h, w))
+    return pl.partial, pl.n_counters
 
 
 def _check(t: torch.Tensor, name: str, x: torch.Tensor, shape) -> int:
+    """t's address, after checking it against x and `shape`."""
+    if (t.device == x.device and t.dtype == x.dtype and t.shape == shape
+            and t.is_contiguous()):
+        return t.data_ptr()
     if t.device != x.device:
         raise ValueError(f"{name} is on {t.device}, x on {x.device}")
     if t.dtype != x.dtype:
         raise TypeError(f"{name} must be {x.dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t.data_ptr()
+    raise ValueError(f"{name} must be contiguous")
 
 
-def _pack(x: torch.Tensor, ops: UnitOperands, leak: float, bn_stats=(), **bufs) -> _Args:
-    """Check x and the operands and lay out the kernels' arguments;
-    `bn_stats` is the (m1, v1, ..., v3) tuple the kernels read, `bufs` the
-    other pointers by name (tensors)."""
+_STATS = ("m1", "v1", "m2", "v2", "m3", "v3")
+
+
+def _pack(x: torch.Tensor, ops: UnitOperands, leak: float, bn_stats=None, inputs=None,
+          **ptrs) -> _Args:
+    """Check x, the operands, the BatchNorm statistics and the `inputs`
+    {name: tensor} of x's shape, and lay out the kernels' arguments.
+    `bn_stats` is a (6, hc) tensor of rows m1 v1 m2 v2 m3 v3 or a tuple of
+    the six; `ptrs` are the buffers the wrapper allocated, {name: address}."""
     if x.dim() != 4 or x.shape[1] % 2:
         raise ValueError(f"x must be (N, C, H, W) with C even, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
@@ -232,54 +264,92 @@ def _pack(x: torch.Tensor, ops: UnitOperands, leak: float, bn_stats=(), **bufs) 
     hc = c // 2
     a = _Args()
     a.x = _check(x, "x", x, x.shape)
-    for name, t in zip(UnitOperands._fields, ops):
-        shape = {"w1": (hc, hc), "w3": (hc, hc), "dw": (hc, 9)}.get(name, (hc,))
-        setattr(a, name, _check(t, name, x, shape))
-    for name, t in zip(("m1", "v1", "m2", "v2", "m3", "v3"), bn_stats):
-        setattr(a, name, _check(t, name, x, (hc,)))
-    for name, t in bufs.items():
-        setattr(a, name, _check(t, name, x, t.shape))
+    vec, mat = (hc,), (hc, hc)
+    a.w1, a.b1, a.g1, a.be1 = (_check(ops.w1, "w1", x, mat), _check(ops.b1, "b1", x, vec),
+                               _check(ops.g1, "g1", x, vec), _check(ops.be1, "be1", x, vec))
+    a.dw, a.dwb, a.g2, a.be2 = (_check(ops.dw, "dw", x, (hc, 9)), _check(ops.dwb, "dwb", x, vec),
+                                _check(ops.g2, "g2", x, vec), _check(ops.be2, "be2", x, vec))
+    a.w3, a.b3, a.g3, a.be3 = (_check(ops.w3, "w3", x, mat), _check(ops.b3, "b3", x, vec),
+                               _check(ops.g3, "g3", x, vec), _check(ops.be3, "be3", x, vec))
+    if isinstance(bn_stats, torch.Tensor):
+        base, step = _check(bn_stats, "stats", x, (6, hc)), hc * x.element_size()
+        a.m1, a.v1, a.m2, a.v2, a.m3, a.v3 = (base + i * step for i in range(6))
+    elif bn_stats is not None:
+        for name, t in zip(_STATS, bn_stats):
+            setattr(a, name, _check(t, name, x, vec))
+    act = (n, hc, h, w)
+    for name, t in (inputs or {}).items():
+        setattr(a, name, _check(t, name, x, x.shape if name == "gout" else act))
+    for name, ptr in ptrs.items():
+        setattr(a, name, ptr)
     a.eps, a.leak = BN_EPS, float(leak)
     a.n, a.c, a.h, a.w = n, c, h, w
-    a.seg_chunks, a.n_seg = _segments(n * h * w, hc)
     return a
 
 
-def _fwd_buffers(x: torch.Tensor):
+def _infer_args(x: torch.Tensor, unit) -> Tuple[_Args, torch.Tensor, tuple]:
+    """The inference kernel's arguments, its output and the tensors to keep
+    alive until it has run."""
+    n, c, h, w = x.shape
+    out = torch.empty_like(x)
+    a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype, device=x.device)
+    args = _pack(x, unit_operands(unit), unit.leak, running_stats(unit),
+                 out=out.data_ptr(), z1=a1.data_ptr())
+    return args, out, (a1,)
+
+
+def _fwd_args(x: torch.Tensor, ops: UnitOperands, leak: float, scratch: Tuple[int, int]):
+    """The forward kernel's arguments, its outputs out and stats (6, hc),
+    its saved (z1, z2, u) and the tensors to keep alive until it has run;
+    `scratch` is `_scratch`'s (partials, counters) at x's shape."""
     n, c, h, w = x.shape
     hc = c // 2
     new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-    stats = new(6, hc)
-    bufs = dict(out=new(n, c, h, w), stats=stats, z1=new(n, hc, h, w), z2=new(n, hc, h, w),
-                u=new(n, hc, h, w), partial=new(-(-n * h * w // TILE) * 2 * hc))
-    return bufs, tuple(stats.unbind(0))
+    out, stats, partial = new(n, c, h, w), new(6, hc), new(scratch[0])
+    counters = torch.empty(scratch[1], dtype=torch.int32, device=x.device)
+    z1, z2, u = new(n, hc, h, w), new(n, hc, h, w), new(n, hc, h, w)
+    args = _pack(x, ops, leak, stats, out=out.data_ptr(), stats=stats.data_ptr(),
+                 z1=z1.data_ptr(), z2=z2.data_ptr(), u=u.data_ptr(), partial=partial.data_ptr(),
+                 counters=counters.data_ptr())
+    return args, out, stats, (z1, z2, u), (partial, counters)
 
 
-def _bwd_buffers(x: torch.Tensor):
+def _bwd_args(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperands, leak: float,
+              stats: torch.Tensor, saved, scratch_size: Tuple[int, int]):
+    """The backward kernel's arguments, its gradients in (x, UnitOperands)
+    order and the tensors to keep alive until it has run; `scratch_size` is
+    `_scratch`'s (partials, counters) at x's shape."""
     n, c, h, w = x.shape
     hc = c // 2
-    seg_chunks, n_seg = _segments(n * h * w, hc)
-    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-    scratch = max(-(-n * h * w // TILE) * 12 * hc, n_seg * hc * hc)
-    return dict(out=new(n, c, h, w), gb2n=new(n, hc, h, w), gpre1=new(n, hc, h, w),
-                dw1=new(hc, hc), ddw=new(hc, 9), dw3=new(hc, hc), dvec=new(len(DVEC), hc),
-                partial=new(scratch))
-
-
-def _grads(bufs: dict) -> tuple:
-    """The backward's outputs in (x, UnitOperands...) order."""
-    d = dict(zip(DVEC, bufs["dvec"].unbind(0)))
-    return (bufs["out"], bufs["dw1"], d["b1"], d["g1"], d["be1"], bufs["ddw"], d["dwb"],
-            d["g2"], d["be2"], bufs["dw3"], d["b3"], d["g3"], d["be3"])
+    act = n * hc * h * w
+    new = lambda size: torch.empty(size, dtype=x.dtype, device=x.device)
+    gx = torch.empty_like(x)
+    flat = new(2 * hc * hc + 9 * hc + len(DVEC) * hc)
+    scratch = new(5 * act + scratch_size[0])
+    counters = torch.empty(scratch_size[1], dtype=torch.int32, device=x.device)
+    z1, z2, u = saved
+    base, size = scratch.data_ptr(), scratch.element_size()
+    at = lambda i: base + i * act * size
+    args = _pack(x, ops, leak, stats, inputs=dict(gout=gout, z1=z1, z2=z2, u=u),
+                 out=gx.data_ptr(), gb2n=at(0), gpre1=at(1), gu=at(2), b2n=at(3), gz1=at(4),
+                 partial=at(5), counters=counters.data_ptr(), dw1=flat.data_ptr(),
+                 ddw=flat.data_ptr() + hc * hc * size,
+                 dw3=flat.data_ptr() + (hc * hc + 9 * hc) * size,
+                 dvec=flat.data_ptr() + (2 * hc * hc + 9 * hc) * size)
+    dw1, ddw, dw3, *d = flat.split([hc * hc, 9 * hc, hc * hc] + [hc] * len(DVEC))
+    d = dict(zip(DVEC, d))
+    grads = (gx, dw1.view(hc, hc), d["b1"], d["g1"], d["be1"], ddw.view(hc, 9), d["dwb"],
+             d["g2"], d["be2"], dw3.view(hc, hc), d["b3"], d["g3"], d["be3"])
+    return args, grads, (scratch, counters)
 
 
 def _kernel_lib() -> ctypes.CDLL:
     from carla_driving_rl_agent_torch.utils.build import csrc, load_library
     sig = (ctypes.c_int, [ctypes.POINTER(_Args), ctypes.c_int, ctypes.c_void_p])
-    return load_library(
-        "shuffle_unit", [csrc("shuffle_unit.cu")], "nvcc",
-        {f: sig for f in ("cdrl_unit_infer", "cdrl_unit_train_fwd", "cdrl_unit_train_bwd")},
-        extra_deps=[csrc("shuffle_unit.cuh")])
+    sigs = {f: sig for f in ("cdrl_unit_infer", "cdrl_unit_train_fwd", "cdrl_unit_train_bwd")}
+    sigs["cdrl_unit_plan"] = (ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.POINTER(_Plan)])
+    return load_library("shuffle_unit", [csrc("shuffle_unit.cu")], "nvcc", sigs,
+                        extra_deps=[csrc("shuffle_unit.cuh")])
 
 
 def build_kernel() -> None:
@@ -288,9 +358,13 @@ def build_kernel() -> None:
 
 
 def _launch(fn: str, args: _Args, x: torch.Tensor) -> None:
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = getattr(_kernel_lib(), fn)(ctypes.byref(args), _DTYPES[x.dtype], stream)
+    """Launch `fn` on x's device and current stream; raises on a CUDA error."""
+    if x.device.index != torch.cuda.current_device():
+        with torch.cuda.device(x.device):
+            return _launch(fn, args, x)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(_kernel_lib(), fn)(ctypes.byref(args), _DTYPES[x.dtype], stream)
+    _refuse(max(0, -err), x.shape)
     if err != 0:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
 
@@ -307,11 +381,7 @@ def shuffle_unit_infer(x: torch.Tensor, unit) -> torch.Tensor:
     on the CPU."""
     if _device(x) == "cpu":
         return shuffle_unit_infer_plain(x, unit)
-    ops = unit_operands(unit)
-    n, c, h, w = x.shape
-    out = torch.empty_like(x)
-    a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype, device=x.device)
-    args = _pack(x, ops, unit.leak, running_stats(unit), out=out, z1=a1)
+    args, out, _keep = _infer_args(x, unit)
     if x.numel():
         _launch("cdrl_unit_infer", args, x)
         shuffle_unit_infer.launches += 1
@@ -323,11 +393,10 @@ shuffle_unit_infer.launches = 0
 
 def _train_fwd_kernel(x: torch.Tensor, ops: UnitOperands, leak: float):
     """The forward kernel: (out, stats, (z1, z2, u))."""
-    bufs, stats = _fwd_buffers(x)
-    args = _pack(x, ops, leak, stats, **bufs)
+    args, out, stats, saved, _keep = _fwd_args(x, ops, leak, _scratch(x.device.index, *x.shape))
     _launch("cdrl_unit_train_fwd", args, x)
     shuffle_unit_train.launches += 1
-    return bufs["out"], bufs["stats"], (bufs["z1"], bufs["z2"], bufs["u"])
+    return out, stats, saved
 
 
 def shuffle_unit_train_bwd(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperands,
@@ -337,13 +406,11 @@ def shuffle_unit_train_bwd(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperand
     kernel's stats and saved (z1, z2, u).  CUDA tensors only."""
     if _device(x) != "cuda":
         raise ValueError("shuffle_unit_train_bwd launches the CUDA kernel: CUDA tensors only")
-    _check(gout, "gout", x, x.shape)
-    bufs = _bwd_buffers(x)
-    z1, z2, u = saved
-    args = _pack(x, ops, leak, tuple(stats.unbind(0)), gout=gout, z1=z1, z2=z2, u=u, **bufs)
+    args, grads, _keep = _bwd_args(x, gout, ops, leak, stats, saved,
+                                   _scratch(x.device.index, *x.shape))
     _launch("cdrl_unit_train_bwd", args, x)
     shuffle_unit_train_bwd.launches += 1
-    return _grads(bufs)
+    return grads
 
 
 shuffle_unit_train_bwd.launches = 0

@@ -156,14 +156,21 @@ def params_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def refuse_tracked(path: str) -> None:
+    """Raise if `path` lies under the checkout's tracked weights/ directory
+    (the reference's checkpoints and records): the port writes under
+    weights-torch/."""
+    from carla_driving_rl_agent_torch import REPO_ROOT
+    tracked = os.path.join(os.path.realpath(REPO_ROOT), "weights")
+    if os.path.realpath(path).startswith(tracked + os.sep):
+        raise ValueError(f"{path} is under the tracked weights/ directory; "
+                         f"the port writes under weights-torch/")
+
+
 def save_agent(base_path: str, network: Dict[str, torch.Tensor],
                optimizers: Optional[Dict[str, Any]] = None,
                config: Optional[dict] = None) -> None:
-    from carla_driving_rl_agent_torch import REPO_ROOT
-    tracked = os.path.join(os.path.realpath(REPO_ROOT), "weights")
-    if os.path.realpath(base_path).startswith(tracked + os.sep):
-        raise ValueError(f"{base_path} is under the tracked weights/ directory; "
-                         f"the port saves under weights-torch/")
+    refuse_tracked(base_path)
     os.makedirs(base_path, exist_ok=True)
     torch.save(network, os.path.join(base_path, "network.pt"))
     if optimizers is not None:

@@ -45,8 +45,12 @@ Phases, each printed with its seconds:
                the backbone's three stride-1 maps, at the paths' batches
                (256 frames in a minibatch, 248 in an evaluation predict,
                128 in a rollout predict) in float32, and in float64 at each
-               map end to end against autograd of the plain forward; then
-               each timed with CUDA events beside its bound;
+               map end to end against autograd of the plain forward; two
+               training calls on the same inputs give the same bits; then
+               each timed with CUDA events beside its bound, its device
+               launches per call counted in a CUDA graph of one call (at
+               most 4 per forward, 5 per backward) and its device time per
+               stage read from the profiler;
  12. slice_fused — the safe-s5 evaluation of phase 6 with fused_units=True:
                its six means beside the record and beside phase 6, and 13
                inference-kernel launches per predict;
@@ -162,6 +166,56 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def profile_calls(fn, calls: int = 5) -> dict:
+    """The device kernels of `calls` calls of `fn` under torch.profiler
+    (after one warm-up call): {kernel name: device ms per launch}; copies
+    and fills are not kernels and are left out.  (Per launch: in a long
+    process the profiler may miss some of a window's kernel records, so its
+    counts are not read; graph_launches counts.)"""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / e.count
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset"))}
+
+
+def graph_launches(fn) -> int:
+    """Kernel launches of one call of `fn`: the kernel nodes of a CUDA graph
+    that captures the call (after a warm-up call), counted with the driver
+    API; copies and fills are not kernels and are left out."""
+    import ctypes
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+              "cuGraphNodeGetType failed")
+        kinds.append(kind.value)
+    graph.reset()
+    return sum(k == 0 for k in kinds)     # CU_GRAPH_NODE_TYPE_KERNEL
+
+
+def _short(name: str) -> str:
+    """A kernel's name without its namespace and arguments."""
+    return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
+
+
 def render_bound_ms(n_worlds: int, channels: int = 3) -> tuple:
     """Least time for one render call: its float operations over the FP32
     peak, or its bytes (packs and LUT read once, frames written once) over
@@ -233,13 +287,16 @@ def kernel_phase(env, kernels: dict) -> None:
         print(f"  render {n} worlds: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
               f"bound {bound:.6f} ms ({by}); library call: none computes this "
               f"function", flush=True)
+    g = geom[:TRAIN_WORLDS].contiguous()
+    per_call = graph_launches(lambda: R.render_planes(g))
+    print(f"  render_planes: {per_call} device launches per call", flush=True)
     # the kernels line reports the training path's size, as its launches
     kernels["render_planes"] = dict(
         name="render_planes", route="cuda",
         source="carla_driving_rl_agent_torch/csrc/render.cu",
         replaces="carla_driving_rl_agent_tpu/ops/rasterizer_pallas.py:99",
         launches=None, max_abs_err=worst, **times[TRAIN_WORLDS], library_ms=None,
-        by_worlds=times)
+        by_worlds=times, launches_per_call=per_call)
 
 
 def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
@@ -296,6 +353,7 @@ def slice_phase(agent, out_dir: str, unfused: dict = None) -> dict:
     """The shipped evaluation of safe-s5 on Town03 without traffic with
     `agent` (its fused_units decides the backbone's path); with `unfused`,
     the means of the unfused run are printed beside."""
+    from carla_driving_rl_agent_torch.evaluate_seeds import z_score
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     num_worlds = max(TRIALS + 8, int(TRIALS * 1.25))
     torch.cuda.synchronize()
@@ -326,8 +384,7 @@ def slice_phase(agent, out_dir: str, unfused: dict = None) -> dict:
     for m in METRICS:
         v = np.asarray(record[m], np.float64)
         check(len(v) == TRIALS and bool(np.all(np.isfinite(v))), f"{m}: {len(v)} finite values")
-        se = ref[f"{m}_std"] / math.sqrt(TRIALS)
-        z = (record[f"{m}_mean"] - ref[f"{m}_mean"]) / se if se > 0 else float("nan")
+        z = z_score(record, ref, m)
         beside = (f"   unfused {unfused['means'][m]:.6f}" if unfused else "")
         print(f"  {m:18s} port {record[f'{m}_mean']:.6f} +- {record[f'{m}_std']:.6f}   "
               f"recorded {ref[f'{m}_mean']:.6f} +- {ref[f'{m}_std']:.6f}   "
@@ -470,6 +527,10 @@ def physics_phase(env, kernels: dict) -> None:
                                                               env.routes, d), iters=20)
         bound, by = physics_bound_ms(n, n_done, k_segs)
         times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        if n == TRAIN_WORLDS:
+            per_call = graph_launches(lambda: P.step_physics_batch(
+                world, a, params, env.town, env.routes, d))
+            print(f"  step_physics_batch: {per_call} device launches per call", flush=True)
         print(f"  physics {n} worlds: 40 steps, {resets} resets, agree (ints and flags "
               f"exact, floats within 1e-5 + 2.5e-7 rel); kernel {ms:.6f} ms, plain "
               f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}); library call: none "
@@ -479,7 +540,7 @@ def physics_phase(env, kernels: dict) -> None:
         source="carla_driving_rl_agent_torch/csrc/physics.cu",
         replaces="carla_driving_rl_agent_tpu/ops/physics_pallas.py:67",
         launches=None, max_abs_err=worst, **times[TRAIN_WORLDS], library_ms=None,
-        by_worlds=times)
+        by_worlds=times, launches_per_call=per_call)
 
 
 # The g=1.0 backbone's stride-1 maps on 90x360 frames: (H, W, C, units).
@@ -496,6 +557,35 @@ UNIT_NOISE = ("b1", "dwb", "be2", "b3")
 # L2 per gradient tensor, the noise tensors' max |diff| over the unit's
 # largest gradient, and every reading of the float64 cases
 UNIT_BARS = dict(out=1e-5, grad=1e-4, noise=5e-5, float64=1e-10)
+# the most device launches one call of each training kernel may make, and
+# the finalising launches of the first port, which no path may make any more
+UNIT_MAX_LAUNCHES = dict(fwd=4, bwd=5)
+UNIT_GONE = ("k_sum_final", "k_stats_final")
+
+
+def _unit_stages(kind: str, fn, shape: str) -> dict:
+    """Launches per call of one unit kernel (graph_launches), the device ms
+    per launch of each of its stages (the profiler) and the host's ms per
+    call; checks the launch targets and that no finalising launch of the
+    first port is left."""
+    per_call = graph_launches(fn)
+    stages = {_short(k): ms for k, ms in profile_calls(fn).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):     # the host's time to enqueue a call (20 in flight)
+        fn()
+    host_ms = (time.perf_counter() - t0) / 20 * 1e3
+    torch.cuda.synchronize()
+    gone = [k for k in stages if any(g in k for g in UNIT_GONE)]
+    check(not gone, f"unit {kind} at {shape} still launches {gone}")
+    if kind in UNIT_MAX_LAUNCHES:
+        check(per_call <= UNIT_MAX_LAUNCHES[kind],
+              f"unit {kind} at {shape}: {per_call} launches per call > "
+              f"{UNIT_MAX_LAUNCHES[kind]}")
+    print(f"  unit {kind} at {shape}: {per_call} device launches per call, host "
+          f"{host_ms:.6f} ms per call; device ms per launch by stage: "
+          + ", ".join(f"{k} {ms:.6f}" for k, ms in stages.items()), flush=True)
+    return dict(launches_per_call=per_call, stage_device_ms=stages, host_ms=host_ms)
 
 
 def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4) -> tuple:
@@ -588,6 +678,35 @@ def _plain_grads(x: torch.Tensor, unit, gout: torch.Tensor) -> tuple:
     return torch.autograd.grad(out, [xr] + leaves, gout)
 
 
+def _unit_two_streams(SU, unit, h: int, w: int, c: int, n: int) -> None:
+    """Forward and backward calls on two streams at once, three times, give
+    the bits each input gives on one stream: no call sees another's
+    reduction state (every call has its own ticket counters)."""
+    ops = SU.unit_operands(unit)
+    inputs = [_unit_inputs(n, h, w, c, torch.float32, seed=s) for s in (101, 102)]
+
+    def call(x, gout):
+        out, stats, saved = SU._train_fwd_kernel(x, ops, unit.leak)
+        return (out, stats) + tuple(SU.shuffle_unit_train_bwd(x, gout, ops, unit.leak, stats,
+                                                                saved))
+
+    alone = [call(*xi) for xi in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    for r in range(3):
+        torch.cuda.synchronize()
+        together = []
+        for stream, xi in zip(streams, inputs):
+            with torch.cuda.stream(stream):
+                together.append(call(*xi))
+        torch.cuda.synchronize()
+        for k, (a, b) in enumerate(zip(alone, together)):
+            check(all(torch.equal(s, t) for s, t in zip(a, b)),
+                  f"unit at ({n}, {h}x{w}x{c}): input {k} on two streams, round {r}, "
+                  f"differs from one stream")
+    print(f"  unit forward and backward on two streams at once, ({n}, {c}, {h}, {w}), "
+          f"3 rounds: the same bits as on one stream", flush=True)
+
+
 def unit_phase(kernels: dict) -> dict:
     """The unit kernels against their plain versions at the backbone's
     three stride-1 maps, at the paths' batches, in float32; the backward
@@ -619,6 +738,8 @@ def unit_phase(kernels: dict) -> dict:
                 bound, by = unit_bound_ms("infer", n, h, w, c)
                 full["infer"][f"{n}x{shape}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                                      bound_by=by, rel_l2=r, units=units)
+                full["infer"][f"{n}x{shape}"].update(_unit_stages(
+                    "infer", lambda: SU.shuffle_unit_infer(x, unit), f"({n}, {shape})"))
                 print(f"  unit infer ({n}, {c}, {h}, {w}) [{path}]: relative L2 {r:.3e}; "
                       f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
                       f"({by})", flush=True)
@@ -631,27 +752,39 @@ def unit_phase(kernels: dict) -> dict:
                   f"forward kernel at ({n}, {shape}): out {r_out:.3e}, stats {r_stats:.3e}")
             err["fwd"] = max(err["fwd"], float((out - p_out).abs().max()),
                              float((stats - p_stats).abs().max()))
+            again = SU._train_fwd_kernel(x, ops, unit.leak)
+            check(torch.equal(again[0], out) and torch.equal(again[1], stats)
+                  and all(torch.equal(s, t) for s, t in zip(again[2], saved)),
+                  f"forward kernel at ({n}, {shape}): two calls differ")
+            del again
             ms = cuda_ms(lambda: SU._train_fwd_kernel(x, ops, unit.leak), iters=20)
             plain_ms = cuda_ms(lambda: SU.shuffle_unit_train_plain(x, unit), iters=10)
             bound, by = unit_bound_ms("fwd", n, h, w, c)
             full["fwd"][f"{n}x{shape}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                                bound_by=by, rel_l2=max(r_out, r_stats),
                                                units=units)
+            full["fwd"][f"{n}x{shape}"].update(_unit_stages(
+                "fwd", lambda: SU._train_fwd_kernel(x, ops, unit.leak), f"({n}, {shape})"))
             print(f"  unit train forward ({n}, {c}, {h}, {w}): relative L2 out {r_out:.3e}, "
                   f"stats {r_stats:.3e}; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
                   f"{bound:.6f} ms ({by})", flush=True)
             bwd = lambda: SU.shuffle_unit_train_bwd(x, gout, ops, unit.leak, stats, saved)
             bwd_plain = lambda: SU.shuffle_unit_train_bwd_plain(x, gout, ops, unit.leak,
                                                                 stats, saved)
-            worst, noise, diff = _hold_unit_grads(bwd(), bwd_plain(), f"backward kernel at "
+            first = bwd()
+            worst, noise, diff = _hold_unit_grads(first, bwd_plain(), f"backward kernel at "
                                                   f"({n}, {shape})", UNIT_BARS["grad"],
                                                   UNIT_BARS["noise"])
             err["bwd"] = max(err["bwd"], diff)
+            check(all(torch.equal(s, t) for s, t in zip(bwd(), first)),
+                  f"backward kernel at ({n}, {shape}): two calls differ")
+            del first
             ms, plain_ms = cuda_ms(bwd, iters=20), cuda_ms(bwd_plain, iters=10)
             bound, by = unit_bound_ms("bwd", n, h, w, c)
             full["bwd"][f"{n}x{shape}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                                                bound_by=by, rel_l2=worst, noise=noise,
                                                units=units)
+            full["bwd"][f"{n}x{shape}"].update(_unit_stages("bwd", bwd, f"({n}, {shape})"))
             print(f"  unit train backward ({n}, {c}, {h}, {w}): gradients' relative L2 <= "
                   f"{worst:.3e}, noise tensors {noise:.3e} of the largest; kernel {ms:.6f} "
                   f"ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by})", flush=True)
@@ -688,6 +821,7 @@ def unit_phase(kernels: dict) -> dict:
               f"noise tensors {noise:.3e}", flush=True)
         del unit, x, gout, xr, out, grads
     h, w, c, _ = UNIT_MAPS[0]
+    _unit_two_streams(SU, _random_unit(c, torch.float32, seed=0), h, w, c, UNIT_N["train"])
     src = "carla_driving_rl_agent_torch/csrc/shuffle_unit.cu"
     pallas = "carla_driving_rl_agent_tpu/ops/shuffle_unit_pallas.py"
     # the kernels line: the training path's largest map, a rollout predict
@@ -700,7 +834,7 @@ def unit_phase(kernels: dict) -> dict:
                              replaces=f"{pallas}:{line}", launches=None,
                              max_abs_err=err[kind], ms=t["ms"], plain_ms=t["plain_ms"],
                              bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
-                             by_shape=full[kind])
+                             by_shape=full[kind], launches_per_call=t["launches_per_call"])
     print("  unit kernels: library call: none computes a ShuffleNet unit", flush=True)
     return dict(float64=f64, **full)
 
@@ -1011,12 +1145,13 @@ PROFILE_ROLLOUT_STEPS = 32
 
 
 # the launches of one call of each unit-kernel wrapper, by kernel name
+# (k_pw's second template argument is its stage: csrc/shuffle_unit.cu PwMode)
 UNIT_KERNEL_NAMES = dict(
-    shuffle_unit_infer=("k_pw1<float, false>", "k_tail_infer<float>"),
-    shuffle_unit_train=("k_pw1<float, true>", "k_stats_final<float>", "k_dw_train<float>",
-                        "k_pw3_train<float>", "k_out_train<float>"),
-    shuffle_unit_train_bwd=("k_bn3_sums<float>", "k_sum_final<float>", "k_pw3_back<float>",
-                            "k_dw_back<float>", "k_pw1_back<float>", "k_wgrad<float"))
+    shuffle_unit_infer=("k_pw<float, 0>", "k_tail_infer<float>"),
+    shuffle_unit_train=("k_pw<float, 1>", "k_dw_train<float>", "k_pw<float, 2>",
+                        "k_out_train<float>"),
+    shuffle_unit_train_bwd=("k_bn3_back<float>", "k_pw<float, 3>", "k_dw_back<float>",
+                            "k_pw<float, 4>", "k_wgrad<float>"))
 
 
 def _unit_device_ms(kern, counts: dict) -> dict:
@@ -1030,7 +1165,7 @@ def _unit_device_ms(kern, counts: dict) -> dict:
     return out
 
 
-def profile_train_phase(agent) -> dict:
+def profile_train_phase(agent, per_call: dict) -> dict:
     """A quarter-length training update under torch.profiler (rollouts of 32
     steps: 8 blocks, 16 minibatches per phase, the parts in the shipped
     proportions): device busy time, idle share, launches and the largest
@@ -1068,9 +1203,18 @@ def profile_train_phase(agent) -> dict:
     mb_kern = [e for e in mb_prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     mb_busy = sum(e.self_device_time_total for e in mb_kern) / 1e6 / 2
+    # the profiler's count of unit-kernel launches beside the one the
+    # wrappers' calls imply (`per_call`: phase unit's launches per call,
+    # counted in a CUDA graph), which says whether its records of the window
+    # are complete
+    unit_seen = sum(e.count for e in mb_kern if any(
+        k in e.key for keys in UNIT_KERNEL_NAMES.values() for k in keys)) / 2
+    unit_calls = sum(mb_counts[k] * per_call[k]
+                     for k in ("shuffle_unit_train", "shuffle_unit_train_bwd")) / 2
     minibatch = dict(launches=sum(e.count for e in mb_kern) / 2, device_busy_s=mb_busy,
                      wall_s=mb_wall, device_idle_share=1.0 - mb_busy / mb_wall,
-                     unit_device_ms=_unit_device_ms(mb_kern, mb_counts))
+                     unit_device_ms=_unit_device_ms(mb_kern, mb_counts),
+                     unit_launches_profiled=unit_seen, unit_launches_called=unit_calls)
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
@@ -1097,7 +1241,9 @@ def profile_train_phase(agent) -> dict:
           f"{minibatch['launches']:.0f} kernel launches, wall {mb_wall:.4f} s, device busy "
           f"{mb_busy:.4f} s, idle share {minibatch['device_idle_share']:.4f}; unit kernels' "
           f"device ms per call: " + (", ".join(
-              f"{k} {v:.6f}" for k, v in out["unit_device_ms"].items()) or "none"), flush=True)
+              f"{k} {v:.6f}" for k, v in out["unit_device_ms"].items()) or "none")
+          + f"; unit-kernel launches per minibatch: {unit_seen:g} profiled, {unit_calls:g} "
+            f"called", flush=True)
     for k in out["top_kernels"]:
         print(f"    {k['ms']:10.3f} ms {k['count']:7d}x  {k['name']}", flush=True)
     return out
@@ -1187,8 +1333,9 @@ def main(argv=None) -> int:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)
             summary["profile_fused"] = profile_phase(fused_agent)
-            summary["profile_train"] = profile_train_phase(stage.agent)
-            summary["profile_train_fused"] = profile_train_phase(stage_fused.agent)
+            per_call = {k: kr["launches_per_call"] for k, kr in kernels.items()}
+            summary["profile_train"] = profile_train_phase(stage.agent, per_call)
+            summary["profile_train_fused"] = profile_train_phase(stage_fused.agent, per_call)
         summary["phases"]["profile"] = p.seconds
 
     for name, kr in kernels.items():
@@ -1211,6 +1358,8 @@ def main(argv=None) -> int:
             excess[name] = per_update * (kr["ms"] - kr["bound_ms"]) / 1e3
     print("  launches x (time - bound) per training update: " + ", ".join(
         f"{k} {v:.6f} s" for k, v in sorted(excess.items(), key=lambda kv: -kv[1])), flush=True)
+    print("  device launches per wrapper call: " + ", ".join(
+        f"{k} {kr['launches_per_call']}" for k, kr in kernels.items()), flush=True)
     summary.update(card=smi, kernels=kernels, excess_s_per_update=excess)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

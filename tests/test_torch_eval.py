@@ -140,6 +140,79 @@ def test_network_outputs(rollout):
                                        err_msg=f"step {i} {k}")
 
 
+# The evaluation's own records and draws (curriculum/stages.evaluate,
+# CARLAgent.evaluate) on a tiny network saved under a temporary weights root.
+TINY = dict(
+    control_policy=dict(units=16, num_layers=1), control_value=dict(units=16, num_layers=1),
+    dynamics=dict(shufflenet=dict(g=0.5, last_channels=32),
+                  rnn=dict(image=16, road=8, vehicle=8, navigation=8), dynamics=dict(units=32),
+                  road=dict(units=8, num_layers=1, activation="relu6"),
+                  vehicle=dict(units=8, num_layers=1, activation="relu6"),
+                  navigation=dict(units=8, num_layers=1, activation="relu6")))
+
+
+@pytest.fixture(scope="module")
+def tiny_root(tmp_path_factory):
+    """A temporary checkout root whose weights/tiny holds a tiny network's
+    checkpoint (saved by the port, read back as the evaluation reads)."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent, CARLAgentConfig
+    root = tmp_path_factory.mktemp("root")
+    env = CARLAEnv(CARLAEnvConfig(world=tworld.WorldParams(town_names=("Town02",))),
+                   device="cpu")
+    CARLAgent(env, CARLAgentConfig(network=TINY), name="tiny",
+              weights_dir=str(root / "weights")).save()
+    return root
+
+
+def _tree(path):
+    return sorted((str(p.relative_to(path)), p.read_bytes() if p.is_file() else None)
+                  for p in path.rglob("*"))
+
+
+def test_evaluation_writes_nothing_under_the_weights_root(tiny_root, monkeypatch):
+    """An evaluation with no evaluation_dir reads the weights from the
+    weights root and writes its record under weights-torch/, never under
+    weights/; a record directory under the checkout's tracked weights/ is
+    refused."""
+    from carla_driving_rl_agent_torch.agents import carla_agent as CA
+    from carla_driving_rl_agent_torch.curriculum import stages
+    monkeypatch.setattr(CA, "DEFAULT_WEIGHTS_DIR", str(tiny_root / "weights-torch"))
+    before = _tree(tiny_root / "weights")
+    rec = stages.evaluate("test", "Town02", [5], "no", steps=2, trials=2, weights="tiny",
+                          weights_dir=str(tiny_root / "weights"), device="cpu")
+    assert _tree(tiny_root / "weights") == before
+    out = tiny_root / "weights-torch" / "tiny" / "evaluation" / "tiny-test-2-2-Town02-no-5.json"
+    assert out.exists() and len(rec) == 1 and len(rec[0]["timesteps"]) == 2
+    agent = stages.build_eval_agent("test", "Town02", 2, "tiny",
+                                    weights_dir=str(tiny_root / "weights"), device="cpu")
+    with pytest.raises(ValueError, match="tracked weights"):
+        agent.evaluate("x", timesteps=1, trials=1, initial_seed=5,
+                       evaluation_dir=os.path.join(REPO, "weights", "tiny", "evaluation"))
+
+
+def test_evaluation_trials_draw_from_their_own_streams(tiny_root, tmp_path):
+    """Trial i's initial reset (town, weather, route, light offset) is the
+    same whatever the number of trials, and so of worlds: the first 8
+    trials of an 8-trial and a 20-trial evaluation start alike."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    agent = stages.build_eval_agent("test", "Town02", 1, "tiny",
+                                    weights_dir=str(tiny_root / "weights"), device="cpu")
+    seen, reset = [], agent.env.reset
+
+    def spy(draws, *args, **kwargs):
+        seen.append(draws)
+        return reset(draws, *args, **kwargs)
+
+    agent.env.reset = spy
+    for trials in (8, 20):
+        agent.evaluate("x", timesteps=1, trials=trials, initial_seed=42,
+                       evaluation_dir=str(tmp_path))
+    assert len(seen) == 2 and len(seen[0].route_id) == 16 and len(seen[1].route_id) == 28
+    for a, b in zip(seen[0], seen[1]):
+        torch.testing.assert_close(a[:8], b[:8], rtol=0, atol=0)
+    assert len(set(seen[1].route_id.tolist())) > 1
+
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "carla_driving_rl_agent_tpu")
 
 _NO_JAX = f"""

@@ -48,20 +48,37 @@ ATOL = 1e-5
 def _host_lib() -> ctypes.CDLL:
     """The kernels' arithmetic built with g++ (csrc/shuffle_unit_host.cpp)."""
     sig = (None, [ctypes.POINTER(SU._Args), ctypes.c_int])
+    sigs = {f"{f}_host": sig for f in ("cdrl_unit_infer", "cdrl_unit_train_fwd",
+                                       "cdrl_unit_train_bwd")}
+    sigs["cdrl_unit_merge_host"] = (None, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                           ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+    sigs["cdrl_unit_plan_host"] = (ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.POINTER(SU._Plan)])
     return load_library(
-        "shuffle_unit_host", [csrc("shuffle_unit_host.cpp")], "g++",
-        {f"{f}_host": sig for f in ("cdrl_unit_infer", "cdrl_unit_train_fwd",
-                                    "cdrl_unit_train_bwd")},
+        "shuffle_unit_host", [csrc("shuffle_unit_host.cpp")], "g++", sigs,
         extra_deps=[csrc("shuffle_unit.cuh")], extra_flags=["-ffp-contract=off"])
+
+
+SMS = 132       # the H100's streaming multiprocessors
+
+
+def _plan_host(n: int, c: int, h: int, w: int):
+    """(PlanError, the kernels' plan) of a unit of c channels at n x h x w
+    on the H100, through the g++ build of shuffle_unit.cuh `make_plan`."""
+    pl = SU._Plan()
+    return _host_lib().cdrl_unit_plan_host(n, c, h, w, SMS, ctypes.byref(pl)), pl
+
+
+def _host_scratch(x: torch.Tensor):
+    """SU._scratch's (partials, counters) at x's shape on the H100."""
+    err, pl = _plan_host(*x.shape)
+    SU._refuse(err, x.shape)
+    return pl.partial, pl.n_counters
 
 
 def _infer_host(x: torch.Tensor, unit) -> torch.Tensor:
     """The inference kernel's arithmetic on CPU tensors, through the
     wrappers' operand checks."""
-    n, c, h, w = x.shape
-    out = torch.empty_like(x)
-    a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype)
-    args = SU._pack(x, SU.unit_operands(unit), unit.leak, SU.running_stats(unit), out=out, z1=a1)
+    args, out, _keep = SU._infer_args(x, unit)
     _host_lib().cdrl_unit_infer_host(ctypes.byref(args), SU._DTYPES[x.dtype])
     return out
 
@@ -70,14 +87,11 @@ def _train_host(x: torch.Tensor, unit, gout: torch.Tensor):
     """The forward and backward kernels' arithmetic on CPU tensors: (out,
     stats, saved (z1, z2, u), gradients in shuffle_unit_train_bwd's order)."""
     ops = SU.UnitOperands(*(t.detach() for t in SU.unit_operands(unit)))
-    bufs, stats = SU._fwd_buffers(x)
-    args = SU._pack(x, ops, unit.leak, stats, **bufs)
+    args, out, stats, saved, _keep = SU._fwd_args(x, ops, unit.leak, _host_scratch(x))
     _host_lib().cdrl_unit_train_fwd_host(ctypes.byref(args), SU._DTYPES[x.dtype])
-    b = SU._bwd_buffers(x)
-    args = SU._pack(x, ops, unit.leak, stats, gout=gout, z1=bufs["z1"], z2=bufs["z2"],
-                    u=bufs["u"], **b)
+    args, grads, _keep = SU._bwd_args(x, gout, ops, unit.leak, stats, saved, _host_scratch(x))
     _host_lib().cdrl_unit_train_bwd_host(ctypes.byref(args), SU._DTYPES[x.dtype])
-    return bufs["out"], bufs["stats"], (bufs["z1"], bufs["z2"], bufs["u"]), SU._grads(b)
+    return out, stats, saved, grads
 
 
 def _autograd_grads(x: torch.Tensor, unit, gout: torch.Tensor) -> tuple:
@@ -304,6 +318,30 @@ def test_host_build_float64_matches_plain(shape):
         assert float((a - b).abs().max()) <= 1e-10 * top, name
 
 
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("p, per_block", [(1000, 64), (1001, 37), (4096, 100), (333, 333)])
+def test_block_order_merge_matches_two_pass(p, per_block, dtype):
+    """The batch statistics' reduction of the kernels (shuffle_unit.cuh:
+    Welford within a block, the blocks' moments merged in block order by
+    merge_blocks) through the g++ build, against a two-pass float64 mean and
+    biased variance: 16, 28, 41 and 1 blocks, the last ragged in the first
+    three.  The values sit at 100 + N(3, 0.5), where a one-pass E[z^2] - m^2
+    in float32 is off by 3e-3 to 6e-2 of the variance; the bars are
+    float32's rounding (mean 1e-6, variance 1e-5 relative) and 1e-12 in
+    float64."""
+    rng = np.random.default_rng(p)
+    v = (100.0 + rng.normal(3.0, 0.5, p)).astype(dtype)
+    mean, var = np.zeros(1, dtype), np.zeros(1, dtype)
+    _host_lib().cdrl_unit_merge_host(v.ctypes.data, p, per_block, int(dtype == "float64"),
+                                     mean.ctypes.data, var.ctypes.data)
+    ref = v.astype(np.float64)
+    ref_mean = ref.mean()
+    ref_var = ((ref - ref_mean) ** 2).mean()
+    tol = (1e-6, 1e-5) if dtype == "float32" else (1e-12, 1e-12)
+    assert abs(float(mean[0]) - ref_mean) <= tol[0] * abs(ref_mean)
+    assert abs(float(var[0]) - ref_var) <= tol[1] * ref_var
+
+
 def test_wrappers_check_their_operands():
     unit = ShuffleUnit(16, 16, 1)
     x = torch.randn(2, 16, 5, 6)
@@ -320,6 +358,67 @@ def test_wrappers_check_their_operands():
                                   (x, x, x))
     with pytest.raises(ValueError):
         SU.shuffle_unit_infer(x.to("meta"), unit)
+
+
+# the batch sizes the backbone's units see: a rollout predict or an
+# evaluation (4 frames of each of 1-128 worlds), a training minibatch
+# (4 frames of each of 32-128 samples), chip_smoke.py's three, and a tiny one
+PLAN_N = sorted({4 * k for k in range(1, 129)} | {248, 256, 3})
+# the kernels' constants (shuffle_unit.cuh): pixels per product tile, per
+# weight-gradient chunk, the side of a weight-gradient tile, the most blocks
+# one merge reads, a depthwise stage's pixels per pass and thread
+PTILE, WCHUNK, WTILE, PGROUP, CH_OWN, CH_FILL = 64, 32, 64, 16, 8, 12
+
+
+MAPS = [(11, 45, 116), (6, 23, 232), (3, 12, 464), (4, 7, 18)]
+
+
+def _assert_plan_covers(n: int, h: int, w: int, c: int) -> None:
+    """The plan takes the shape; the blocks cover every pixel tile, image
+    and chunk once; the merges and tickets stay within the kernels' limits
+    (16 blocks per merge, so at most 16 x 16 product blocks; 256 channels;
+    2048 weight-gradient counters); the scratch holds every stage's
+    partials; and one depthwise pass holds at least one image."""
+    hc, p = c // 2, n * h * w
+    err, pl = _plan_host(n, c, h, w)
+    assert err == 0
+    tiles, chunks = -(-p // PTILE), -(-p // WCHUNK)
+    assert (pl.n_pb - 1) * pl.tpb < tiles <= pl.n_pb * pl.tpb
+    assert (pl.n_s - 1) * pl.ipb < n <= pl.n_s * pl.ipb and pl.n_s <= PGROUP
+    assert (pl.nseg - 1) * pl.cps < chunks <= pl.nseg * pl.cps
+    groups = -(-pl.nseg // pl.gsz)
+    wtiles = -(-hc // WTILE) ** 2
+    assert pl.n_pb <= PGROUP ** 2 and 2 * wtiles * (groups + 1) <= 2048
+    assert pl.n_counters == 4096
+    assert pl.partial >= max(3 * hc * (pl.n_pb + -(-pl.n_pb // PGROUP)),
+                             12 * hc * pl.n_s,
+                             2 * wtiles * (pl.nseg + groups) * WTILE ** 2)
+    per_pass = min(CH_OWN * 256 // (h * w), CH_FILL * 256 // ((h + 2) * (w + 2)))
+    assert per_pass >= 1
+
+
+@pytest.mark.parametrize("n", [256, 248, 128, 3])
+@pytest.mark.parametrize("h, w, c", MAPS)
+def test_plan_covers_the_unit(n, h, w, c):
+    """The kernels' split of a call (shuffle_unit.cuh `make_plan`, g++
+    build) at the backbone's stride-1 maps and a small one, at chip_smoke.py's
+    three batch sizes and a tiny one."""
+    _assert_plan_covers(n, h, w, c)
+
+
+@pytest.mark.parametrize("h, w, c", MAPS)
+def test_plan_takes_every_batch_of_the_backbone(h, w, c):
+    """The same at every batch size in PLAN_N."""
+    for n in PLAN_N:
+        _assert_plan_covers(n, h, w, c)
+
+
+def test_plan_refuses_what_the_kernels_do_not_take():
+    for shape, why in (((2, 16, 60, 60), "depthwise"), ((4, 1024, 3, 3), "counters"),
+                       ((0, 16, 5, 6), "empty")):
+        err, _ = _plan_host(*shape)
+        with pytest.raises(ValueError, match=why):
+            SU._refuse(err, shape)
 
 
 def test_stride2_units_stay_unfused():
@@ -356,3 +455,36 @@ def test_cuda_kernels_match_plain():
         top = max(float(r.abs().max()) for r in ref)
         for name, a, b in zip(NAMES, grads, ref):
             assert float((a - b).abs().max()) <= 10 * tol * top, name
+
+
+@pytest.mark.cuda
+def test_cuda_calls_on_two_streams_share_no_state():
+    """On the card: forward and backward calls on two streams at once give
+    the bits each input gives on one stream (every call has its own ticket
+    counters)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator().manual_seed(1)
+    unit = ShuffleUnit(116, 116, 1, fused=True)
+    with torch.no_grad():
+        for p in unit.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+    unit = unit.cuda()
+    ops = SU.unit_operands(unit)
+    inputs = [(3.0 * torch.rand((64, 116, 11, 45), generator=g)).cuda() for _ in range(2)]
+    gout = torch.randn((64, 116, 11, 45), generator=g).cuda()
+
+    def call(x):
+        out, stats, saved = SU._train_fwd_kernel(x, ops, 0.0)
+        return (out, stats) + tuple(SU.shuffle_unit_train_bwd(x, gout, ops, 0.0, stats, saved))
+
+    alone = [call(x) for x in inputs]
+    streams = [torch.cuda.Stream() for _ in inputs]
+    torch.cuda.synchronize()
+    together = []
+    for stream, x in zip(streams, inputs):
+        with torch.cuda.stream(stream):
+            together.append(call(x))
+    torch.cuda.synchronize()
+    for a, b in zip(alone, together):
+        assert all(torch.equal(s, t) for s, t in zip(a, b))
