@@ -111,12 +111,14 @@ def run_rollout_blocks(env: CARLAEnv, predict_fn: Callable, env_states: EnvState
     observation is constant between pushes, so n draws from one forward
     pass match n per-step predicts in distribution.
 
-    Each block runs `block_size` physics ticks (env.step_physics_batch, the
-    physics kernel with fused_step) and one push (env.push_block_frame_batch,
-    one render launch).  Sub-steps after a mid-block auto-reset record the
-    old episode's observation with the new episode's reward; they are
-    flagged in Trajectory.post_reset.  Returns (env_states', Trajectory,
-    final_obs) with (S, B) per-step records and one frame per block."""
+    Each block runs `block_size` physics ticks in one call
+    (env.step_physics_block: one physics-kernel launch with fused_step, the
+    block's reset draws in one generator call) and one push
+    (env.push_block_frame_batch, one render launch).  Sub-steps after a
+    mid-block auto-reset record the old episode's observation with the new
+    episode's reward; they are flagged in Trajectory.post_reset.  Returns
+    (env_states', Trajectory, final_obs) with (S, B) per-step records and
+    one frame per block."""
     block = block_size or env.config.past_obs_freq
     if num_steps % block:
         raise ValueError(f"num_steps {num_steps} is not a multiple of the block {block}")
@@ -124,33 +126,33 @@ def run_rollout_blocks(env: CARLAEnv, predict_fn: Callable, env_states: EnvState
     init_stack, states = _start(env, env_states)
     slot = T - 1                       # every world's newest frame, tracked on the host
     B = init_stack.shape[1]
+    zero_row = torch.zeros((1, B), dtype=torch.float32, device=init_stack.device)
     records, frames = [], []
     for b in range(num_steps // block):
         obs_ids = states.stack_ids
         obs, net_in = _net_input(env, states)
         pred = predict_fn(net_in, block)
-        was_reset = torch.zeros(B, dtype=torch.bool, device=init_stack.device)
-        for i in range(block):
-            action01 = pred["action"][i]
-            # a sub-step is mismatched iff a reset happened at an EARLIER
-            # sub-step of this block
-            post_reset = was_reset.to(torch.float32)
-            states, reward, term, trunc, info, did_reset = env.step_physics_batch(
-                states, convert_action(action01))
-            states = states._replace(last_action=action01)
-            records.append(dict(
-                road=obs["road"], vehicle=obs["vehicle"], navigation=obs["navigation"],
-                stack_ids=obs_ids, action=action01, log_prob=pred["log_prob"][i],
-                value=pred["value"], reward=reward,
-                terminated=term.to(torch.float32), truncated=trunc.to(torch.float32),
-                speed=info["speed"], similarity=info["similarity"],
-                post_reset=post_reset))
-            was_reset = was_reset | did_reset
-        states = env.push_block_frame_batch(states, was_reset, frame_ids=b, slot=slot)
+        action01 = pred["action"]                                  # (block, B, A)
+        states, reward, term, trunc, info, did_reset = env.step_physics_block(
+            states, convert_action(action01))
+        states = states._replace(last_action=action01[-1])
+        # a sub-step is mismatched iff a reset happened at an EARLIER
+        # sub-step of this block
+        seen = torch.cumsum(did_reset, dim=0) > 0
+        per_block = lambda t: t.unsqueeze(0).expand((block,) + tuple(t.shape))
+        records.append(dict(
+            road=per_block(obs["road"]), vehicle=per_block(obs["vehicle"]),
+            navigation=per_block(obs["navigation"]), stack_ids=per_block(obs_ids),
+            action=action01, log_prob=pred["log_prob"], value=per_block(pred["value"]),
+            reward=reward, terminated=term.to(torch.float32),
+            truncated=trunc.to(torch.float32), speed=info["speed"],
+            similarity=info["similarity"],
+            post_reset=torch.cat([zero_row, seen[:-1].to(torch.float32)])))
+        states = env.push_block_frame_batch(states, seen[-1], frame_ids=b, slot=slot)
         slot = (slot + 1) % T
         frames.append(newest_frame(states.image_stack, states.stack_slot))
     traj = Trajectory(init_stack=init_stack, frames=torch.stack(frames),
-                      **_stack(records))
+                      **{k: torch.cat([r[k] for r in records]) for k in records[0]})
     return states, traj, env.observe(states)
 
 

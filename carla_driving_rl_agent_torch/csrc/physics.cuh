@@ -2,7 +2,7 @@
 // (physics.cu, nvcc) and a host build (physics_host.cpp, g++) that the CPU
 // tests run against the plain PyTorch version and the JAX package.
 //
-// One call of `step_one` is one tick of one world without NPC traffic:
+// `tick` is one tick of one world without NPC traffic:
 // actions -> control (envs/dynamics.actions_to_control), the kinematic
 // bicycle, the route-window monotone descent over 10 waypoints, similarity,
 // distances, the off-road minimum over the world's cell segments, the
@@ -12,7 +12,10 @@
 // envs/carla_env.step_physics, in their operation order, and the body of the
 // Pallas kernel `_step_kernel` of carla_driving_rl_agent_tpu/ops/
 // physics_pallas.py together with the gathers and the bicycle prologue that
-// the TPU version left to XLA.
+// the TPU version left to XLA.  `step_world_ticks` runs one world through
+// K such ticks, its state in registers in between: the JAX package's
+// `lax.scan` over a rollout block's ticks (agents/rollout.py), in one
+// launch.
 //
 // Every division is a true IEEE division (the plain PyTorch version divides
 // by tensors, not Python numbers, for the same reason), and the CUDA build
@@ -33,22 +36,30 @@ namespace cdrl {
 
 constexpr int UPDATE_WINDOW = 10;   // envs/world.UPDATE_WINDOW
 
-// Output rows (each B long) of the three output buffers; ops/physics.py
-// repeats the order.
-enum FloatOut {
+// Output rows.  The state after the last tick: (N_STATE_F, B) f32,
+// (N_INT_OUT, B) i64, (N_STATE_B, B) u8.  Each tick's returns and info:
+// (n_tick_f, K, B) f32 and (n_tick_b, K, B) u8, the first n_tick_f /
+// n_tick_b rows of TickFloat / TickBool (a block call writes the rows the
+// rollout records, a single tick all of them).  ops/physics.py repeats the
+// order.
+enum StateFloat {
   F_X, F_Y, F_YAW, F_V, F_THROTTLE, F_BRAKE, F_STEER, F_SIMILARITY,
-  F_SIM_TIME, F_TOTAL_REWARD, F_COLLISION_PENALTY,
-  F_REWARD, F_SPEED, F_SIM_PRE, F_D_NEXT, F_D_DEST, F_OFF_ROAD,
-  F_TOTAL_REWARD_PRE, N_FLOAT_OUT
+  F_SIM_TIME, F_TOTAL_REWARD, F_COLLISION_PENALTY, N_STATE_F
 };
 enum IntOut { I_ROUTE, I_WP, I_TOWN, I_WEATHER, I_TIMESTEP, I_EPISODE, N_INT_OUT };
-enum BoolOut { B_SHOULD_TERMINATE, B_TERM, B_TRUNC, B_DONE, B_HIT, N_BOOL_OUT };
+enum StateBool { B_SHOULD_TERMINATE, N_STATE_B };
+enum TickFloat {
+  T_REWARD, T_SPEED, T_SIMILARITY, T_D_NEXT, T_D_DEST, T_OFF_ROAD, T_TOTAL_REWARD, N_TICK_F
+};
+enum TickBool { T_TERM, T_TRUNC, T_DONE, T_HIT, N_TICK_B };
+constexpr int BLOCK_TICK_F = 3;   // reward, speed, similarity
+constexpr int BLOCK_TICK_B = 3;   // terminated, truncated, done
 
 // Everything one launch reads and writes.  Pointers are to contiguous
 // device (or host) arrays; ops/physics.py fills the same layout with
 // ctypes (pointers first, then floats, then ints).
 struct PhysicsArgs {
-  // world state, (B,) each
+  // world state before the first tick, (B,) each
   const float* x;
   const float* y;
   const float* yaw;
@@ -61,9 +72,9 @@ struct PhysicsArgs {
   const int64_t* episode;
   const float* sim_time;
   const float* total_reward;
-  // actions (B, n_actions) in [-1, 1]
+  // actions (K, B, n_actions) in [-1, 1]
   const float* action;
-  // reset draws, (B,) each
+  // reset draws, (K, B) each: tick k's restart of the worlds it ends
   const int64_t* d_town;
   const int64_t* d_weather;
   const int64_t* d_route;
@@ -75,10 +86,12 @@ struct PhysicsArgs {
   const float* route_end;     // (T, R, 2)
   const float* cell_segs;     // (T, GH, GW, K * 4)
   const float* road_half;     // (T,)
-  // outputs: (N_FLOAT_OUT, B) f32, (N_INT_OUT, B) i64, (N_BOOL_OUT, B) u8
+  // outputs, see StateFloat .. TickBool
   float* out_f;
   int64_t* out_i;
   uint8_t* out_b;
+  float* tick_f;
+  uint8_t* tick_b;
   // constants, each the float32 value of the Python number it replaces
   float range_throttle_lo, range_throttle_hi;
   float range_brake_lo, range_brake_hi;
@@ -91,6 +104,8 @@ struct PhysicsArgs {
   float dt;
   float cell_res;
   int n_worlds;
+  int n_ticks;                // K
+  int n_tick_f, n_tick_b;     // the TickFloat / TickBool rows written
   int max_timesteps;
   int n_actions;
   int throttle_as_desired_speed;
@@ -118,18 +133,46 @@ CDRL_HD float dist2d(float px, float py, float x, float y) {
   return sqrtf(dx * dx + dy * dy);
 }
 
-CDRL_HD void step_one(const PhysicsArgs& a, int i) {
-  const int64_t t = a.town_id[i];
-  const int64_t r = a.route_id[i];
+// One world's state, kept in registers across a block's ticks.
+struct World {
+  float x, y, yaw, v, throttle, brake, steer, similarity, sim_time, total_reward,
+      collision_penalty;
+  int64_t route, wp, town, weather, timestep, episode;
+  bool should_terminate;
+};
+
+// One tick's returns and info, before the auto-reset merge.
+struct Tick {
+  float f[N_TICK_F];
+  bool b[N_TICK_B];
+};
+
+CDRL_HD World load_world(const PhysicsArgs& a, int i) {
+  World w;
+  w.x = a.x[i]; w.y = a.y[i]; w.yaw = a.yaw[i]; w.v = a.v[i];
+  w.throttle = w.brake = w.steer = w.similarity = w.collision_penalty = 0.0f;
+  w.sim_time = a.sim_time[i]; w.total_reward = a.total_reward[i];
+  w.route = a.route_id[i]; w.wp = a.wp_idx[i]; w.town = a.town_id[i];
+  w.weather = a.weather_id[i]; w.timestep = a.timestep[i]; w.episode = a.episode[i];
+  w.should_terminate = false;
+  return w;
+}
+
+// Tick s of world i: the stepped state, or where the tick ends the episode
+// the fresh one from tick s's reset draws, replaces *w.
+CDRL_HD Tick tick(const PhysicsArgs& a, int s, int i, World* w) {
+  const int64_t t = w->town;
+  const int64_t r = w->route;
+  const int64_t row = static_cast<int64_t>(s) * a.n_worlds + i;
 
   // ---- actions_to_control ----
-  const float a0 = a.action[static_cast<int64_t>(i) * a.n_actions];
-  const float a1 = a.action[static_cast<int64_t>(i) * a.n_actions + 1];
+  const float a0 = a.action[row * a.n_actions];
+  const float a1 = a.action[row * a.n_actions + 1];
   float throttle = a0 > 0.0f ? a0 : 0.0f;
   float brake = a0 < 0.0f ? -a0 : 0.0f;
   float rev = 0.0f;
-  if (a.reverse) rev = a.action[static_cast<int64_t>(i) * a.n_actions + 2] > 0.0f ? 1.0f : 0.0f;
-  const float v0 = a.v[i];
+  if (a.reverse) rev = a.action[row * a.n_actions + 2] > 0.0f ? 1.0f : 0.0f;
+  const float v0 = w->v;
   if (a.throttle_as_desired_speed) {
     const float desired = (a0 + 1.0f) / 2.0f * 100.0f;
     const float current = v0 * MS_TO_KMH;
@@ -148,22 +191,22 @@ CDRL_HD void step_one(const PhysicsArgs& a, int i) {
   const float beta = atanf(tanf(delta) * LR_OVER_WHEELBASE);
   const float v_mid = 0.5f * (v0 + v);
   const float direction = 1.0f - 2.0f * rev;
-  const float x = a.x[i] + direction * v_mid * cosf(a.yaw[i] + beta) * a.dt;
-  const float y = a.y[i] + direction * v_mid * sinf(a.yaw[i] + beta) * a.dt;
-  float yaw = a.yaw[i] + direction * (v_mid / LR) * sinf(beta) * a.dt;
+  const float x = w->x + direction * v_mid * cosf(w->yaw + beta) * a.dt;
+  const float y = w->y + direction * v_mid * sinf(w->yaw + beta) * a.dt;
+  float yaw = w->yaw + direction * (v_mid / LR) * sinf(beta) * a.dt;
   yaw = atan2f(sinf(yaw), cosf(yaw));
 
   // ---- route window and monotone descent (route.update_index) ----
   const int64_t route_row = t * a.n_routes + r;
-  const int64_t rem = a.route_len[route_row] - a.wp_idx[i];
+  const int64_t rem = a.route_len[route_row] - w->wp;
   const float* xyy = a.route_xyy + route_row * a.route_max_len * 4;
   float d[UPDATE_WINDOW];
   int64_t rows[UPDATE_WINDOW];
   for (int k = 0; k < UPDATE_WINDOW; ++k) {
-    int64_t row = a.wp_idx[i] + (k < rem - 1 ? k : rem - 1);
-    row = row < 0 ? 0 : (row >= a.route_max_len ? a.route_max_len - 1 : row);
-    rows[k] = row;
-    d[k] = dist2d(xyy[row * 4], xyy[row * 4 + 1], x, y);
+    int64_t wrow = w->wp + (k < rem - 1 ? k : rem - 1);
+    wrow = wrow < 0 ? 0 : (wrow >= a.route_max_len ? a.route_max_len - 1 : wrow);
+    rows[k] = wrow;
+    d[k] = dist2d(xyy[wrow * 4], xyy[wrow * 4 + 1], x, y);
   }
   int64_t steps = 0;
   bool keep = true;
@@ -217,70 +260,95 @@ CDRL_HD void step_one(const PhysicsArgs& a, int i) {
   // ---- termination, truncation, bookkeeping ----
   const bool arrived = d_dest <= 2.0f;
   const bool term = hit || arrived;
-  const int64_t timestep = a.timestep[i] + 1;
+  const int64_t timestep = w->timestep + 1;
   const bool trunc = timestep >= a.max_timesteps && !term;
   const bool done = term || trunc;
-  const float total_reward = a.total_reward[i] + reward;
-  const float sim_time = a.sim_time[i] + a.dt;
+  const float total_reward = w->total_reward + reward;
+  const float sim_time = w->sim_time + a.dt;
 
   // ---- auto-reset merge: where(done, fresh, stepped) ----
+  if (done) {
+    const int64_t ft = a.d_town[row], fr = a.d_route[row];
+    const float* start = a.route_start + (ft * a.n_routes + fr) * 4;
+    w->x = start[0];
+    w->y = start[1];
+    w->yaw = start[2];
+    w->v = w->throttle = w->brake = w->steer = 0.0f;
+    w->similarity = 1.0f;
+    w->sim_time = a.d_sim_time[row];
+    w->total_reward = w->collision_penalty = 0.0f;
+    w->route = fr;
+    w->wp = 1;
+    w->town = ft;
+    w->weather = a.d_weather[row];
+    w->timestep = 0;
+    w->episode += 1;
+    w->should_terminate = false;
+  } else {
+    w->x = x;
+    w->y = y;
+    w->yaw = yaw;
+    w->v = v;
+    w->throttle = throttle;
+    w->brake = brake;
+    w->steer = steer;
+    w->similarity = similarity;
+    w->sim_time = sim_time;
+    w->total_reward = total_reward;
+    w->collision_penalty = cp;
+    w->wp += local;
+    w->timestep = timestep;
+    w->should_terminate = hit;
+  }
+  // the tick's own returns and info, before the merge
+  Tick out;
+  out.f[T_REWARD] = reward;
+  out.f[T_SPEED] = spd;
+  out.f[T_SIMILARITY] = similarity;
+  out.f[T_D_NEXT] = d_next;
+  out.f[T_D_DEST] = d_dest;
+  out.f[T_OFF_ROAD] = off_road;
+  out.f[T_TOTAL_REWARD] = total_reward;
+  out.b[T_TERM] = term;
+  out.b[T_TRUNC] = trunc;
+  out.b[T_DONE] = done;
+  out.b[T_HIT] = hit;
+  return out;
+}
+
+// World i through the launch's K ticks: its state read once, kept in
+// registers, written once after the last tick; each tick's rows written as
+// they come.
+CDRL_HD void step_world_ticks(const PhysicsArgs& a, int i) {
   const int n = a.n_worlds;
+  const int64_t kn = static_cast<int64_t>(a.n_ticks) * n;
+  World w = load_world(a, i);
+  for (int s = 0; s < a.n_ticks; ++s) {
+    const Tick r = tick(a, s, i, &w);
+    const int64_t at = static_cast<int64_t>(s) * n + i;
+    for (int j = 0; j < a.n_tick_f; ++j) a.tick_f[j * kn + at] = r.f[j];
+    for (int j = 0; j < a.n_tick_b; ++j) a.tick_b[j * kn + at] = r.b[j] ? 1 : 0;
+  }
   float* of = a.out_f;
   int64_t* oi = a.out_i;
-  uint8_t* ob = a.out_b;
-  if (done) {
-    const int64_t ft = a.d_town[i], fr = a.d_route[i];
-    const float* start = a.route_start + (ft * a.n_routes + fr) * 4;
-    of[F_X * n + i] = start[0];
-    of[F_Y * n + i] = start[1];
-    of[F_YAW * n + i] = start[2];
-    of[F_V * n + i] = 0.0f;
-    of[F_THROTTLE * n + i] = 0.0f;
-    of[F_BRAKE * n + i] = 0.0f;
-    of[F_STEER * n + i] = 0.0f;
-    of[F_SIMILARITY * n + i] = 1.0f;
-    of[F_SIM_TIME * n + i] = a.d_sim_time[i];
-    of[F_TOTAL_REWARD * n + i] = 0.0f;
-    of[F_COLLISION_PENALTY * n + i] = 0.0f;
-    oi[I_ROUTE * n + i] = fr;
-    oi[I_WP * n + i] = 1;
-    oi[I_TOWN * n + i] = ft;
-    oi[I_WEATHER * n + i] = a.d_weather[i];
-    oi[I_TIMESTEP * n + i] = 0;
-    oi[I_EPISODE * n + i] = a.episode[i] + 1;
-    ob[B_SHOULD_TERMINATE * n + i] = 0;
-  } else {
-    of[F_X * n + i] = x;
-    of[F_Y * n + i] = y;
-    of[F_YAW * n + i] = yaw;
-    of[F_V * n + i] = v;
-    of[F_THROTTLE * n + i] = throttle;
-    of[F_BRAKE * n + i] = brake;
-    of[F_STEER * n + i] = steer;
-    of[F_SIMILARITY * n + i] = similarity;
-    of[F_SIM_TIME * n + i] = sim_time;
-    of[F_TOTAL_REWARD * n + i] = total_reward;
-    of[F_COLLISION_PENALTY * n + i] = cp;
-    oi[I_ROUTE * n + i] = r;
-    oi[I_WP * n + i] = a.wp_idx[i] + local;
-    oi[I_TOWN * n + i] = t;
-    oi[I_WEATHER * n + i] = a.weather_id[i];
-    oi[I_TIMESTEP * n + i] = timestep;
-    oi[I_EPISODE * n + i] = a.episode[i];
-    ob[B_SHOULD_TERMINATE * n + i] = hit ? 1 : 0;
-  }
-  // the step's own returns and info, before the merge
-  of[F_REWARD * n + i] = reward;
-  of[F_SPEED * n + i] = spd;
-  of[F_SIM_PRE * n + i] = similarity;
-  of[F_D_NEXT * n + i] = d_next;
-  of[F_D_DEST * n + i] = d_dest;
-  of[F_OFF_ROAD * n + i] = off_road;
-  of[F_TOTAL_REWARD_PRE * n + i] = total_reward;
-  ob[B_TERM * n + i] = term ? 1 : 0;
-  ob[B_TRUNC * n + i] = trunc ? 1 : 0;
-  ob[B_DONE * n + i] = done ? 1 : 0;
-  ob[B_HIT * n + i] = hit ? 1 : 0;
+  of[F_X * n + i] = w.x;
+  of[F_Y * n + i] = w.y;
+  of[F_YAW * n + i] = w.yaw;
+  of[F_V * n + i] = w.v;
+  of[F_THROTTLE * n + i] = w.throttle;
+  of[F_BRAKE * n + i] = w.brake;
+  of[F_STEER * n + i] = w.steer;
+  of[F_SIMILARITY * n + i] = w.similarity;
+  of[F_SIM_TIME * n + i] = w.sim_time;
+  of[F_TOTAL_REWARD * n + i] = w.total_reward;
+  of[F_COLLISION_PENALTY * n + i] = w.collision_penalty;
+  oi[I_ROUTE * n + i] = w.route;
+  oi[I_WP * n + i] = w.wp;
+  oi[I_TOWN * n + i] = w.town;
+  oi[I_WEATHER * n + i] = w.weather;
+  oi[I_TIMESTEP * n + i] = w.timestep;
+  oi[I_EPISODE * n + i] = w.episode;
+  a.out_b[B_SHOULD_TERMINATE * n + i] = w.should_terminate ? 1 : 0;
 }
 
 }  // namespace cdrl

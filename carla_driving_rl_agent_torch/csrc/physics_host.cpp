@@ -6,5 +6,5 @@
 #include "physics.cuh"
 
 extern "C" void cdrl_physics_step_host(const cdrl::PhysicsArgs* args) {
-  for (int i = 0; i < args->n_worlds; ++i) cdrl::step_one(*args, i);
+  for (int i = 0; i < args->n_worlds; ++i) cdrl::step_world_ticks(*args, i);
 }

@@ -12,8 +12,9 @@
 // 128 lanes and absorbed the split and the shuffle into placement matmuls.
 // On the card blocks run in parallel and in no order, so each kernel here
 // is a short fixed sequence of launches on one stream, one per stage that
-// needs a batch statistic of the stage before it: inference 2 launches,
-// the training forward 4, the backward 5.
+// needs a batch statistic of the stage before it (inference: the whole
+// image of a channel before its depthwise): inference 3 launches, the
+// training forward 4, the backward 5.
 //
 // The stages:
 //   * 1x1 products (`k_pw`): a block owns 64 output channels and walks a
@@ -25,11 +26,12 @@
 //     shared memory (BN2 in the forward; g_u or g_z1 from the saved tensors
 //     in the backward, which the first channel tile's blocks also write
 //     out and sum); the output tile leaves through shared memory so that
-//     its stores are coalesced.
-//   * channel stages (depthwise forward and backward, BN3's sums): a block
-//     owns one channel of a run of images and stages zero-padded planes of
-//     its inputs in shared memory, so each neighbour is read and
-//     transformed once.
+//     its stores are coalesced.  Inference runs two of them (W1, then W3
+//     with BN3 and the activation in the epilogue and the shuffled store).
+//   * channel stages (depthwise in inference, forward and backward, BN3's
+//     sums): a block owns one channel of a run of images and stages
+//     zero-padded planes of its inputs in shared memory, so each neighbour
+//     is read and transformed once.
 //   * weight gradients (`k_wgrad`): dW3 and dW1 in one launch, 64 x 64
 //     output tiles split over pixel segments (split-K), both operands
 //     staged with cp.async in a three-deep ring, 4 x 4 register tiles.
@@ -66,8 +68,6 @@ using namespace cdrl::unit;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int OT = 4;                 // inference tail: output channels per warp and pass
-constexpr int PK = 32;                // products: channels per chunk of the pixel operand
 constexpr int WL = WCHUNK + 4;        // weight gradients: shared row pitch
 constexpr int WS = 3;                 // weight gradients: cp.async ring depth
 
@@ -212,78 +212,6 @@ __device__ __forceinline__ T sum16(const T* v, int count) {
 }
 
 // ---------------------------------------------------------------------------
-// the inference tail (a warp per 32-pixel tile, as first ported)
-// ---------------------------------------------------------------------------
-
-struct Lane {
-  int lane, warp;
-  int64_t q;
-  bool valid;
-};
-
-__device__ __forceinline__ Lane lane_of(const Geo& g) {
-  Lane l;
-  l.lane = threadIdx.x & 31;
-  l.warp = threadIdx.x >> 5;
-  l.q = static_cast<int64_t>(blockIdx.x) * TILE + l.lane;
-  l.valid = l.q < g.p;
-  return l;
-}
-
-// out[oo][lane] = sum_k w[oo * rs + k * cs] * s[k * TILE + lane] for the warp's
-// OT channels oo = o0 .. o0 + OT - 1 (clamped reads past hc)
-template <class T>
-__device__ __forceinline__ void dot_tile(const T* w, int rs, int cs, const T* s, int hc,
-                                         int o0, int lane, T* acc) {
-  const T* wr[OT];
-#pragma unroll
-  for (int j = 0; j < OT; ++j) {
-    wr[j] = w + min(o0 + j, hc - 1) * rs;
-    acc[j] = T(0);
-  }
-  for (int k = 0; k < hc; ++k) {
-    const T v = s[k * TILE + lane];
-#pragma unroll
-    for (int j = 0; j < OT; ++j) acc[j] += __ldg(wr[j] + k * cs) * v;
-  }
-}
-
-// Inference after the first product: depthwise, BN2, W3, BN3, act, written
-// to the branch's shuffled channels; the shortcut copied to its own.
-template <class T>
-__global__ void __launch_bounds__(kThreads) k_tail_infer(Call a) {
-  const Ops<T> o(a);
-  const Geo g = geometry(a);
-  const Lane l = lane_of(g);
-  const int hc = g.hc;
-  T* bs = smem<T>();
-  for (int k = l.warp; k < hc; k += kWarps) {
-    T v = T(0);
-    if (l.valid) {
-      const T z2 = depthwise(o, g, l.q, k, [&](int64_t nb) { return o.z1[at(g, nb, k, hc)]; });
-      v = bn(z2, o.m2[k], rstd(o.v2[k], o.eps), o.g2[k], o.be2[k]);
-      o.out[at(g, l.q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, l.q, k, g.c)];
-    }
-    bs[k * TILE + l.lane] = v;
-  }
-  __syncthreads();
-  for (int o0 = l.warp * OT; o0 < hc; o0 += kWarps * OT) {
-    T acc[OT];
-    dot_tile(o.w3, hc, 1, bs, hc, o0, l.lane, acc);
-#pragma unroll
-    for (int j = 0; j < OT; ++j) {
-      const int oo = o0 + j;
-      if (oo >= hc) break;
-      if (l.valid) {
-        const T y = act(bn(acc[j] + o.b3[oo], o.m3[oo], rstd(o.v3[oo], o.eps), o.g3[oo],
-                           o.be3[oo]), o.leak);
-        o.out[at(g, l.q, shuffle_dest(g.c, hc + oo), g.c)] = y;
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // the 1x1 products
 // ---------------------------------------------------------------------------
 
@@ -294,17 +222,10 @@ __global__ void __launch_bounds__(kThreads) k_tail_infer(Call a) {
 // (written out, and summed: the gradient of b3); writes b2n and BN2's sums.
 // PW1_BACK: the branch half of gx = W1^T g_z1, with g_z1 from g_pre1 and z1
 // (written out, and summed: the gradient of b1).
-enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK };
+// PW3_INFER: act(BN3(W3 . b2n + b3)) on the running statistics, written to
+// the branch's shuffled output channels.
+enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK, PW3_INFER };
 
-constexpr int OTP = PTILE + 4;        // products: row pitch of the output tile
-constexpr int PMP = PM + 4;           // products: row pitch of the weight panel
-
-template <class T>
-size_t pw_smem(int hc) {
-  const int kpad = (hc + PK - 1) / PK * PK;
-  return sizeof(T) * (static_cast<size_t>(kpad) * PMP + 2 * PK * PTILE + PM * OTP + 7 * hc +
-                      5 * PM) + 4 * PTILE * sizeof(int);
-}
 
 // A block owns output channels m0 .. m0 + 63 of the pixel tiles tb .. te - 1.
 // Lanes: in the products thread (ty, tx) holds rows ty * 4 + i and pixels
@@ -317,6 +238,7 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   constexpr bool kW1 = kMode == PW1_INFER || kMode == PW1_TRAIN || kMode == PW1_BACK;
   constexpr bool kBack = kMode == PW3_BACK || kMode == PW1_BACK;
   constexpr bool kStats = kMode == PW1_TRAIN || kMode == PW3_TRAIN;
+  constexpr bool kInfer = kMode == PW1_INFER || kMode == PW3_INFER;
   const Ops<T> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -370,6 +292,9 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
     if (kMode == PW1_INFER) {
       e[0] = o.b1[c]; e[1] = o.m1[c]; e[2] = rstd(o.v1[c], o.eps); e[3] = o.g1[c];
       e[4] = o.be1[c];
+    } else if (kMode == PW3_INFER) {
+      e[0] = o.b3[c]; e[1] = o.m3[c]; e[2] = rstd(o.v3[c], o.eps); e[3] = o.g3[c];
+      e[4] = o.be3[c];
     } else if (kMode == PW1_TRAIN) {
       e[0] = o.b1[c];
     } else if (kMode == PW3_TRAIN) {
@@ -424,6 +349,8 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
         if (k < hc && cl.h[j] >= 0) {
           if (kW1 && !kBack) {
             r0[h][j] = o.x[cl.c[j] + (hc + k) * hw];
+          } else if (kMode == PW3_INFER) {
+            r0[h][j] = o.b2n[cl.h[j] + k * hw];
           } else if (kMode == PW3_TRAIN) {
             r0[h][j] = o.z2[cl.h[j] + k * hw];
           } else if (kMode == PW3_BACK) {
@@ -446,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
       for (int j = 0; j < 4; ++j) {
         v[j] = T(0);
         if (k < hc && cl.h[j] >= 0) {
-          if (kW1 && !kBack) {
+          if ((kW1 && !kBack) || kMode == PW3_INFER) {
             v[j] = r0[h][j];
           } else if (kMode == PW3_TRAIN) {
             v[j] = bn(r0[h][j], prm[k], prm[hc + k], prm[2 * hc + k], prm[3 * hc + k]);
@@ -528,9 +455,11 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
         v[h] = ots[r * OTP + col];
         if (!ok[h]) continue;
         const int ih = cbh[col] + oo * hw;
-        if (kMode == PW1_INFER) {
-          o.z1[ih] = act(bn(v[h] + epi[r], epi[PM + r], epi[2 * PM + r], epi[3 * PM + r],
-                            epi[4 * PM + r]), o.leak);
+        if (kInfer) {
+          const T y = bn_act(v[h] + epi[r], epi[PM + r], epi[2 * PM + r], epi[3 * PM + r],
+                             epi[4 * PM + r], o.leak);
+          if (kMode == PW1_INFER) o.z1[ih] = y;
+          else o.out[cbh[PTILE + col] + shuffle_dest(g.c, hc + oo) * hw] = y;
         } else if (kMode == PW1_TRAIN) {
           v[h] += epi[r];
           o.z1[ih] = v[h];
@@ -560,7 +489,7 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
     cur_cols = next_cols;
     __syncthreads();   // the tile's offsets and output tile are free
   }
-  if (kMode == PW1_INFER) return;
+  if (kInfer) return;
 
   // one partial row per block: a row's pixels are one warp's
   T* part = o.partial;
@@ -674,15 +603,6 @@ __device__ __forceinline__ ChannelBlock channel_block(const Call& a, const Geo& 
   return b;
 }
 
-// Shared memory of a channel stage: `arrays` padded planes of T per pass,
-// then the index maps.
-template <class T>
-size_t channel_smem(const Call& a, int arrays) {
-  const Geo g = geometry(a);
-  const int pl = planes_per_pass(g.h, g.w, a.ipb), plane = (g.h + 2) * (g.w + 2);
-  return sizeof(T) * arrays * pl * plane + sizeof(int) * pl * (plane + 2 * g.hw);
-}
-
 // Training: z2 = depthwise(act(BN1(z1))) + dwb on BN1's batch statistics,
 // saved, and BN2's statistics.
 template <class T>
@@ -731,6 +651,48 @@ __global__ void __launch_bounds__(kThreads) k_dw_train(Call a) {
                                  a.n_s);
     o.stats[2 * hc + k] = m.mean;
     o.stats[3 * hc + k] = m.m2 / T(g.p);
+  }
+}
+
+// Inference: b2n = BN2(depthwise(a1) + dwb) on the running statistics,
+// written over a1 (each plane of a1 is read only by its own block, into
+// shared memory, before that block writes it), and the shortcut's channel
+// k copied to its shuffled channel.
+template <class T>
+__global__ void __launch_bounds__(kThreads) k_dw_infer(Call a) {
+  const Ops<T> o(a);
+  const Geo g = geometry(a);
+  T* pad = smem<T>();
+  const int planes = planes_per_pass(g.h, g.w, a.ipb) * (g.h + 2) * (g.w + 2);
+  const ChannelBlock b = channel_block(a, g, reinterpret_cast<int*>(pad + planes));
+  const int hc = g.hc, hw = g.hw, k = b.k, tid = threadIdx.x;
+  const T m2 = o.m2[k], r2 = rstd(o.v2[k], o.eps), g2 = o.g2[k], be2 = o.be2[k];
+  T wt[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) wt[t] = o.dw[k * 9 + t];
+  const T bias = o.dwb[k];
+  const int64_t img = static_cast<int64_t>(g.c) * hw;
+  for (int n = b.n0; n < b.n1; n += b.pl) {
+    const int np = min(b.pl, b.n1 - n);
+    const int64_t base = (static_cast<int64_t>(n) * hc + k) * hw;
+    __syncthreads();   // the maps are written, the previous pass is done
+#pragma unroll 4
+    for (int e = tid; e < np * b.plane; e += kThreads) {
+      const int f = b.fo[e];
+      pad[e] = f >= 0 ? o.z1[base + f] : T(0);
+    }
+    // the pass's shortcut planes, their loads in flight with the fill's
+    const T* src = o.x + n * img + static_cast<int64_t>(k) * hw;
+    T* dst = o.out + n * img + static_cast<int64_t>(shuffle_dest(g.c, k)) * hw;
+#pragma unroll 4
+    for (int e = tid; e < np * hw; e += kThreads) {
+      const int i = e / hw, r = e - i * hw;
+      dst[i * img + r] = src[i * img + r];
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int e = tid; e < np * hw; e += kThreads)
+      o.b2n[base + b.og[e]] = dw_bn(wt, bias, pad + b.oc[e], b.pitch, m2, r2, g2, be2);
   }
 }
 
@@ -1034,9 +996,13 @@ template <class T>
 int infer(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
   Errors err;
-  launch(err, k_pw<T, PW1_INFER>, pw_grid(a), pw_smem<T>(g.hc), s, a);
-  launch(err, k_tail_infer<T>, static_cast<int>((g.p + TILE - 1) / TILE),
-         sizeof(T) * g.hc * TILE, s, a);
+  launch(err, k_pw<T, PW1_INFER>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  Call d = a;   // the depthwise stage's own split of the images
+  d.ipb = a.ipi;
+  d.n_s = a.n_si;
+  launch(err, k_dw_infer<T>, dim3(d.n_s, g.hc), channel_smem_bytes(g.h, g.w, d.ipb, 1, sizeof(T)),
+         s, d);
+  launch(err, k_pw<T, PW3_INFER>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
   return static_cast<int>(err.first);
 }
 
@@ -1047,9 +1013,9 @@ int train_fwd(const Call& a, cudaStream_t s) {
   const int64_t total = static_cast<int64_t>(g.n) * g.hc * g.hw;
   const int64_t ogrid = (total + kThreads - 1) / kThreads;
   Errors err;
-  launch(err, k_pw<T, PW1_TRAIN>, pw_grid(a), pw_smem<T>(g.hc), s, a);
-  launch(err, k_dw_train<T>, cgrid, channel_smem<T>(a, 1), s, a);
-  launch(err, k_pw<T, PW3_TRAIN>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_pw<T, PW1_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_dw_train<T>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 1, sizeof(T)), s, a);
+  launch(err, k_pw<T, PW3_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
   launch(err, k_out_train<T>, static_cast<int>(ogrid < 2048 ? ogrid : 2048),
          4 * g.hc * sizeof(T), s, a);
   return static_cast<int>(err.first);
@@ -1062,9 +1028,9 @@ int train_bwd(const Call& a, cudaStream_t s) {
   const int nt = (g.hc + WTILE - 1) / WTILE;
   Errors err;
   launch(err, k_bn3_back<T>, cgrid, 0, s, a);
-  launch(err, k_pw<T, PW3_BACK>, pw_grid(a), pw_smem<T>(g.hc), s, a);
-  launch(err, k_dw_back<T>, cgrid, channel_smem<T>(a, 3), s, a);
-  launch(err, k_pw<T, PW1_BACK>, pw_grid(a), pw_smem<T>(g.hc), s, a);
+  launch(err, k_pw<T, PW3_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_dw_back<T>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 3, sizeof(T)), s, a);
+  launch(err, k_pw<T, PW1_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
   launch(err, k_wgrad<T>, 2 * nt * nt * a.nseg, sizeof(T) * 2 * WS * WTILE * WL, s, a);
   return static_cast<int>(err.first);
 }

@@ -37,7 +37,6 @@
 namespace cdrl {
 namespace unit {
 
-constexpr int TILE = 32;   // pixels per tile of the inference tail: one warp's lanes
 constexpr int PTILE = 64;  // pixels per tile of the 1x1 products
 constexpr int PM = 64;     // output channels per block of the 1x1 products
 constexpr int WCHUNK = 32; // pixels per chunk of the weight gradients' split-K
@@ -76,13 +75,14 @@ struct UnitArgs {
   const void* gout;   // backward: gradient of out, (N, C, H, W)
   void* out;          // inference / forward: out; backward: gx
   void* stats;        // forward: (6, hc) rows m1 v1 m2 v2 m3 v3
-  void* z1;           // forward: saved z1; inference: a1 scratch; backward: in
+  void* z1;           // forward: saved z1; inference: a1 scratch, then b2n
+                      // in place (z1 and b2n the same buffer); backward: in
   void* z2;           // forward: saved z2; backward: in
   void* u;            // forward: saved u; backward: in
   void* gb2n;         // backward scratch (N, hc, H, W): gradient of b2n
   void* gpre1;        // backward scratch (N, hc, H, W): gradient of BN1's output
   void* gu;           // backward scratch (N, hc, H, W): gradient of u
-  void* b2n;          // backward scratch (N, hc, H, W): BN2's output
+  void* b2n;          // backward scratch (N, hc, H, W): BN2's output; inference: z1
   void* gz1;          // backward scratch (N, hc, H, W): gradient of z1
   void* dw1;          // backward: (hc, hc)
   void* ddw;          // backward: (hc, 9)
@@ -108,6 +108,8 @@ struct Plan {
   int n_pb;           // products: pixel blocks (at most PGROUP^2)
   int ipb;            // channel stages: images per block
   int n_s;            // channel stages: image segments per channel (at most PGROUP)
+  int ipi;            // inference's depthwise stage: images per block
+  int n_si;           // inference's depthwise stage: image segments per channel
   int cps;            // weight gradients: chunks of WCHUNK pixels per segment
   int nseg;           // weight gradients: segments
   int gsz;            // weight gradients: segments per first-level merge
@@ -126,13 +128,23 @@ constexpr int CH_THREADS = 256;
 constexpr int CH_OWN = 8;
 constexpr int CH_FILL = 12;
 
+// Images per pass of a channel stage's zero-padded shared planes (0 when
+// one image does not fit).
+CDRL_HD int planes_per_pass(int h, int w, int ipb) {
+  const int a = CH_OWN * CH_THREADS / (h * w), b = CH_FILL * CH_THREADS / ((h + 2) * (w + 2));
+  const int pl = a < b ? a : b;
+  return pl < ipb ? pl : ipb;
+}
+
 // The plan of a unit of c channels at n x h x w on a card of `sms` SMs:
 //   * products: n_pb blocks of tpb 64-pixel tiles for each 64-channel
 //     tile, about two blocks per SM, and never more blocks than one
 //     two-level merge reads (PGROUP groups of PGROUP);
 //   * channel stages: n_s runs of ipb images per channel, 32 images (the
 //     fastest of 8-128 at the backbone's maps on the H100), at most PGROUP
-//     runs;
+//     runs; inference's depthwise stage, which merges no statistic, two
+//     passes of images per block (the fastest of one, two and 32 images'
+//     worth at the backbone's maps on the H100);
 //   * weight gradients: nseg segments of cps 32-pixel chunks for each
 //     64 x 64 output tile of the two gradients, at most two blocks per SM
 //     (one wave: the kernel holds 2 blocks per SM), merged in groups of gsz
@@ -153,6 +165,9 @@ inline int make_plan(int n, int c, int h, int w, int sms, Plan* pl) {
   pl->ipb = runs > 32 ? runs : 32;
   pl->ipb = pl->ipb < n ? pl->ipb : n;
   pl->n_s = cdiv(n, pl->ipb);
+  pl->ipi = 2 * planes_per_pass(h, w, n);
+  pl->ipi = pl->ipi < n ? pl->ipi : n;
+  pl->n_si = cdiv(n, pl->ipi);
   const int chunks = cdiv(p, WCHUNK), wtiles = cdiv(hc, WTILE) * cdiv(hc, WTILE);
   int segs = sms / wtiles;
   segs = segs < chunks ? segs : chunks;
@@ -232,6 +247,13 @@ CDRL_HD T rstd(T var, T eps) {
 template <class T>
 CDRL_HD T bn(T z, T mean, T r, T gamma, T beta) { return gamma * ((z - mean) * r) + beta; }
 
+// act(BN(z)): the epilogues of inference's two 1x1 products (a1 from z1,
+// BN1; the branch output from u, BN3), on the running statistics
+template <class T>
+CDRL_HD T bn_act(T z, T mean, T r, T gamma, T beta, T leak) {
+  return act(bn(z, mean, r, gamma, beta), leak);
+}
+
 // gamma * xh + beta rounded as two operations, never as a fused
 // multiply-add: the activation's gradient is a step at 0 and 6, and the
 // backward kernel must take the same step as its plain version (one
@@ -292,6 +314,13 @@ CDRL_HD T dw3x3(const T* w, T bias, const T* c, int pitch) {
   T z = bias;
   for (int t = 0; t < 9; ++t) z += w[t] * c[(t / 3 - 1) * pitch + t % 3 - 1];
   return z;
+}
+
+// Inference's b2n = BN2(z2) at the centre `c` of a zero-padded plane of a1,
+// BN2 on the running statistics.
+template <class T>
+CDRL_HD T dw_bn(const T* w, T bias, const T* c, int pitch, T mean, T r, T gamma, T beta) {
+  return bn(dw3x3(w, bias, c, pitch), mean, r, gamma, beta);
 }
 
 // The 3x3 depthwise transpose at `c`: sum_t w[t] c[-dh, -dw].
@@ -370,12 +399,25 @@ CDRL_HD void merge(const T* n, const T* mean, const T* m2, int64_t nb, int64_t p
   *out_var = r.m2 / T(p);
 }
 
-// Images per pass of a channel stage's zero-padded shared planes (0 when
-// one image does not fit).
-CDRL_HD int planes_per_pass(int h, int w, int ipb) {
-  const int a = CH_OWN * CH_THREADS / (h * w), b = CH_FILL * CH_THREADS / ((h + 2) * (w + 2));
-  const int pl = a < b ? a : b;
-  return pl < ipb ? pl : ipb;
+constexpr int PK = 32;           // 1x1 products: channels per chunk of the pixel operand
+constexpr int OTP = PTILE + 4;   // 1x1 products: row pitch of the output tile
+constexpr int PMP = PM + 4;      // 1x1 products: row pitch of the weight panel
+constexpr int64_t SMEM_LIMIT = 232448;   // the dynamic shared memory a block may opt into
+
+// Dynamic shared memory of a 1x1-product block of hc channels of `tsize`
+// bytes: the weight panel, the operand's double buffer, the output tile,
+// the per-channel and per-row constants and the pixel offsets.
+inline int64_t pw_smem_bytes(int hc, int64_t tsize) {
+  const int kpad = (hc + PK - 1) / PK * PK;
+  return tsize * (int64_t(kpad) * PMP + 2 * PK * PTILE + PM * OTP + 7 * hc + 5 * PM) +
+         4 * PTILE * int64_t(sizeof(int));
+}
+
+// Dynamic shared memory of a channel stage: `arrays` padded planes of
+// `tsize` bytes per image of a pass, then the index maps.
+inline int64_t channel_smem_bytes(int h, int w, int ipb, int arrays, int64_t tsize) {
+  const int pl = planes_per_pass(h, w, ipb), plane = (h + 2) * (w + 2);
+  return tsize * arrays * pl * plane + int64_t(sizeof(int)) * pl * (plane + 2 * h * w);
 }
 
 // The typed view of UnitArgs.

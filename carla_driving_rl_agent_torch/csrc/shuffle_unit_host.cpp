@@ -52,28 +52,44 @@ void branch_of(const Ops<T>& o, const Geo& g, int64_t q, std::vector<T>* v) {
   for (int k = 0; k < g.hc; ++k) (*v)[k] = o.x[at(g, q, g.hc + k, g.c)];
 }
 
+// Inference in the card's three stages: a1 = act(BN1(W1 . branch + b1));
+// per channel and image, b2n = BN2(depthwise(a1) + dwb) from a zero-padded
+// plane of a1, written over it, and the shortcut's copy; then
+// act(BN3(W3 . b2n + b3)) to the branch's shuffled channels.
 template <class T>
 void infer(const UnitArgs& a) {
   const Ops<T> o(a);
   const Geo g = geometry(a);
-  const int hc = g.hc;
-  std::vector<T> v(hc), b2n(hc);
+  const int hc = g.hc, pitch = g.w + 2;
+  std::vector<T> v(hc), plane((g.h + 2) * pitch);
   for (int64_t q = 0; q < g.p; ++q) {
     branch_of(o, g, q, &v);
     for (int k = 0; k < hc; ++k)
-      o.z1[at(g, q, k, hc)] = act(bn(dot_row(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
-                                     rstd(o.v1[k], o.eps), o.g1[k], o.be1[k]), o.leak);
+      o.z1[at(g, q, k, hc)] = bn_act(dot_row(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
+                                     rstd(o.v1[k], o.eps), o.g1[k], o.be1[k], o.leak);
   }
-  for (int64_t q = 0; q < g.p; ++q) {
+  for (int n = 0; n < g.n; ++n)
     for (int k = 0; k < hc; ++k) {
-      const T z2 = depthwise(o, g, q, k, [&](int64_t nb) { return o.z1[at(g, nb, k, hc)]; });
-      b2n[k] = bn(z2, o.m2[k], rstd(o.v2[k], o.eps), o.g2[k], o.be2[k]);
-      o.out[at(g, q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, q, k, g.c)];
+      const int64_t base = (static_cast<int64_t>(n) * hc + k) * g.hw;
+      for (int y = 0; y < g.h + 2; ++y)
+        for (int x = 0; x < pitch; ++x) {
+          const bool in = y >= 1 && y <= g.h && x >= 1 && x <= g.w;
+          plane[y * pitch + x] = in ? o.z1[base + (y - 1) * g.w + x - 1] : T(0);
+        }
+      const T r2 = rstd(o.v2[k], o.eps);
+      for (int r = 0; r < g.hw; ++r)
+        o.b2n[base + r] = dw_bn(o.dw + k * 9, o.dwb[k], plane.data() + (r / g.w + 1) * pitch +
+                                r % g.w + 1, pitch, o.m2[k], r2, o.g2[k], o.be2[k]);
+      const int64_t img = static_cast<int64_t>(n) * g.c * g.hw;
+      for (int r = 0; r < g.hw; ++r)
+        o.out[img + shuffle_dest(g.c, k) * g.hw + r] = o.x[img + k * g.hw + r];
     }
+  for (int64_t q = 0; q < g.p; ++q) {
+    for (int k = 0; k < hc; ++k) v[k] = o.b2n[at(g, q, k, hc)];
     for (int k = 0; k < hc; ++k)
       o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
-          act(bn(dot_row(o.w3, b2n.data(), hc, k) + o.b3[k], o.m3[k], rstd(o.v3[k], o.eps),
-                 o.g3[k], o.be3[k]), o.leak);
+          bn_act(dot_row(o.w3, v.data(), hc, k) + o.b3[k], o.m3[k], rstd(o.v3[k], o.eps),
+                 o.g3[k], o.be3[k], o.leak);
   }
 }
 
@@ -225,4 +241,22 @@ extern "C" void cdrl_unit_merge_host(const void* v, int64_t p, int64_t per_block
 // `sms` SMs (make_plan): 0, or the PlanError that refuses the shape.
 extern "C" int cdrl_unit_plan_host(int n, int c, int h, int w, int sms, Plan* out) {
   return make_plan(n, c, h, w, sms, out);
+}
+
+// The inference stages' launches of a unit of c channels at n x h x w on a
+// card of `sms` SMs, as shuffle_unit.cu's `infer` makes them, for values of
+// `tsize` bytes: out = {blocks of each 1x1 product, blocks of the depthwise
+// stage, a product block's and a depthwise block's dynamic shared memory in
+// bytes}.  Returns 0, or the PlanError that refuses the shape.
+extern "C" int cdrl_unit_infer_launch_host(int n, int c, int h, int w, int sms, int tsize,
+                                           int64_t* out) {
+  Plan pl;
+  const int err = make_plan(n, c, h, w, sms, &pl);
+  if (err) return err;
+  const int hc = c / 2;
+  out[0] = int64_t(cdiv(hc, PM)) * pl.n_pb;
+  out[1] = int64_t(pl.n_si) * hc;
+  out[2] = pw_smem_bytes(hc, tsize);
+  out[3] = channel_smem_bytes(h, w, pl.ipi, 1, tsize);
+  return 0;
 }

@@ -4,9 +4,9 @@ Counterpart of carla_driving_rl_agent_tpu/envs/carla_env.py: the world
 core, the CUDA renderer and the time-horizon frame stacks, with auto-reset,
 over a batch of worlds on one device.  Two paths step it: the per-step
 `step` (evaluation) and the block path of training rollouts
-(`step_physics_batch` for every tick, `push_block_frame_batch` once per
-past_obs_freq ticks), whose physics runs the CUDA kernel of
-ops/physics.py when `fused_step` is on.
+(`step_physics_block` for a block of past_obs_freq ticks,
+`push_block_frame_batch` once per block), whose physics runs the CUDA
+kernel of ops/physics.py, once per block, when `fused_step` is on.
 
 Observation contract (reference core/carla_env.py:128-131): dict(image
 (B, T, 90, 360, C) in [0, 1], road (B, T, 9), vehicle (B, T, 4), navigation
@@ -125,6 +125,9 @@ class CARLAEnv:
         self.device = resolve_device(device)
         self.town, self.routes = world_mod.build_world_data(config.world, self.device)
         self.weather_params = torch.as_tensor(WEATHER_PARAMS, device=self.device)
+        self.weather_table = torch.as_tensor(self.params.weather_ids, dtype=torch.int64,
+                                             device=self.device)
+        self._physics_consts = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
 
@@ -268,8 +271,37 @@ class CARLAEnv:
             draws = world_mod.reset_draws(self.generator, actions.shape[0],
                                           self.params, self.routes)
         world, reward, term, trunc, info, done = physics_ops.step_physics_batch(
-            states.world, actions, self.params, self.town, self.routes, draws)
+            states.world, actions, self.params, self.town, self.routes, draws,
+            self.physics_consts())
         return states._replace(world=world), reward, term, trunc, info, done
+
+    def physics_consts(self) -> physics_ops.PhysicsConsts:
+        """The physics kernel's banks and constants, packed once."""
+        if self._physics_consts is None:
+            self._physics_consts = physics_ops.PhysicsConsts(self.params, self.town,
+                                                             self.routes)
+        return self._physics_consts
+
+    def step_physics_block(self, states: EnvState, actions: torch.Tensor,
+                           draws: Optional[ResetDraws] = None):
+        """K world-only ticks of every world with auto-reset, tick k with
+        actions[k] (actions (K, B, A) in [-1, 1]): one kernel launch when
+        `fused_step` is on (ops/physics.step_physics_block; the plain version
+        for CPU tensors), else K plain ticks.  The (K, B) reset draws come
+        from the env's generator in one call unless given.  Returns (state'
+        after the last tick, reward, terminated, truncated, info {speed,
+        similarity}, was_reset), each row (K, B)."""
+        if draws is None:
+            draws = world_mod.block_reset_draws(self.generator, actions.shape[0],
+                                                actions.shape[1], self.params, self.routes,
+                                                self.weather_table)
+        if self.config.fused_step:
+            out = physics_ops.step_physics_block(states.world, actions, self.params, self.town,
+                                                 self.routes, draws, self.physics_consts())
+        else:
+            out = physics_ops.step_physics_block_plain(states.world, actions, self.params,
+                                                       self.town, self.routes, draws)
+        return (states._replace(world=out[0]),) + out[1:]
 
     def _push_block_vectors(self, state: EnvState, was_reset: torch.Tensor,
                             frame_ids: torch.Tensor, road, vehicle, navigation):

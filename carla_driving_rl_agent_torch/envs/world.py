@@ -167,6 +167,29 @@ def reset_draws(gen: torch.Generator, n: int, params: WorldParams,
                       route_id=route_id, sim_time=sim_time)
 
 
+def block_reset_draws(gen: torch.Generator, k: int, n: int, params: WorldParams,
+                      routes: RoutesDev, weather_table: torch.Tensor) -> ResetDraws:
+    """The reset draws of k ticks of n worlds, (k, n) each, from one call of
+    `gen` (4 x k x n uniforms in [0, 1), which pick the town, the weather,
+    the route and scale the light-clock offset): the rollout block's draws,
+    taken once per block on the CPU and on the card alike.
+    `weather_table` is params.weather_ids as an int64 tensor on the device
+    of `routes`, built once by the env."""
+    u = torch.rand((4, k, n), generator=gen, device=routes.length.device)
+
+    def pick(row: int, m: int) -> torch.Tensor:
+        return torch.clamp((u[row] * m).to(torch.int64), max=m - 1)
+
+    n_towns = len(params.town_names)
+    if params.random_towns and n_towns > 1:
+        town_id = pick(0, n_towns)
+    else:
+        town_id = torch.zeros((k, n), dtype=torch.int64, device=u.device)
+    return ResetDraws(town_id=town_id, weather_id=weather_table[pick(1, len(weather_table))],
+                      route_id=pick(2, routes.length.shape[1]),
+                      sim_time=u[3] * traffic.LIGHT_CYCLE)
+
+
 def trial_draws(seed: int, n: int, params: WorldParams, routes: RoutesDev) -> ResetDraws:
     """The reset draws of evaluation trials 0 .. n-1, trial i from its own
     stream keyed by (seed, i) (numpy's SeedSequence), as the JAX package

@@ -6,11 +6,18 @@ SE the record's standard deviation over the square root of its trials.
 chip_smoke.py's slice phases read their z-scores with `z_score` too.
 
     python -m carla_driving_rl_agent_torch.evaluate_seeds \
-        [--weights safe-s5] [--town Town03] [--seeds 42 43 44 45 46]
+        [--weights safe-s5] [--town Town03] [--seeds 42 43 44 45 46] [--records DIR]
 
-Runs on the card.  The records go to a temporary directory; nothing is
-written under weights/.  The last line is a JSON object with the means and
-z-scores of every seed.
+Runs on the card.  The records go to a temporary directory, or to DIR with
+--records (never under weights/).  The last line is a JSON object with the
+means, standard deviations and z-scores of every seed.
+
+    python -m carla_driving_rl_agent_torch.evaluate_seeds --compare A.json B.json
+
+holds two records of one scenario against each other, on any machine:
+for each metric, z = (A's mean - B's mean) / the pooled standard error
+sqrt(sd_A^2 / n_A + sd_B^2 / n_B) (for example the port's record of a seed
+against the JAX package's record of the same seed).
 """
 
 from __future__ import annotations
@@ -40,12 +47,40 @@ def z_score(record: dict, ref: dict, metric: str) -> float:
     return (record[f"{metric}_mean"] - ref[f"{metric}_mean"]) / se if se > 0 else float("nan")
 
 
+def z_pooled(a: dict, b: dict, metric: str) -> float:
+    """(a's mean - b's mean) / sqrt(sd_a^2 / n_a + sd_b^2 / n_b) of `metric`
+    (nan when both standard deviations are 0)."""
+    se = math.sqrt(sum(r[f"{metric}_std"] ** 2 / len(r[metric]) for r in (a, b)))
+    return (a[f"{metric}_mean"] - b[f"{metric}_mean"]) / se if se > 0 else float("nan")
+
+
+def compare(path_a: str, path_b: str) -> dict:
+    """Print and return the two records' means, standard deviations and
+    pooled z-score of every metric."""
+    with open(path_a) as f:
+        a = json.load(f)
+    with open(path_b) as f:
+        b = json.load(f)
+    out = {m: dict(a=a[f"{m}_mean"], a_std=a[f"{m}_std"], b=b[f"{m}_mean"],
+                   b_std=b[f"{m}_std"], z=z_pooled(a, b, m)) for m in METRICS}
+    for m, v in out.items():
+        print(f"{m:18s} A {v['a']:.6f} +- {v['a_std']:.6f}   B {v['b']:.6f} +- "
+              f"{v['b_std']:.6f}   pooled z {v['z']:+.3f}", flush=True)
+    print(json.dumps(dict(a=path_a, b=path_b, metrics=out)))
+    return out
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--weights", default="safe-s5")
     ap.add_argument("--town", default="Town03")
     ap.add_argument("--seeds", type=int, nargs="+", default=[42, 43, 44, 45, 46])
+    ap.add_argument("--records", help="keep the records in this directory")
+    ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
+                    help="hold record A against record B and exit (no card needed)")
     args = ap.parse_args(argv)
+    if args.compare:
+        return compare(*args.compare)
     if not torch.cuda.is_available():
         raise SystemExit("evaluate_seeds: no CUDA device is available")
     name = f"{args.weights}-{MODE}-{STEPS}-{TRIALS}-{args.town}-no"
@@ -60,8 +95,9 @@ def main(argv=None) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for seed in args.seeds:
             rec = agent.evaluate(name=f"{name}-{seed}", timesteps=STEPS, trials=TRIALS,
-                                 initial_seed=seed, evaluation_dir=tmp)
-            row = {m: dict(mean=rec[f"{m}_mean"], z=z_score(rec, ref, m)) for m in METRICS}
+                                 initial_seed=seed, evaluation_dir=args.records or tmp)
+            row = {m: dict(mean=rec[f"{m}_mean"], std=rec[f"{m}_std"], z=z_score(rec, ref, m))
+                   for m in METRICS}
             out["seeds"][seed] = row
             print(f"seed {seed}: " + ", ".join(
                 f"{m} {v['mean']:.6f} (z {v['z']:+.3f})" for m, v in row.items()), flush=True)

@@ -7,7 +7,7 @@ split, 1x1 conv + BN + leaky ReLU6, 3x3 depthwise SAME + BN, 1x1 conv + BN +
 act, concat, channel shuffle (models/shufflenet.ShuffleUnit with stride 1).
 
   * `shuffle_unit_infer(x, unit)`: BatchNorm on the running statistics
-    (csrc/shuffle_unit.cu, 2 launches per call).
+    (csrc/shuffle_unit.cu, 3 launches per call: W1, the depthwise, W3).
   * `shuffle_unit_train(x, unit)`: training mode; returns (out, stats), the
     three BatchNorms' batch mean and BIASED variance in branch order as a
     (6, hc) tensor (rows m1 v1 m2 v2 m3 v3), which feed the running
@@ -205,8 +205,8 @@ class _Args(ctypes.Structure):
 class _Plan(ctypes.Structure):
     """ctypes mirror of cdrl::unit::Plan (csrc/shuffle_unit.cuh): the
     kernels' split of a call into blocks."""
-    _fields_ = ([(n, ctypes.c_int) for n in ("tpb", "n_pb", "ipb", "n_s", "cps", "nseg", "gsz",
-                                               "n_counters")]
+    _fields_ = ([(n, ctypes.c_int) for n in ("tpb", "n_pb", "ipb", "n_s", "ipi", "n_si", "cps",
+                                               "nseg", "gsz", "n_counters")]
                 + [("partial", ctypes.c_int64)])
 
 
@@ -292,9 +292,10 @@ def _infer_args(x: torch.Tensor, unit) -> Tuple[_Args, torch.Tensor, tuple]:
     alive until it has run."""
     n, c, h, w = x.shape
     out = torch.empty_like(x)
+    # a1, then b2n over it (csrc/shuffle_unit.cu k_dw_infer)
     a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype, device=x.device)
     args = _pack(x, unit_operands(unit), unit.leak, running_stats(unit),
-                 out=out.data_ptr(), z1=a1.data_ptr())
+                 out=out.data_ptr(), z1=a1.data_ptr(), b2n=a1.data_ptr())
     return args, out, (a1,)
 
 

@@ -25,12 +25,19 @@ Phases, each printed with its seconds:
                beside the recorded ones, the render launch count and the
                env-steps/s;
   7. physics — the physics kernel against its plain PyTorch version on
-               Town03 at 32 and 1024 worlds, 40 steps from identical states
-               and reset draws (24-step episodes, so that worlds reset),
-               then both timed with CUDA events;
+               Town03 at 32 and 1024 worlds, 24-step episodes so that worlds
+               reset: one tick per call (`step_physics_batch`) for 40 steps
+               from identical states and reset draws, and a block of 4
+               ticks per call (`step_physics_block`, the rollout's entry)
+               for 10 blocks, bit for bit; then each timed with CUDA events
+               beside its bound, its device time per launch from the
+               profiler, and the cost per tick the rollout pays with each:
+               the draws and one single-tick call, or a block's draws and
+               block call over 4;
   8. env     — the env bench at bench.py's geometry (1024 worlds, Town03,
                64 routes, 512-step episodes, 32-step chunks of 8 blocks,
-               fused_step): env-steps/s and the launches per chunk;
+               fused_step, one block call per 4 ticks): env-steps/s and the
+               launches per chunk;
   9. train   — stage s1 at the shipped geometry (32 worlds, 128-step block
                rollouts, batch 64, sequential float32 update, fused_step)
                for one epoch of 5 updates from a fresh seeded network: the
@@ -49,8 +56,8 @@ Phases, each printed with its seconds:
                training calls on the same inputs give the same bits; then
                each timed with CUDA events beside its bound, its device
                launches per call counted in a CUDA graph of one call (at
-               most 4 per forward, 5 per backward) and its device time per
-               stage read from the profiler;
+               most 3 per inference, 4 per forward, 5 per backward) and its
+               device time per stage read from the profiler;
  12. slice_fused — the safe-s5 evaluation of phase 6 with fused_units=True:
                its six means beside the record and beside phase 6, and 13
                inference-kernel launches per predict;
@@ -67,7 +74,7 @@ and read just after.  The line before the last lists every ported kernel
 with its launches on the training path (the fused training path for the
 unit kernels), and its error against the plain version, its time, the plain
 version's time and its bound at the training path's size: 32 worlds for
-render and physics, the (11, 45, 116) map of a 128-frame rollout predict
+render and physics (a block of 4 ticks), the (11, 45, 116) map of a 128-frame rollout predict
 for the inference kernel and of a 256-frame minibatch for the training
 kernels (--out also records the other sizes and paths).  The last line is
 the JSON device record.
@@ -462,18 +469,22 @@ def profile_phase(agent, steps: int = 16) -> dict:
     return out
 
 
-def physics_bound_ms(n_worlds: int, n_done: int, k_segs: int) -> tuple:
-    """Least time for one physics call: the bytes it must move (the state,
-    action and reset draws read once, the gathered route window of 10 rows,
-    route length, destination and road half-width, the cell's segments, the
-    start row of each world that resets, the outputs written once) over the
-    memory rate, or its float operations over the FP32 peak."""
-    per_world = (6 * 4 + 6 * 8 + 2 * 4 + 3 * 8 + 4        # state, action, draws
-                 + 8 + 10 * 16 + 8 + 4 + k_segs * 16       # gathered banks
-                 + 18 * 4 + 6 * 8 + 5)                     # outputs
-    nbytes = n_worlds * per_world + n_done * 16
+def physics_bound_ms(n_worlds: int, n_done: int, k_segs: int, ticks: int = 1,
+                     tick_rows: tuple = (7, 4)) -> tuple:
+    """Least time for one physics call of `ticks` ticks: the bytes it must
+    move (the state read once and written once; per tick the action and
+    reset draws, the gathered route window of 10 rows, route length,
+    destination and road half-width, the cell's segments, and the tick's
+    `tick_rows` (float, flag) rows written; the start row of each world
+    that resets) over the memory rate, or its float operations over the
+    FP32 peak.  `n_done` counts the resets over all the ticks."""
+    per_tick = (2 * 4 + 3 * 8 + 4                          # action, draws
+                + 8 + 10 * 16 + 8 + 4 + k_segs * 16        # gathered banks
+                + 4 * tick_rows[0] + tick_rows[1])         # the tick's rows
+    state = 6 * 4 + 6 * 8 + 11 * 4 + 6 * 8 + 1            # read, then written
+    nbytes = n_worlds * (state + ticks * per_tick) + n_done * 16
     bytes_s = nbytes / PEAK_BYTES_PER_S
-    ops_s = n_worlds * physics_ops_per_world(k_segs) / PEAK_FP32_FLOPS
+    ops_s = ticks * n_worlds * physics_ops_per_world(k_segs) / PEAK_FP32_FLOPS
     return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
 
 
@@ -489,21 +500,55 @@ def _close(x: torch.Tensor, y: torch.Tensor) -> float:
     return 0.0
 
 
-def physics_phase(env, kernels: dict) -> None:
+def _device_ms(fn, name: str) -> float:
+    """Device ms per launch of the kernel `name` in calls of `fn`."""
+    times = [ms for k, ms in profile_calls(fn).items() if name in k]
+    check(len(times) == 1, f"the profiler saw {len(times)} kernels named {name}")
+    return times[0]
+
+
+PHYSICS_BLOCK = 4           # ticks per block call: the rollout's past_obs_freq
+
+
+def _time_physics(fn, plain, n: int, k_segs: int, ticks: int, tick_rows: tuple) -> dict:
+    """A physics call `fn` of `ticks` ticks at n worlds and its plain
+    version: ms per call of each, the bound, the kernel's device time per
+    launch and its launches per call."""
+    n_done = int(fn()[5].sum())
+    ms = cuda_ms(fn, iters=200, warmup=10)
+    plain_ms = cuda_ms(plain, iters=20)
+    bound, by = physics_bound_ms(n, n_done, k_segs, ticks, tick_rows)
+    out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               device_ms=_device_ms(fn, "physics_kernel"), launches_per_call=graph_launches(fn))
+    print(f"  physics at {n} worlds, {ticks} tick(s) per call: kernel {ms:.6f} ms per call, "
+          f"device {out['device_ms']:.6f} ms per launch, {out['launches_per_call']} device "
+          f"launch per call; plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by}); library "
+          f"call: none computes this function", flush=True)
+    return out
+
+
+def physics_phase(env, kernels: dict) -> dict:
     """The kernel against the plain version on Town03 states, both fed the
-    same state and reset draws at every step; 24-step episodes so that
-    worlds reset."""
+    same state and reset draws; 24-step episodes so that worlds reset.  The
+    single-tick entry for 40 steps (ints and flags exact, floats within the
+    world bar); the block entry for 10 blocks of 4 ticks, bit for bit.  Then
+    each timed, its device time per launch read, and the cost per tick of
+    the rollout's path old and new: the tick's draws and one single-tick
+    call, against the block's draws and one block call over 4."""
     from carla_driving_rl_agent_torch.envs import world as W
     from carla_driving_rl_agent_torch.ops import physics as P
     params = dataclasses.replace(env.params, max_timesteps=24)
+    consts = P.PhysicsConsts(params, env.town, env.routes)
+    table = torch.tensor(params.weather_ids, dtype=torch.int64, device="cuda")
     k_segs = env.town.cell_segs.shape[3] // 4
+    K = PHYSICS_BLOCK
     lo = torch.tensor([0.1, -0.6], device="cuda")
     hi = torch.tensor([0.9, 0.6], device="cuda")
-    worst, times = 0.0, {}
+    worst, single, block, per_tick = 0.0, {}, {}, {}
     for n in (TRAIN_WORLDS, ENV_WORLDS):
         g = torch.Generator(device="cuda").manual_seed(n)
         world = W.reset_world(W.reset_draws(g, n, params, env.routes), env.routes)
-        resets = 0
+        start, resets = world, 0
         for _ in range(40):
             a = lo + (hi - lo) * torch.rand((n, 2), generator=g, device="cuda")
             d = W.reset_draws(g, n, params, env.routes)
@@ -518,29 +563,57 @@ def physics_phase(env, kernels: dict) -> None:
             resets += int(out[5].sum())
             world = out[0]
         check(resets > 0, f"no world reset in 40 steps at {n} worlds")
+        world, block_resets = start, 0
+        for _ in range(10):
+            a4 = lo + (hi - lo) * torch.rand((K, n, 2), generator=g, device="cuda")
+            d4 = W.block_reset_draws(g, K, n, params, env.routes, table)
+            out = P.step_physics_block(world, a4, params, env.town, env.routes, d4, consts)
+            ref = P.step_physics_block_plain(world, a4, params, env.town, env.routes, d4)
+            got = tuple(out[0]) + out[1:4] + out[5:] + tuple(out[4].values())
+            want = tuple(ref[0]) + ref[1:4] + ref[5:] + tuple(ref[4].values())
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"physics block kernel vs {K} plain ticks at {n} worlds: not the same bits")
+            block_resets += int(out[5].sum())
+            world = out[0]
+        check(block_resets > 0, f"no world reset in 10 blocks at {n} worlds")
+        # timing: one tick's inputs, one block's
         a = lo + (hi - lo) * torch.rand((n, 2), generator=g, device="cuda")
         d = W.reset_draws(g, n, params, env.routes)
-        n_done = int(P.step_physics_batch(world, a, params, env.town, env.routes, d)[5].sum())
-        ms = cuda_ms(lambda: P.step_physics_batch(world, a, params, env.town, env.routes, d),
-                     iters=200, warmup=10)
-        plain_ms = cuda_ms(lambda: P.step_physics_batch_plain(world, a, params, env.town,
-                                                              env.routes, d), iters=20)
-        bound, by = physics_bound_ms(n, n_done, k_segs)
-        times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-        if n == TRAIN_WORLDS:
-            per_call = graph_launches(lambda: P.step_physics_batch(
-                world, a, params, env.town, env.routes, d))
-            print(f"  step_physics_batch: {per_call} device launches per call", flush=True)
-        print(f"  physics {n} worlds: 40 steps, {resets} resets, agree (ints and flags "
-              f"exact, floats within 1e-5 + 2.5e-7 rel); kernel {ms:.6f} ms, plain "
-              f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by}); library call: none "
-              f"computes this function", flush=True)
-    kernels["step_physics_batch"] = dict(
-        name="step_physics_batch", route="cuda",
+        a4 = lo + (hi - lo) * torch.rand((K, n, 2), generator=g, device="cuda")
+        d4 = W.block_reset_draws(g, K, n, params, env.routes, table)
+        single[n] = _time_physics(
+            lambda: P.step_physics_batch(world, a, params, env.town, env.routes, d),
+            lambda: P.step_physics_batch_plain(world, a, params, env.town, env.routes, d),
+            n, k_segs, 1, (len(P.TICK_F), len(P.TICK_B)))
+        block[n] = _time_physics(
+            lambda: P.step_physics_block(world, a4, params, env.town, env.routes, d4, consts),
+            lambda: P.step_physics_block_plain(world, a4, params, env.town, env.routes, d4),
+            n, k_segs, K, (P.BLOCK_TICK_F, P.BLOCK_TICK_B))
+        # what the rollout's path pays per tick: old, the tick's draws and a
+        # single-tick call (the banks packed on every call); new, the
+        # block's draws in one generator call and one block call, over K
+        old = cuda_ms(lambda: P.step_physics_batch(
+            world, a, params, env.town, env.routes, W.reset_draws(g, n, params, env.routes)),
+            iters=400, warmup=10)
+        new = cuda_ms(lambda: P.step_physics_block(
+            world, a4, params, env.town, env.routes,
+            W.block_reset_draws(g, K, n, params, env.routes, table), consts),
+            iters=200, warmup=10) / K
+        per_tick[n] = dict(old_ms=old, new_ms=new, ratio=old / new)
+        print(f"  physics at {n} worlds: 40 single ticks with {resets} resets agree (ints and "
+              f"flags exact, floats within 1e-5 + 2.5e-7 rel); 10 blocks of {K} ticks with "
+              f"{block_resets} resets equal {K} plain ticks bit for bit; cost per tick on the "
+              f"rollout's path: old {old:.6f} ms (draws + single-tick call), new {new:.6f} ms "
+              f"(block draws + block call, / {K}): {old / new:.2f}x lower", flush=True)
+    t = block[TRAIN_WORLDS]
+    kernels["step_physics_block"] = dict(
+        name="step_physics_block", route="cuda",
         source="carla_driving_rl_agent_torch/csrc/physics.cu",
         replaces="carla_driving_rl_agent_tpu/ops/physics_pallas.py:67",
-        launches=None, max_abs_err=worst, **times[TRAIN_WORLDS], library_ms=None,
-        by_worlds=times, launches_per_call=per_call)
+        launches=None, max_abs_err=0.0, ms=t["ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+        by_worlds=block, launches_per_call=t["launches_per_call"])
+    return dict(single=single, block=block, per_tick=per_tick, single_max_abs_err=worst)
 
 
 # The g=1.0 backbone's stride-1 maps on 90x360 frames: (H, W, C, units).
@@ -557,10 +630,11 @@ UNIT_NOISE = ("b1", "dwb", "be2", "b3")
 # L2 per gradient tensor, the noise tensors' max |diff| over the unit's
 # largest gradient, and every reading of the float64 cases
 UNIT_BARS = dict(out=1e-5, grad=1e-4, noise=5e-5, float64=1e-10)
-# the most device launches one call of each training kernel may make, and
-# the finalising launches of the first port, which no path may make any more
-UNIT_MAX_LAUNCHES = dict(fwd=4, bwd=5)
-UNIT_GONE = ("k_sum_final", "k_stats_final")
+# the most device launches one call of each unit kernel may make, and the
+# kernels of the first port's design that no path may launch any more (the
+# finalising reductions, the inference tail)
+UNIT_MAX_LAUNCHES = dict(infer=3, fwd=4, bwd=5)
+UNIT_GONE = ("k_sum_final", "k_stats_final", "k_tail_infer")
 
 
 def _unit_stages(kind: str, fn, shape: str) -> dict:
@@ -732,6 +806,8 @@ def unit_phase(kernels: dict) -> dict:
                 k, p = SU.shuffle_unit_infer(x, unit), SU.shuffle_unit_infer_plain(x, unit)
                 r = _rel(k, p)
                 check(r <= UNIT_BARS["out"], f"inference kernel at ({n}, {shape}): {r:.3e}")
+                check(torch.equal(SU.shuffle_unit_infer(x, unit), k),
+                      f"inference kernel at ({n}, {shape}): two calls differ")
                 err["infer"] = max(err["infer"], float((k - p).abs().max()))
                 ms = cuda_ms(lambda: SU.shuffle_unit_infer(x, unit), iters=20)
                 plain_ms = cuda_ms(lambda: SU.shuffle_unit_infer_plain(x, unit), iters=10)
@@ -740,9 +816,10 @@ def unit_phase(kernels: dict) -> dict:
                                                      bound_by=by, rel_l2=r, units=units)
                 full["infer"][f"{n}x{shape}"].update(_unit_stages(
                     "infer", lambda: SU.shuffle_unit_infer(x, unit), f"({n}, {shape})"))
-                print(f"  unit infer ({n}, {c}, {h}, {w}) [{path}]: relative L2 {r:.3e}; "
-                      f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms "
-                      f"({by})", flush=True)
+                print(f"  unit infer ({n}, {c}, {h}, {w}) [{path}]: relative L2 {r:.3e}, two "
+                      f"calls equal bits; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms "
+                      f"(kernel / plain {ms / plain_ms:.3f}), bound {bound:.6f} ms ({by}), "
+                      f"{ms / bound:.2f}x the bound", flush=True)
             n = UNIT_N["train"]
             x, gout = _unit_inputs(n, h, w, c, torch.float32, seed=10 * i + n)
             out, stats, saved = SU._train_fwd_kernel(x, ops, unit.leak)
@@ -844,6 +921,7 @@ def _zero_counts() -> None:
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     R.render_planes.launches = 0
     P.step_physics_batch.launches = 0
+    P.step_physics_block.launches = 0
     SU.shuffle_unit_infer.launches = 0
     SU.shuffle_unit_train.launches = 0
     SU.shuffle_unit_train_bwd.launches = 0
@@ -854,6 +932,7 @@ def _counts() -> dict:
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     return dict(render_planes=R.render_planes.launches,
                 step_physics_batch=P.step_physics_batch.launches,
+                step_physics_block=P.step_physics_block.launches,
                 shuffle_unit_infer=SU.shuffle_unit_infer.launches,
                 shuffle_unit_train=SU.shuffle_unit_train.launches,
                 shuffle_unit_train_bwd=SU.shuffle_unit_train_bwd.launches)
@@ -862,8 +941,9 @@ def _counts() -> dict:
 
 def env_phase() -> dict:
     """The env bench of bench.py:83-91 in the port: 1024 Town03 worlds,
-    64 routes, 512-step episodes, blocks of 4 physics ticks and one push,
-    32-step chunks with one generator call each for the random actions."""
+    64 routes, 512-step episodes, blocks of 4 physics ticks (one block
+    call) and one push, 32-step chunks with one generator call each for the
+    random actions."""
     from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv, CARLAEnvConfig
     from carla_driving_rl_agent_torch.envs.world import WorldParams
     env = CARLAEnv(CARLAEnvConfig(
@@ -880,11 +960,8 @@ def env_phase() -> dict:
         a_all = lo + (hi - lo) * torch.rand((ENV_CHUNK // block, block, ENV_WORLDS, 2),
                                             generator=gen, device="cuda")
         for b in range(ENV_CHUNK // block):
-            was_reset = torch.zeros(ENV_WORLDS, dtype=torch.bool, device="cuda")
-            for i in range(block):
-                states, _, _, _, _, did = env.step_physics_batch(states, a_all[b, i])
-                was_reset = was_reset | did
-            states = env.push_block_frame_batch(states, was_reset, slot=slot)
+            states, _, _, _, _, did = env.step_physics_block(states, a_all[b])
+            states = env.push_block_frame_batch(states, did.any(0), slot=slot)
             slot = (slot + 1) % T
         return states, slot
 
@@ -901,9 +978,10 @@ def env_phase() -> dict:
     sps = ENV_WORLDS * ENV_CHUNK * ENV_CHUNKS / seconds
     print(f"  env {ENV_WORLDS} worlds x {ENV_CHUNK * ENV_CHUNKS} steps in {seconds:.3f} s: "
           f"{sps:.1f} env-steps/s; launches per {ENV_CHUNK}-step chunk: physics "
-          f"{per_chunk['step_physics_batch']:.0f}, render {per_chunk['render_planes']:.0f}",
+          f"{per_chunk['step_physics_block']:.0f}, render {per_chunk['render_planes']:.0f}",
           flush=True)
-    check(per_chunk["step_physics_batch"] == ENV_CHUNK, "physics launches per chunk")
+    check(per_chunk["step_physics_block"] == ENV_CHUNK // block, "physics launches per chunk")
+    check(per_chunk["step_physics_batch"] == 0, "single-tick physics launches in the bench")
     check(per_chunk["render_planes"] == ENV_CHUNK // block, "render launches per chunk")
     return dict(env_steps_per_s=sps, seconds=seconds, launches=counts,
                 launches_per_chunk=per_chunk)
@@ -943,8 +1021,10 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
              for g in ("policy", "value", "dynamics")}
     for g, v in moved.items():
         check(v > 0.0, f"{g} parameters did not move")
-    check(counts["step_physics_batch"] == TRAIN_UPDATES * TRAIN_STEPS,
-          f"physics launches {counts['step_physics_batch']}")
+    check(counts["step_physics_block"] == TRAIN_UPDATES * TRAIN_STEPS // 4
+          and counts["step_physics_batch"] == 0,
+          f"physics launches {counts['step_physics_block']} block, "
+          f"{counts['step_physics_batch']} single-tick")
     check(counts["render_planes"] == TRAIN_UPDATES * TRAIN_STEPS // 4 + 1,
           f"render launches {counts['render_planes']}")
     # per update: a predict per 4-step block and the bootstrap value's pass
@@ -964,7 +1044,7 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
           f"{sps:.1f} train env-steps/s over the updates", flush=True)
     print("  seconds per update: " + ", ".join(
         f"{k} {np.mean(v):.4f}" for k, v in parts.items())
-        + f"; launches per update: physics {counts['step_physics_batch'] / TRAIN_UPDATES:.0f}, "
+        + f"; launches per update: physics {counts['step_physics_block'] / TRAIN_UPDATES:.0f}, "
           f"render {(counts['render_planes'] - 1) / TRAIN_UPDATES:.0f} (+1 at the reset)",
         flush=True)
     if fused_units:
@@ -1147,7 +1227,7 @@ PROFILE_ROLLOUT_STEPS = 32
 # the launches of one call of each unit-kernel wrapper, by kernel name
 # (k_pw's second template argument is its stage: csrc/shuffle_unit.cu PwMode)
 UNIT_KERNEL_NAMES = dict(
-    shuffle_unit_infer=("k_pw<float, 0>", "k_tail_infer<float>"),
+    shuffle_unit_infer=("k_pw<float, 0>", "k_dw_infer<float>", "k_pw<float, 5>"),
     shuffle_unit_train=("k_pw<float, 1>", "k_dw_train<float>", "k_pw<float, 2>",
                         "k_out_train<float>"),
     shuffle_unit_train_bwd=("k_bn3_back<float>", "k_pw<float, 3>", "k_dw_back<float>",
@@ -1295,7 +1375,7 @@ def main(argv=None) -> int:
         launches["evaluate"] = summary["slice"].pop("launches")
     summary["phases"]["slice"] = p.seconds
     with Phase("physics") as p:
-        physics_phase(agent.env, kernels)
+        summary["physics"] = physics_phase(agent.env, kernels)
     summary["phases"]["physics"] = p.seconds
     with Phase("env") as p:
         summary["env"] = env_phase()
@@ -1316,6 +1396,9 @@ def main(argv=None) -> int:
                                               fused_units=True)
         summary["slice_fused"] = slice_phase(fused_agent, out_dir, unfused=summary["slice"])
         launches["evaluate_fused"] = summary["slice_fused"].pop("launches")
+        on, off = (summary[k]["env_steps_per_s"] for k in ("slice_fused", "slice"))
+        print(f"  evaluation env-steps/s, fused_units on / off: {on:.1f} / {off:.1f} "
+              f"({on / off:.3f})", flush=True)
     summary["phases"]["slice_fused"] = p.seconds
     with tempfile.TemporaryDirectory() as out_dir, Phase("train_fused") as p:
         stage_fused, summary["train_fused"] = train_phase(out_dir, fused_units=True)
@@ -1324,7 +1407,9 @@ def main(argv=None) -> int:
             f"{k} {summary['train_fused']['parts_mean_s'][k]:.4f} / "
             f"{summary['train']['parts_mean_s'][k]:.4f}" for k in summary["train"]["parts_mean_s"])
             + f"; train env-steps/s {summary['train_fused']['env_steps_per_s']:.1f} / "
-              f"{summary['train']['env_steps_per_s']:.1f}", flush=True)
+              f"{summary['train']['env_steps_per_s']:.1f} ("
+              f"{summary['train_fused']['env_steps_per_s'] / summary['train']['env_steps_per_s']:.3f})",
+            flush=True)
     summary["phases"]["train_fused"] = p.seconds
     with Phase("train_agree_fused") as p:
         summary["train_agree_fused"] = train_agree_phase(stage.env, fused_units=True)

@@ -39,11 +39,15 @@ COMMON = dict(town_names=("Town02",), num_routes=8, max_timesteps=7,
 
 class _InjectedEnv(CARLAEnv):
     """The port's env with its reset draws taken from a list, one entry per
-    physics tick."""
+    physics tick, stacked (K, B) for each block call."""
     draws = None
+    calls = 0
 
-    def step_physics_batch(self, states, actions, draws=None):
-        return super().step_physics_batch(states, actions, self.draws.pop(0))
+    def step_physics_block(self, states, actions, draws=None):
+        self.calls += 1
+        ticks = [self.draws.pop(0) for _ in range(actions.shape[0])]
+        return super().step_physics_block(
+            states, actions, tworld.ResetDraws(*(torch.stack(f) for f in zip(*ticks))))
 
 
 @pytest.fixture(scope="module")
@@ -162,6 +166,7 @@ def rollouts(envs):
 
     tstate, _ = tenv.reset(tdraws)
     tfinal, ttraj, _ = trollout.run_rollout_blocks(tenv, tpredict, tstate, STEPS)
+    assert tenv.calls == STEPS // BLOCK and not tenv.draws, "one physics call per block"
     return jfinal, jtraj, tfinal, ttraj
 
 

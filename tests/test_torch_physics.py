@@ -10,8 +10,17 @@ Tolerances, from tests/test_physics_fused.py: ints, bools and ids exact;
 floats, one step from the same state, 1e-5 absolute plus 2.5e-7 relative
 (two float32 ulps: positions reach ~300 m, and the frameworks' CPU sin, cos,
 atan and atan2 differ in the last ulp); the port's free-running state after
-30 steps with auto-resets 1e-4.  The `cuda`-marked test holds the kernel
-against the plain version on the card and skips here.
+30 steps with auto-resets 1e-4.  The `cuda`-marked tests hold the kernel
+against the plain version on the card and skip here.
+
+The block entry point (`step_physics_block`, K ticks in one launch) is
+held, through the g++ build of its K-tick loop (`step_physics_block_host`),
+bit for bit against K single ticks of the same build, and against JAX's
+per-tick XLA step with JAX's draws injected as (K, B) rows and against K
+ticks of the plain version, both at the free-running bar of 1e-4: on the
+CPU PyTorch's vectorised sin, cos and atan2 differ from the C library's in
+the last ulp (on the card both call CUDA's, and the kernel is bit-exact
+against the plain version, as chip_smoke.py's physics phase checks).
 """
 
 import jax
@@ -130,6 +139,111 @@ def test_physics_step_matches_jax(envs, batch):
     assert n_done >= batch, f"only {n_done} auto-resets in 30 steps"
 
 
+def _stack_draws(ticks):
+    return tworld.ResetDraws(*(torch.stack(f) for f in zip(*ticks)))
+
+
+K = 4     # ticks per block: the rollout's past_obs_freq
+
+
+@pytest.mark.parametrize("batch", [32, 128])
+def test_block_host_matches_ticks_and_jax(envs, batch):
+    """Ten blocks of K ticks (40 ticks, 24-step episodes): the g++ build of
+    the kernel's K-tick loop from JAX's state at each block's start, with
+    JAX's draws of the block's ticks, against K host single ticks (bits),
+    JAX's per-tick step and K plain ticks."""
+    _, jxla, tp, town, routes = envs
+    step = _jstep_fn(jxla)
+    states, _ = jax.jit(lambda k, c: _bind_reset(jxla, k, c, batch))(
+        jax.random.PRNGKey(batch + 1), jxla.consts)
+    rng = np.random.default_rng(batch + 1)
+    n_done = 0
+    for blk in range(10):
+        start = _world(states.world)
+        acts = rng.uniform([0.1, -0.6], [0.9, 0.6], (K, batch, 2)).astype(np.float32)
+        jouts, draws = [], []
+        for k in range(K):
+            jout, jd = step(states, jnp.asarray(acts[k]))
+            jouts.append(jout)
+            draws.append(_draws(jd))
+            states = jout[0]
+        a, d = torch.from_numpy(acts), _stack_draws(draws)
+        got = P.step_physics_block_host(start, a, tp, town, routes, d)
+        # the same K ticks one launch at a time: the same bits
+        w = start
+        for k in range(K):
+            w, r, term, trunc, info, done = P.step_physics_host(w, a[k], tp, town, routes,
+                                                               draws[k])
+            for x, y in ((got[1][k], r), (got[2][k], term), (got[3][k], trunc),
+                         (got[4]["speed"][k], info["speed"]),
+                         (got[4]["similarity"][k], info["similarity"]), (got[5][k], done)):
+                assert torch.equal(x, y), f"block {blk} tick {k}"
+        for name, x, y in zip(tworld.WorldState._fields, got[0], w):
+            assert torch.equal(x, y), f"block {blk} {name}"
+        plain = P.step_physics_block_plain(start, a, tp, town, routes, d)
+        for ref, what in ((plain, "plain"), (None, "jax")):
+            for k in range(K):
+                if ref is None:
+                    _, jr, jterm, jtrunc, jinfo, jdone = jouts[k]
+                    rows = (jr, jterm, jtrunc, jinfo["speed"], jinfo["similarity"], jdone)
+                    rows = [torch.from_numpy(np.array(t)) for t in rows]
+                else:
+                    rows = (ref[1][k], ref[2][k], ref[3][k], ref[4]["speed"][k],
+                            ref[4]["similarity"][k], ref[5][k])
+                mine = (got[1][k], got[2][k], got[3][k], got[4]["speed"][k],
+                        got[4]["similarity"][k], got[5][k])
+                for i, (x, y) in enumerate(zip(mine, rows)):
+                    if x.dtype.is_floating_point:
+                        np.testing.assert_allclose(x.numpy(), y.numpy(), rtol=0, atol=1e-4,
+                                                   err_msg=f"{what} block {blk} tick {k} {i}")
+                    else:
+                        np.testing.assert_array_equal(x.numpy(), y.numpy().astype(bool),
+                                                      f"{what} block {blk} tick {k} {i}")
+        _assert_world(got[0], states.world, 1e-4, f"block {blk} vs jax")
+        _assert_world(got[0], plain[0], 1e-4, f"block {blk} vs plain")
+        n_done += int(got[5].sum())
+    assert n_done >= batch, f"only {n_done} auto-resets in 40 ticks"
+
+
+def test_block_reset_draws(envs):
+    """The block's (K, B) reset draws: one generator call, in range, the
+    weather from the env's table, the same for the same seed."""
+    _, _, tp, _, routes = envs
+    tp = tworld.WorldParams(**dict(COMMON, weather_ids=(3, 5, 9)))
+    table = torch.tensor(tp.weather_ids)
+    draws = [tworld.block_reset_draws(torch.Generator().manual_seed(7), K, 64, tp, routes,
+                                      table) for _ in range(2)]
+    for a, b in zip(*draws):
+        assert a.shape == (K, 64) and torch.equal(a, b)
+    d = draws[0]
+    assert d.town_id.dtype == torch.int64 and bool((d.town_id == 0).all())
+    assert set(d.weather_id.unique().tolist()) == {3, 5, 9}
+    assert int(d.route_id.min()) >= 0 and int(d.route_id.max()) < routes.length.shape[1]
+    assert len(d.route_id.unique()) > 1
+    assert d.sim_time.dtype == torch.float32 and bool((d.sim_time >= 0).all())
+    other = tworld.block_reset_draws(torch.Generator().manual_seed(8), K, 64, tp, routes, table)
+    assert not torch.equal(other.route_id, d.route_id)
+
+
+def test_cpu_block_takes_the_plain_version(envs):
+    _, _, tp, town, routes = envs
+    g = torch.Generator().manual_seed(4)
+    world = tworld.reset_world(tworld.reset_draws(g, 8, tp, routes), routes)
+    draws = tworld.block_reset_draws(g, K, 8, tp, routes, torch.tensor(tp.weather_ids))
+    a = torch.full((K, 8, 2), 0.5)
+    before = P.step_physics_block.launches
+    out = P.step_physics_block(world, a, tp, town, routes, draws)
+    ref = P.step_physics_block_plain(world, a, tp, town, routes, draws)
+    assert P.step_physics_block.launches == before
+    for x, y in zip(out[0], ref[0]):
+        assert torch.equal(x, y)
+    for x, y in zip(out[1:4] + out[5:], ref[1:4] + ref[5:]):
+        assert torch.equal(x, y) and x.shape == (K, 8)
+    with pytest.raises(ValueError, match="draws"):
+        P.step_physics_block_host(world, a, tp, town, routes,
+                                  tworld.ResetDraws(*(t[:2] for t in draws)))
+
+
 def _bind_reset(env, key, consts, batch):
     with env.bind(consts):
         return env.reset_batch(key, batch)
@@ -202,3 +316,34 @@ def test_cuda_kernel_matches_plain(envs):
             else:
                 assert torch.equal(x, y), name
         world = out[0]
+
+
+@pytest.mark.cuda
+def test_cuda_block_kernel_matches_plain(envs):
+    """On the card: the block kernel against K ticks of the plain version,
+    bit for bit, over 10 blocks of 24-step episodes at 256 worlds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the physics kernel runs only on the card")
+    _, _, tp, town, routes = envs
+    dev = torch.device("cuda")
+    town_d = tworld.TownDev(*(t.to(dev) for t in town))
+    routes_d = tworld.RoutesDev(*(t.to(dev) for t in routes))
+    table = torch.tensor(tp.weather_ids, device=dev)
+    g = torch.Generator(device=dev).manual_seed(5)
+    world = tworld.reset_world(tworld.reset_draws(g, 256, tp, routes_d), routes_d)
+    resets = 0
+    for _ in range(10):
+        a = 0.1 + 0.8 * torch.rand((K, 256, 2), generator=g, device=dev)
+        draws = tworld.block_reset_draws(g, K, 256, tp, routes_d, table)
+        before = P.step_physics_block.launches
+        out = P.step_physics_block(world, a, tp, town_d, routes_d, draws)
+        torch.cuda.synchronize()
+        assert P.step_physics_block.launches == before + 1
+        ref = P.step_physics_block_plain(world, a, tp, town_d, routes_d, draws)
+        for x, y in zip(tuple(out[0]) + out[1:4] + out[5:], tuple(ref[0]) + ref[1:4] + ref[5:]):
+            assert torch.equal(x, y)
+        for key in ref[4]:
+            assert torch.equal(out[4][key], ref[4][key]), key
+        resets += int(out[5].sum())
+        world = out[0]
+    assert resets > 0

@@ -53,6 +53,7 @@ def _host_lib() -> ctypes.CDLL:
     sigs["cdrl_unit_merge_host"] = (None, [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
                                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     sigs["cdrl_unit_plan_host"] = (ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.POINTER(SU._Plan)])
+    sigs["cdrl_unit_infer_launch_host"] = (ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_void_p])
     return load_library(
         "shuffle_unit_host", [csrc("shuffle_unit_host.cpp")], "g++", sigs,
         extra_deps=[csrc("shuffle_unit.cuh")], extra_flags=["-ffp-contract=off"])
@@ -411,6 +412,35 @@ def test_plan_takes_every_batch_of_the_backbone(h, w, c):
     """The same at every batch size in PLAN_N."""
     for n in PLAN_N:
         _assert_plan_covers(n, h, w, c)
+
+
+SMEM_LIMIT = 232448    # the H100's dynamic shared memory per block, opted into
+
+
+@pytest.mark.parametrize("h, w, c", MAPS)
+def test_plan_covers_the_inference_stages(h, w, c):
+    """The inference kernel's three launches (shuffle_unit.cu `infer`, the
+    g++ build of their sizes) at every batch in PLAN_N, in float32 and
+    float64: the two 1x1 products' blocks cover every 64-pixel tile of every
+    64-channel tile once, the depthwise stage (its own split: it merges no
+    statistic) has a block per channel and run of images covering every
+    image, each fits the card's shared
+    memory, and one depthwise pass holds at least one image."""
+    hc = c // 2
+    for n in PLAN_N:
+        err, pl = _plan_host(n, c, h, w)
+        assert err == 0
+        tiles = -(-n * h * w // PTILE)
+        for tsize in (4, 8):
+            out = np.zeros(4, np.int64)
+            assert _host_lib().cdrl_unit_infer_launch_host(n, c, h, w, SMS, tsize,
+                                                           out.ctypes.data) == 0
+            pw_blocks, dw_blocks, pw_smem, dw_smem = (int(v) for v in out)
+            assert pw_blocks == -(-hc // 64) * pl.n_pb
+            assert (pl.n_pb - 1) * pl.tpb < tiles <= pl.n_pb * pl.tpb
+            assert dw_blocks == pl.n_si * hc and (pl.n_si - 1) * pl.ipi < n <= pl.n_si * pl.ipi
+            assert 0 < pw_smem <= SMEM_LIMIT and 0 < dw_smem <= SMEM_LIMIT, (n, tsize)
+        assert min(CH_OWN * 256 // (h * w), CH_FILL * 256 // ((h + 2) * (w + 2))) >= 1
 
 
 def test_plan_refuses_what_the_kernels_do_not_take():
