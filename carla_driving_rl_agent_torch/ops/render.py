@@ -16,7 +16,9 @@ directly.
 `render_planes` is the entry point: on CUDA tensors it launches the kernel
 of csrc/render.cu (built with nvcc at first use, loaded with ctypes), on CPU
 tensors it runs `render_planes_plain`.  The kernel and the plain version do
-the same float32 arithmetic in the same order, per pixel.
+the same float32 arithmetic in the same order, per pixel; the kernel
+computes once per world what does not depend on the pixel, and reads each
+ray's ground distance from a fourth LUT row (`lut_tensors`).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ K_BUILDINGS = 8
 K_ACTORS = 8          # vehicles + pedestrians combined
 VIEW_H, VIEW_W = 45, 60
 N_PIX = 3 * VIEW_H * VIEW_W            # 8100
+N_QUADS = N_PIX // 4                   # the CUDA kernel's 4-pixel work items
 TILE = (64, 128)                        # the TPU kernel's 8192-slot tile
 FX = (VIEW_W / 2.0) / np.tan(np.deg2rad(FOV_DEG) / 2.0)
 
@@ -105,17 +108,32 @@ def _build_lut() -> dict:
 _LUT_CACHE: Dict[str, Dict[str, torch.Tensor]] = {}
 
 
+def ground_distance(dz: np.ndarray) -> np.ndarray:
+    """Per-ray distance to the ground, as the JAX kernel computes it in
+    every pixel: -CAMERA_HEIGHT / dz (an IEEE float32 division) for rays
+    below the horizon (dz < -1e-4), else 1e6, then capped at MAX_DEPTH.
+    It is below MAX_DEPTH exactly when the ray meets the ground nearer."""
+    dz = np.asarray(dz, np.float32)
+    below = dz < np.float32(-1e-4)
+    t_g = np.where(below, np.float32(-CAMERA_HEIGHT) / np.where(below, dz, np.float32(-1.0)),
+                   np.float32(1e6))
+    return np.minimum(t_g, np.float32(MAX_DEPTH)).astype(np.float32)
+
+
 def lut_tensors(device) -> Dict[str, torch.Tensor]:
     """The LUT on `device`, unpadded: `rays` (3, 8100) = dx, dy, dz rows,
-    and u, v, vid (8100,) each."""
+    and u, v, vid (8100,) each; and the CUDA kernel's `kernel_lut` (4, 8100)
+    = dx, dy, dz and the ground distance of each ray."""
     key = str(torch.device(device))
     if key not in _LUT_CACHE:
         # float32, as the JAX package hands the (float64-built) LUT to Pallas
         lut = {k: v.reshape(-1)[:N_PIX].astype(np.float32)
                for k, v in _build_lut().items()}
+        rays = np.stack([lut["dx"], lut["dy"], lut["dz"]])
         _LUT_CACHE[key] = dict(
-            rays=torch.as_tensor(np.stack([lut["dx"], lut["dy"], lut["dz"]]),
-                                 device=device).contiguous(),
+            rays=torch.as_tensor(rays, device=device).contiguous(),
+            kernel_lut=torch.as_tensor(np.concatenate([rays, ground_distance(lut["dz"])[None]]),
+                                       device=device).contiguous(),
             u=torch.as_tensor(lut["u"].copy(), device=device),
             v=torch.as_tensor(lut["v"].copy(), device=device),
             vid=torch.as_tensor(lut["vid"].copy(), device=device))
@@ -180,6 +198,69 @@ def tile_to_planes(planes: torch.Tensor, with_depth: bool = False) -> torch.Tens
 # plain PyTorch version (the CPU path and the kernel's yardstick)
 # ------------------------------------------------------------------
 
+def world_rays(geom: torch.Tensor):
+    """(dx, dy, dz): each world's LUT rays rotated by its ego yaw, (B, 8100)
+    each (dz is the LUT's, (1, 8100))."""
+    lut = lut_tensors(geom.device)
+    cos_y, sin_y = geom[:, _O_EGO + 2:_O_EGO + 3], geom[:, _O_EGO + 3:_O_EGO + 4]
+    dxc, dyc, dz = lut["rays"][0][None], lut["rays"][1][None], lut["rays"][2][None]
+    return dxc * cos_y - dyc * sin_y, dxc * sin_y + dyc * cos_y, dz
+
+
+def building_depth(geom: torch.Tensor, dx, dy, dz) -> torch.Tensor:
+    """(B, 8100) distance along each ray to the nearest building it hits
+    (exact ray/box with height), 1e6 where it hits none."""
+    def g(i):
+        return geom[:, i:i + 1]
+
+    ex, ey = g(_O_EGO), g(_O_EGO + 1)
+    inv_dx = 1.0 / torch.where(torch.abs(dx) < 1e-6, 1e-6, dx)
+    inv_dy = 1.0 / torch.where(torch.abs(dy) < 1e-6, 1e-6, dy)
+    t_b = torch.full((geom.shape[0], N_PIX), 1e6, dtype=torch.float32, device=geom.device)
+    for k in range(K_BUILDINGS):
+        cx, cy = g(_O_BLD + 5 * k), g(_O_BLD + 5 * k + 1)
+        hw, hh, bh = g(_O_BLD + 5 * k + 2), g(_O_BLD + 5 * k + 3), g(_O_BLD + 5 * k + 4)
+        tx0 = (cx - hw - ex) * inv_dx
+        tx1 = (cx + hw - ex) * inv_dx
+        ty0 = (cy - hh - ey) * inv_dy
+        ty1 = (cy + hh - ey) * inv_dy
+        t_near = torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1))
+        t_far = torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1))
+        z = CAMERA_HEIGHT + t_near * dz
+        hit = (t_near > 0.5) & (t_near <= t_far) & (z > 0.0) & (z < bh)
+        t_b = torch.minimum(t_b, torch.where(hit, t_near, 1e6))
+    return t_b
+
+
+def billboards(geom: torch.Tensor, k: int) -> list:
+    """Actor k of each pack projected into the left, front and right views:
+    per view (cx, u_c, half_u, v_top, v_bot, live), (B, 1) each: its depth
+    along the view axis, the centre and half width of its column span, its
+    row span, and whether it shows at all (active and ahead of the camera)."""
+    def g(i):
+        return geom[:, i:i + 1]
+
+    base = _O_ACT + 8 * k
+    ex, ey = g(_O_EGO), g(_O_EGO + 1)
+    cos_y, sin_y = g(_O_EGO + 2), g(_O_EGO + 3)
+    ax, ay, ok = g(base), g(base + 1), g(base + 2)
+    hwid, htop = g(base + 3), g(base + 4)
+    rx, ry = ax - ex, ay - ey
+    fx0 = rx * cos_y + ry * sin_y
+    fy0 = -rx * sin_y + ry * cos_y
+    views = []
+    for co, so in ((np.cos(o), np.sin(o)) for o in np.asarray(CAMERA_YAWS, np.float32)):
+        cx = fx0 * float(co) + fy0 * float(so)
+        cy = -fx0 * float(so) + fy0 * float(co)
+        denom = torch.clamp(cx, min=0.1)
+        u_c = (-cy / denom) * FX + (VIEW_W - 1) / 2.0
+        half_u = (hwid / denom) * FX
+        v_bot = (CAMERA_HEIGHT / denom) * FX + (VIEW_H - 1) / 2.0
+        v_top = ((CAMERA_HEIGHT - htop) / denom) * FX + (VIEW_H - 1) / 2.0
+        views.append((cx, u_c, half_u, v_top, v_bot, (cx > 0.8) & (ok > 0.5)))
+    return views
+
+
 def render_planes_plain(geom: torch.Tensor, with_depth: bool = False,
                         n_actors: int = 0) -> torch.Tensor:
     """(B, GEOM_PAD) packs -> (B, C, 45, 180) uint8, in plain PyTorch ops:
@@ -204,9 +285,7 @@ def render_planes_plain(geom: torch.Tensor, with_depth: bool = False,
     w_rain, w_wet, w_fog = g(_O_WEATHER + 2), g(_O_WEATHER + 3), g(_O_WEATHER + 4)
     rh = g(_O_ROADHALF)
 
-    dxc, dyc, dz = lut["rays"][0][None], lut["rays"][1][None], lut["rays"][2][None]
-    dx = dxc * cos_y - dyc * sin_y
-    dy = dxc * sin_y + dyc * cos_y
+    dx, dy, dz = world_rays(geom)
 
     # ground intersection
     below = dz < -1e-4
@@ -257,21 +336,7 @@ def render_planes_plain(geom: torch.Tensor, with_depth: bool = False,
         r_, g_, b_ = where(m, col[0], r_), where(m, col[1], g_), where(m, col[2], b_)
 
     # buildings: exact ray/box with height
-    inv_dx = 1.0 / torch.where(torch.abs(dx) < 1e-6, 1e-6, dx)
-    inv_dy = 1.0 / torch.where(torch.abs(dy) < 1e-6, 1e-6, dy)
-    t_b = full(1e6)
-    for k in range(K_BUILDINGS):
-        cx, cy = g(_O_BLD + 5 * k), g(_O_BLD + 5 * k + 1)
-        hw, hh, bh = g(_O_BLD + 5 * k + 2), g(_O_BLD + 5 * k + 3), g(_O_BLD + 5 * k + 4)
-        tx0 = (cx - hw - ex) * inv_dx
-        tx1 = (cx + hw - ex) * inv_dx
-        ty0 = (cy - hh - ey) * inv_dy
-        ty1 = (cy + hh - ey) * inv_dy
-        t_near = torch.maximum(torch.minimum(tx0, tx1), torch.minimum(ty0, ty1))
-        t_far = torch.minimum(torch.maximum(tx0, tx1), torch.maximum(ty0, ty1))
-        z = CAMERA_HEIGHT + t_near * dz
-        hit = (t_near > 0.5) & (t_near <= t_far) & (z > 0.0) & (z < bh)
-        t_b = torch.minimum(t_b, torch.where(hit, t_near, 1e6))
+    t_b = building_depth(geom, dx, dy, dz)
 
     # compose ground / building / sky
     sky_r = (135.0 * (1 - w_sun) + 240.0 * w_sun) * (1 - w_cld) + 150.0 * w_cld
@@ -292,26 +357,15 @@ def render_planes_plain(geom: torch.Tensor, with_depth: bool = False,
 
     # actors: billboards with a depth test, projected per view
     uu, vv, vid = lut["u"][None], lut["v"][None], lut["vid"][None]
-    rot = [(np.cos(o), np.sin(o)) for o in np.asarray(CAMERA_YAWS, np.float32)]
     for k in range(n_actors):
-        base = _O_ACT + 8 * k
-        ax, ay, ok = g(base), g(base + 1), g(base + 2)
-        hwid, htop = g(base + 3), g(base + 4)
-        rx, ry = ax - ex, ay - ey
-        fx0 = rx * cos_y + ry * sin_y
-        fy0 = -rx * sin_y + ry * cos_y
-        cxs = [fx0 * float(co) + fy0 * float(so) for co, so in rot]
-        cys = [-fx0 * float(so) + fy0 * float(co) for co, so in rot]
-        cx = torch.where(vid == 0.0, cxs[0], torch.where(vid == 1.0, cxs[1], cxs[2]))
-        cy = torch.where(vid == 0.0, cys[0], torch.where(vid == 1.0, cys[1], cys[2]))
-        denom = torch.clamp(cx, min=0.1)
-        u_c = (-cy / denom) * FX + (VIEW_W - 1) / 2.0
-        half_u = (hwid / denom) * FX
-        v_bot = (CAMERA_HEIGHT / denom) * FX + (VIEW_H - 1) / 2.0
-        v_top = ((CAMERA_HEIGHT - htop) / denom) * FX + (VIEW_H - 1) / 2.0
+        views = billboards(geom, k)
+        cx, u_c, half_u, v_top, v_bot, live = (
+            torch.where(vid == 0.0, views[0][i], torch.where(vid == 1.0, views[1][i], views[2][i]))
+            for i in range(6))
         cover = ((torch.abs(uu - u_c) < half_u) & (vv >= v_top) & (vv <= v_bot)
-                 & (cx > 0.8) & (ok > 0.5) & (vid >= 0.0))
+                 & live & (vid >= 0.0))
         visible = cover & (cx < depth)
+        base = _O_ACT + 8 * k
         r_ = torch.where(visible, g(base + 5), r_)
         g_ = torch.where(visible, g(base + 6), g_)
         b_ = torch.where(visible, g(base + 7), b_)
@@ -345,13 +399,28 @@ def render_planes_plain(geom: torch.Tensor, with_depth: bool = False,
 # the CUDA kernel
 # ------------------------------------------------------------------
 
+# --fmad=false: nvcc must not fuse a multiply and an add that the plain
+# version rounds separately (the kernel matches it bit for bit).
+_NVCC_FLAGS = ["--fmad=false"]
+
+
+def launch_shape(n_worlds: int) -> tuple:
+    """(threads, splits): each world's 2025 quads (4 pixels of a row each)
+    go to `splits` blocks of `threads` threads, one quad per thread.  Few
+    worlds take large blocks, one per SM at 32 worlds; many take small ones
+    for finer scheduling (the fastest of the shapes timed on an H100 at 32,
+    62 and 1024 worlds, PERF.md)."""
+    splits = 4 if n_worlds <= 33 else 8 if n_worlds <= 256 else 16
+    return -(-N_QUADS // (32 * splits)) * 32, splits
+
+
 def _kernel_lib() -> ctypes.CDLL:
     from carla_driving_rl_agent_torch.utils.build import csrc, load_library
     vp, i = ctypes.c_void_p, ctypes.c_int
     return load_library(
         "render", [csrc("render.cu")], "nvcc",
-        {"cdrl_render_planes": (i, [vp, vp, vp, i, i, i, vp])},
-        extra_deps=[csrc("render.cuh")])
+        {"cdrl_render_planes": (i, [vp, vp, vp, i, i, i, i, i, vp])},
+        extra_deps=[csrc("render.cuh")], extra_flags=_NVCC_FLAGS)
 
 
 def build_kernel() -> None:
@@ -379,7 +448,7 @@ def render_planes(geom: torch.Tensor, with_depth: bool = False,
     if not geom.is_contiguous():
         raise ValueError("geom must be contiguous")
     lib = _kernel_lib()
-    rays = lut_tensors(geom.device)["rays"]
+    lut = lut_tensors(geom.device)["kernel_lut"]
     c = 4 if with_depth else 3
     out = torch.empty((geom.shape[0], c, VIEW_H, 3 * VIEW_W), dtype=torch.uint8,
                       device=geom.device)
@@ -387,9 +456,9 @@ def render_planes(geom: torch.Tensor, with_depth: bool = False,
         return out
     with torch.cuda.device(geom.device):
         stream = torch.cuda.current_stream(geom.device).cuda_stream
-        err = lib.cdrl_render_planes(geom.data_ptr(), rays.data_ptr(),
-                                     out.data_ptr(), geom.shape[0],
-                                     int(with_depth), n_actors, stream)
+        err = lib.cdrl_render_planes(geom.data_ptr(), lut.data_ptr(), out.data_ptr(),
+                                     geom.shape[0], int(with_depth), n_actors,
+                                     *launch_shape(geom.shape[0]), stream)
     if err != 0:
         raise RuntimeError(f"render kernel launch failed: CUDA error {err}")
     render_planes.launches += 1

@@ -6,11 +6,21 @@ interpret mode, the planar layout, and the CUDA kernel's per-pixel math
 Tolerances: LUT and layouts exact; packs to 1e-5 (cos/sin of the two
 frameworks); rendered uint8 planes |diff| <= 2 on > 99 % of pixels, the bar
 of tests/test_rasterizer.py (a pixel on a threshold may flip class under a
-one-ulp difference).  The CUDA kernel itself is held against the plain
-version on the card by the `cuda`-marked test, which skips here.
+one-ulp difference).  The kernel's host build is held to the same bar
+and, beside it, to an exact share >= 0.9999: it does the plain version's
+float32 operations in the same order, so only exp/log1p implementations
+may move a pixel.  Its helpers (the parity test, the division through a
+hoisted reciprocal) are held to their plain forms bit for bit.  The CUDA
+kernel itself, and its helpers as built for the card, are held against the
+plain version and the IEEE operations by the two `cuda`-marked tests,
+which skip here.  Actors are placed by chip_smoke.with_actors (ahead,
+behind, beside, inactive), the set its kernel phase runs on the card, and
+pixel_kinds (the render bound's count of what the inputs need) is checked
+against what the plain version draws.
 """
 
 import ctypes
+import re
 import types
 
 import jax
@@ -19,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from carla_driving_rl_agent_tpu.envs import carla_env as jenv
 from carla_driving_rl_agent_tpu.ops import rasterizer_pallas as RP
 
@@ -77,16 +88,21 @@ def packs(bank, worlds):
 
 
 def _with_actors(geom: np.ndarray, n: int) -> np.ndarray:
-    """Packs with `n` billboards ahead of each ego (the actor loop)."""
-    g = geom.copy()
-    for k in range(n):
-        ex, ey = g[:, R._O_EGO], g[:, R._O_EGO + 1]
-        c, s = g[:, R._O_EGO + 2], g[:, R._O_EGO + 3]
-        row = R._O_ACT + 8 * k
-        g[:, row] = ex + (8.0 + 6.0 * k) * c
-        g[:, row + 1] = ey + (8.0 + 6.0 * k) * s + 1.5 * k
-        g[:, row + 2:row + 8] = [1.0, 1.0, 1.6, 180.0, 30.0, 30.0]
-    return g
+    """Packs with the first `n` billboards of chip_smoke.ACTOR_PLACES around
+    each ego: ahead, behind, beside and inactive (the kernel phase's set)."""
+    return chip_smoke.with_actors(torch.from_numpy(np.array(geom)), n).numpy()
+
+
+def _host_lib():
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    return load_library("render_host", [csrc("render_host.cpp")], "g++",
+                        {"cdrl_render_planes_host": (None, [vp, vp, vp, i, i, i]),
+                         "cdrl_render_helpers_host": (None, [vp] * 7 + [i])},
+                        extra_deps=[csrc("render.cuh")])
+
+
+def _exact_share(a, b):
+    return float((a == b).mean())
 
 
 def test_lut_equal():
@@ -113,8 +129,11 @@ def test_packs_allclose(packs):
     np.testing.assert_allclose(tp.numpy(), jp, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("with_depth,n_actors", [(False, 0), (True, 0), (True, 2)])
+@pytest.mark.parametrize("with_depth,n_actors",
+                         [(False, 0), (True, 0), (True, 2), (False, 8), (True, 8)])
 def test_plain_render_matches_pallas(packs, with_depth, n_actors):
+    """The plain version against the Pallas kernel in interpret mode, with
+    billboards ahead, behind, beside and inactive (all K_ACTORS of them)."""
     geom = _with_actors(packs[0], n_actors)
     tiles = RP.render_tiles_grid(jnp.asarray(geom), g_block=N_WORLDS, interpret=True,
                                  n_actors=n_actors, with_depth=with_depth)
@@ -126,6 +145,11 @@ def test_plain_render_matches_pallas(packs, with_depth, n_actors):
     ok, share = _within(out, ref)
     assert ok, f"only {share:.4f} of pixels within 2"
     assert out.std() > 10, "render has no structure"
+    if n_actors:
+        # the billboards show: the same packs without them render otherwise
+        bare = R.render_planes_plain(torch.from_numpy(np.array(packs[0])),
+                                     with_depth=with_depth).numpy()
+        assert (out != bare).any()
 
 
 @pytest.mark.parametrize("with_depth", [False, True])
@@ -151,24 +175,147 @@ def test_planes_to_image_and_ordered_stack_match_jax(rng):
     np.testing.assert_array_equal(got.numpy(), ref)
 
 
-@pytest.mark.parametrize("with_depth,n_actors", [(False, 0), (True, 2)])
+def test_kernel_lut_matches_jax_ground_distance():
+    """The kernel LUT: the plain version's three ray rows, and a fourth row
+    with each ray's ground distance as the JAX kernel computes it per pixel
+    (`_render_world`: where(dz < -1e-4, -2.2 / dz, 1e6), capped at 400)."""
+    lut = R.lut_tensors("cpu")
+    k = lut["kernel_lut"].numpy()
+    assert k.shape == (4, R.N_PIX) and k.dtype == np.float32
+    np.testing.assert_array_equal(k[:3], lut["rays"].numpy())
+    dz = jnp.asarray(k[2])
+    below = dz < -1e-4
+    ref = jnp.minimum(jnp.where(below, -RP.CAMERA_HEIGHT / jnp.where(below, dz, -1.0), 1e6),
+                      RP.R.MAX_DEPTH)
+    np.testing.assert_array_equal(k[3], np.asarray(ref))
+    # below MAX_DEPTH exactly where the kernel's ground test (below the
+    # horizon and nearer than MAX_DEPTH) holds
+    np.testing.assert_array_equal(k[3] < R.MAX_DEPTH,
+                                  (k[2] < np.float32(-1e-4)) & (np.asarray(ref) < R.MAX_DEPTH))
+
+
+@pytest.mark.parametrize("with_depth,n_actors", [(False, 0), (True, 2), (True, 8)])
 def test_kernel_math_host_build_matches_plain(packs, with_depth, n_actors):
-    """render.cuh's per-pixel function, built for the host, against the
-    plain PyTorch version (the CUDA build runs the same source)."""
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib = load_library("render_host", [csrc("render_host.cpp")], "g++",
-                       {"cdrl_render_planes_host": (None, [vp, vp, vp, i, i, i])},
-                       extra_deps=[csrc("render.cuh")])
+    """render.cuh's two stages, built for the host and run in the kernel's
+    order, against the plain PyTorch version (the CUDA build runs the same
+    source), with billboards ahead, behind, beside and inactive."""
+    lib = _host_lib()
     geom = np.ascontiguousarray(_with_actors(packs[1].numpy(), n_actors))
-    rays = R.lut_tensors("cpu")["rays"].numpy()
+    lut = R.lut_tensors("cpu")["kernel_lut"].numpy()
     c = 4 if with_depth else 3
     out = np.zeros((N_WORLDS, c, 45, 180), np.uint8)
-    lib.cdrl_render_planes_host(geom.ctypes.data, rays.ctypes.data, out.ctypes.data,
+    lib.cdrl_render_planes_host(geom.ctypes.data, lut.ctypes.data, out.ctypes.data,
                                 N_WORLDS, int(with_depth), n_actors)
     ref = R.render_planes_plain(torch.from_numpy(geom), with_depth=with_depth,
                                 n_actors=n_actors).numpy()
     ok, share = _within(out, ref)
     assert ok, f"only {share:.4f} of pixels within 2"
+    exact = _exact_share(out, ref)
+    assert exact >= 0.9999, f"only {exact:.6f} of values exact"
+    if n_actors:
+        # the billboards show: the same packs without them render otherwise
+        bare = R.render_planes_plain(torch.from_numpy(geom), with_depth=with_depth).numpy()
+        assert (out != bare).any()
+
+
+def _sweep_floats(rng) -> np.ndarray:
+    """float32 values for the parity test: uniform in +-5000, +-0, every
+    float32 between 2^23 - 64 and 2^25 + 64 (the last binades with odd
+    integers and halves) and their negatives, +-1e30, integers and values
+    just beside them, and random finite bit patterns."""
+    f32 = np.float32
+    ints = np.arange(-300, 301, dtype=f32)
+    around = [np.nextafter(ints, f32(np.inf)), np.nextafter(ints, f32(-np.inf))]
+    lo, hi = np.float32(2.0 ** 23 - 64), np.float32(2.0 ** 25 + 64)
+    dense = np.arange(lo.view(np.int32), hi.view(np.int32) + 1, 97, dtype=np.int32).view(f32)
+    bits = rng.integers(0, 2 ** 32, 400_000, dtype=np.uint64).astype(np.uint32).view(f32)
+    bits = bits[np.isfinite(bits)]
+    return np.concatenate([
+        rng.uniform(-5000, 5000, 400_000).astype(f32), f32([0.0, -0.0, 1e30, -1e30]),
+        dense, -dense, ints, *around, (ints + f32(0.5)), bits]).astype(f32)
+
+
+def _sweep_quotients(rng):
+    """(a, b) float32 pairs for div_rn: the kernel's operands (segment
+    projections over L2 from 1e-9 up, sums over 0.6, depths over 150) and
+    random pairs over 2^-100..2^100 with normal quotients, both signs."""
+    f32 = np.float32
+    n = 300_000
+    a = np.concatenate([
+        rng.uniform(-2e4, 2e4, n), rng.uniform(-1, 1, n) * 10.0 ** rng.uniform(-20, 6, n),
+        np.zeros(4), rng.uniform(-1e3, 1e3, n), rng.uniform(0.5, 1e6, n),
+        np.sign(rng.uniform(-1, 1, n)) * 2.0 ** rng.uniform(-100, 100, n)]).astype(f32)
+    b = np.concatenate([
+        rng.uniform(1e-9, 1e5, n), 10.0 ** rng.uniform(-9, 6, n),
+        f32([1e-9, 1.0, 150.0, 0.6]), np.full(n, 0.6), np.full(n, 150.0),
+        np.sign(rng.uniform(-1, 1, n)) * 2.0 ** rng.uniform(-100, 100, n)]).astype(f32)
+    q = a.astype(np.float64) / b.astype(np.float64)
+    keep = (a == 0) | (np.abs(q) >= 2.0 ** -125) & (np.abs(q) < 2.0 ** 126)
+    return a[keep], b[keep]
+
+
+def test_kernel_helpers_host_build_match_their_plain_forms(rng):
+    """The kernel's parity test against fmodf(floorf(x), 2) == 0, and its
+    division through a hoisted reciprocal against a / b, bit for bit; the
+    constant reciprocals are float32(1 / x) correctly rounded."""
+    lib = _host_lib()
+    x = np.ascontiguousarray(_sweep_floats(rng))
+    a, b = _sweep_quotients(rng)
+    n = max(len(x), len(a))
+    x = np.ascontiguousarray(np.resize(x, n))
+    a, b = np.ascontiguousarray(np.resize(a, n)), np.ascontiguousarray(np.resize(b, n))
+    even, even_ref = np.zeros(n, np.uint8), np.zeros(n, np.uint8)
+    q, q_ref = np.zeros(n, np.float32), np.zeros(n, np.float32)
+    lib.cdrl_render_helpers_host(x.ctypes.data, even.ctypes.data, even_ref.ctypes.data,
+                                 a.ctypes.data, b.ctypes.data, q.ctypes.data,
+                                 q_ref.ctypes.data, n)
+    np.testing.assert_array_equal(even, even_ref)
+    np.testing.assert_array_equal(even_ref.astype(bool), np.fmod(np.floor(x), 2) == 0)
+    assert 0.2 < even.mean() < 0.8
+    np.testing.assert_array_equal(q.view(np.uint32), q_ref.view(np.uint32))
+    np.testing.assert_array_equal(q_ref, a / b)
+    with open(csrc("render.cuh")) as f:
+        src = f.read()
+    for name, x_ in (("RCP_0_6", 0.6), ("RCP_150", 150.0)):
+        lit = re.search(rf"{name} = (0x[0-9a-fp.+-]+)f;", src).group(1)
+        assert np.float32(float.fromhex(lit)) == np.float32(1.0) / np.float32(x_), name
+
+
+def test_pixel_kinds_partition_the_frames(packs):
+    """pixel_kinds (the render bound's count of ground work): every pixel is
+    one kind, only rays that meet the ground nearer than MAX_DEPTH show it,
+    and every other ray shows the sky unless a building is in the way."""
+    geom = packs[1]
+    kinds = chip_smoke.pixel_kinds(geom)
+    assert kinds["building"] + kinds["ground"] + kinds["sky"] == N_WORLDS * R.N_PIX
+    assert kinds["actor"] == kinds["live"] == kinds["row_pixels"] == kinds["covered"] == 0
+    ground_rays = int((R.lut_tensors("cpu")["kernel_lut"][3] < R.MAX_DEPTH).sum())
+    assert 0 < kinds["ground"] <= N_WORLDS * ground_rays
+    assert kinds["sky"] >= N_WORLDS * (R.N_PIX - ground_rays) - kinds["building"]
+
+
+def test_pixel_kinds_count_the_billboards(packs):
+    """pixel_kinds with actors: the pixels it says show an actor are exactly
+    those on which the plain version's frame follows the billboards' colour
+    (all black, then all white), inside the billboards it counts, inside the
+    rows it counts; only active actors count, each live in at most two
+    views (it lies ahead of at most one side camera and the front one)."""
+    n_actors = R.K_ACTORS
+    frames = []
+    for colour in (0.0, 255.0):
+        geom = torch.from_numpy(_with_actors(packs[1].numpy(), n_actors))
+        geom[:, R._O_ACT + 5:R._O_ACT + 8 * n_actors:8] = colour
+        geom[:, R._O_ACT + 6:R._O_ACT + 8 * n_actors:8] = colour
+        geom[:, R._O_ACT + 7:R._O_ACT + 8 * n_actors:8] = colour
+        frames.append(R.render_planes_plain(geom, n_actors=n_actors))
+    kinds = chip_smoke.pixel_kinds(geom, n_actors)
+    assert sum(kinds[k] for k in ("actor", "building", "ground", "sky")) == N_WORLDS * R.N_PIX
+    drawn = int((frames[0] != frames[1]).any(1).sum())
+    assert 0 < drawn == kinds["actor"] <= kinds["covered"] <= kinds["row_pixels"]
+    places = chip_smoke.ACTOR_PLACES[:n_actors]
+    assert kinds["active"] == N_WORLDS * sum(p[2] > 0.5 for p in places)
+    assert 0 < kinds["live"] <= 2 * kinds["active"]
+    assert kinds["row_pixels"] % R.VIEW_W == 0
 
 
 def test_wrapper_on_cpu_runs_the_plain_version(packs):
@@ -197,7 +344,7 @@ def test_env_renders_through_the_wrapper():
 def test_cuda_kernel_matches_plain(packs):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the render kernel runs only on the card")
-    for with_depth, n_actors in ((False, 0), (True, 2)):
+    for with_depth, n_actors in ((False, 0), (True, 2), (True, 8)):
         geom = torch.from_numpy(_with_actors(packs[1].numpy(), n_actors)).cuda()
         before = R.render_planes.launches
         out = R.render_planes(geom, with_depth=with_depth, n_actors=n_actors)
@@ -206,3 +353,15 @@ def test_cuda_kernel_matches_plain(packs):
         ref = R.render_planes_plain(geom, with_depth=with_depth, n_actors=n_actors)
         ok, share = _within(out.cpu().numpy(), ref.cpu().numpy())
         assert ok, f"only {share:.4f} of pixels within 2"
+        exact = _exact_share(out.cpu().numpy(), ref.cpu().numpy())
+        assert exact >= 0.9999, f"only {exact:.6f} of values exact"
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_helpers_match_ieee():
+    """The kernel's parity, reciprocal and division helpers as nvcc builds
+    them for the card, against the IEEE operations they replace, bit for
+    bit (csrc/render_check.cu; on the CPU rcp_rn is a plain division)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the helpers' card build runs only on the card")
+    assert chip_smoke.render_helper_mismatches(pair_rounds=1) == [0, 0, 0, 0]
