@@ -173,6 +173,7 @@ class CARLAgent:
         self.update_step = 0
         # seconds of the last update's parts, each ended by a synchronise
         self.last_timings: Dict[str, float] = {}
+        self.last_trials: Dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------------
     # objectives
@@ -494,7 +495,9 @@ class CARLAgent:
         prediction and one env step (one rendered frame) per timestep.  The
         worlds start from `draws` (default: drawn from the env's generator);
         every other random draw comes from the env's generator.  Returns the
-        per-world accumulators of each world's FIRST episode."""
+        per-world accumulators of each world's FIRST episode; with NPCs also
+        how it ended (hit_vehicle, hit_pedestrian, hit_other) and the active
+        vehicles and walkers it started with."""
         env, net = self.env, self.network
         gen = env.generator
         states, obs = env.reset(draws) if draws is not None else env.reset_batch(num_worlds)
@@ -502,6 +505,11 @@ class CARLAgent:
         acc = dict(active=zeros + 1.0, total_reward=zeros, similarity=zeros,
                    speed=zeros, waypoint_distance=zeros, timesteps=zeros,
                    collision=zeros)
+        npc = states.world.npc
+        typed = {}
+        if npc is not None:
+            typed = dict(hit_vehicle=zeros, hit_pedestrian=zeros, hit_other=zeros)
+            counts = dict(vehicles=npc.veh_active.sum(1), walkers=npc.ped_active.sum(1))
         for _ in range(timesteps):
             net_in = {f"state_{k}": v for k, v in obs.items()}
             pred = net.predict(net_in, gen)
@@ -521,6 +529,12 @@ class CARLAgent:
                     acc["collision"],
                     info["collision"].to(torch.float32) * a * done),
             )
+            if typed:
+                ended = a * done
+                typed = {k: torch.maximum(v, info[k].to(torch.float32) * ended)
+                         for k, v in typed.items()}
+        if typed:
+            acc.update(typed, **counts)
         return acc
 
     def evaluate(self, name: str, timesteps: int, trials: int,
@@ -530,7 +544,9 @@ class CARLAgent:
         per-scenario JSON with the six metrics: collision_rate, similarity,
         waypoint_distance, speed, total_reward, timesteps.  Episodes of 32
         steps or fewer are discarded (accidental first-step collisions,
-        reference :284); total_reward clips at -1000 (:286)."""
+        reference :284); total_reward clips at -1000 (:286).  The kept
+        trials' per-world accumulators of the rollout (with NPCs, their
+        collisions by type and NPC counts too) stay in `last_trials`."""
         full_float32()
         eval_dir = evaluation_dir or os.path.join(self.base_path, "evaluation")
         ckpt.refuse_tracked(eval_dir)
@@ -546,7 +562,8 @@ class CARLAgent:
         # trial i starts from its own stream, keyed by (seed, i) as the JAX
         # package folds i into its reset key: its town, weather, route and
         # light offset do not depend on `trials`
-        draws = world_mod.trial_draws(seed, num_worlds, self.env.params, self.env.routes)
+        draws = world_mod.trial_draws(seed, num_worlds, self.env.params, self.env.routes,
+                                      self.env.town)
         acc = {k: v.cpu().numpy() for k, v in
                self.rollout(num_worlds, timesteps, draws).items()}
 
@@ -555,6 +572,7 @@ class CARLAgent:
         if valid.sum() < trials:
             valid = acc["timesteps"] > 0  # degenerate config: keep everything
         idx = np.nonzero(valid)[0][:trials]
+        self.last_trials = {k: v[idx] for k, v in acc.items()}
 
         results = dict(
             collision_rate=acc["collision"][idx].tolist(),

@@ -4,7 +4,8 @@ for one town at a time.
 Counterpart of carla_driving_rl_agent_tpu/curriculum/stages.py (reference
 core/learning.py): `sample_origins` (:19-33), `define_agent`/`define_env`
 (:53-61), `Stage` (:68-189), `stage_s1` (:311-339) and `evaluate`
-(:505-530).  Stages s2-s5 need NPC traffic and come with a later slice.
+(:505-530) with its traffic levels (`TRAFFIC_SPECS`, :485-487).  Stages
+s2-s5 come with later slices.
 
 Parallelism mapping (as in the JAX package): an epoch runs `episodes`
 updates, each consuming a `timesteps`-step rollout (at most 128 steps)
@@ -12,8 +13,7 @@ from `num_envs` lock-step worlds.
 
 The JAX package's evaluation builds all eight evaluation towns into one bank
 so that XLA compiles one program; PyTorch compiles nothing ahead, so this
-module builds only the town it is asked for.  Traffic (regular, dense)
-comes with a later slice of the port.
+module builds only the town it is asked for.
 
 Checkpoints and evaluation records go under weights-torch/ of the checkout
 by default; the evaluation reads the weights from the tracked weights/ by
@@ -39,6 +39,12 @@ from carla_driving_rl_agent_torch.envs.world import WorldParams
 from carla_driving_rl_agent_torch.utils.checkpoint import copy_folder
 
 DEFAULT_TOWN = "Town03"   # the reference trains on Town03 only (README.md:112)
+# the evaluation's traffic levels (reference core/learning.py:485-487)
+TRAFFIC_SPECS = dict(no=None,
+                     regular=dict(vehicles=50, pedestrians=50),
+                     dense=dict(vehicles=100, pedestrians=200))
+EVAL_TOWNS = ("Town01", "Town02", "Town03", "Town04", "Town05", "Town06",
+              "Town07", "Town10")
 
 
 def sample_origins(town: str = DEFAULT_TOWN, amount: int = 1, seed=None) -> List[int]:
@@ -90,13 +96,12 @@ def build_env(town: str = DEFAULT_TOWN, image_shape=(90, 120, 3),
     if lateral_obs:
         raise NotImplementedError("lateral_obs is not ported yet")
     spawn = spawn or {}
-    if spawn.get("vehicles") or spawn.get("pedestrians"):
-        # no fused_step fallback either: the JAX package steps NPC worlds
-        # with its XLA path, the port has no NPC world yet
-        raise NotImplementedError(f"spawn={spawn!r}: NPC traffic is not ported yet")
+    nv = int(spawn.get("vehicles", 0) or 0)
+    np_ = int(spawn.get("pedestrians", 0) or 0)
     towns = tuple(random_towns) if random_towns else (town,)
     params = WorldParams(
         town_names=towns, random_towns=bool(random_towns),
+        num_vehicles=nv, num_pedestrians=np_, v_max=max(nv, 1), p_max=max(np_, 1),
         weather_ids=tuple(int(i) for i in weather_ids(random_weathers or ["ClearNoon"])),
         throttle_as_desired_speed=throttle_as_desired_speed,
         disable_reverse=disable_reverse,
@@ -209,22 +214,22 @@ def network_spec(weights: str, weights_dir: str) -> dict:
 
 def build_eval_agent(mode: str, town: str, steps: int, weights: str,
                      weights_dir: Optional[str] = None, device=None,
-                     fused_units: bool = False) -> CARLAgent:
-    """A one-town, no-traffic evaluation env and the agent loaded with
-    `weights`, as the JAX package's _eval_stage configures them: the seven
-    training weathers in train mode, the seven held-out ones in test mode.
-    `fused_units` runs the backbone's stride-1 units as fused ops.  The
-    weights are read from `weights_dir`/`weights` (default weights/); the
-    agent's records go to weights-torch/`weights`."""
+                     fused_units: bool = False, traffic: str = "no") -> CARLAgent:
+    """A one-town evaluation env with the `traffic` level of TRAFFIC_SPECS
+    and the agent loaded with `weights`, as the JAX package's _eval_stage
+    configures them: the seven training weathers in train mode, the seven
+    held-out ones in test mode.  `fused_units` runs the backbone's stride-1
+    units as fused ops.  The weights are read from `weights_dir`/`weights`
+    (default weights/); the agent's records go to weights-torch/`weights`."""
     if mode not in ("train", "test"):
         raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
+    if traffic not in TRAFFIC_SPECS:
+        raise ValueError(f"traffic must be one of {tuple(TRAFFIC_SPECS)}, got {traffic!r}")
     weights_dir = weights_dir or os.path.join(REPO_ROOT, "weights")
     weather = TRAIN_WEATHERS if mode == "train" else TEST_WEATHERS
-    params = WorldParams(
-        town_names=(town,), weather_ids=tuple(int(i) for i in weather_ids(weather)),
-        throttle_as_desired_speed=True, disable_reverse=True,
-        max_timesteps=steps, seed=42)
-    env = CARLAEnv(CARLAEnvConfig(world=params), device=device)
+    env = build_env(town=town, random_weathers=list(weather), spawn=TRAFFIC_SPECS[traffic],
+                    throttle_as_desired_speed=True, disable_reverse=True,
+                    max_timesteps=steps, seed=42, device=device)
     agent = CARLAgent(env, CARLAgentConfig(network=network_spec(weights, weights_dir),
                                            fused_units=fused_units), name=weights)
     agent.load(os.path.join(weights_dir, weights))
@@ -235,16 +240,14 @@ def evaluate(mode: str, town: str, seeds: list, traffic: str, steps: int = 512,
              trials: int = 50, weights: str = "stage-s5",
              weights_dir: Optional[str] = None,
              evaluation_dir: Optional[str] = None, device=None) -> List[dict]:
-    """Evaluate `weights` on one scenario for each seed, writing one JSON per
-    seed named `{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}`
-    (into `evaluation_dir`, default weights-torch/<weights>/evaluation; the
-    weights are read from `weights_dir`, default weights/).  Returns
-    the records.  Equivalent to build_eval_agent() then CARLAgent.evaluate()
+    """Evaluate `weights` on one scenario (a town, a traffic level of
+    TRAFFIC_SPECS) for each seed, writing one JSON per seed named
+    `{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}` (into
+    `evaluation_dir`, default weights-torch/<weights>/evaluation; the
+    weights are read from `weights_dir`, default weights/).  Returns the
+    records.  Equivalent to build_eval_agent() then CARLAgent.evaluate()
     per seed."""
-    if traffic != "no":
-        raise NotImplementedError(
-            f"traffic={traffic!r}: the port evaluates without traffic so far")
-    agent = build_eval_agent(mode, town, steps, weights, weights_dir, device)
+    agent = build_eval_agent(mode, town, steps, weights, weights_dir, device, traffic=traffic)
     return [agent.evaluate(
         name=f"{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}",
         timesteps=steps, trials=trials, initial_seed=seed,

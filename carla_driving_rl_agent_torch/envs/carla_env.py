@@ -6,7 +6,9 @@ over a batch of worlds on one device.  Two paths step it: the per-step
 `step` (evaluation) and the block path of training rollouts
 (`step_physics_block` for a block of past_obs_freq ticks,
 `push_block_frame_batch` once per block), whose physics runs the CUDA
-kernel of ops/physics.py, once per block, when `fused_step` is on.
+kernel of ops/physics.py, once per block, when `fused_step` is on.  Worlds
+with NPC traffic step per tick (`step`, `step_physics`); the render kernel
+draws the nearest of their NPCs as billboards.
 
 Observation contract (reference core/carla_env.py:128-131): dict(image
 (B, T, 90, 360, C) in [0, 1], road (B, T, 9), vehicle (B, T, 4), navigation
@@ -25,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from carla_driving_rl_agent_torch import resolve_device
-from carla_driving_rl_agent_torch.envs import world as world_mod
+from carla_driving_rl_agent_torch.envs import traffic, world as world_mod
 from carla_driving_rl_agent_torch.envs.weather import WEATHER_PARAMS
 from carla_driving_rl_agent_torch.envs.world import ResetDraws, WorldParams, WorldState
 from carla_driving_rl_agent_torch.ops import physics as physics_ops
@@ -85,10 +87,9 @@ class CARLAEnvConfig:
     past_obs_freq: int = 4
     num_actions: int = 2
     # the physics tick of the block path through the CUDA kernel
-    # (ops/physics.py).  The kernel computes zero-NPC worlds with the
-    # default reward, the only worlds the port builds so far (build_env
-    # raises for traffic); the JAX package quietly takes its XLA path for
-    # other worlds, and the port will have no such fallback.
+    # (ops/physics.py), which computes worlds without NPCs: CARLAEnv
+    # refuses it for a world with NPCs (the JAX package quietly takes its
+    # XLA step there; the port has no such fallback)
     fused_step: bool = False
 
     @property
@@ -120,8 +121,14 @@ class CARLAEnv:
     its reset draws."""
 
     def __init__(self, config: CARLAEnvConfig, device=None, seed: int = 0):
+        if config.fused_step and config.world.has_npcs:
+            raise NotImplementedError(
+                f"fused_step: the physics kernel steps worlds without NPCs, and this world has "
+                f"{config.world.num_vehicles} vehicles and {config.world.num_pedestrians} "
+                f"pedestrians")
         self.config = config
         self.params = config.world
+        self.n_actors = self._static_n_actors()
         self.device = resolve_device(device)
         self.town, self.routes = world_mod.build_world_data(config.world, self.device)
         self.weather_params = torch.as_tensor(WEATHER_PARAMS, device=self.device)
@@ -135,11 +142,22 @@ class CARLAEnv:
         self.generator.manual_seed(seed)
 
     # ---- frames ----
+    def _static_n_actors(self) -> int:
+        """The actor rows of the render pack that this configuration can
+        fill: its nearest min(4, v_max) vehicles, then its nearest
+        min(4, p_max) walkers; none without NPCs, so that the kernel skips
+        its actor loop."""
+        if not self.params.has_npcs:
+            return 0
+        half = render_ops.K_ACTORS // 2
+        return min(half, self.params.v_max) + min(half, self.params.p_max)
+
     def render_frame(self, world: WorldState) -> torch.Tensor:
         """(B, C, 45, 180) uint8 planar frames of every world."""
         geom = render_ops.pack_geometry_banked(
-            self.town, world, self.weather_params[world.weather_id])
-        return render_ops.render_planes(geom, with_depth=self.config.stack_depth)
+            self.town, world, self.weather_params[world.weather_id], n_actors=self.n_actors)
+        return render_ops.render_planes(geom, with_depth=self.config.stack_depth,
+                                        n_actors=self.n_actors)
 
     def frame_obs(self, world: WorldState) -> dict:
         vec = world_mod.vector_observation(world, self.params, self.town, self.routes)
@@ -173,14 +191,26 @@ class CARLAEnv:
     def reset(self, draws: ResetDraws, episode=0, frame_id=-1):
         """Fresh episodes from `draws` (see world.reset_draws).  Returns
         (state, obs)."""
-        world = world_mod.reset_world(draws, self.routes, episode=episode)
+        world = world_mod.reset_world(draws, self.routes, episode=episode, town=self.town,
+                                      params=self.params)
         state = self._fresh_state(world, self.frame_obs(world), frame_id)
         return state, self.observe(state)
 
     def reset_batch(self, num_envs: int):
         """`num_envs` fresh episodes drawn from the env's generator."""
-        return self.reset(world_mod.reset_draws(self.generator, num_envs,
-                                                self.params, self.routes))
+        return self.reset(self.reset_draws(num_envs))
+
+    def reset_draws(self, n: int) -> ResetDraws:
+        """`n` episode resets drawn from the env's generator."""
+        return world_mod.reset_draws(self.generator, n, self.params, self.routes, self.town)
+
+    def npc_step_draws(self, world: WorldState) -> Optional[traffic.NPCStepDraws]:
+        """The NPC tick's draws for `world` from the env's generator; None
+        (and nothing drawn) without NPCs."""
+        if not self.params.has_npcs:
+            return None
+        return traffic.npc_step_draws(self.generator, self.town, world.town_id,
+                                      self.params.v_max, self.params.p_max)
 
     def observe(self, state: EnvState) -> dict:
         """Stacked observation dict, image scaled to [0, 1]
@@ -194,23 +224,26 @@ class CARLAEnv:
                     navigation=state.nav_stack)
 
     def step(self, state: EnvState, action: torch.Tensor, frame_id=-1,
-             draws: Optional[ResetDraws] = None):
-        """One step of every world with auto-reset: physics, then the worlds
-        that ended restart from `draws` (default: drawn from the env's
-        generator), then one frame is rendered for all worlds and pushed
-        every past_obs_freq steps (reference core/carla_env.py:290-299).
-        `action` is the env action in [-1, 1]^2.
+             draws: Optional[ResetDraws] = None,
+             npc_draws: Optional[traffic.NPCStepDraws] = None):
+        """One step of every world with auto-reset: physics (and the NPC
+        tick from `npc_draws`), then the worlds that ended restart from
+        `draws` (each drawn from the env's generator when not given, the
+        NPC tick's first), then one frame is rendered for all worlds and
+        pushed every past_obs_freq steps (reference
+        core/carla_env.py:290-299).  `action` is the env action in [-1, 1]^2.
         Returns (state', obs, reward, terminated, truncated, info)."""
         cfg = self.config
         B = action.shape[0]
+        if npc_draws is None:
+            npc_draws = self.npc_step_draws(state.world)
         world, reward, term, trunc, info = world_mod.step_world(
-            state.world, action, self.params, self.town, self.routes)
+            state.world, action, self.params, self.town, self.routes, npc_draws)
         done = term | trunc
         if draws is None:
-            draws = world_mod.reset_draws(self.generator, B, self.params,
-                                          self.routes)
-        fresh_world = world_mod.reset_world(draws, self.routes,
-                                            episode=world.episode + 1)
+            draws = self.reset_draws(B)
+        fresh_world = world_mod.reset_world(draws, self.routes, episode=world.episode + 1,
+                                            town=self.town, params=self.params)
         merged = world_mod.where_state(done, fresh_world, world)
         frame = self.frame_obs(merged)
 
@@ -248,16 +281,18 @@ class CARLAEnv:
     # all-zero stacks until then (reference core/carla_env.py:323-325).
 
     def step_physics(self, state: EnvState, action: torch.Tensor,
-                     draws: Optional[ResetDraws] = None):
+                     draws: Optional[ResetDraws] = None,
+                     npc_draws: Optional[traffic.NPCStepDraws] = None):
         """World-only tick of every world with auto-reset, by the plain
-        PyTorch path; the stacks pass through untouched.  The reset draws
-        come from the env's generator unless given.  Returns
-        (state', reward, terminated, truncated, info, was_reset)."""
+        PyTorch path; the stacks pass through untouched.  The NPC tick's
+        and the reset draws come from the env's generator unless given.
+        Returns (state', reward, terminated, truncated, info, was_reset)."""
+        if npc_draws is None:
+            npc_draws = self.npc_step_draws(state.world)
         if draws is None:
-            draws = world_mod.reset_draws(self.generator, action.shape[0],
-                                          self.params, self.routes)
+            draws = self.reset_draws(action.shape[0])
         world, reward, term, trunc, info, done = physics_ops.step_physics_batch_plain(
-            state.world, action, self.params, self.town, self.routes, draws)
+            state.world, action, self.params, self.town, self.routes, draws, npc_draws)
         return state._replace(world=world), reward, term, trunc, info, done
 
     def step_physics_batch(self, states: EnvState, actions: torch.Tensor,
@@ -268,8 +303,7 @@ class CARLAEnv:
         if not self.config.fused_step:
             return self.step_physics(states, actions, draws)
         if draws is None:
-            draws = world_mod.reset_draws(self.generator, actions.shape[0],
-                                          self.params, self.routes)
+            draws = self.reset_draws(actions.shape[0])
         world, reward, term, trunc, info, done = physics_ops.step_physics_batch(
             states.world, actions, self.params, self.town, self.routes, draws,
             self.physics_consts())
@@ -290,7 +324,8 @@ class CARLAEnv:
         for CPU tensors), else K plain ticks.  The (K, B) reset draws come
         from the env's generator in one call unless given.  Returns (state'
         after the last tick, reward, terminated, truncated, info {speed,
-        similarity}, was_reset), each row (K, B)."""
+        similarity}, was_reset), each row (K, B).  Worlds with NPCs step per
+        tick (`step_physics`); this raises for them."""
         if draws is None:
             draws = world_mod.block_reset_draws(self.generator, actions.shape[0],
                                                 actions.shape[1], self.params, self.routes,

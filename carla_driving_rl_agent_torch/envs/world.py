@@ -1,19 +1,23 @@
 """The world core, batched over worlds: reset, physics step, observations.
 
-Counterpart of carla_driving_rl_agent_tpu/envs/world.py for configurations
-without NPC traffic (the NPC fleet comes with the traffic slice).  Every
-function takes (B,) tensors, one entry per world, instead of being vmapped.
+Counterpart of carla_driving_rl_agent_tpu/envs/world.py.  Every function
+takes (B,) tensors, one entry per world, instead of being vmapped; the NPC
+fleet (envs/traffic.py) is (B, V, ...) and (B, P, ...).  A configuration
+without NPCs carries none: its state's `npc` is None, and its reset and
+tick skip the spawn and the NPC tick, as the JAX package skips them
+statically, drawing nothing for them.
 
 Random draws come from an explicit torch.Generator and are kept apart from
-the deterministic reset (`reset_draws` / `reset_world`), so a test can hand
-the JAX package's draws to `reset_world` and compare the rest exactly.
+the deterministic reset and tick (`reset_draws` / `reset_world`, and the
+NPC tick's `traffic.npc_step_draws` / `step_world`), so a test can hand the
+JAX package's draws to the port and compare the rest exactly.
 
 Behaviour contracts (reference file:line):
   * action space Box(-1,1,(2,)) = [throttle/brake, steer]  — core/carla_env.py:18
   * reward: -penalty on collision, else speed * similarity
     damped by max(1, (d_waypoint/2)^2)                      — core/carla_env.py:182-202
-  * off-road collision penalty / off_road_penalty_divisor,
-    terminal                                                — core/carla_env.py:254-269
+  * collision penalties: pedestrian penalty, vehicle penalty / 2,
+    off-road penalty / off_road_penalty_divisor, all terminal — core/carla_env.py:254-269
   * terminal when destination within 2 m                    — environment.py:946-950
   * vector features (road 9 / vehicle 4 / navigation N)     — core/carla_env.py:335-382
 """
@@ -21,7 +25,7 @@ Behaviour contracts (reference file:line):
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,14 +36,28 @@ from carla_driving_rl_agent_torch.envs.dynamics import DT, tgather
 
 
 class TownDev(NamedTuple):
-    """Device-resident stacked town arrays read by the zero-NPC world."""
+    """Device-resident stacked town arrays (see town.TownBank); indices and
+    counts are int64."""
+    wp_xy: torch.Tensor            # (T, N, 2) lane-graph waypoints
+    wp_yaw: torch.Tensor           # (T, N)
     wp_speed_limit: torch.Tensor   # (T, N)
+    wp_next: torch.Tensor          # (T, N, 3) successors, -1 for none
+    wp_num_next: torch.Tensor      # (T, N)
+    wp_junction_id: torch.Tensor   # (T, N) junction ahead, -1 for none
+    wp_dist_to_junction: torch.Tensor  # (T, N)
+    wp_left: torch.Tensor          # (T, N) adjacent lanes, -1 for none
+    wp_right: torch.Tensor         # (T, N)
+    num_wp: torch.Tensor           # (T,)
     junction_xy: torch.Tensor      # (T, J, 2)
     junction_phase: torch.Tensor   # (T, J)
     num_junctions: torch.Tensor    # (T,)
     road_half: torch.Tensor        # (T,)
     cell_segs: torch.Tensor        # (T, GH, GW, K*4) per-cell segment endpoints
     cell_geom: torch.Tensor        # (T, GH, GW, 96) per-cell render-pack prefix
+    spawn_xy: torch.Tensor         # (T, S, 2) vehicle spawn points
+    spawn_yaw: torch.Tensor        # (T, S)
+    spawn_wp: torch.Tensor         # (T, S) the waypoint each spawn point faces
+    num_spawn: torch.Tensor        # (T,)
 
 
 class RoutesDev(NamedTuple):
@@ -51,7 +69,8 @@ class RoutesDev(NamedTuple):
 
 
 class WorldState(NamedTuple):
-    """Per-world simulation state; every field is a (B,) tensor."""
+    """Per-world simulation state; every field but `npc` is a (B,) tensor.
+    `npc` is the NPC fleet, None in a configuration without NPCs."""
     x: torch.Tensor
     y: torch.Tensor
     yaw: torch.Tensor
@@ -70,6 +89,7 @@ class WorldState(NamedTuple):
     total_reward: torch.Tensor
     collision_penalty: torch.Tensor
     should_terminate: torch.Tensor
+    npc: Optional[traffic.NPCState] = None
 
 
 class ResetDraws(NamedTuple):
@@ -78,14 +98,41 @@ class ResetDraws(NamedTuple):
     weather_id: torch.Tensor  # (B,) int64 index into WEATHER_PARAMS
     route_id: torch.Tensor    # (B,) int64
     sim_time: torch.Tensor    # (B,) float32 traffic-light clock offset
+    npc: Optional[traffic.NPCResetDraws] = None   # the NPC spawn, None without NPCs
+
+
+def map_tensors(fn: Callable, tree):
+    """`fn` applied to every tensor of a (nested) NamedTuple such as
+    ResetDraws or WorldState; None fields stay None."""
+    if tree is None:
+        return None
+    if isinstance(tree, tuple):
+        return type(tree)(*(map_tensors(fn, t) for t in tree))
+    return fn(tree)
+
+
+def tensors(tree) -> list:
+    """The tensors of a (nested) NamedTuple in field order, None fields
+    left out."""
+    out = []
+    map_tensors(out.append, tree)
+    return out
 
 
 @dataclass(frozen=True)
 class WorldParams:
-    """Static configuration of a zero-NPC world (the fields of the JAX
-    package's WorldParams that this configuration reads)."""
+    """Static configuration of a world (the fields of the JAX package's
+    WorldParams that the port reads)."""
     town_names: Tuple[str, ...] = ("Town03",)
     random_towns: bool = False
+    num_vehicles: int = 0
+    num_pedestrians: int = 0
+    v_max: int = 1                      # NPC slots (static shapes)
+    p_max: int = 1
+    # walker crossing / running fractions (reference spawn_pedestrians,
+    # env_utils.py:233-241; every reference stage leaves both at 0)
+    ped_crossing: float = 0.0
+    ped_running: float = 0.0
     weather_ids: Tuple[int, ...] = (0,)  # indices into weather.WEATHER_NAMES
     collision_penalty: float = 1000.0
     off_road_penalty_divisor: float = 100.0
@@ -103,6 +150,11 @@ class WorldParams:
     force_green_lights: bool = True
     seed: int = 42
 
+    @property
+    def has_npcs(self) -> bool:
+        """Whether any NPC slot can be active; without, no NPC state exists."""
+        return self.num_vehicles > 0 or self.num_pedestrians > 0
+
 
 # Forward route window gathered per physics step: update_index's look-ahead.
 UPDATE_WINDOW = 10
@@ -115,15 +167,7 @@ def build_world_data(params: WorldParams, device) -> Tuple[TownDev, RoutesDev]:
     def dev(a):
         return torch.as_tensor(np.asarray(a), device=device)
 
-    town = TownDev(
-        wp_speed_limit=dev(bank.wp_speed_limit),
-        junction_xy=dev(bank.junction_xy),
-        junction_phase=dev(bank.junction_phase),
-        num_junctions=dev(bank.num_junctions.astype(np.int64)),
-        road_half=dev(bank.road_half),
-        cell_segs=dev(bank.cell_segs),
-        cell_geom=dev(bank.cell_geom),
-    )
+    town = town_dev(bank, device)
     banks = [route_mod.build_route_bank(
         town_mod.get_town(name), num_routes=params.num_routes,
         max_len=params.max_route_len,
@@ -147,10 +191,37 @@ def build_world_data(params: WorldParams, device) -> Tuple[TownDev, RoutesDev]:
     return town, routes
 
 
+def town_dev(bank: town_mod.TownBank, device) -> TownDev:
+    """The bank's tables that the world reads, on `device`."""
+    def dev(a, dtype=None):
+        a = np.asarray(a)
+        return torch.as_tensor(a.astype(dtype) if dtype else a, device=device)
+
+    i64 = np.int64
+    return TownDev(
+        wp_xy=dev(bank.wp_xy), wp_yaw=dev(bank.wp_yaw),
+        wp_speed_limit=dev(bank.wp_speed_limit),
+        wp_next=dev(bank.wp_next, i64), wp_num_next=dev(bank.wp_num_next, i64),
+        wp_junction_id=dev(bank.wp_junction_id, i64),
+        wp_dist_to_junction=dev(bank.wp_dist_to_junction),
+        wp_left=dev(bank.wp_left, i64), wp_right=dev(bank.wp_right, i64),
+        num_wp=dev(bank.num_wp, i64),
+        junction_xy=dev(bank.junction_xy),
+        junction_phase=dev(bank.junction_phase),
+        num_junctions=dev(bank.num_junctions, i64),
+        road_half=dev(bank.road_half),
+        cell_segs=dev(bank.cell_segs),
+        cell_geom=dev(bank.cell_geom),
+        spawn_xy=dev(bank.spawn_xy), spawn_yaw=dev(bank.spawn_yaw),
+        spawn_wp=dev(bank.spawn_wp, i64), num_spawn=dev(bank.num_spawn, i64),
+    )
+
+
 def reset_draws(gen: torch.Generator, n: int, params: WorldParams,
-                routes: RoutesDev) -> ResetDraws:
+                routes: RoutesDev, town: Optional[TownDev] = None) -> ResetDraws:
     """Draw town, weather, route and light-clock offset for `n` fresh
-    episodes from `gen` (which lives on the device of `routes`)."""
+    episodes from `gen` (which lives on the device of `routes`), then, in a
+    configuration with NPCs, their spawn from the `town` tables."""
     device = routes.length.device
     n_towns = len(params.town_names)
     if params.random_towns and n_towns > 1:
@@ -163,8 +234,17 @@ def reset_draws(gen: torch.Generator, n: int, params: WorldParams,
     route_id = torch.randint(0, routes.length.shape[1], (n,), generator=gen,
                              device=device)
     sim_time = torch.rand(n, generator=gen, device=device) * traffic.LIGHT_CYCLE
+    npc = (traffic.npc_reset_draws(gen, _npc_town(params, town), town_id, params.v_max,
+                                   params.p_max) if params.has_npcs else None)
     return ResetDraws(town_id=town_id, weather_id=w_ids[w_pick],
-                      route_id=route_id, sim_time=sim_time)
+                      route_id=route_id, sim_time=sim_time, npc=npc)
+
+
+def _npc_town(params: WorldParams, town: Optional[TownDev]) -> TownDev:
+    if town is None:
+        raise ValueError(f"{params.num_vehicles} vehicles and {params.num_pedestrians} "
+                         f"pedestrians: the NPC draws and spawn need the town tables")
+    return town
 
 
 def block_reset_draws(gen: torch.Generator, k: int, n: int, params: WorldParams,
@@ -190,31 +270,58 @@ def block_reset_draws(gen: torch.Generator, k: int, n: int, params: WorldParams,
                       sim_time=u[3] * traffic.LIGHT_CYCLE)
 
 
-def trial_draws(seed: int, n: int, params: WorldParams, routes: RoutesDev) -> ResetDraws:
+def trial_draws(seed: int, n: int, params: WorldParams, routes: RoutesDev,
+                town: Optional[TownDev] = None) -> ResetDraws:
     """The reset draws of evaluation trials 0 .. n-1, trial i from its own
     stream keyed by (seed, i) (numpy's SeedSequence), as the JAX package
     folds the trial index into its reset key: trial i's town, weather,
-    route and light-clock offset do not depend on n."""
+    route, light-clock offset and, with NPCs, its NPC spawn (uniforms drawn
+    after the other four, scaled by the `town` tables) do not depend on n."""
     n_towns, n_routes = len(params.town_names), routes.length.shape[1]
-    rows = []
+    rows, u_spawn, u_ped = [], [], []
     for i in range(n):
         rng = np.random.default_rng((seed, i))
-        town = int(rng.integers(n_towns)) if params.random_towns and n_towns > 1 else 0
+        town_i = int(rng.integers(n_towns)) if params.random_towns and n_towns > 1 else 0
         weather = params.weather_ids[int(rng.integers(len(params.weather_ids)))]
-        rows.append((town, weather, int(rng.integers(n_routes)),
+        rows.append((town_i, weather, int(rng.integers(n_routes)),
                      float(rng.random()) * traffic.LIGHT_CYCLE))
-    town, weather, route, sim_time = zip(*rows)
-    col = lambda v, dt: torch.tensor(v, dtype=dt, device=routes.length.device)
-    return ResetDraws(town_id=col(town, torch.int64), weather_id=col(weather, torch.int64),
-                      route_id=col(route, torch.int64), sim_time=col(sim_time, torch.float32))
+        if params.has_npcs:
+            u_spawn.append(rng.random(params.v_max))
+            u_ped.append(rng.random((9, params.p_max)))
+    town_id, weather, route, sim_time = zip(*rows)
+    device = routes.length.device
+    col = lambda v, dt: torch.tensor(v, dtype=dt, device=device)
+    town_id = col(town_id, torch.int64)
+    npc = None
+    if params.has_npcs:
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=device)
+        npc = traffic.npc_reset_draws_from_uniforms(
+            f32(u_spawn), f32(u_ped).transpose(0, 1), _npc_town(params, town), town_id)
+    return ResetDraws(town_id=town_id, weather_id=col(weather, torch.int64),
+                      route_id=col(route, torch.int64), sim_time=col(sim_time, torch.float32),
+                      npc=npc)
 
 
 def reset_world(draws: ResetDraws, routes: RoutesDev,
-                episode: torch.Tensor | int = 0) -> WorldState:
+                episode: torch.Tensor | int = 0, town: Optional[TownDev] = None,
+                params: Optional[WorldParams] = None) -> WorldState:
     """Fresh episodes from `draws`: the ego stands at rest at the start of
-    its route (reference environment.py:226-242,487-529)."""
+    its route, and the NPCs of `draws.npc` spawn around it (reference
+    environment.py:226-242,487-529); NPC draws need the `town` tables and
+    the `params`, whose NPC counts they must match."""
     s_row = tgather(routes.start, draws.town_id, draws.route_id)   # (B, 4)
     n = s_row.shape[0]
+    npc = None
+    if params is not None and params.has_npcs != (draws.npc is not None):
+        raise ValueError(f"{params.num_vehicles} vehicles and {params.num_pedestrians} "
+                         f"pedestrians, but the draws hold "
+                         f"{'no' if draws.npc is None else 'an'} NPC spawn")
+    if draws.npc is not None:
+        if params is None:
+            raise ValueError("an NPC spawn needs the params")
+        npc = traffic.init_npcs(draws.npc, _npc_town(params, town), draws.town_id,
+                                s_row[:, :2], params.num_vehicles, params.num_pedestrians,
+                                crossing=params.ped_crossing, running=params.ped_running)
     zeros = torch.zeros(n, dtype=torch.float32, device=s_row.device)
     izeros = torch.zeros(n, dtype=torch.int64, device=s_row.device)
     s_cols = s_row[:, :3].t().contiguous()                          # (3, B)
@@ -228,6 +335,7 @@ def reset_world(draws: ResetDraws, routes: RoutesDev,
         episode=izeros + torch.as_tensor(episode, device=s_row.device),
         total_reward=zeros, collision_penalty=zeros,
         should_terminate=torch.zeros(n, dtype=torch.bool, device=s_row.device),
+        npc=npc,
     )
 
 
@@ -237,7 +345,9 @@ def where_state(cond: torch.Tensor, a, b):
     field's trailing axes."""
     out = []
     for fa, fb in zip(a, b):
-        if isinstance(fa, tuple):
+        if fa is None:
+            out.append(None)
+        elif isinstance(fa, tuple):
             out.append(where_state(cond, fa, fb))
         else:
             c = cond.reshape(cond.shape + (1,) * (fa.dim() - 1))
@@ -274,9 +384,11 @@ def _route_window(routes: RoutesDev, town_id, route_id, wp_idx, n: int):
 
 
 def step_world(state: WorldState, action: torch.Tensor, params: WorldParams,
-               town: TownDev, routes: RoutesDev):
-    """One tick of every world.  Returns (state', reward, terminated,
-    truncated, info)."""
+               town: TownDev, routes: RoutesDev,
+               npc_draws: Optional[traffic.NPCStepDraws] = None):
+    """One tick of every world: the ego's bicycle step, then, with NPCs,
+    the NPC tick from `npc_draws` against the ego's new pose and speed.
+    Returns (state', reward, terminated, truncated, info)."""
     rc = params.range_controls
     control = dynamics.actions_to_control(
         action, state.v,
@@ -285,6 +397,13 @@ def step_world(state: WorldState, action: torch.Tensor, params: WorldParams,
         range_throttle=rc[0], range_brake=rc[1], range_steer=rc[2])
     x, y, yaw, v = dynamics.step_bicycle(state.x, state.y, state.yaw, state.v,
                                          control)
+    npc = state.npc
+    if params.has_npcs:
+        # the NPCs tick in lock-step (replaces the TrafficManager fleet)
+        if npc is None or npc_draws is None:
+            raise ValueError("a world with NPCs steps from its NPC state and NPC draws")
+        npc = traffic.step_npcs(npc_draws, npc, town, state.town_id, state.sim_time,
+                                torch.stack([x, y], dim=-1), v)
 
     # route following over a forward window (navigation/route.py:33-53)
     w_row, rem = _route_window(routes, state.town_id, state.route_id,
@@ -299,8 +418,9 @@ def step_world(state: WorldState, action: torch.Tensor, params: WorldParams,
     end_xy = tgather(routes.end_xy, state.town_id, state.route_id)
     d_dest = route_mod.distance(end_xy, pos)
 
-    # collisions: zero NPCs, so only the static off-road check
-    # (core/carla_env.py:254-269); the threshold widens with the road band
+    # collisions (core/carla_env.py:254-269): NPC vehicles and pedestrians,
+    # and static obstacles past the off-road threshold, which widens with
+    # the road band
     off_road = off_road_distance(town, state.town_id, x, y)
     off_road_thr = (params.off_road_threshold
                     + (tgather(town.road_half, state.town_id)
@@ -308,9 +428,18 @@ def step_world(state: WorldState, action: torch.Tensor, params: WorldParams,
     hit_other = off_road > off_road_thr
     pen = params.collision_penalty
     zero = torch.zeros_like(x)
-    collision_penalty = torch.where(
-        hit_other, zero + pen / params.off_road_penalty_divisor, zero)
-    should_terminate = hit_other
+    if npc is None:
+        collision_penalty = torch.where(
+            hit_other, zero + pen / params.off_road_penalty_divisor, zero)
+        should_terminate = hit_other
+        hit_veh = hit_ped = torch.zeros_like(hit_other)
+    else:
+        hit_veh, hit_ped = traffic.collision_check(pos, yaw, npc)
+        collision_penalty = (torch.where(hit_ped, pen, 0.0)
+                             + torch.where(hit_veh, pen / 2.0, 0.0)
+                             + torch.where(hit_other, pen / params.off_road_penalty_divisor,
+                                           0.0))
+        should_terminate = hit_veh | hit_ped | hit_other
 
     # default CARLAEnv reward (core/carla_env.py:182-202)
     spd_kmh = dynamics.speed_kmh(v)
@@ -336,12 +465,14 @@ def step_world(state: WorldState, action: torch.Tensor, params: WorldParams,
         episode=state.episode,
         total_reward=state.total_reward + reward,
         collision_penalty=collision_penalty, should_terminate=should_terminate,
+        npc=npc,
     )
     info = dict(
         speed=spd_kmh, similarity=similarity, distance_to_next_waypoint=d_next,
         distance_to_destination=d_dest, reward=reward,
         total_reward=new_state.total_reward, collision=should_terminate,
-        hit_other=hit_other, off_road_distance=off_road,
+        hit_vehicle=hit_veh, hit_pedestrian=hit_ped, hit_other=hit_other,
+        off_road_distance=off_road,
     )
     return new_state, reward, terminated, truncated, info
 

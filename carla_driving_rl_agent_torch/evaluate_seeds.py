@@ -1,4 +1,4 @@
-"""Evaluate a checkpoint on one no-traffic scenario at several seeds and
+"""Evaluate a checkpoint on one scenario at several seeds and
 hold each seed's six means against the reference's recorded evaluation of
 that scenario at seed 42 (test mode, 512 steps, 50 trials, the record
 shape under weights/<weights>/evaluation/): z = (port - record) / SE, with
@@ -6,7 +6,8 @@ SE the record's standard deviation over the square root of its trials.
 chip_smoke.py's slice phases read their z-scores with `z_score` too.
 
     python -m carla_driving_rl_agent_torch.evaluate_seeds \
-        [--weights safe-s5] [--town Town03] [--seeds 42 43 44 45 46] [--records DIR]
+        [--weights safe-s5] [--town Town03] [--traffic no|regular|dense] \
+        [--seeds 42 43 44 45 46] [--records DIR]
 
 Runs on the card.  The records go to a temporary directory, or to DIR with
 --records (never under weights/).  The last line is a JSON object with the
@@ -74,6 +75,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--weights", default="safe-s5")
     ap.add_argument("--town", default="Town03")
+    ap.add_argument("--traffic", default="no", choices=tuple(stages.TRAFFIC_SPECS))
     ap.add_argument("--seeds", type=int, nargs="+", default=[42, 43, 44, 45, 46])
     ap.add_argument("--records", help="keep the records in this directory")
     ap.add_argument("--compare", nargs=2, metavar=("A", "B"),
@@ -83,14 +85,15 @@ def main(argv=None) -> dict:
         return compare(*args.compare)
     if not torch.cuda.is_available():
         raise SystemExit("evaluate_seeds: no CUDA device is available")
-    name = f"{args.weights}-{MODE}-{STEPS}-{TRIALS}-{args.town}-no"
+    name = f"{args.weights}-{MODE}-{STEPS}-{TRIALS}-{args.town}-{args.traffic}"
     with open(os.path.join(REPO_ROOT, "weights", args.weights, "evaluation",
                            f"{name}-{RECORD_SEED}.json")) as f:
         ref = json.load(f)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    agent = stages.build_eval_agent(MODE, args.town, STEPS, args.weights, device="cuda")
+    agent = stages.build_eval_agent(MODE, args.town, STEPS, args.weights, device="cuda",
+                                    traffic=args.traffic)
     out = dict(weights=args.weights, scenario=name, record_seed=RECORD_SEED, card=card, seeds={})
     with tempfile.TemporaryDirectory() as tmp:
         for seed in args.seeds:

@@ -2,7 +2,7 @@
 PyTorch versions.
 
 Counterpart of carla_driving_rl_agent_tpu/ops/physics_pallas.py.  One call
-advances every world of a zero-NPC configuration by one tick and restarts
+advances every world of a configuration without NPCs by one tick and restarts
 the worlds whose episode ended from pre-drawn reset values: it computes what
 envs/world.step_world followed by the auto-reset merge of
 CARLAEnv.step_physics computes, and returns the same
@@ -27,6 +27,12 @@ JAX package.
 The reset draws are inputs (ResetDraws for every world and tick, used where
 the episode ended), drawn beforehand from the env's generator, so that the
 kernel and the plain version take identical inputs.
+
+The kernel computes worlds without NPCs: `step_physics_batch` and
+`step_physics_block` raise on a configuration with NPCs, on every device
+(the JAX package quietly takes its XLA step there).  Its plain single tick
+steps NPC worlds too, from the tick's NPC draws; the plain block raises on
+them until the NPC ticks of a block are drawn as one.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from carla_driving_rl_agent_torch.envs import town as town_mod
+from carla_driving_rl_agent_torch.envs import town as town_mod, traffic
 from carla_driving_rl_agent_torch.envs import world as world_mod
 from carla_driving_rl_agent_torch.envs.dynamics import DT
 from carla_driving_rl_agent_torch.envs.world import (
@@ -60,15 +66,26 @@ _I64_STATE = ("route_id", "wp_idx", "town_id", "weather_id", "timestep", "episod
 
 def step_physics_batch_plain(world: WorldState, action: torch.Tensor,
                              params: WorldParams, town: TownDev,
-                             routes: RoutesDev, draws: ResetDraws):
-    """The plain PyTorch version: step_world, then the worlds that ended
-    restart from `draws`.  Returns (world', reward, terminated, truncated,
-    info, was_reset)."""
+                             routes: RoutesDev, draws: ResetDraws,
+                             npc_draws: Optional[traffic.NPCStepDraws] = None):
+    """The plain PyTorch version: step_world (with the NPC tick's draws in
+    a configuration with NPCs), then the worlds that ended restart from
+    `draws`.  Returns (world', reward, terminated, truncated, info,
+    was_reset)."""
     w, reward, term, trunc, info = world_mod.step_world(world, action, params,
-                                                        town, routes)
+                                                        town, routes, npc_draws)
     done = term | trunc
-    fresh = world_mod.reset_world(draws, routes, episode=w.episode + 1)
+    fresh = world_mod.reset_world(draws, routes, episode=w.episode + 1, town=town,
+                                  params=params)
     return world_mod.where_state(done, fresh, w), reward, term, trunc, info, done
+
+
+def _zero_npcs(params: WorldParams, what: str) -> None:
+    if params.has_npcs:
+        raise NotImplementedError(
+            f"{what} steps worlds without NPCs; this configuration has "
+            f"{params.num_vehicles} vehicles and {params.num_pedestrians} pedestrians "
+            f"(step them per tick: CARLAEnv.step or step_physics)")
 
 
 def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
@@ -77,11 +94,14 @@ def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
     """The plain version of `step_physics_block`: K calls of
     step_physics_batch_plain, tick k with actions[k] and the k-th row of
     each draw.  Returns (world', reward, terminated, truncated, info
-    {speed, similarity}, was_reset), each row (K, B)."""
+    {speed, similarity}, was_reset), each row (K, B).  Raises on a
+    configuration with NPCs."""
+    _zero_npcs(params, "the physics block")
     rows = []
     for k in range(actions.shape[0]):
         world, reward, term, trunc, info, done = step_physics_batch_plain(
-            world, actions[k], params, town, routes, ResetDraws(*(d[k] for d in draws)))
+            world, actions[k], params, town, routes,
+            world_mod.map_tensors(lambda d: d[k], draws))
         rows.append((reward, term, trunc, info["speed"], info["similarity"], done))
     reward, term, trunc, speed, similarity, done = (torch.stack(r) for r in zip(*rows))
     return world, reward, term, trunc, dict(speed=speed, similarity=similarity), done
@@ -203,8 +223,9 @@ def _pack(world: WorldState, actions: torch.Tensor, consts: PhysicsConsts,
 
 
 def _unpack_state(state, consts: Optional[PhysicsConsts] = None) -> WorldState:
-    """The state rows as a WorldState; `consts` remembers it and its
-    fields' addresses for the next call."""
+    """The state rows as a WorldState (whose `npc` is None: the kernel
+    steps worlds without NPCs); `consts` remembers it and its fields'
+    addresses for the next call."""
     f, i, b = (dict(zip(names, t.unbind(0))) for names, t in zip(
         (STATE_F, INT_OUT, STATE_B), state))
     world = WorldState(
@@ -229,13 +250,14 @@ def _unpack_tick(state, ticks, consts: Optional[PhysicsConsts] = None):
     """step_physics_batch's returns from a one-tick launch."""
     f = dict(zip(TICK_F, ticks[0][:, 0].unbind(0)))
     b = dict(zip(TICK_B, ticks[1][:, 0].unbind(0)))
+    no_npc = torch.zeros_like(b["hit_other"])      # the kernel's worlds have no NPCs
     info = dict(
         speed=f["speed"], similarity=f["similarity"],
         distance_to_next_waypoint=f["distance_to_next_waypoint"],
         distance_to_destination=f["distance_to_destination"],
         reward=f["reward"], total_reward=f["total_reward"],
-        collision=b["hit_other"], hit_other=b["hit_other"],
-        off_road_distance=f["off_road_distance"])
+        collision=b["hit_other"], hit_vehicle=no_npc, hit_pedestrian=no_npc,
+        hit_other=b["hit_other"], off_road_distance=f["off_road_distance"])
     return (_unpack_state(state, consts), f["reward"], b["terminated"], b["truncated"], info,
             b["done"])
 
@@ -307,13 +329,16 @@ def step_physics_batch(world: WorldState, action: torch.Tensor,
     current stream (and count the launch in `step_physics_batch.launches`);
     CPU tensors run `step_physics_batch_plain`.  Anything else raises.
     `consts` is the env's PhysicsConsts of (params, town, routes), packed
-    here when not given."""
+    here when not given.  Raises on a configuration with NPCs, on every
+    device."""
+    _zero_npcs(params, "the physics kernel")
     dev = _device(world)
     if dev.type == "cpu":
         return step_physics_batch_plain(world, action, params, town, routes, draws)
     consts = consts or PhysicsConsts(params, town, routes)
     args, state, ticks = _pack(world, action[None], consts,
-                               ResetDraws(*(d[None] for d in draws)), len(TICK_F), len(TICK_B))
+                               world_mod.map_tensors(lambda d: d[None], draws),
+                               len(TICK_F), len(TICK_B))
     _run(_kernel_lib().cdrl_physics_step, args, dev)
     step_physics_batch.launches += int(args.n_worlds > 0)
     return _unpack_tick(state, ticks, consts)
@@ -332,7 +357,9 @@ def step_physics_block(world: WorldState, actions: torch.Tensor,
 
     CUDA tensors launch the kernel of csrc/physics.cu once for all K ticks
     (counted in `step_physics_block.launches`); CPU tensors run
-    `step_physics_block_plain`.  Anything else raises."""
+    `step_physics_block_plain`.  Anything else raises, and so does a
+    configuration with NPCs."""
+    _zero_npcs(params, "the physics kernel")
     dev = _device(world)
     if dev.type == "cpu":
         return step_physics_block_plain(world, actions, params, town, routes, draws)
@@ -363,8 +390,8 @@ def step_physics_host(world: WorldState, action: torch.Tensor,
     through its g++ build, for the tests; same returns as
     step_physics_batch."""
     return _unpack_tick(*_host(world, action[None], params, town, routes,
-                               ResetDraws(*(d[None] for d in draws)), len(TICK_F),
-                               len(TICK_B)))
+                               world_mod.map_tensors(lambda d: d[None], draws),
+                               len(TICK_F), len(TICK_B)))
 
 
 def step_physics_block_host(world: WorldState, actions: torch.Tensor,

@@ -3,9 +3,10 @@ wrapper, and its plain PyTorch version.
 
 Counterpart of carla_driving_rl_agent_tpu/ops/rasterizer_pallas.py.  Per
 world, a 176-float geometry pack (the 12 nearest road segments, 8 buildings,
-4 junctions, up to 8 actor billboards, the ego pose, 5 weather scalars and
-the road half-width) is ray-cast through the 8100 pixels of three half-res
-45x60 views (left, front, right) through a constant per-pixel ray LUT.
+4 junctions, up to 8 actor billboards of the nearest NPCs, the ego pose, 5
+weather scalars and the road half-width) is ray-cast through the 8100
+pixels of three half-res 45x60 views (left, front, right) through a
+constant per-pixel ray LUT.
 
 The output is the environment's planar frame storage, (B, C, 45, 180) uint8
 with the three views side by side, C = 3 (RGB) or 4 (+ log-depth, kept for
@@ -144,17 +145,63 @@ def lut_tensors(device) -> Dict[str, torch.Tensor]:
 # geometry packs
 # ------------------------------------------------------------------
 
-def pack_geometry_banked(town, world, weather: torch.Tensor) -> torch.Tensor:
+def nearest_k(xy: torch.Tensor, center: torch.Tensor, valid: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """(B, k) indices of the k points of `xy` (B, N, 2) nearest to `center`
+    (B, 2), invalid ones last (at 1e9), the lower index first on a tie, as
+    the JAX package's lax.top_k(-d) orders them."""
+    d = xy - center[:, None]
+    d = torch.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1])
+    d = torch.where(valid, d, torch.full_like(d, 1e9))
+    return torch.sort(d, dim=1, stable=True).indices[:, :min(k, xy.shape[1])]
+
+
+# vehicle billboard colours by NPC slot mod 6, and the walkers' colour
+VEHICLE_COLORS = ((180, 30, 30), (30, 60, 180), (220, 220, 220), (40, 40, 40),
+                  (200, 170, 40), (90, 140, 190))
+WALKER_COLOR = (190.0, 120.0, 90.0)
+
+
+def actor_rows(npc, ego_xy: torch.Tensor) -> torch.Tensor:
+    """(B, K_ACTORS, 8) actor block of the packs: the 4 nearest active
+    vehicles, then the 4 nearest active walkers (fewer if there are fewer
+    slots), each [x, y, ok, half_width, top, r, g, b], then zero rows."""
+    half = K_ACTORS // 2
+    dev = ego_xy.device
+
+    def rows(xy, active, idx, hw, ht, colors):
+        b, k = idx.shape
+        sel = lambda t: torch.gather(t, 1, idx)          # noqa: E731
+        xy_k = torch.gather(xy, 1, idx[..., None].expand(b, k, 2))
+        consts = torch.tensor([hw, ht], dtype=torch.float32, device=dev).expand(b, k, 2)
+        return torch.cat([xy_k, sel(active)[..., None], consts, colors], dim=-1)
+
+    v_idx = nearest_k(npc.veh_xy, ego_xy, npc.veh_active > 0, half)
+    p_idx = nearest_k(npc.ped_xy, ego_xy, npc.ped_active > 0, half)
+    palette = torch.tensor(VEHICLE_COLORS, dtype=torch.float32, device=dev)
+    walker = torch.tensor(WALKER_COLOR, dtype=torch.float32, device=dev)
+    block = torch.cat([
+        rows(npc.veh_xy, npc.veh_active, v_idx, 1.0, 1.6, palette[v_idx % len(VEHICLE_COLORS)]),
+        rows(npc.ped_xy, npc.ped_active, p_idx, 0.3, 1.8, walker.expand(p_idx.shape + (3,)))],
+        dim=1)
+    return torch.nn.functional.pad(block, (0, 0, 0, K_ACTORS - block.shape[1]))
+
+
+def pack_geometry_banked(town, world, weather: torch.Tensor, n_actors: int = 0) -> torch.Tensor:
     """(B, GEOM_PAD) packs straight from the town bank and the world state:
-    one per-cell row of the static prefix (envs/town.cell_geom), an all-zero
-    actor block (no NPCs in this configuration), then the ego pose, weather
-    (B, 5) and road half-width."""
+    one per-cell row of the static prefix (envs/town.cell_geom), the actor
+    block (`actor_rows` of world.npc; all zero with `n_actors` 0, in a
+    configuration without NPCs, whose kernel skips the actors), then the
+    ego pose, weather (B, 5) and road half-width."""
     gh, gw = town.cell_geom.shape[1], town.cell_geom.shape[2]
     cx = torch.clamp((world.x / town_mod.CELL_RES).to(torch.int64), 0, gw - 1)
     cy = torch.clamp((world.y / town_mod.CELL_RES).to(torch.int64), 0, gh - 1)
     static_prefix = tgather(town.cell_geom, world.town_id, cy, cx)   # (B, 96)
-    actors = torch.zeros(world.x.shape[0], K_ACTORS * 8,
-                         dtype=torch.float32, device=world.x.device)
+    if n_actors:
+        actors = actor_rows(world.npc, torch.stack([world.x, world.y], dim=-1)).flatten(1)
+    else:
+        actors = torch.zeros(world.x.shape[0], K_ACTORS * 8,
+                             dtype=torch.float32, device=world.x.device)
     return _assemble_geom(static_prefix, actors, world, weather,
                           tgather(town.road_half, world.town_id))
 

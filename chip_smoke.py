@@ -25,14 +25,22 @@ Phases, each printed with its seconds:
                CUDA events, its device time per launch from a CUDA graph of
                repeated calls, the host's time per call, the bound (counted
                over what these inputs need: pixel_kinds) and its share;
-               one device launch per call, counted in a CUDA graph;
+               one device launch per call, counted in a CUDA graph; then
+               the same on real traffic packs: 62 Town03 worlds with dense
+               traffic (100 vehicles, 200 walkers) after 30 steps, their
+               8 actor rows the nearest NPCs;
   5. agree   — the env stepped on the GPU and on the CPU from the same
                draws and actions, and the network's outputs on both, on a
-               small input;
+               small input; then a dense-traffic Town03 batch the same way,
+               its NPC state, collision flags and frames compared;
   6. slice   — the shipped evaluation of safe-s5 on Town03 without traffic
                (test weathers, seed 42, 512 steps, 50 trials), its six means
                beside the recorded ones, the render launch count and the
                env-steps/s;
+  6b. slice_traffic — the same evaluation with regular (50 vehicles, 50
+               walkers) and then dense (100, 200) traffic, beside the
+               recorded Town03 regular and dense evaluations, with the
+               collisions by type and the NPCs each world starts with;
   7. physics — the physics kernel against its plain PyTorch version on
                Town03 at 32 and 1024 worlds, 24-step episodes so that worlds
                reset: one tick per call (`step_physics_batch`) for 40 steps
@@ -70,13 +78,17 @@ Phases, each printed with its seconds:
  12. slice_fused — the safe-s5 evaluation of phase 6 with fused_units=True:
                its six means beside the record and beside phase 6, and 13
                inference-kernel launches per predict;
+ 12b. slice_traffic_fused — the dense-traffic evaluation of phase 6b with
+               fused_units=True, beside the record and phase 6b;
  13. train_fused — the stage-s1 epoch of phase 9 with fused_units=True: the
                same numbers, plus the unit kernels' launches per update and
                per minibatch;
  14. train_agree_fused — phase 10 with fused_units=True: the unit kernels on
                the card against the plain versions on the CPU.
-With --profile, a last phase breaks an evaluation window and one training
-update down by kernel (torch.profiler), with and without fused units.
+With --profile, a last phase breaks an evaluation window (without and with
+dense traffic, where it also times the NPC tick and spawn) and one
+training update down by kernel (torch.profiler), with and without fused
+units.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after.  The line before the last lists every ported kernel
@@ -166,8 +178,16 @@ WEIGHTS = "safe-s5"
 SEED = 42
 STEPS = 512
 TRIALS = 50
-REFERENCE = os.path.join("weights", WEIGHTS, "evaluation",
-                         f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{TOWN}-no-{SEED}.json")
+TRAFFIC_LEVELS = ("regular", "dense")
+
+
+def scenario(traffic: str = "no") -> str:
+    """The evaluation's record name of the Town03 scenario with `traffic`."""
+    return f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{TOWN}-{traffic}-{SEED}"
+
+
+def reference(traffic: str = "no") -> str:
+    return os.path.join("weights", WEIGHTS, "evaluation", f"{scenario(traffic)}.json")
 METRICS = ("collision_rate", "similarity", "waypoint_distance", "speed",
            "total_reward", "timesteps")
 ENV_WORLDS, ENV_CHUNK, ENV_CHUNKS = 1024, 32, 5
@@ -546,6 +566,99 @@ def kernel_phase(env, kernels: dict) -> dict:
                 helper_mismatches=helpers, sass=sass)
 
 
+TRAFFIC_RENDER_WORLDS, TRAFFIC_RENDER_STEPS = 62, 30
+
+
+def traffic_render_check(env) -> dict:
+    """The render kernel against its plain version on real traffic packs:
+    TRAFFIC_RENDER_WORLDS worlds of `env` (Town03, dense traffic) after
+    TRAFFIC_RENDER_STEPS steps of random driving, their actor rows the
+    nearest NPCs; exact on RENDER_EXACT of the values and within 2 u8 on
+    > 99 %, then timed as in kernel_phase beside its bound."""
+    from carla_driving_rl_agent_torch.ops import render as R
+    n, actors = TRAFFIC_RENDER_WORLDS, env.n_actors
+    env.seed(11)
+    states, _ = env.reset_batch(n)
+    gen = torch.Generator(device=env.device).manual_seed(12)
+    lo = torch.tensor([0.0, -0.3], device=env.device)
+    span = torch.tensor([1.0, 0.6], device=env.device)
+    for _ in range(TRAFFIC_RENDER_STEPS):
+        states, *_ = env.step(states, lo + span * torch.rand((n, 2), generator=gen,
+                                                             device=env.device))
+    w = states.world
+    g = R.pack_geometry_banked(env.town, w, env.weather_params[w.weather_id],
+                               n_actors=actors).contiguous()
+    out_k = R.render_planes(g, n_actors=actors)
+    out_p = R.render_planes_plain(g, n_actors=actors)
+    diff = (out_k.to(torch.int32) - out_p.to(torch.int32)).abs()
+    within, exact = float((diff <= 2).float().mean()), float((diff == 0).float().mean())
+    ok = g[:, R._O_ACT + 2:R._O_ACT + 8 * actors:8]
+    print(f"  render {n} worlds, dense traffic after {TRAFFIC_RENDER_STEPS} steps, {actors} "
+          f"actor rows ({float(ok.sum()) / n:.2f} active per world): exact {exact:.7f}, "
+          f"|diff|<=2 {within:.7f}, max |diff| {int(diff.max())}", flush=True)
+    check(within > 0.99, f"render kernel vs plain on traffic packs: {within:.6f} within 2")
+    check(exact >= RENDER_EXACT, f"render kernel vs plain on traffic packs: {exact:.7f} exact")
+    call = lambda: R.render_planes(g, n_actors=actors)  # noqa: E731
+    ms = cuda_ms(call, iters=200, warmup=10)
+    device_ms = graph_ms(call)
+    plain_ms = cuda_ms(lambda: R.render_planes_plain(g, n_actors=actors), iters=20)
+    bound, by = render_bound_ms(g, n_actors=actors)
+    kinds = pixel_kinds(g, actors)
+    print(f"  render {n} worlds, traffic: kernel {ms:.6f} ms per call, device {device_ms:.6f} "
+          f"ms per launch; plain {plain_ms:.6f} ms; bound {bound:.6f} ms ({by}), "
+          f"{bound / device_ms:.3f} of the device time ({kinds['actor'] / (n * R.N_PIX):.4f} "
+          f"of pixels show an actor, {kinds['live']} live billboards)", flush=True)
+    return dict(worlds=n, n_actors=actors, exact_share=exact, within2_share=within,
+                max_abs_err=int(diff.max()), active_per_world=float(ok.sum()) / n, ms=ms,
+                device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                bound_share=bound / device_ms, pixel_kinds=kinds)
+
+
+def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
+    """GPU vs CPU with NPC traffic: the env `gpu` (Town03, dense) and its
+    CPU twin stepped from the same reset, NPC-tick and auto-reset draws and
+    actions; NPC indices and masks, the collision flags and the terminated
+    flags equal, NPC floats within 1e-3 (float32 trig of the two devices
+    differs in the last bits), rewards as in agree_phase, frames within 2
+    u8 on > 99 %."""
+    from carla_driving_rl_agent_torch.envs import world as world_mod
+    from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
+    cpu_env = CARLAEnv(gpu.config, device="cpu")
+    to_cpu = lambda d: world_mod.map_tensors(lambda t: t.cpu(), d)  # noqa: E731
+    rng = np.random.default_rng(1)
+    gpu.seed(3)
+    dg = gpu.reset_draws(n)
+    sg, _ = gpu.reset(dg)
+    sc, _ = cpu_env.reset(to_cpu(dg))
+    worst_img, worst_npc = 1.0, 0.0
+    for i in range(steps + 1):
+        for f, x, y in zip(sg.world.npc._fields, sg.world.npc, sc.world.npc):
+            if f in ("veh_wp", "veh_active", "ped_active", "ped_cross"):
+                check(torch.equal(x.cpu(), y), f"NPC {f} GPU vs CPU at step {i}")
+            else:
+                err = float((x.cpu() - y).abs().max())
+                worst_npc = max(worst_npc, err)
+                check(err <= 1e-3, f"NPC {f} GPU vs CPU at step {i}: max |diff| {err}")
+        if i == steps:
+            break
+        a = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32))
+        nd, dg = gpu.npc_step_draws(sg.world), gpu.reset_draws(n)
+        sg, _, rg, tg, _, ig = gpu.step(sg, a.to(gpu.device), draws=dg, npc_draws=nd)
+        sc, _, rc, tc, _, ic = cpu_env.step(sc, a, draws=to_cpu(dg), npc_draws=to_cpu(nd))
+        check(torch.equal(tg.cpu(), tc), "terminated flags GPU vs CPU with traffic")
+        for k in ("hit_vehicle", "hit_pedestrian", "hit_other"):
+            check(torch.equal(ig[k].cpu(), ic[k]), f"{k} GPU vs CPU")
+        check(torch.allclose(rg.cpu(), rc, rtol=1e-5, atol=1e-4),
+              f"rewards GPU vs CPU with traffic: {(rg.cpu() - rc).abs().max()}")
+        diff = (sg.image_stack.cpu().to(torch.int32) - sc.image_stack.to(torch.int32)).abs()
+        worst_img = min(worst_img, float((diff <= 2).float().mean()))
+    check(worst_img > 0.99, f"image stacks GPU vs CPU with traffic: {worst_img:.6f} within 2")
+    npc = sg.world.npc
+    print(f"  dense traffic {steps} steps x {n} worlds ({float(npc.veh_active.sum()) / n:.1f} "
+          f"vehicles, {float(npc.ped_active.sum()) / n:.1f} walkers per world): NPC floats "
+          f"max |diff| {worst_npc:.3e}, images within 2 u8 {worst_img:.6f}", flush=True)
+
+
 def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
     """GPU vs CPU on a small input: the same reset draws, actions and
     auto-reset draws through both envs, then the network on both."""
@@ -558,7 +671,7 @@ def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
 
     def draws():
         d = world_mod.reset_draws(gpu.generator, n, gpu.params, gpu.routes)
-        return d, world_mod.ResetDraws(*(t.cpu() for t in d))
+        return d, world_mod.map_tensors(lambda t: t.cpu(), d)
 
     dg, dc = draws()
     sg, og = gpu.reset(dg)
@@ -596,19 +709,22 @@ def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
 HELD_METRICS = ("similarity", "speed", "timesteps")
 
 
-def slice_phase(agent, out_dir: str, unfused: dict = None) -> dict:
-    """The shipped evaluation of safe-s5 on Town03 without traffic with
-    `agent` (its fused_units decides the backbone's path); with `unfused`,
-    the means of the unfused run are printed beside."""
+def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") -> dict:
+    """The shipped evaluation of safe-s5 on Town03 with `agent`, whose env
+    has the `traffic` level (its fused_units decides the backbone's path),
+    beside the recorded evaluation of that scenario; with `unfused`, the
+    means of an unfused run are printed beside.  With traffic, also the
+    kept trials' collisions by type and the NPCs their worlds started
+    with."""
     from carla_driving_rl_agent_torch.evaluate_seeds import z_score
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     num_worlds = max(TRIALS + 8, int(TRIALS * 1.25))
     torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()
-    record = agent.evaluate(name=f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{TOWN}-no-{SEED}",
-                            timesteps=STEPS, trials=TRIALS, initial_seed=SEED,
-                            evaluation_dir=out_dir)
+    check(agent.env.params.has_npcs == (traffic != "no"), f"the env's traffic is not {traffic}")
+    record = agent.evaluate(name=scenario(traffic), timesteps=STEPS, trials=TRIALS,
+                            initial_seed=SEED, evaluation_dir=out_dir)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _counts()
@@ -626,7 +742,7 @@ def slice_phase(agent, out_dir: str, unfused: dict = None) -> dict:
               f"unit inference launches {units} != {UNITS_PER_PASS} x {STEPS} predicts")
     else:
         check(units == 0, f"unfused evaluation launched the unit kernel {units} times")
-    with open(REFERENCE) as f:
+    with open(reference(traffic)) as f:
         ref = json.load(f)
     for m in METRICS:
         v = np.asarray(record[m], np.float64)
@@ -638,19 +754,61 @@ def slice_phase(agent, out_dir: str, unfused: dict = None) -> dict:
               f"(port - recorded) / SE {z:+.3f}{beside}", flush=True)
         if m in HELD_METRICS:
             check(abs(z) <= 4.0, f"{m} lies {z:+.3f} standard errors from the record")
+    npcs = {}
+    if traffic != "no":
+        kept = agent.last_trials
+        npcs = dict(collisions={k: int(kept[f"hit_{k}"].sum())
+                                for k in ("vehicle", "pedestrian", "other")},
+                    vehicles_per_world=float(kept["vehicles"].mean()),
+                    walkers_per_world=float(kept["walkers"].mean()))
+        print(f"  {traffic} traffic: collisions of the {TRIALS} kept trials by type: "
+              + ", ".join(f"{k} {v}" for k, v in npcs["collisions"].items())
+              + f" (collision_rate x trials {sum(record['collision_rate']):.0f}); active NPCs "
+              f"per world at the start: {npcs['vehicles_per_world']:.2f} vehicles, "
+              f"{npcs['walkers_per_world']:.2f} walkers", flush=True)
     return dict(seconds=seconds, env_steps_per_s=num_worlds * STEPS / seconds, launches=counts,
-                num_worlds=num_worlds,
+                num_worlds=num_worlds, traffic=traffic, npcs=npcs,
                 means={m: record[f"{m}_mean"] for m in METRICS},
                 stds={m: record[f"{m}_std"] for m in METRICS},
                 recorded_means={m: ref[f"{m}_mean"] for m in METRICS},
                 recorded_stds={m: ref[f"{m}_std"] for m in METRICS})
 
 
+def npc_costs(env, world) -> dict:
+    """What the NPC tick (traffic.step_npcs) and the NPC spawn of every
+    step's fresh-reset state (traffic.init_npcs) cost per step at `world`:
+    the host's ms to enqueue one call (20 in flight), the device's ms per
+    call (a CUDA graph of repeated calls) and the kernel launches per call
+    (a CUDA graph of one call)."""
+    from carla_driving_rl_agent_torch.envs import traffic
+    p = env.params
+    tick_draws, reset = env.npc_step_draws(world), env.reset_draws(world.x.shape[0])
+    ego = torch.stack([world.x, world.y], dim=-1)
+    fns = dict(
+        tick=lambda: traffic.step_npcs(tick_draws, world.npc, env.town, world.town_id,
+                                       world.sim_time, ego, world.v),
+        spawn=lambda: traffic.init_npcs(reset.npc, env.town, reset.town_id, ego,
+                                        p.num_vehicles, p.num_pedestrians,
+                                        crossing=p.ped_crossing, running=p.ped_running))
+    out = {}
+    for name, fn in fns.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fn()
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        out[name] = dict(host_ms=host_ms, device_ms=graph_ms(fn), launches=graph_launches(fn))
+    return out
+
+
 def profile_phase(agent, steps: int = 16) -> dict:
     """Where the evaluation's time goes: the per-step wall time of the
     network's predict and of the env step (each synchronised), the
     rollout's wall time, and under torch.profiler its device busy time and
-    kernels by device time."""
+    kernels by device time; with NPCs, also what their tick and spawn
+    cost per step (npc_costs)."""
     from torch.profiler import ProfilerActivity, profile
     from carla_driving_rl_agent_torch.envs.carla_env import convert_action
     env, net = agent.env, agent.network
@@ -701,8 +859,9 @@ def profile_phase(agent, steps: int = 16) -> dict:
                top_kernels=[dict(name=e.key[:90], count=e.count,
                                  ms_per_step=e.self_device_time_total / 1e3 / steps)
                             for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:15]])
-    print(f"  [{'fused_units' if agent.config.fused_units else 'unfused'}] "
-          f"per step: predict {out['predict_ms_per_step']:.3f} ms, env step "
+    print(f"  [{'fused_units' if agent.config.fused_units else 'unfused'}"
+          f"{', traffic' if env.params.has_npcs else ''}] per step: predict "
+          f"{out['predict_ms_per_step']:.3f} ms, env step "
           f"{out['env_step_ms_per_step']:.3f} ms (each synchronised); rollout "
           f"{out['rollout_ms_per_step']:.3f} ms, device busy "
           f"{out['device_busy_ms_per_step']:.3f} ms, idle share "
@@ -712,6 +871,11 @@ def profile_phase(agent, steps: int = 16) -> dict:
               f"{k} {v:.6f}" for k, v in out["unit_device_ms"].items()) or "none"), flush=True)
     for k in out["top_kernels"]:
         print(f"    {k['ms_per_step']:9.4f} ms/step {k['count']:6d}x  {k['name']}", flush=True)
+    if env.params.has_npcs:
+        out["npc"] = npc_costs(env, states.world)
+        print("  NPCs per step: " + "; ".join(
+            f"{k} host {v['host_ms']:.4f} ms, device {v['device_ms']:.4f} ms, "
+            f"{v['launches']} launches" for k, v in out["npc"].items()), flush=True)
     return out
 
 
@@ -800,7 +964,7 @@ def physics_phase(env, kernels: dict) -> dict:
             d = W.reset_draws(g, n, params, env.routes)
             out = P.step_physics_batch(world, a, params, env.town, env.routes, d)
             ref = P.step_physics_batch_plain(world, a, params, env.town, env.routes, d)
-            for x, y in zip(out[0], ref[0]):
+            for x, y in zip(W.tensors(out[0]), W.tensors(ref[0])):
                 worst = max(worst, _close(x, y))
             for x, y in zip(out[1:4] + out[5:], ref[1:4] + ref[5:]):
                 worst = max(worst, _close(x, y))
@@ -815,8 +979,8 @@ def physics_phase(env, kernels: dict) -> dict:
             d4 = W.block_reset_draws(g, K, n, params, env.routes, table)
             out = P.step_physics_block(world, a4, params, env.town, env.routes, d4, consts)
             ref = P.step_physics_block_plain(world, a4, params, env.town, env.routes, d4)
-            got = tuple(out[0]) + out[1:4] + out[5:] + tuple(out[4].values())
-            want = tuple(ref[0]) + ref[1:4] + ref[5:] + tuple(ref[4].values())
+            got = tuple(W.tensors(out[0])) + out[1:4] + out[5:] + tuple(out[4].values())
+            want = tuple(W.tensors(ref[0])) + ref[1:4] + ref[5:] + tuple(ref[4].values())
             check(all(torch.equal(x, y) for x, y in zip(got, want)),
                   f"physics block kernel vs {K} plain ticks at {n} worlds: not the same bits")
             block_resets += int(out[5].sum())
@@ -1609,18 +1773,32 @@ def main(argv=None) -> int:
     summary["phases"]["build"] = p.seconds
     with Phase("setup") as p:
         agent = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda")
+        traffic_agents = {lvl: stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS,
+                                                       device="cuda", traffic=lvl)
+                          for lvl in TRAFFIC_LEVELS}
     summary["phases"]["setup"] = p.seconds
     with Phase("kernel") as p:
         summary["kernel"] = kernel_phase(agent.env, kernels)
+        summary["kernel"]["traffic"] = traffic_render_check(traffic_agents["dense"].env)
+        kernels["render_planes"]["traffic_62_worlds"] = summary["kernel"]["traffic"]
     summary["phases"]["kernel"] = p.seconds
     with Phase("agree") as p:
         agree_phase(agent)
+        agree_traffic(traffic_agents["dense"].env)
     summary["phases"]["agree"] = p.seconds
     launches = {}
     with tempfile.TemporaryDirectory() as out_dir, Phase("slice") as p:
         summary["slice"] = slice_phase(agent, out_dir)
         launches["evaluate"] = summary["slice"].pop("launches")
     summary["phases"]["slice"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("slice_traffic") as p:
+        for lvl in TRAFFIC_LEVELS:
+            summary[f"slice_{lvl}"] = slice_phase(traffic_agents[lvl], out_dir, traffic=lvl)
+            launches[f"evaluate_{lvl}"] = summary[f"slice_{lvl}"].pop("launches")
+        print("  evaluation env-steps/s, traffic no / regular / dense: " + " / ".join(
+            f"{summary[k]['env_steps_per_s']:.1f}"
+            for k in ("slice", "slice_regular", "slice_dense")), flush=True)
+    summary["phases"]["slice_traffic"] = p.seconds
     with Phase("physics") as p:
         summary["physics"] = physics_phase(agent.env, kernels)
     summary["phases"]["physics"] = p.seconds
@@ -1647,6 +1825,17 @@ def main(argv=None) -> int:
         print(f"  evaluation env-steps/s, fused_units on / off: {on:.1f} / {off:.1f} "
               f"({on / off:.3f})", flush=True)
     summary["phases"]["slice_fused"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("slice_traffic_fused") as p:
+        fused_dense = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda",
+                                              fused_units=True, traffic="dense")
+        summary["slice_dense_fused"] = slice_phase(fused_dense, out_dir,
+                                                   unfused=summary["slice_dense"],
+                                                   traffic="dense")
+        launches["evaluate_dense_fused"] = summary["slice_dense_fused"].pop("launches")
+        on, off = (summary[k]["env_steps_per_s"] for k in ("slice_dense_fused", "slice_dense"))
+        print(f"  dense-traffic evaluation env-steps/s, fused_units on / off: {on:.1f} / "
+              f"{off:.1f} ({on / off:.3f})", flush=True)
+    summary["phases"]["slice_traffic_fused"] = p.seconds
     with tempfile.TemporaryDirectory() as out_dir, Phase("train_fused") as p:
         stage_fused, summary["train_fused"] = train_phase(out_dir, fused_units=True)
         launches["train_fused"] = summary["train_fused"].pop("launches")
@@ -1665,6 +1854,7 @@ def main(argv=None) -> int:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)
             summary["profile_fused"] = profile_phase(fused_agent)
+            summary["profile_dense"] = profile_phase(traffic_agents["dense"])
             per_call = {k: kr["launches_per_call"] for k, kr in kernels.items()}
             summary["profile_train"] = profile_train_phase(stage.agent, per_call)
             summary["profile_train_fused"] = profile_train_phase(stage_fused.agent, per_call)

@@ -190,6 +190,33 @@ def test_evaluation_writes_nothing_under_the_weights_root(tiny_root, monkeypatch
                        evaluation_dir=os.path.join(REPO, "weights", "tiny", "evaluation"))
 
 
+def test_traffic_evaluation_writes_its_record(tiny_root, monkeypatch):
+    """The evaluation with regular traffic (50 vehicles, 50 walkers) runs
+    through stages.evaluate and writes its record, under the scenario's
+    name, under weights-torch/; its env draws the 8 actor rows."""
+    from carla_driving_rl_agent_torch.agents import carla_agent as CA
+    from carla_driving_rl_agent_torch.curriculum import stages
+    monkeypatch.setattr(CA, "DEFAULT_WEIGHTS_DIR", str(tiny_root / "weights-torch"))
+    rec = stages.evaluate("test", "Town02", [5], "regular", steps=2, trials=2, weights="tiny",
+                          weights_dir=str(tiny_root / "weights"), device="cpu")
+    out = (tiny_root / "weights-torch" / "tiny" / "evaluation"
+           / "tiny-test-2-2-Town02-regular-5.json")
+    assert out.exists() and len(rec) == 1 and len(rec[0]["timesteps"]) == 2
+    assert sorted(k for k in rec[0] if not k.endswith(("_mean", "_std"))) == sorted(
+        ("collision_rate", "similarity", "waypoint_distance", "speed", "total_reward",
+         "timesteps"))
+    agent = stages.build_eval_agent("test", "Town02", 2, "tiny", traffic="regular",
+                                    weights_dir=str(tiny_root / "weights"), device="cpu")
+    p = agent.env.params
+    assert (p.num_vehicles, p.num_pedestrians, p.v_max, p.p_max) == (50, 50, 50, 50)
+    assert agent.env.n_actors == 8 and not agent.env.config.fused_step
+    agent.evaluate("x", timesteps=2, trials=2, initial_seed=5, evaluation_dir=str(out.parent))
+    trials = agent.last_trials
+    assert (trials["walkers"] == 50).all() and (trials["vehicles"] > 0).all()
+    typed = trials["hit_vehicle"] + trials["hit_pedestrian"] + trials["hit_other"]
+    assert (typed >= trials["collision"]).all()
+
+
 def test_evaluation_trials_draw_from_their_own_streams(tiny_root, tmp_path):
     """Trial i's initial reset (town, weather, route, light offset) is the
     same whatever the number of trials, and so of worlds: the first 8
@@ -208,7 +235,7 @@ def test_evaluation_trials_draw_from_their_own_streams(tiny_root, tmp_path):
         agent.evaluate("x", timesteps=1, trials=trials, initial_seed=42,
                        evaluation_dir=str(tmp_path))
     assert len(seen) == 2 and len(seen[0].route_id) == 16 and len(seen[1].route_id) == 28
-    for a, b in zip(seen[0], seen[1]):
+    for a, b in zip(tworld.tensors(seen[0]), tworld.tensors(seen[1])):
         torch.testing.assert_close(a[:8], b[:8], rtol=0, atol=0)
     assert len(set(seen[1].route_id.tolist())) > 1
 

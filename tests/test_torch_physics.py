@@ -81,6 +81,8 @@ def _draws(d):
 def _world(jw):
     fields = {}
     for name in tworld.WorldState._fields:
+        if name == "npc":        # the JAX state's constant zero fleet; the port's is None
+            continue
         a = np.array(getattr(jw, name))
         fields[name] = torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a)
     return tworld.WorldState(**fields)
@@ -140,7 +142,7 @@ def test_physics_step_matches_jax(envs, batch):
 
 
 def _stack_draws(ticks):
-    return tworld.ResetDraws(*(torch.stack(f) for f in zip(*ticks)))
+    return tworld.ResetDraws(*(torch.stack(f) for f in zip(*map(tworld.tensors, ticks))))
 
 
 K = 4     # ticks per block: the rollout's past_obs_freq
@@ -178,7 +180,8 @@ def test_block_host_matches_ticks_and_jax(envs, batch):
                          (got[4]["speed"][k], info["speed"]),
                          (got[4]["similarity"][k], info["similarity"]), (got[5][k], done)):
                 assert torch.equal(x, y), f"block {blk} tick {k}"
-        for name, x, y in zip(tworld.WorldState._fields, got[0], w):
+        for name, x, y in zip(tworld.WorldState._fields, tworld.tensors(got[0]),
+                              tworld.tensors(w)):
             assert torch.equal(x, y), f"block {blk} {name}"
         plain = P.step_physics_block_plain(start, a, tp, town, routes, d)
         for ref, what in ((plain, "plain"), (None, "jax")):
@@ -213,7 +216,7 @@ def test_block_reset_draws(envs):
     table = torch.tensor(tp.weather_ids)
     draws = [tworld.block_reset_draws(torch.Generator().manual_seed(7), K, 64, tp, routes,
                                       table) for _ in range(2)]
-    for a, b in zip(*draws):
+    for a, b in zip(*map(tworld.tensors, draws)):
         assert a.shape == (K, 64) and torch.equal(a, b)
     d = draws[0]
     assert d.town_id.dtype == torch.int64 and bool((d.town_id == 0).all())
@@ -235,13 +238,13 @@ def test_cpu_block_takes_the_plain_version(envs):
     out = P.step_physics_block(world, a, tp, town, routes, draws)
     ref = P.step_physics_block_plain(world, a, tp, town, routes, draws)
     assert P.step_physics_block.launches == before
-    for x, y in zip(out[0], ref[0]):
+    for x, y in zip(tworld.tensors(out[0]), tworld.tensors(ref[0])):
         assert torch.equal(x, y)
     for x, y in zip(out[1:4] + out[5:], ref[1:4] + ref[5:]):
         assert torch.equal(x, y) and x.shape == (K, 8)
     with pytest.raises(ValueError, match="draws"):
         P.step_physics_block_host(world, a, tp, town, routes,
-                                  tworld.ResetDraws(*(t[:2] for t in draws)))
+                                  tworld.map_tensors(lambda t: t[:2], draws))
 
 
 def _bind_reset(env, key, consts, batch):
@@ -250,15 +253,16 @@ def _bind_reset(env, key, consts, batch):
 
 
 def test_fused_step_unsupported_raises():
-    """NPC traffic raises, with fused_step on or off: the JAX package steps
-    such worlds on its XLA path, and the port has no NPC world to fall back
-    to.  (The shaped reward cannot be asked for: the port's WorldParams has
-    no reward_mode.)"""
+    """NPC traffic with fused_step raises: the JAX package steps such worlds
+    on its XLA path, and the port has no fallback from the kernel; without
+    fused_step the env builds an NPC world.  (The shaped reward cannot be
+    asked for: the port's WorldParams has no reward_mode.)"""
     for spawn in (dict(vehicles=2), dict(pedestrians=3)):
-        for fused in (True, False):
-            with pytest.raises(NotImplementedError, match="NPC"):
-                stages.build_env(town="Town02", num_routes=8, spawn=spawn,
-                                 fused_step=fused, device="cpu")
+        with pytest.raises(NotImplementedError, match="NPC"):
+            stages.build_env(town="Town02", num_routes=8, spawn=spawn,
+                             fused_step=True, device="cpu")
+        env = stages.build_env(town="Town02", num_routes=8, spawn=spawn, device="cpu")
+        assert env.params.has_npcs and not env.config.fused_step
     assert not hasattr(tworld.WorldParams(), "reward_mode")
 
 
@@ -272,7 +276,7 @@ def test_cpu_tensors_take_the_plain_version(envs):
     out = P.step_physics_batch(world, a, tp, town, routes, draws)
     ref = P.step_physics_batch_plain(world, a, tp, town, routes, draws)
     assert P.step_physics_batch.launches == before
-    for x, y in zip(out[0], ref[0]):
+    for x, y in zip(tworld.tensors(out[0]), tworld.tensors(ref[0])):
         assert torch.equal(x, y)
 
 
@@ -310,7 +314,8 @@ def test_cuda_kernel_matches_plain(envs):
         torch.cuda.synchronize()
         assert P.step_physics_batch.launches == before + 1
         ref = P.step_physics_batch_plain(world, a, tp, town_d, routes_d, draws)
-        for name, x, y in zip(tworld.WorldState._fields, out[0], ref[0]):
+        for name, x, y in zip(tworld.WorldState._fields, tworld.tensors(out[0]),
+                              tworld.tensors(ref[0])):
             if x.dtype.is_floating_point:
                 torch.testing.assert_close(x, y, rtol=ULP2, atol=1e-5, msg=name)
             else:
@@ -340,7 +345,8 @@ def test_cuda_block_kernel_matches_plain(envs):
         torch.cuda.synchronize()
         assert P.step_physics_block.launches == before + 1
         ref = P.step_physics_block_plain(world, a, tp, town_d, routes_d, draws)
-        for x, y in zip(tuple(out[0]) + out[1:4] + out[5:], tuple(ref[0]) + ref[1:4] + ref[5:]):
+        for x, y in zip(tuple(tworld.tensors(out[0])) + out[1:4] + out[5:],
+                        tuple(tworld.tensors(ref[0])) + ref[1:4] + ref[5:]):
             assert torch.equal(x, y)
         for key in ref[4]:
             assert torch.equal(out[4][key], ref[4][key]), key

@@ -16,7 +16,10 @@ plain version and the IEEE operations by the two `cuda`-marked tests,
 which skip here.  Actors are placed by chip_smoke.with_actors (ahead,
 behind, beside, inactive), the set its kernel phase runs on the card, and
 pixel_kinds (the render bound's count of what the inputs need) is checked
-against what the plain version draws.
+against what the plain version draws.  With NPC traffic, the packs' actor
+rows (the nearest 4 vehicles, then the nearest 4 walkers) equal JAX's
+exactly, ties included, and the plain version draws a traffic state as the
+Pallas kernel does.
 """
 
 import ctypes
@@ -31,10 +34,13 @@ import torch
 
 import chip_smoke
 from carla_driving_rl_agent_tpu.envs import carla_env as jenv
+from carla_driving_rl_agent_tpu.envs import traffic as jtraffic
+from carla_driving_rl_agent_tpu.envs import world as jworld
 from carla_driving_rl_agent_tpu.ops import rasterizer_pallas as RP
 
 from carla_driving_rl_agent_torch.envs import carla_env as tenv
 from carla_driving_rl_agent_torch.envs import town as ttown
+from carla_driving_rl_agent_torch.envs import traffic as ttraffic
 from carla_driving_rl_agent_torch.envs import world as tworld
 from carla_driving_rl_agent_torch.ops import render as R
 from carla_driving_rl_agent_torch.utils.build import csrc, load_library
@@ -338,6 +344,112 @@ def test_env_renders_through_the_wrapper():
     assert obs["image"].shape == (3, 4, 90, 360, 3)
     frame = env.render_frame(state.world)
     np.testing.assert_array_equal(state.image_stack[:, -1].numpy(), frame.numpy())
+
+
+def _fleet(worlds, v, p, active_share, seed):
+    """An NPC fleet (numpy, per world) around each ego: positions 3-40 m
+    away in every direction, some slots inactive, and exact distance ties
+    among active ones (slot 1 on slot 0, walker 2 on walker 1)."""
+    x, y, yaw, _ = worlds
+    rng = np.random.default_rng(seed)
+    n = len(x)
+    ego = np.stack([x, y], -1)
+
+    def around(k):
+        ang = rng.uniform(-np.pi, np.pi, (n, k))
+        r = rng.uniform(3.0, 40.0, (n, k))
+        return (ego[:, None] + r[..., None] * np.stack([np.cos(ang), np.sin(ang)], -1)
+                ).astype(np.float32)
+
+    veh, ped = around(v), around(p)
+    if v > 1:
+        veh[:, 1] = veh[:, 0]
+    if p > 2:
+        ped[:, 2] = ped[:, 1]
+    f32 = np.float32
+    return jtraffic.NPCState(
+        veh_xy=veh, veh_yaw=rng.uniform(-np.pi, np.pi, (n, v)).astype(f32),
+        veh_v=np.zeros((n, v), f32), veh_wp=np.zeros((n, v), np.int32),
+        veh_active=(rng.random((n, v)) < active_share).astype(f32),
+        ped_xy=ped, ped_goal=np.zeros((n, p, 2), f32), ped_speed=np.ones((n, p), f32),
+        ped_active=(rng.random((n, p)) < active_share).astype(f32),
+        ped_cross=np.zeros((n, p), f32))
+
+
+def _traffic_packs(bank, worlds, fleet, n_actors):
+    """(JAX pack, port pack) of the worlds with their NPC fleet."""
+    x, y, yaw, weather = worlds
+    jt = types.SimpleNamespace(cell_geom=jnp.asarray(bank.cell_geom),
+                               road_half=jnp.asarray(bank.road_half))
+    jp = jax.vmap(lambda xx, yy, ww, w5, npc: RP.pack_geometry_banked(
+        jt, types.SimpleNamespace(x=xx, y=yy, yaw=ww, town_id=jnp.int32(0), npc=npc),
+        w5, n_actors=n_actors))(jnp.asarray(x), jnp.asarray(y), jnp.asarray(yaw),
+                                jnp.asarray(weather),
+                                jax.tree_util.tree_map(jnp.asarray, fleet))
+    tt = types.SimpleNamespace(cell_geom=torch.from_numpy(bank.cell_geom),
+                               road_half=torch.from_numpy(bank.road_half))
+    npc = ttraffic.NPCState(*(torch.from_numpy(np.array(a)) for a in fleet))
+    tw = types.SimpleNamespace(x=torch.from_numpy(x), y=torch.from_numpy(y),
+                               yaw=torch.from_numpy(yaw),
+                               town_id=torch.zeros(len(x), dtype=torch.int64), npc=npc)
+    return np.asarray(jp), R.pack_geometry_banked(tt, tw, torch.from_numpy(weather),
+                                                  n_actors=n_actors)
+
+
+def _static_n_actors(v, p):
+    """(JAX, port) static actor counts of an env with v vehicles and p
+    pedestrians (build_env's slots: max(n, 1))."""
+    kw = dict(num_vehicles=v, num_pedestrians=p, v_max=max(v, 1), p_max=max(p, 1))
+    return (jenv.CARLAEnv._static_n_actors(types.SimpleNamespace(
+                params=jworld.WorldParams(**kw))),
+            tenv.CARLAEnv._static_n_actors(types.SimpleNamespace(
+                params=tworld.WorldParams(**kw))))
+
+
+@pytest.mark.parametrize("v,p,active_share", [(50, 50, 0.6), (100, 200, 0.01), (3, 2, 1.0),
+                                              (0, 50, 0.5)])
+def test_pack_actor_rows_match_jax(bank, worlds, v, p, active_share):
+    """The actor block of the pack equals JAX's exactly: the nearest active
+    vehicles then walkers, ties (equal distances, inactive slots at 1e9)
+    broken toward the lower slot, colours by slot, zero padding; the env's
+    static actor count equals JAX's.  With 1 % active slots most rows are
+    inactive ties; with 3 vehicles and 2 walkers 3 rows are padding."""
+    jn, tn = _static_n_actors(v, p)
+    assert jn == tn and tn > 0
+    fleet = _fleet(worlds, max(v, 1), max(p, 1), active_share if v else 0.0, seed=v + p)
+    if not v:
+        fleet = fleet._replace(ped_active=(np.random.default_rng(1).random(
+            fleet.ped_active.shape) < active_share).astype(np.float32))
+    jp, tp = _traffic_packs(bank, worlds, fleet, tn)
+    act = slice(R._O_ACT, R._O_EGO)
+    np.testing.assert_array_equal(tp[:, act].numpy(), jp[:, act])
+    np.testing.assert_allclose(tp.numpy(), jp, rtol=0, atol=1e-5)
+    rows = tp[:, act].reshape(N_WORLDS, R.K_ACTORS, 8)
+    assert (rows[:, :, 2] == 1).any()
+    if active_share < 0.1:
+        assert (rows[:, :, 2] == 0).sum() >= 2 * N_WORLDS, "too few inactive ties"
+    if v == 3:
+        assert bool((rows[:, 5:] == 0).all()) and bool((rows[:, :5, 3] > 0).all())
+
+
+def test_static_n_actors_without_npcs():
+    assert _static_n_actors(0, 0) == (0, 0)
+
+
+def test_plain_render_of_traffic_matches_pallas(bank, worlds):
+    """One traffic state (50/50 NPCs around the egos, the env's static 8
+    actor rows): the plain version against the Pallas kernel in interpret
+    mode, and the NPCs show."""
+    n_actors = _static_n_actors(50, 50)[1]
+    jp, tp = _traffic_packs(bank, worlds, _fleet(worlds, 50, 50, 0.8, seed=3), n_actors)
+    tiles = RP.render_tiles_grid(jnp.asarray(jp), g_block=N_WORLDS, interpret=True,
+                                 n_actors=n_actors)
+    ref = np.asarray(jax.vmap(RP.tile_to_planes)(tiles))
+    out = R.render_planes_plain(tp, n_actors=n_actors).numpy()
+    ok, share = _within(out, ref)
+    assert ok, f"only {share:.4f} of pixels within 2"
+    bare = R.render_planes_plain(tp, n_actors=0).numpy()
+    assert (out != bare).any(1).sum() > 100, "the NPCs do not show"
 
 
 @pytest.mark.cuda
