@@ -1,11 +1,11 @@
-"""Curriculum stage s1, the Stage orchestrator, and the evaluation protocol
-for one town at a time.
+"""Curriculum stages s1-s3, the Stage orchestrator, and the evaluation
+protocol for one town at a time.
 
 Counterpart of carla_driving_rl_agent_tpu/curriculum/stages.py (reference
 core/learning.py): `sample_origins` (:19-33), `define_agent`/`define_env`
-(:53-61), `Stage` (:68-189), `stage_s1` (:311-339) and `evaluate`
-(:505-530) with its traffic levels (`TRAFFIC_SPECS`, :485-487).  Stages
-s2-s5 come with later slices.
+(:53-61), `Stage` (:68-189), `stage_s1` (:311-339), `stage_s2` (:342-369),
+`stage_s3` (:372-409) and `evaluate` (:505-530) with its traffic levels
+(`TRAFFIC_SPECS`, :485-487).  Stages s4 and s5 come with a later slice.
 
 Parallelism mapping (as in the JAX package): an epoch runs `episodes`
 updates, each consuming a `timesteps`-step rollout (at most 128 steps)
@@ -179,6 +179,25 @@ def _stage_common(kwargs: dict) -> dict:
         advantage_scale=2.0, clip_norm=(1.0, 1.0, 1.0), update_dynamics=True)
 
 
+def _stage(stage_name: str, episodes: int, timesteps: int, batch_size: int, save_every,
+           seed: int, num_envs: int, env_overrides: Optional[dict], kwargs: dict,
+           agent_extra: dict, **env_kwargs) -> Stage:
+    """A stage factory's common part: `_stage_common`'s hyper-parameters,
+    the agent kwargs (`kwargs` and `agent_extra`) and the env kwargs
+    (`env_kwargs`, then `env_overrides`)."""
+    hp = _stage_common(kwargs)
+    agent = define_agent(batch_size=batch_size, num_envs=num_envs,
+                         rollout_steps=kwargs.pop("rollout_steps", min(timesteps, 128)),
+                         name=stage_name, seed=seed, **agent_extra,
+                         aug_intensity=kwargs.pop("aug_intensity", 0.0), **hp, **kwargs)
+    env = define_env(throttle_as_desired_speed=True, disable_reverse=True,
+                     max_timesteps=timesteps, seed=seed, **env_kwargs,
+                     **(env_overrides or {}))
+    return Stage(agent=agent, environment=env, name=stage_name,
+                 learning=dict(agent=dict(episodes=episodes, timesteps=timesteps,
+                                          save_every=save_every)))
+
+
 def stage_s1(episodes: int, timesteps: int, batch_size: int, save_every=None,
              seed: int = 42, stage_name: str = "stage-s1", num_envs: int = 32,
              town: str = DEFAULT_TOWN, env_overrides: Optional[dict] = None,
@@ -187,17 +206,35 @@ def stage_s1(episodes: int, timesteps: int, batch_size: int, save_every=None,
     (reference core/learning.py:311-339).  `env_overrides` are extra
     define_env kwargs (e.g. fused_step, device); the other kwargs reach the
     agent's config (e.g. fused_units=True, the JAX FAST_TRAIN knob)."""
-    hp = _stage_common(kwargs)
-    agent = define_agent(batch_size=batch_size, num_envs=num_envs,
-                         rollout_steps=kwargs.pop("rollout_steps", min(timesteps, 128)),
-                         name=stage_name, seed=seed,
-                         aug_intensity=kwargs.pop("aug_intensity", 0.0), **hp, **kwargs)
-    env = define_env(town=town, origins=sample_origins(town, amount=10, seed=seed),
-                     throttle_as_desired_speed=True, disable_reverse=True,
-                     max_timesteps=timesteps, seed=seed, **(env_overrides or {}))
-    return Stage(agent=agent, environment=env, name=stage_name,
-                 learning=dict(agent=dict(episodes=episodes, timesteps=timesteps,
-                                          save_every=save_every)))
+    return _stage(stage_name, episodes, timesteps, batch_size, save_every, seed, num_envs,
+                  env_overrides, kwargs, {}, town=town,
+                  origins=sample_origins(town, amount=10, seed=seed))
+
+
+def stage_s2(episodes: int, timesteps: int, batch_size: int, save_every=None,
+             seed: int = 42, stage_name: str = "stage-s2", num_envs: int = 32,
+             town: str = DEFAULT_TOWN, env_overrides: Optional[dict] = None,
+             **kwargs) -> Stage:
+    """Stage-2: 50 seed-fixed origins and 50 pedestrians, the weights of the
+    stage's directory loaded in full when it holds any (reference
+    core/learning.py:342-369; main.hand_off copies stage s1's there)."""
+    return _stage(stage_name, episodes, timesteps, batch_size, save_every, seed, num_envs,
+                  env_overrides, kwargs, dict(load=True, load_full=True), town=town,
+                  origins=sample_origins(town, amount=50, seed=seed),
+                  spawn=dict(vehicles=0, pedestrians=50))
+
+
+def stage_s3(episodes: int, timesteps: int, batch_size: int, save_every=None,
+             seed: int = 42, stage_name: str = "stage-s3", num_envs: int = 32,
+             town: str = DEFAULT_TOWN, env_overrides: Optional[dict] = None,
+             **kwargs) -> Stage:
+    """Stage-3: 50 vehicles, 50 pedestrians and the seven training
+    weathers drawn per episode, no fixed origins, the stage's weights
+    loaded as in stage_s2 (reference core/learning.py:372-409)."""
+    return _stage(stage_name, episodes, timesteps, batch_size, save_every, seed, num_envs,
+                  env_overrides, kwargs, dict(load=True, load_full=True), town=town,
+                  random_weathers=list(TRAIN_WEATHERS),
+                  spawn=dict(vehicles=50, pedestrians=50))
 
 
 def network_spec(weights: str, weights_dir: str) -> dict:

@@ -7,8 +7,9 @@ over a batch of worlds on one device.  Two paths step it: the per-step
 (`step_physics_block` for a block of past_obs_freq ticks,
 `push_block_frame_batch` once per block), whose physics runs the CUDA
 kernel of ops/physics.py, once per block, when `fused_step` is on.  Worlds
-with NPC traffic step per tick (`step`, `step_physics`); the render kernel
-draws the nearest of their NPCs as billboards.
+with NPC traffic take the plain block (the kernel computes worlds without
+NPCs), their NPC tick draws and spawns drawn for the whole block at once;
+the render kernel draws the nearest of their NPCs as billboards.
 
 Observation contract (reference core/carla_env.py:128-131): dict(image
 (B, T, 90, 360, C) in [0, 1], road (B, T, 9), vehicle (B, T, 4), navigation
@@ -317,25 +318,39 @@ class CARLAEnv:
         return self._physics_consts
 
     def step_physics_block(self, states: EnvState, actions: torch.Tensor,
-                           draws: Optional[ResetDraws] = None):
+                           draws: Optional[ResetDraws] = None,
+                           npc_draws: Optional[traffic.NPCStepDraws] = None):
         """K world-only ticks of every world with auto-reset, tick k with
         actions[k] (actions (K, B, A) in [-1, 1]): one kernel launch when
         `fused_step` is on (ops/physics.step_physics_block; the plain version
-        for CPU tensors), else K plain ticks.  The (K, B) reset draws come
-        from the env's generator in one call unless given.  Returns (state'
-        after the last tick, reward, terminated, truncated, info {speed,
-        similarity}, was_reset), each row (K, B).  Worlds with NPCs step per
-        tick (`step_physics`); this raises for them."""
+        for CPU tensors), else K plain ticks, which also tick the NPCs of a
+        world with traffic (fused_step is refused there, in __init__).  The
+        block's NPC tick draws (K, B, ...) and then its (K, B) reset draws,
+        with their NPC spawns, come from the env's generator, one call each
+        (two for the resets with NPCs), unless given; without NPCs nothing
+        is drawn for them.  Returns (state' after the last tick, reward,
+        terminated, truncated, info {speed, similarity}, was_reset), each
+        row (K, B)."""
+        k, n = actions.shape[0], actions.shape[1]
+        if npc_draws is None and self.params.has_npcs:
+            if self.params.random_towns and len(self.params.town_names) > 1:
+                # a world that restarts mid-block in another town would draw
+                # its goals on the old town's waypoint count
+                raise NotImplementedError("the NPC block path with random towns (stage s4) "
+                                          "is not ported yet")
+            npc_draws = traffic.block_npc_step_draws(self.generator, self.town,
+                                                     states.world.town_id, k,
+                                                     self.params.v_max, self.params.p_max)
         if draws is None:
-            draws = world_mod.block_reset_draws(self.generator, actions.shape[0],
-                                                actions.shape[1], self.params, self.routes,
-                                                self.weather_table)
+            draws = world_mod.block_reset_draws(self.generator, k, n, self.params, self.routes,
+                                                self.weather_table, self.town)
         if self.config.fused_step:
             out = physics_ops.step_physics_block(states.world, actions, self.params, self.town,
                                                  self.routes, draws, self.physics_consts())
         else:
             out = physics_ops.step_physics_block_plain(states.world, actions, self.params,
-                                                       self.town, self.routes, draws)
+                                                       self.town, self.routes, draws,
+                                                       npc_draws)
         return (states._replace(world=out[0]),) + out[1:]
 
     def _push_block_vectors(self, state: EnvState, was_reset: torch.Tensor,

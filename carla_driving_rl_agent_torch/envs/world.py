@@ -248,13 +248,17 @@ def _npc_town(params: WorldParams, town: Optional[TownDev]) -> TownDev:
 
 
 def block_reset_draws(gen: torch.Generator, k: int, n: int, params: WorldParams,
-                      routes: RoutesDev, weather_table: torch.Tensor) -> ResetDraws:
+                      routes: RoutesDev, weather_table: torch.Tensor,
+                      town: Optional[TownDev] = None) -> ResetDraws:
     """The reset draws of k ticks of n worlds, (k, n) each, from one call of
     `gen` (4 x k x n uniforms in [0, 1), which pick the town, the weather,
     the route and scale the light-clock offset): the rollout block's draws,
-    taken once per block on the CPU and on the card alike.
-    `weather_table` is params.weather_ids as an int64 tensor on the device
-    of `routes`, built once by the env."""
+    taken once per block on the CPU and on the card alike.  In a
+    configuration with NPCs, their spawn (k, n, ...) follows from one
+    further call, each (tick, world) scaled by the `town` tables of that
+    row's town; without, nothing more is drawn.  `weather_table` is
+    params.weather_ids as an int64 tensor on the device of `routes`, built
+    once by the env."""
     u = torch.rand((4, k, n), generator=gen, device=routes.length.device)
 
     def pick(row: int, m: int) -> torch.Tensor:
@@ -265,9 +269,14 @@ def block_reset_draws(gen: torch.Generator, k: int, n: int, params: WorldParams,
         town_id = pick(0, n_towns)
     else:
         town_id = torch.zeros((k, n), dtype=torch.int64, device=u.device)
+    npc = None
+    if params.has_npcs:
+        flat = traffic.npc_reset_draws(gen, _npc_town(params, town), town_id.reshape(-1),
+                                       params.v_max, params.p_max)
+        npc = map_tensors(lambda t: t.reshape((k, n) + tuple(t.shape[1:])), flat)
     return ResetDraws(town_id=town_id, weather_id=weather_table[pick(1, len(weather_table))],
                       route_id=pick(2, routes.length.shape[1]),
-                      sim_time=u[3] * traffic.LIGHT_CYCLE)
+                      sim_time=u[3] * traffic.LIGHT_CYCLE, npc=npc)
 
 
 def trial_draws(seed: int, n: int, params: WorldParams, routes: RoutesDev,

@@ -1,21 +1,27 @@
-"""Command line of the PyTorch port: curriculum stage s1, and the
-evaluation sweep, on one GPU.
+"""Command line of the PyTorch port: curriculum stages s1-s3 with the
+hand-off between them, and the evaluation sweep, on one GPU.
 
-    python -m carla_driving_rl_agent_torch.main --stage s1 --epochs 1 --block --fused-step \
-        [--fused-units]
+    python -m carla_driving_rl_agent_torch.main --stage s1|s2|s3 --epochs 1 --block \
+        [--fused-step] [--fused-units] [--safe] [--sharp]
+    python -m carla_driving_rl_agent_torch.main --hand-off s1 s2
     python -m carla_driving_rl_agent_torch.main --evaluate [--weights safe-s5] \
         [--steps 512] [--trials 50]
 
-Mirrors `main.py --stage s1 --epochs N [--block]` of the JAX package with the
+Mirrors `main.py --stage sN --epochs N [--block]` of the JAX package with the
 shipped sequential float32 trainer (main.FAST_TRAIN = dict()): 5 updates per
-epoch of 32 worlds x 128 steps (512-step episodes), batch 64, Town03 with no
-traffic.  `--fused-step` runs the physics on the CUDA kernel
-(CARLAEnvConfig.fused_step); `--fused-units` runs the backbone's stride-1
+epoch of 32 worlds x 128 steps (512-step episodes), batch 64, Town03; s1
+without traffic, s2 with 50 walkers, s3 with 50 vehicles, 50 walkers and the
+training weathers.  s2 and s3 load the weights their stage directory holds
+(`--hand-off s1 s2` copies stage-s1's there, as the JAX package's hand_off).
+`--fused-step` runs the physics on the CUDA kernel
+(CARLAEnvConfig.fused_step), which computes worlds without NPCs only, so it
+raises with s2 and s3; `--fused-units` runs the backbone's stride-1
 ShuffleNet units on the fused unit kernels (CARLAgentConfig.fused_units,
-the counterpart of the JAX package's main.FAST_TRAIN = dict(fused_units=True)).
-Checkpoints go to weights-torch/stage-s1 (and a
-per-epoch copy stage-s1-<epoch>) of the checkout, never into the tracked
-weights/.
+the counterpart of the JAX package's main.FAST_TRAIN = dict(fused_units=True));
+`--safe` prices the env as SAFE_ENV; `--sharp` trains with sharp_recipe.
+Checkpoints go to weights-torch/stage-sN (and a per-epoch copy
+stage-sN-<epoch>) of the checkout, never into the tracked weights/.
+`--curriculum` raises until stages s4 and s5 are ported.
 
 `--evaluate` is the counterpart of the JAX package's `main.py
 --evaluate` (run_evaluation, main.py:229-240): the 48 scenarios, 2 weather
@@ -28,26 +34,128 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import shutil
 import sys
 import time
+import warnings
 
 from carla_driving_rl_agent_torch.curriculum import stages
+from carla_driving_rl_agent_torch.utils.checkpoint import refuse_tracked
+from carla_driving_rl_agent_torch.utils.schedules import ExponentialDecay
 
 EPISODES = 5
 TIMESTEPS = 512
 BATCH = 64
 NUM_ENVS = 32
 
+STAGE_ORDER = ["s1", "s2", "s3", "s4", "s5"]
+PORTED_STAGES = ("s1", "s2", "s3")    # curriculum.stages.stage_<name>
+
+# safety-shaped env pricing (JAX main.py:145): an off-road exit costs 200,
+# and the reward credits at most 15 km/h
+SAFE_ENV = dict(off_road_penalty_divisor=5.0, reward_speed_cap=15.0)
+
+
+def sharp_recipe() -> dict:
+    """The JAX package's opt-in 'sharp' recipe (main.py:55): an entropy
+    bonus decaying from 0.02 (halved every 30 updates, floor 1e-4), the Beta
+    head's pre-activation floor, and gamma 0.999 / lambda 0.95."""
+    return dict(
+        entropy_regularization=ExponentialDecay(
+            initial_value=0.02, decay_steps=30, decay_rate=0.5, min_value=1e-4),
+        gamma=0.999, lambda_=0.95,
+        network={"control_policy": {"preact_floor": -3.0}})
+
+
+def acquire_run_lock(weights_dir: str) -> str:
+    """A pid file in `weights_dir` (JAX main.py:25): refuse to start a
+    second trainer against the same checkpoints; a lock whose process is
+    gone is taken over.  Returns the lock's path, which the caller
+    removes."""
+    lock_path = os.path.join(weights_dir, ".train.lock")
+    refuse_tracked(lock_path)
+    os.makedirs(weights_dir, exist_ok=True)
+    if os.path.exists(lock_path):
+        try:
+            with open(lock_path) as f:
+                old_pid = int(f.read().strip())
+            os.kill(old_pid, 0)
+            sys.exit(f"ERROR: {lock_path} is held by the live process {old_pid}; "
+                     f"end it or remove the lock file")
+        except (ValueError, ProcessLookupError, PermissionError):
+            pass
+    with open(lock_path, "w") as f:
+        f.write(str(os.getpid()))
+    return lock_path
+
 
 def make_stage(which: str, num_envs: int = NUM_ENVS, block: bool = False,
                fused_step: bool = False, fused_units: bool = False,
-               weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None) -> stages.Stage:
-    if which != "s1":
-        raise NotImplementedError(f"stage {which!r}: the port trains stage s1 only so far")
-    return stages.stage_s1(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
-                           num_envs=num_envs, save_every="end", rollout_block=block,
-                           fused_units=fused_units, weights_dir=weights_dir,
-                           env_overrides=dict(fused_step=fused_step, device=device))
+               weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
+               sharp: bool = False, safe: bool = False,
+               aug_intensity=None) -> stages.Stage:
+    """Stage `which` at the shipped geometry (JAX main.py make_stage)."""
+    if which not in PORTED_STAGES:
+        raise NotImplementedError(f"stage {which!r}: the port trains stages "
+                                  f"{', '.join(PORTED_STAGES)} so far (s4 and s5 need "
+                                  f"augmentation)")
+    common = dict(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
+                  num_envs=num_envs, save_every="end", rollout_block=block,
+                  fused_units=fused_units, weights_dir=weights_dir,
+                  env_overrides=dict(fused_step=fused_step, device=device,
+                                     **(SAFE_ENV if safe else {})))
+    if sharp:
+        common.update(sharp_recipe())
+        common.setdefault("aug_intensity", 0.0)
+    if aug_intensity is not None:
+        common["aug_intensity"] = aug_intensity
+    return getattr(stages, f"stage_{which}")(**common)
+
+
+def hand_off(src_stage: str, dst_stage: str,
+             weights_dir: str = stages.DEFAULT_WEIGHTS_DIR) -> None:
+    """Copy `<weights_dir>/stage-<src_stage>` to `stage-<dst_stage>`, which
+    the next stage loads (JAX main.py:192); nothing is copied when the
+    source does not exist, and the next stage starts fresh.  Refuses a
+    destination under the tracked weights/."""
+    src = os.path.join(weights_dir, f"stage-{src_stage}")
+    dst = os.path.join(weights_dir, f"stage-{dst_stage}")
+    refuse_tracked(dst)
+    if not os.path.exists(src):
+        warnings.warn(f"hand_off: no {src}; stage-{dst_stage} starts from what its "
+                      f"directory holds")
+        return
+    if os.path.exists(dst):
+        shutil.rmtree(dst)
+    shutil.copytree(src, dst)
+
+
+def run_curriculum(epochs, num_envs: int = NUM_ENVS, block: bool = False,
+                   weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, log=print,
+                   **stage_kwargs) -> None:
+    """Stages s1 -> s5 in order, each handed the previous one's weights
+    (JAX main.py:203).  `epochs`: an int for every stage, or the per-stage
+    list "e1,e2,e3,e4,e5".  Raises before any stage trains while a stage
+    of STAGE_ORDER is not ported."""
+    if isinstance(epochs, str) and "," in epochs:
+        per_stage = [int(e) for e in epochs.split(",")]
+        if len(per_stage) != len(STAGE_ORDER):
+            raise ValueError(f"--epochs {epochs}: one count per stage of {STAGE_ORDER}")
+    else:
+        per_stage = [int(epochs)] * len(STAGE_ORDER)
+    missing = [s for s in STAGE_ORDER if s not in PORTED_STAGES]
+    if missing:
+        raise NotImplementedError(f"the curriculum needs stages {', '.join(missing)}, "
+                                  f"which are not ported yet (they need augmentation)")
+    for i, which in enumerate(STAGE_ORDER):
+        if i > 0:
+            hand_off(STAGE_ORDER[i - 1], which, weights_dir)
+        log(f"=== stage-{which} ({per_stage[i]} epochs) ===")
+        t0 = time.perf_counter()
+        make_stage(which, num_envs, block=block, weights_dir=weights_dir,
+                   **stage_kwargs).run2(epochs=per_stage[i], copy_weights=False)
+        log(f"=== stage-{which} done in {time.perf_counter() - t0:.1f} s ===")
 
 
 def run_evaluation(weights: str = "stage-s5", steps: int = 512, trials: int = 50,
@@ -70,22 +178,34 @@ def run_evaluation(weights: str = "stage-s5", steps: int = 512, trials: int = 50
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     what = ap.add_mutually_exclusive_group(required=True)
-    what.add_argument("--stage", choices=["s1"])
+    what.add_argument("--stage", choices=STAGE_ORDER)
+    what.add_argument("--curriculum", action="store_true",
+                      help="stages s1 -> s5 with hand-offs (raises until s4 and s5 are ported)")
+    what.add_argument("--hand-off", nargs=2, metavar=("SRC", "DST"),
+                      help="copy stage-SRC's checkpoint to stage-DST under --weights-dir")
     what.add_argument("--evaluate", action="store_true",
                       help="the 48-scenario evaluation of --weights, seed 42")
     ap.add_argument("--weights", default="stage-s5",
                     help="--evaluate: the checkpoint under weights/")
     ap.add_argument("--steps", type=int, default=512, help="--evaluate: steps per episode")
     ap.add_argument("--trials", type=int, default=50, help="--evaluate: trials per scenario")
-    ap.add_argument("--epochs", type=int, default=10)
+    ap.add_argument("--epochs", default="10",
+                    help="an int, or with --curriculum the per-stage list 'e1,...,e5'")
     ap.add_argument("--num-envs", type=int, default=NUM_ENVS)
     ap.add_argument("--block", action="store_true",
                     help="block rollout (one forward pass and one frame per 4 steps)")
     ap.add_argument("--fused-step", action="store_true",
-                    help="physics on the CUDA kernel (ops/physics.py)")
+                    help="physics on the CUDA kernel (ops/physics.py; worlds without NPCs)")
     ap.add_argument("--fused-units", action="store_true",
                     help="stride-1 ShuffleNet units on the fused unit kernels "
                          "(ops/shuffle_unit.py)")
+    ap.add_argument("--safe", action="store_true",
+                    help="safety-shaped env pricing (off-road x20, 15 km/h reward cap: SAFE_ENV)")
+    ap.add_argument("--sharp", action="store_true",
+                    help="sharp recipe: decaying entropy, Beta-head pre-activation floor, "
+                         "gamma 0.999 / lambda 0.95 (sharp_recipe)")
+    ap.add_argument("--aug-intensity", type=float, default=None,
+                    help="augmentation intensity (only 0 is ported)")
     ap.add_argument("--weights-dir", default=stages.DEFAULT_WEIGHTS_DIR)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' only when asked)")
@@ -96,21 +216,35 @@ def main(argv=None) -> int:
         print(f"evaluation of {args.weights}: 48 scenarios in {time.perf_counter() - t0:.1f} s",
               flush=True)
         return 0
-
-    stage = make_stage(args.stage, args.num_envs, block=args.block,
-                       fused_step=args.fused_step, fused_units=args.fused_units,
-                       weights_dir=args.weights_dir,
-                       device=args.device)
-    t0 = time.perf_counter()
+    if args.hand_off:
+        hand_off(*args.hand_off, weights_dir=args.weights_dir)
+        return 0
 
     def log(step, metrics):
         print(json.dumps(dict(update=step, **{k: round(v, 6) for k, v in metrics.items()})),
               flush=True)
 
-    stage.run2(epochs=args.epochs, callback=log)
-    print(f"stage-{args.stage}: {args.epochs} epochs in {time.perf_counter() - t0:.1f} s; "
-          f"weights in {stage.agent.base_path}", flush=True)
-    return 0
+    stage_kwargs = dict(fused_step=args.fused_step, fused_units=args.fused_units,
+                        device=args.device, sharp=args.sharp, safe=args.safe,
+                        aug_intensity=args.aug_intensity)
+    lock = acquire_run_lock(args.weights_dir)
+    try:
+        t0 = time.perf_counter()
+        if args.curriculum:
+            run_curriculum(args.epochs, args.num_envs, block=args.block,
+                           weights_dir=args.weights_dir,
+                           log=lambda m: print(m, flush=True), **stage_kwargs)
+            print(f"curriculum in {time.perf_counter() - t0:.1f} s", flush=True)
+            return 0
+        epochs = int(args.epochs)
+        stage = make_stage(args.stage, args.num_envs, block=args.block,
+                           weights_dir=args.weights_dir, **stage_kwargs)
+        stage.run2(epochs=epochs, callback=log)
+        print(f"stage-{args.stage}: {epochs} epochs in {time.perf_counter() - t0:.1f} s; "
+              f"weights in {stage.agent.base_path}", flush=True)
+        return 0
+    finally:
+        os.remove(lock)
 
 
 if __name__ == "__main__":

@@ -30,9 +30,11 @@ kernel and the plain version take identical inputs.
 
 The kernel computes worlds without NPCs: `step_physics_batch` and
 `step_physics_block` raise on a configuration with NPCs, on every device
-(the JAX package quietly takes its XLA step there).  Its plain single tick
-steps NPC worlds too, from the tick's NPC draws; the plain block raises on
-them until the NPC ticks of a block are drawn as one.
+(the JAX package quietly takes its XLA step there).  The plain versions
+step NPC worlds too: the single tick from the tick's NPC draws, the block
+from a block's NPC draws (K rows, traffic.block_npc_step_draws), tick k
+from row k, and the NPC spawn of each tick's fresh state from the reset
+draws' `npc` rows.
 """
 
 from __future__ import annotations
@@ -85,23 +87,24 @@ def _zero_npcs(params: WorldParams, what: str) -> None:
         raise NotImplementedError(
             f"{what} steps worlds without NPCs; this configuration has "
             f"{params.num_vehicles} vehicles and {params.num_pedestrians} pedestrians "
-            f"(step them per tick: CARLAEnv.step or step_physics)")
+            f"(the plain versions step them: CARLAEnv without fused_step)")
 
 
 def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
                              params: WorldParams, town: TownDev,
-                             routes: RoutesDev, draws: ResetDraws):
+                             routes: RoutesDev, draws: ResetDraws,
+                             npc_draws: Optional[traffic.NPCStepDraws] = None):
     """The plain version of `step_physics_block`: K calls of
-    step_physics_batch_plain, tick k with actions[k] and the k-th row of
-    each draw.  Returns (world', reward, terminated, truncated, info
-    {speed, similarity}, was_reset), each row (K, B).  Raises on a
-    configuration with NPCs."""
-    _zero_npcs(params, "the physics block")
+    step_physics_batch_plain, tick k with actions[k], the k-th row of each
+    reset draw and, in a configuration with NPCs, the k-th row of
+    `npc_draws` (K, B, ...).  Returns (world', reward, terminated,
+    truncated, info {speed, similarity}, was_reset), each row (K, B)."""
     rows = []
     for k in range(actions.shape[0]):
+        row = lambda d: d[k]  # noqa: E731
         world, reward, term, trunc, info, done = step_physics_batch_plain(
-            world, actions[k], params, town, routes,
-            world_mod.map_tensors(lambda d: d[k], draws))
+            world, actions[k], params, town, routes, world_mod.map_tensors(row, draws),
+            world_mod.map_tensors(row, npc_draws))
         rows.append((reward, term, trunc, info["speed"], info["similarity"], done))
     reward, term, trunc, speed, similarity, done = (torch.stack(r) for r in zip(*rows))
     return world, reward, term, trunc, dict(speed=speed, similarity=similarity), done

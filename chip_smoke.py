@@ -28,11 +28,16 @@ Phases, each printed with its seconds:
                one device launch per call, counted in a CUDA graph; then
                the same on real traffic packs: 62 Town03 worlds with dense
                traffic (100 vehicles, 200 walkers) after 30 steps, their
-               8 actor rows the nearest NPCs;
+               8 actor rows the nearest NPCs, and stage s2's pack: 32 worlds
+               with 50 walkers and no vehicles after 8 steps, 5 actor rows
+               (the vehicle row never active);
   5. agree   — the env stepped on the GPU and on the CPU from the same
                draws and actions, and the network's outputs on both, on a
                small input; then a dense-traffic Town03 batch the same way,
-               its NPC state, collision flags and frames compared;
+               its NPC state, collision flags and frames compared; then the
+               block path (step_physics_block, push_block_frame_batch) of
+               stage s3's env for 3 blocks of 8 worlds the same way, worlds
+               restarting mid-block;
   6. slice   — the shipped evaluation of safe-s5 on Town03 without traffic
                (test weathers, seed 42, 512 steps, 50 trials), its six means
                beside the recorded ones, the render launch count and the
@@ -84,11 +89,27 @@ Phases, each printed with its seconds:
                same numbers, plus the unit kernels' launches per update and
                per minibatch;
  14. train_agree_fused — phase 10 with fused_units=True: the unit kernels on
-               the card against the plain versions on the CPU.
-With --profile, a last phase breaks an evaluation window (without and with
-dense traffic, where it also times the NPC tick and spawn) and one
+               the card against the plain versions on the CPU;
+ 15. train_s2 — first, `--fused-step` with stage s2 and the curriculum must
+               raise before any training; then stage s2 (50 walkers, 50
+               origins) at the shipped geometry, unfused, for 2 updates
+               (a depth cut), from the tracked weights/stage-s1 copied into
+               a temporary weights root and handed off (main.hand_off): the
+               loaded network equal to the checkpoint, the update step 150,
+               no physics-kernel launch (the plain block steps NPC worlds),
+               32 render launches per update and one at the reset;
+ 16. train_s3_fused — stage s3 (50 vehicles, 50 walkers, the training
+               weathers) with fused_units=True for one epoch of 5 updates,
+               handed train_s2's checkpoint: network and Adam states equal
+               to it before the first update, the unit kernels' launches,
+               8 actor rows, training weathers drawn.
+Each training phase prints the mean reward per step, the episodes that
+ended, the NPCs per world, train env-steps/s and the four parts of an
+update.  With --profile, a last phase breaks an evaluation window (without
+and with dense traffic, where it also times the NPC tick and spawn) and one
 training update down by kernel (torch.profiler), with and without fused
-units.
+units, and one update of stage s3 with fused units, with the rollout's
+launches per block and the NPC tick's and spawn's costs at 32 worlds.
 
 Each path is driven with the kernels' launch counts set to 0 just before it
 and read just after.  The line before the last lists every ported kernel
@@ -111,6 +132,7 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -567,22 +589,25 @@ def kernel_phase(env, kernels: dict) -> dict:
 
 
 TRAFFIC_RENDER_WORLDS, TRAFFIC_RENDER_STEPS = 62, 30
+S2_RENDER_STEPS = 8          # stage s2's pack: 32 worlds (the training batch) after 8 steps
 
 
-def traffic_render_check(env) -> dict:
+def traffic_render_check(env, n: int = TRAFFIC_RENDER_WORLDS,
+                         steps: int = TRAFFIC_RENDER_STEPS, label: str = "dense traffic") -> dict:
     """The render kernel against its plain version on real traffic packs:
-    TRAFFIC_RENDER_WORLDS worlds of `env` (Town03, dense traffic) after
-    TRAFFIC_RENDER_STEPS steps of random driving, their actor rows the
-    nearest NPCs; exact on RENDER_EXACT of the values and within 2 u8 on
-    > 99 %, then timed as in kernel_phase beside its bound."""
+    `n` worlds of `env` (Town03 with traffic: dense for the evaluation,
+    stage s2's walkers for training) after `steps` steps of random driving,
+    their actor rows the nearest NPCs; exact on RENDER_EXACT of the values
+    and within 2 u8 on > 99 %, then timed as in kernel_phase beside its
+    bound."""
     from carla_driving_rl_agent_torch.ops import render as R
-    n, actors = TRAFFIC_RENDER_WORLDS, env.n_actors
+    actors = env.n_actors
     env.seed(11)
     states, _ = env.reset_batch(n)
     gen = torch.Generator(device=env.device).manual_seed(12)
     lo = torch.tensor([0.0, -0.3], device=env.device)
     span = torch.tensor([1.0, 0.6], device=env.device)
-    for _ in range(TRAFFIC_RENDER_STEPS):
+    for _ in range(steps):
         states, *_ = env.step(states, lo + span * torch.rand((n, 2), generator=gen,
                                                              device=env.device))
     w = states.world
@@ -593,18 +618,18 @@ def traffic_render_check(env) -> dict:
     diff = (out_k.to(torch.int32) - out_p.to(torch.int32)).abs()
     within, exact = float((diff <= 2).float().mean()), float((diff == 0).float().mean())
     ok = g[:, R._O_ACT + 2:R._O_ACT + 8 * actors:8]
-    print(f"  render {n} worlds, dense traffic after {TRAFFIC_RENDER_STEPS} steps, {actors} "
+    print(f"  render {n} worlds, {label} after {steps} steps, {actors} "
           f"actor rows ({float(ok.sum()) / n:.2f} active per world): exact {exact:.7f}, "
           f"|diff|<=2 {within:.7f}, max |diff| {int(diff.max())}", flush=True)
-    check(within > 0.99, f"render kernel vs plain on traffic packs: {within:.6f} within 2")
-    check(exact >= RENDER_EXACT, f"render kernel vs plain on traffic packs: {exact:.7f} exact")
+    check(within > 0.99, f"render kernel vs plain on {label} packs: {within:.6f} within 2")
+    check(exact >= RENDER_EXACT, f"render kernel vs plain on {label} packs: {exact:.7f} exact")
     call = lambda: R.render_planes(g, n_actors=actors)  # noqa: E731
     ms = cuda_ms(call, iters=200, warmup=10)
     device_ms = graph_ms(call)
     plain_ms = cuda_ms(lambda: R.render_planes_plain(g, n_actors=actors), iters=20)
     bound, by = render_bound_ms(g, n_actors=actors)
     kinds = pixel_kinds(g, actors)
-    print(f"  render {n} worlds, traffic: kernel {ms:.6f} ms per call, device {device_ms:.6f} "
+    print(f"  render {n} worlds, {label}: kernel {ms:.6f} ms per call, device {device_ms:.6f} "
           f"ms per launch; plain {plain_ms:.6f} ms; bound {bound:.6f} ms ({by}), "
           f"{bound / device_ms:.3f} of the device time ({kinds['actor'] / (n * R.N_PIX):.4f} "
           f"of pixels show an actor, {kinds['live']} live billboards)", flush=True)
@@ -612,6 +637,82 @@ def traffic_render_check(env) -> dict:
                 max_abs_err=int(diff.max()), active_per_world=float(ok.sum()) / n, ms=ms,
                 device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                 bound_share=bound / device_ms, pixel_kinds=kinds)
+
+
+NPC_EXACT = ("veh_wp", "veh_active", "ped_active", "ped_cross")
+
+
+def _hold_npcs(gpu_npc, cpu_npc, where: str) -> float:
+    """NPC indices and masks of the card's state equal the CPU's, floats
+    within 1e-3; returns the floats' largest difference."""
+    worst = 0.0
+    for f, x, y in zip(gpu_npc._fields, gpu_npc, cpu_npc):
+        if f in NPC_EXACT:
+            check(torch.equal(x.cpu(), y), f"NPC {f} GPU vs CPU at {where}")
+        else:
+            err = float((x.cpu() - y).abs().max())
+            worst = max(worst, err)
+            check(err <= 1e-3, f"NPC {f} GPU vs CPU at {where}: max |diff| {err}")
+    return worst
+
+
+def agree_block_traffic(gpu, blocks: int = 3, n: int = 8) -> None:
+    """GPU vs CPU on the block path with traffic (stage s3's env: Town03,
+    50 vehicles, 50 walkers, the training weathers): `blocks` calls of
+    env.step_physics_block and push_block_frame_batch on the card and on a
+    CPU twin from the same reset, NPC-tick and auto-reset draws (drawn on
+    the card, a block's at once) and actions; the worlds start 4-7 ticks
+    before their episode's end, so that they restart mid-block and spawn
+    new NPCs.  agree_traffic's bars: NPC indices and masks, flags and ints
+    equal, NPC floats within 1e-3, rewards within 1e-4 + 1e-5 relative,
+    frames within 2 u8 on > 99 %."""
+    from carla_driving_rl_agent_torch.envs import traffic, world as world_mod
+    from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
+    cpu_env = CARLAEnv(gpu.config, device="cpu")
+    to_cpu = lambda d: world_mod.map_tensors(lambda t: t.cpu(), d)  # noqa: E731
+    rng = np.random.default_rng(2)
+    gpu.seed(4)
+    dg = gpu.reset_draws(n)
+    sg, _ = gpu.reset(dg)
+    sc, _ = cpu_env.reset(to_cpu(dg))
+    end = gpu.params.max_timesteps - 7 + torch.arange(n) % 4
+    sg = sg._replace(world=sg.world._replace(timestep=end.to(gpu.device)))
+    sc = sc._replace(world=sc.world._replace(timestep=end))
+    p, k, T = gpu.params, gpu.config.past_obs_freq, gpu.config.time_horizon
+    worst_img, worst_npc, resets, slot = 1.0, 0.0, 0, T - 1
+    for b in range(blocks):
+        a = torch.as_tensor(rng.uniform(-1.0, 1.0, (k, n, 2)).astype(np.float32))
+        nd = traffic.block_npc_step_draws(gpu.generator, gpu.town, sg.world.town_id, k,
+                                          p.v_max, p.p_max)
+        rd = world_mod.block_reset_draws(gpu.generator, k, n, p, gpu.routes, gpu.weather_table,
+                                         gpu.town)
+        out_g = gpu.step_physics_block(sg, a.to(gpu.device), draws=rd, npc_draws=nd)
+        out_c = cpu_env.step_physics_block(sc, a, draws=to_cpu(rd), npc_draws=to_cpu(nd))
+        for name, x, y in (("terminated", out_g[2], out_c[2]), ("truncated", out_g[3], out_c[3]),
+                           ("was_reset", out_g[5], out_c[5])):
+            check(torch.equal(x.cpu(), y), f"block {b}: {name} GPU vs CPU with traffic")
+        check(torch.allclose(out_g[1].cpu(), out_c[1], rtol=1e-5, atol=1e-4),
+              f"block {b}: rewards GPU vs CPU with traffic: "
+              f"{(out_g[1].cpu() - out_c[1]).abs().max()}")
+        for f in ("route_id", "wp_idx", "timestep", "episode", "weather_id", "should_terminate"):
+            check(torch.equal(getattr(out_g[0].world, f).cpu(), getattr(out_c[0].world, f)),
+                  f"block {b}: world {f} GPU vs CPU with traffic")
+        worst_npc = max(worst_npc, _hold_npcs(out_g[0].world.npc, out_c[0].world.npc,
+                                              f"block {b}"))
+        resets += int(out_c[5].sum())
+        sg = gpu.push_block_frame_batch(out_g[0], out_g[5].any(0), frame_ids=b, slot=slot)
+        sc = cpu_env.push_block_frame_batch(out_c[0], out_c[5].any(0), frame_ids=b, slot=slot)
+        slot = (slot + 1) % T
+        diff = (sg.image_stack.cpu().to(torch.int32) - sc.image_stack.to(torch.int32)).abs()
+        worst_img = min(worst_img, float((diff <= 2).float().mean()))
+    check(worst_img > 0.99, f"block image stacks GPU vs CPU with traffic: {worst_img:.6f} "
+                            f"within 2")
+    check(resets > 0, "no world restarted in the block path's agreement run")
+    npc = sg.world.npc
+    print(f"  block path, stage s3's traffic, {blocks} blocks of {k} ticks x {n} worlds "
+          f"({resets} restarts; {float(npc.veh_active.sum()) / n:.1f} vehicles, "
+          f"{float(npc.ped_active.sum()) / n:.1f} walkers per world): NPC floats max |diff| "
+          f"{worst_npc:.3e}, images within 2 u8 {worst_img:.6f}", flush=True)
 
 
 def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
@@ -632,13 +733,7 @@ def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
     sc, _ = cpu_env.reset(to_cpu(dg))
     worst_img, worst_npc = 1.0, 0.0
     for i in range(steps + 1):
-        for f, x, y in zip(sg.world.npc._fields, sg.world.npc, sc.world.npc):
-            if f in ("veh_wp", "veh_active", "ped_active", "ped_cross"):
-                check(torch.equal(x.cpu(), y), f"NPC {f} GPU vs CPU at step {i}")
-            else:
-                err = float((x.cpu() - y).abs().max())
-                worst_npc = max(worst_npc, err)
-                check(err <= 1e-3, f"NPC {f} GPU vs CPU at step {i}: max |diff| {err}")
+        worst_npc = max(worst_npc, _hold_npcs(sg.world.npc, sc.world.npc, f"step {i}"))
         if i == steps:
             break
         a = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32))
@@ -1398,6 +1493,80 @@ def env_phase() -> dict:
 
 
 
+def _train_epoch(stage, updates: int, label: str, physics_per_update: int) -> dict:
+    """Run2 of `stage` for one epoch of `updates` updates after stage.init,
+    with the launch counts set to 0 just before: the metrics finite, every
+    parameter group moved, `physics_per_update` physics-kernel block
+    launches per update and no single-tick ones, one render launch per
+    4-step block and one at the reset, and with fused units a pass of the
+    13 stride-1 units per predict (inference) and per minibatch (forward
+    and backward).  Prints and returns what it measured."""
+    agent = stage.agent
+    fused_units = agent.config.fused_units
+    check(agent.config.rollout_steps == TRAIN_STEPS, "128-step rollouts")
+    before = {k: v.detach().clone() for k, v in agent.network.state_dict().items()}
+    history = []
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    stage.run2(1, callback=lambda step, m: history.append(m))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    check(len(history) == updates, f"{len(history)} updates")
+    for m in history:
+        for k in ("loss_policy", "loss_value", "entropy", "ratio", "kl"):
+            check(math.isfinite(m[k]), f"{label} metric {k} = {m[k]}")
+    after = agent.network.state_dict()
+    moved = {g: max(float((after[k] - before[k]).abs().max()) for k in after
+                    if k.startswith(g + ".") and "running" not in k)
+             for g in ("policy", "value", "dynamics")}
+    for g, v in moved.items():
+        check(v > 0.0, f"{label}: {g} parameters did not move")
+    check(counts["step_physics_block"] == updates * physics_per_update
+          and counts["step_physics_batch"] == 0,
+          f"{label}: physics launches {counts['step_physics_block']} block, "
+          f"{counts['step_physics_batch']} single-tick")
+    check(counts["render_planes"] == updates * TRAIN_STEPS // 4 + 1,
+          f"{label}: render launches {counts['render_planes']}")
+    # per update: a predict per 4-step block and the bootstrap value's pass
+    # (inference), and a training pass of each minibatch of the two phases
+    minibatches = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
+    passes = dict(shuffle_unit_infer=TRAIN_STEPS // 4 + 1, shuffle_unit_train=minibatches,
+                  shuffle_unit_train_bwd=minibatches)
+    for name, per_update in passes.items():
+        want = updates * per_update * UNITS_PER_PASS if fused_units else 0
+        check(counts[name] == want, f"{label}: {name} launches {counts[name]} != {want}")
+    parts = {k: [m[f"seconds_{k}"] for m in history]
+             for k in ("rollout", "targets", "policy", "value")}
+    update_s = sum(sum(v) for v in parts.values())
+    sps = updates * TRAIN_WORLDS * TRAIN_STEPS / update_s
+    print(f"  {label}: {updates} updates of {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps, "
+          f"batch {TRAIN_BATCH}, in {seconds:.3f} s (save and snapshot included); "
+          f"{sps:.1f} train env-steps/s over the updates", flush=True)
+    print("  seconds per update: " + ", ".join(
+        f"{k} {np.mean(v):.4f}" for k, v in parts.items())
+        + f"; launches per update: physics {counts['step_physics_block'] / updates:.0f}, "
+          f"render {(counts['render_planes'] - 1) / updates:.0f} (+1 at the reset)",
+        flush=True)
+    if fused_units:
+        print("  unit kernel launches per update: " + ", ".join(
+            f"{k} {counts[k] / updates:.0f}" for k in passes)
+            + f"; per minibatch: forward {counts['shuffle_unit_train'] / (updates * minibatches):.0f}"
+              f", backward {counts['shuffle_unit_train_bwd'] / (updates * minibatches):.0f}",
+            flush=True)
+    for i, m in enumerate(history):
+        print(f"  update {i + 1}: " + ", ".join(
+            f"{k} {m[k]:.6g}" for k in ("reward_mean", "loss_policy", "loss_value",
+                                         "entropy", "ratio", "kl", "episode_done")),
+            flush=True)
+    print("  parameters moved (max |delta|): " + ", ".join(
+        f"{g} {v:.3e}" for g, v in moved.items()), flush=True)
+    return dict(seconds=seconds, env_steps_per_s=sps, launches=counts,
+                parts_mean_s={k: float(np.mean(v)) for k, v in parts.items()},
+                parts_s=parts, moved=moved, history=history)
+
+
 def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
     """Stage s1 at the shipped geometry for one epoch (5 updates), from a
     fresh seeded network, with the backbone's stride-1 units unfused or on
@@ -1411,65 +1580,8 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
                             env_overrides=dict(fused_step=True, device="cuda"))
     stage.init()
     agent = stage.agent
-    check(agent.config.rollout_steps == TRAIN_STEPS, "128-step rollouts")
-    before = {k: v.detach().clone() for k, v in agent.network.state_dict().items()}
-    history = []
-    torch.cuda.synchronize()
-    _zero_counts()
-    t0 = time.perf_counter()
-    stage.run2(1, callback=lambda step, m: history.append(m))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    counts = _counts()
-    check(len(history) == TRAIN_UPDATES, f"{len(history)} updates")
-    for m in history:
-        for k in ("loss_policy", "loss_value", "entropy", "ratio", "kl"):
-            check(math.isfinite(m[k]), f"train metric {k} = {m[k]}")
+    summary = _train_epoch(stage, TRAIN_UPDATES, "train", TRAIN_STEPS // 4)
     after = agent.network.state_dict()
-    moved = {g: max(float((after[k] - before[k]).abs().max()) for k in after
-                    if k.startswith(g + ".") and "running" not in k)
-             for g in ("policy", "value", "dynamics")}
-    for g, v in moved.items():
-        check(v > 0.0, f"{g} parameters did not move")
-    check(counts["step_physics_block"] == TRAIN_UPDATES * TRAIN_STEPS // 4
-          and counts["step_physics_batch"] == 0,
-          f"physics launches {counts['step_physics_block']} block, "
-          f"{counts['step_physics_batch']} single-tick")
-    check(counts["render_planes"] == TRAIN_UPDATES * TRAIN_STEPS // 4 + 1,
-          f"render launches {counts['render_planes']}")
-    # per update: a predict per 4-step block and the bootstrap value's pass
-    # (inference), and a training pass of each minibatch of the two phases
-    minibatches = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
-    passes = dict(shuffle_unit_infer=TRAIN_STEPS // 4 + 1, shuffle_unit_train=minibatches,
-                  shuffle_unit_train_bwd=minibatches)
-    for name, per_update in passes.items():
-        want = TRAIN_UPDATES * per_update * UNITS_PER_PASS if fused_units else 0
-        check(counts[name] == want, f"{name} launches {counts[name]} != {want}")
-    parts = {k: [m[f"seconds_{k}"] for m in history]
-             for k in ("rollout", "targets", "policy", "value")}
-    update_s = sum(sum(v) for v in parts.values())
-    sps = TRAIN_UPDATES * TRAIN_WORLDS * TRAIN_STEPS / update_s
-    print(f"  train: {TRAIN_UPDATES} updates of {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps, "
-          f"batch {TRAIN_BATCH}, in {seconds:.3f} s (save and snapshot included); "
-          f"{sps:.1f} train env-steps/s over the updates", flush=True)
-    print("  seconds per update: " + ", ".join(
-        f"{k} {np.mean(v):.4f}" for k, v in parts.items())
-        + f"; launches per update: physics {counts['step_physics_block'] / TRAIN_UPDATES:.0f}, "
-          f"render {(counts['render_planes'] - 1) / TRAIN_UPDATES:.0f} (+1 at the reset)",
-        flush=True)
-    if fused_units:
-        print("  unit kernel launches per update: " + ", ".join(
-            f"{k} {counts[k] / TRAIN_UPDATES:.0f}" for k in passes)
-            + f"; per minibatch: forward {counts['shuffle_unit_train'] / (TRAIN_UPDATES * minibatches):.0f}"
-              f", backward {counts['shuffle_unit_train_bwd'] / (TRAIN_UPDATES * minibatches):.0f}",
-            flush=True)
-    for i, m in enumerate(history):
-        print(f"  update {i + 1}: " + ", ".join(
-            f"{k} {m[k]:.6g}" for k in ("reward_mean", "loss_policy", "loss_value",
-                                         "entropy", "ratio", "kl", "episode_done")),
-            flush=True)
-    print("  parameters moved (max |delta|): " + ", ".join(
-        f"{g} {v:.3e}" for g, v in moved.items()), flush=True)
 
     # the checkpoint reloads equal
     fresh = CARLAgent(stage.env, agent.config, name=agent.name,
@@ -1487,9 +1599,130 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
     check(fresh.update_step == agent.update_step, "reloaded update step")
     print(f"  checkpoint {os.path.basename(agent.base_path)}: reloads equal (network, "
           f"Adam states, update step {fresh.update_step})", flush=True)
-    return stage, dict(seconds=seconds, env_steps_per_s=sps, launches=counts,
-                       parts_mean_s={k: float(np.mean(v)) for k, v in parts.items()},
-                       parts_s=parts, moved=moved, history=history)
+    return stage, summary
+
+
+S2_UPDATES = 2                # train_s2's depth (a cut for time); train_s3_fused: TRAIN_UPDATES
+
+
+def _traffic_numbers(stage, summary: dict, label: str) -> dict:
+    """What a stage with traffic ran with and earned: the mean reward per
+    step, the episodes that ended, and the NPCs per world at the end."""
+    npc = stage._env_states.world.npc
+    out = dict(reward_per_step=float(np.mean([m["reward_mean"] for m in summary["history"]])),
+               episodes_ended=float(sum(m["episode_done"] for m in summary["history"])),
+               vehicles_per_world=float(npc.veh_active.sum()) / TRAIN_WORLDS,
+               walkers_per_world=float(npc.ped_active.sum()) / TRAIN_WORLDS,
+               n_actors=stage.env.n_actors)
+    print(f"  {label}: mean reward per step {out['reward_per_step']:.6g}, "
+          f"{out['episodes_ended']:.0f} episodes ended, {out['vehicles_per_world']:.2f} vehicles "
+          f"and {out['walkers_per_world']:.2f} walkers per world, {out['n_actors']} actor rows; "
+          f"{summary['env_steps_per_s']:.1f} train env-steps/s; seconds per update: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in summary["parts_mean_s"].items()), flush=True)
+    return out
+
+
+def _hold_loaded(agent, network: dict, optimizers=None, update_step: int = None,
+                 what: str = "") -> None:
+    """The agent right after its stage loaded a checkpoint: every tensor but
+    old_policy's equals `network`, old_policy's parameters equal the
+    policy's (a full load copies them), its Adam states equal
+    `optimizers` (when given) and its update step `update_step`."""
+    sd = agent.network.state_dict()
+    check(set(sd) == set(network), f"{what}: the loaded network's tensors")
+    params = {n for n, _ in agent.network.named_parameters()}
+    for name, v in sd.items():
+        if name.startswith("old_policy.") and name in params:
+            want = sd[name.replace("old_policy.", "policy.", 1)]
+        else:
+            want = network[name]
+        check(torch.equal(v.cpu(), want.cpu()), f"{what}: loaded {name}")
+    for g, state in (optimizers or {}).items():
+        got = agent.optimizers[g].state_dict()["state"]
+        check(set(got) == set(state["state"]), f"{what}: {g} Adam state entries")
+        for i, st in state["state"].items():
+            check(all(torch.equal(got[i][x].cpu(), st[x].cpu())
+                      for x in ("exp_avg", "exp_avg_sq", "step")), f"{what}: {g} Adam state {i}")
+    check(agent.update_step == update_step, f"{what}: update step {agent.update_step}")
+
+
+def stage_refusals(root: str) -> None:
+    """What must fail before any training: `--fused-step` with stage s2
+    (the physics kernel computes worlds without NPCs), and the curriculum
+    while stages s4 and s5 are not ported."""
+    from carla_driving_rl_agent_torch import main as cli
+    for what, fn in (("--fused-step with s2",
+                      lambda: cli.make_stage("s2", fused_step=True, device="cuda",
+                                             weights_dir=root).init()),
+                     ("--curriculum", lambda: cli.run_curriculum("1", weights_dir=root))):
+        try:
+            fn()
+        except NotImplementedError as e:
+            print(f"  {what} raises before training: {e}", flush=True)
+        else:
+            check(False, f"{what} did not raise")
+
+
+def train_s2_phase(root: str) -> tuple:
+    """Stage s2 (50 walkers, 50 origins) at the shipped geometry, unfused,
+    for S2_UPDATES updates, from the JAX package's tracked stage-s1
+    checkpoint copied into `root` and handed off to stage-s2 there: before
+    the first update the network equals params_from_jax of that checkpoint
+    (old_policy its policy) and the update step is 150; the physics kernel
+    makes no launch (the plain block steps the NPC worlds).  Returns
+    (stage, summary)."""
+    from carla_driving_rl_agent_torch import main as cli
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax, read_flax_msgpack
+    src = os.path.join("weights", "stage-s1")
+    shutil.copytree(src, os.path.join(root, "stage-s1"))
+    cli.hand_off("s1", "s2", root)
+    stage = stages.stage_s2(episodes=S2_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, weights_dir=root,
+                            env_overrides=dict(device="cuda"))
+    stage.init()
+    ref = params_from_jax(read_flax_msgpack(os.path.join(src, "params.msgpack")),
+                          read_flax_msgpack(os.path.join(src, "batch_stats.msgpack")))
+    _hold_loaded(stage.agent, ref, update_step=150, what="s2 from the tracked stage-s1")
+    print("  stage-s2 loaded weights/stage-s1 through hand_off: every tensor equal, "
+          "old_policy = policy, update step 150", flush=True)
+    summary = _train_epoch(stage, S2_UPDATES, "train_s2", 0)
+    summary.update(_traffic_numbers(stage, summary, "train_s2"))
+    return stage, summary
+
+
+def train_s3_fused_phase(root: str) -> tuple:
+    """Stage s3 (50 vehicles, 50 walkers, the training weathers) at the
+    shipped geometry with fused_units=True, for one epoch of TRAIN_UPDATES
+    updates, from train_s2's checkpoint handed off in `root`: before the
+    first update the network and the Adam states equal that checkpoint's
+    exactly; the unit kernels run in every predict and minibatch, the
+    physics kernel not at all; the weathers drawn are training weathers.
+    Returns (stage, summary)."""
+    from carla_driving_rl_agent_torch import main as cli
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.envs.weather import TRAIN_WEATHERS, weather_ids
+    cli.hand_off("s2", "s3", root)
+    ckpt = os.path.join(root, "stage-s3")
+    network = torch.load(os.path.join(ckpt, "network.pt"), map_location="cpu")
+    optimizers = torch.load(os.path.join(ckpt, "optimizers.pt"), map_location="cpu")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        update_step = json.load(f)["update_step"]
+    stage = stages.stage_s3(episodes=TRAIN_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+                            weights_dir=root, env_overrides=dict(device="cuda"))
+    stage.init()
+    _hold_loaded(stage.agent, network, optimizers, update_step, "s3 from the s2 checkpoint")
+    print(f"  stage-s3 loaded train_s2's checkpoint through hand_off: network and Adam states "
+          f"equal, update step {update_step}", flush=True)
+    check(stage.env.n_actors == 8, f"s3 renders {stage.env.n_actors} actor rows")
+    summary = _train_epoch(stage, TRAIN_UPDATES, "train_s3_fused", 0)
+    summary.update(_traffic_numbers(stage, summary, "train_s3_fused"))
+    drawn = set(stage._env_states.world.weather_id.tolist())
+    check(drawn <= {int(i) for i in weather_ids(TRAIN_WEATHERS)},
+          f"s3 weathers {sorted(drawn)} outside the training weathers")
+    print(f"  weather ids at the end: {sorted(drawn)}, all training weathers", flush=True)
+    return stage, summary
 
 
 TINY_NET = dict(
@@ -1659,8 +1892,10 @@ def profile_train_phase(agent, per_call: dict) -> dict:
     """A quarter-length training update under torch.profiler (rollouts of 32
     steps: 8 blocks, 16 minibatches per phase, the parts in the shipped
     proportions): device busy time, idle share, launches and the largest
-    kernels; then one policy-phase and one value-phase minibatch of that
-    rollout alone: launches, device time and wall time per minibatch."""
+    kernels; then the kernel launches of one rollout block alone, and one
+    policy-phase and one value-phase minibatch of that rollout alone:
+    launches, device time and wall time per minibatch; with NPCs, what
+    their tick and spawn cost per tick (npc_costs)."""
     from torch.profiler import ProfilerActivity, profile
     steps = agent.config.rollout_steps
     agent.config.rollout_steps = PROFILE_ROLLOUT_STEPS
@@ -1678,6 +1913,15 @@ def profile_train_phase(agent, per_call: dict) -> dict:
     data = agent.targets(traj, final_obs, states.last_action, hyper["adv_scale"])
     batch = agent.gather_batch(data, torch.arange(agent.config.batch_size,
                                                   device=agent.env.device))
+    # a rollout of one block of past_obs_freq steps: its kernel launches (a
+    # predict, the physics block, the push, and the rollout's start and end)
+    agent.config.rollout_steps = agent.env.config.past_obs_freq
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as r_prof:
+        agent.collect(states)
+        torch.cuda.synchronize()
+    rollout_launches = sum(e.count for e in r_prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA)
     agent.config.rollout_steps = steps
     agent.policy_step(batch, hyper)
     agent.value_step(batch)
@@ -1719,8 +1963,11 @@ def profile_train_phase(agent, per_call: dict) -> dict:
         ev = [e for e in kern if name in e.key]
         if ev:
             out[f"{name}_device_ms"] = ev[0].self_device_time_total / 1e3 / ev[0].count
-    out.update(unit_device_ms=_unit_device_ms(kern, counts), minibatch=minibatch)
+    out.update(unit_device_ms=_unit_device_ms(kern, counts), minibatch=minibatch,
+               rollout_launches_per_block=rollout_launches)
     label = "fused_units" if agent.config.fused_units else "unfused"
+    if agent.env.params.has_npcs:
+        label += ", traffic"
     print(f"  [{label}] a {PROFILE_ROLLOUT_STEPS}-step update under the profiler: wall "
           f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
           f"{out['device_idle_share']:.4f}, {out['kernel_launches']} kernel launches; physics "
@@ -1734,8 +1981,15 @@ def profile_train_phase(agent, per_call: dict) -> dict:
               f"{k} {v:.6f}" for k, v in out["unit_device_ms"].items()) or "none")
           + f"; unit-kernel launches per minibatch: {unit_seen:g} profiled, {unit_calls:g} "
             f"called", flush=True)
+    print(f"  [{label}] a rollout of one {agent.env.config.past_obs_freq}-step block (its start "
+          f"and final observation included): {rollout_launches} kernel launches", flush=True)
     for k in out["top_kernels"]:
         print(f"    {k['ms']:10.3f} ms {k['count']:7d}x  {k['name']}", flush=True)
+    if agent.env.params.has_npcs:
+        out["npc"] = npc_costs(agent.env, states.world)
+        print(f"  [{label}] NPCs per tick at {states.world.x.shape[0]} worlds: " + "; ".join(
+            f"{k} host {v['host_ms']:.4f} ms, device {v['device_ms']:.4f} ms, "
+            f"{v['launches']} launches" for k, v in out["npc"].items()), flush=True)
     return out
 
 
@@ -1751,6 +2005,7 @@ def main(argv=None) -> int:
         return 2
     from carla_driving_rl_agent_torch import native
     from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.envs.weather import TRAIN_WEATHERS
     from carla_driving_rl_agent_torch.ops import physics as P
     from carla_driving_rl_agent_torch.ops import render as R
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
@@ -1776,15 +2031,27 @@ def main(argv=None) -> int:
         traffic_agents = {lvl: stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS,
                                                        device="cuda", traffic=lvl)
                           for lvl in TRAFFIC_LEVELS}
+        # the envs of stages s2 (50 walkers) and s3 (50 vehicles, 50 walkers,
+        # the training weathers), as their factories build them
+        s2_env = stages.build_env(town=TOWN, spawn=dict(vehicles=0, pedestrians=50),
+                                  device="cuda")
+        s3_env = stages.build_env(town=TOWN, random_weathers=list(TRAIN_WEATHERS),
+                                  spawn=dict(vehicles=50, pedestrians=50), device="cuda")
     summary["phases"]["setup"] = p.seconds
     with Phase("kernel") as p:
         summary["kernel"] = kernel_phase(agent.env, kernels)
         summary["kernel"]["traffic"] = traffic_render_check(traffic_agents["dense"].env)
         kernels["render_planes"]["traffic_62_worlds"] = summary["kernel"]["traffic"]
+        summary["kernel"]["s2"] = traffic_render_check(s2_env, n=TRAIN_WORLDS,
+                                                       steps=S2_RENDER_STEPS,
+                                                       label="stage s2's walkers")
+        check(summary["kernel"]["s2"]["n_actors"] == 5, "stage s2's pack has 5 actor rows")
+        kernels["render_planes"]["s2_32_worlds"] = summary["kernel"]["s2"]
     summary["phases"]["kernel"] = p.seconds
     with Phase("agree") as p:
         agree_phase(agent)
         agree_traffic(traffic_agents["dense"].env)
+        agree_block_traffic(s3_env)
     summary["phases"]["agree"] = p.seconds
     launches = {}
     with tempfile.TemporaryDirectory() as out_dir, Phase("slice") as p:
@@ -1850,6 +2117,24 @@ def main(argv=None) -> int:
     with Phase("train_agree_fused") as p:
         summary["train_agree_fused"] = train_agree_phase(stage.env, fused_units=True)
     summary["phases"]["train_agree_fused"] = p.seconds
+    # stages s2 and s3 in one temporary weights root, s3 handed s2's checkpoint
+    stages_root = tempfile.TemporaryDirectory()
+    with Phase("train_s2") as p:
+        stage_refusals(stages_root.name)
+        stage_s2, summary["train_s2"] = train_s2_phase(stages_root.name)
+        launches["train_s2"] = summary["train_s2"].pop("launches")
+    summary["phases"]["train_s2"] = p.seconds
+    with Phase("train_s3_fused") as p:
+        stage_s3, summary["train_s3_fused"] = train_s3_fused_phase(stages_root.name)
+        launches["train_s3_fused"] = summary["train_s3_fused"].pop("launches")
+        print("  train env-steps/s, s1 unfused / s1 fused / s2 unfused / s3 fused: " + " / ".join(
+            f"{summary[k]['env_steps_per_s']:.1f}"
+            for k in ("train", "train_fused", "train_s2", "train_s3_fused")), flush=True)
+        for k in ("train", "train_fused", "train_s2", "train_s3_fused"):
+            print(f"  seconds per update, {k}: " + ", ".join(
+                f"{part} {v:.4f}" for part, v in summary[k]["parts_mean_s"].items()),
+                flush=True)
+    summary["phases"]["train_s3_fused"] = p.seconds
     if args.profile:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)
@@ -1858,7 +2143,9 @@ def main(argv=None) -> int:
             per_call = {k: kr["launches_per_call"] for k, kr in kernels.items()}
             summary["profile_train"] = profile_train_phase(stage.agent, per_call)
             summary["profile_train_fused"] = profile_train_phase(stage_fused.agent, per_call)
+            summary["profile_train_s3_fused"] = profile_train_phase(stage_s3.agent, per_call)
         summary["phases"]["profile"] = p.seconds
+    stages_root.cleanup()
 
     for name, kr in kernels.items():
         # the unit kernels run on the training path with fused_units=True

@@ -432,6 +432,42 @@ def test_pack_actor_rows_match_jax(bank, worlds, v, p, active_share):
         assert bool((rows[:, 5:] == 0).all()) and bool((rows[:, :5, 3] > 0).all())
 
 
+def test_s2_pack_actor_rows_match_jax(bank, worlds):
+    """Stage s2's pack (no vehicles, 50 walkers: 5 actor rows, the vehicle
+    row always inactive) from a real spawn, JAX's init_npcs around the egos:
+    the actor block equals JAX's exactly, and the kernel's math (its g++
+    build) draws those 5 rows as the plain version does."""
+    x, y, _, _ = worlds
+    jt = jworld.TownDev(**{f: jnp.asarray(getattr(bank, f)) for f in jworld.TownDev._fields})
+    ego = jnp.asarray(np.stack([x, y], -1))
+    fleet = jax.vmap(lambda k, e: jtraffic.init_npcs(k, jt, jnp.int32(0), 0, 50, e, v_max=1,
+                                                     p_max=50))(
+        jax.random.split(jax.random.PRNGKey(9), N_WORLDS), ego)
+    # walkers 0-2 of each world stand in front of its ego, so that they show
+    fwd = np.stack([np.cos(worlds[2]), np.sin(worlds[2])], -1)
+    ped = np.array(fleet.ped_xy)
+    ped[:, :3] = np.stack([x, y], -1)[:, None] + (np.array([6.0, 9.0, 12.0])[None, :, None]
+                                                  * fwd[:, None])
+    fleet = jax.tree_util.tree_map(np.asarray, fleet._replace(ped_xy=ped))
+    n_actors = _static_n_actors(0, 50)[1]
+    assert n_actors == 5
+    jp, tp = _traffic_packs(bank, worlds, fleet, n_actors)
+    act = slice(R._O_ACT, R._O_EGO)
+    np.testing.assert_array_equal(tp[:, act].numpy(), jp[:, act])
+    rows = tp[:, act].reshape(N_WORLDS, R.K_ACTORS, 8)
+    assert not bool(rows[:, 0, 2].any()), "the vehicle row is active"
+    assert bool((rows[:, 1:5, 2] == 1).all()) and not bool(rows[:, 5:].any())
+    geom = np.ascontiguousarray(tp.numpy())
+    lut = R.lut_tensors("cpu")["kernel_lut"].numpy()
+    out = np.zeros((N_WORLDS, 3, 45, 180), np.uint8)
+    _host_lib().cdrl_render_planes_host(geom.ctypes.data, lut.ctypes.data, out.ctypes.data,
+                                        N_WORLDS, 0, n_actors)
+    ref = R.render_planes_plain(tp, n_actors=n_actors).numpy()
+    assert _exact_share(out, ref) >= 0.9999 and _within(out, ref)[0]
+    bare = R.render_planes_plain(tp, n_actors=0).numpy()
+    assert (ref != bare).any(1).sum() > 100, "the walkers do not show"
+
+
 def test_static_n_actors_without_npcs():
     assert _static_n_actors(0, 0) == (0, 0)
 

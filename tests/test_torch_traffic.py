@@ -19,6 +19,7 @@ exact; floats 1e-5 + 2.5e-7 relative for one tick from the JAX state; 1e-4
 over a free run of 10 ticks.
 """
 
+import dataclasses
 import types
 
 import jax
@@ -44,6 +45,8 @@ CASES = {
     "town02-regular": (("Town02",), 50, 50, 0.0, 0.0),
     "town02-dense": (("Town02",), 100, 200, 0.0, 0.0),
     "two-towns-regular-cross-run": (("Town01", "Town02"), 50, 50, 0.5, 0.5),
+    # stage s2's fleet: no vehicles, so the one vehicle slot is never active
+    "town02-s2": (("Town02",), 0, 50, 0.0, 0.0),
 }
 
 
@@ -145,7 +148,10 @@ def test_init_npcs_matches_jax(banks, case):
                             crossing=crossing, running=running)
     assert_npc(tn, jn, 1e-5, "init")
     on = tn.veh_active.sum(1)
-    assert (on > 0).all() and (on < nv).any(), "the keep-out and duplicates deactivate none"
+    if nv:
+        assert (on > 0).all() and (on < nv).any(), "the keep-out and duplicates deactivate none"
+    else:
+        assert tn.veh_active.shape == (B, 1) and not bool(on.any())
     assert int(tn.ped_active.sum()) == B * npd
     if crossing:
         assert 0 < float(tn.ped_cross.mean()) < 1
@@ -198,12 +204,20 @@ def test_step_npcs_matches_jax(banks, case):
         reached += int((np.asarray(jnext.ped_goal) != np.asarray(jn.ped_goal)).any(-1).sum())
         jn = jnext
     v = np.asarray(jn.veh_v)[np.asarray(jn.veh_active) > 0]
-    assert moved > 0 and reached > 0, (moved, reached)
-    assert v.max() > 0.5 and (v < 0.05).any(), "no vehicle drove, or none was held"
+    assert reached > 0, reached
+    if nv:
+        assert moved > 0, moved
+        assert v.max() > 0.5 and (v < 0.05).any(), "no vehicle drove, or none was held"
+    else:
+        assert v.size == 0 and not np.asarray(jn.veh_v).any(), "an inactive vehicle moved"
 
 
 WORLD = dict(town_names=("Town02",), num_routes=8, max_timesteps=6, weather_ids=(1, 5, 9),
              num_vehicles=50, num_pedestrians=50, v_max=50, p_max=50)
+# (vehicles, pedestrians) of the world tests, and what stands just ahead of
+# egos 0-2 at the first step: (an NPC vehicle, a walker)
+WORLD_FLEETS = {"50/50": (50, 50, ((True, False), (False, True), (True, True))),
+                "s2-0/50": (0, 50, ((False, True),) * 3)}
 WORLD_INT = ("route_id", "wp_idx", "town_id", "weather_id", "timestep", "episode",
              "should_terminate")
 WORLD_FLOAT = ("x", "y", "yaw", "v", "throttle", "brake", "steer", "similarity",
@@ -214,7 +228,7 @@ WORLD_FLOAT = ("x", "y", "yaw", "v", "throttle", "brake", "steer", "similarity",
 def world_data(banks):
     """(JAX params, town, routes), (port params, town, routes) of a 50/50
     Town02 world; the JAX route banks are the port's arrays (equal,
-    tests/test_torch_world.py)."""
+    tests/test_torch_world.py).  The routes do not depend on the fleet."""
     tp = tworld.WorldParams(**WORLD)
     tt, tr = tworld.build_world_data(tp, "cpu")
     xyy = tr.xyy.numpy()
@@ -226,11 +240,11 @@ def world_data(banks):
     return (jworld.WorldParams(**WORLD), banks[("Town02",)][0], jr), (tp, tt, tr)
 
 
-def _world_draws(d, jt, tid):
+def _world_draws(d, jt, tid, v_max=50, p_max=50):
     """Port ResetDraws from a vmapped jworld._reset_draws (k_npc included)."""
     tid_, wid, rid, _, _, st, k_npc, _ = d
     return tworld.ResetDraws(_t(tid_), _t(wid), _t(rid), _t(st),
-                             npc=jax_reset_draws(k_npc, jt, tid_, 50, 50))
+                             npc=jax_reset_draws(k_npc, jt, tid_, v_max, p_max))
 
 
 def _torch_world(js):
@@ -253,17 +267,32 @@ def test_world_with_traffic_matches_jax(world_data, rng):
     in world 0 an NPC vehicle, in world 1 a walker and in world 2 both stand
     just ahead of the ego at the first step, so that the step hits them:
     terminated, with penalty 500, 1000 and 1500."""
+    _world_with_traffic(world_data, rng, "50/50")
+
+
+def test_world_with_s2_fleet_matches_jax(world_data, rng):
+    """The same with stage s2's fleet (no vehicles: one never-active
+    vehicle slot; 50 walkers), a walker just ahead of egos 0-2 at the
+    first step (penalty 1000 each)."""
+    _world_with_traffic(world_data, rng, "s2-0/50")
+
+
+def _world_with_traffic(world_data, rng, fleet):
+    nv, npd, ahead_of = WORLD_FLEETS[fleet]
     (jp, jt, jr), (tp, tt, tr) = world_data
+    fleet_kw = dict(num_vehicles=nv, num_pedestrians=npd, v_max=max(nv, 1), p_max=npd)
+    jp, tp = dataclasses.replace(jp, **fleet_kw), dataclasses.replace(tp, **fleet_kw)
+    v_max, p_max = tp.v_max, tp.p_max
     keys = jax.random.split(jax.random.PRNGKey(5), B)
     js = jax.vmap(lambda k: jworld.reset_world(k, jp, jt, jr))(keys)
     d = jax.vmap(lambda k: jworld._reset_draws(k, jp, jt, jr))(keys)
-    ts = tworld.reset_world(_world_draws(d, jt, d[0]), tr, town=tt, params=tp)
+    ts = tworld.reset_world(_world_draws(d, jt, d[0], v_max, p_max), tr, town=tt, params=tp)
     _assert_world(ts, js, 1e-5, "reset")
     # place the NPCs in front of egos 0-2, and the egos in the free run too
     fwd = np.stack([np.cos(np.asarray(js.yaw)), np.sin(np.asarray(js.yaw))], -1)
     ahead = np.stack([np.asarray(js.x), np.asarray(js.y)], -1) + 2.0 * fwd
     npc = jax.tree_util.tree_map(np.array, js.npc)
-    for w, (veh, ped) in enumerate(((True, False), (False, True), (True, True))):
+    for w, (veh, ped) in enumerate(ahead_of):
         if veh:
             npc.veh_xy[w, 0], npc.veh_yaw[w, 0], npc.veh_active[w, 0] = ahead[w], js.yaw[w], 1.0
         if ped:
@@ -295,9 +324,9 @@ def test_world_with_traffic_matches_jax(world_data, rng):
         act = rng.uniform(-1.0, 1.0, (B, 2)).astype(np.float32)
         act[:, 0] = np.abs(act[:, 0])
         k_npc = jax.vmap(lambda k: jax.random.split(k)[1])(js.key)
-        npc_draws = jax_step_draws(k_npc, jt, js.town_id, 50, 50)
+        npc_draws = jax_step_draws(k_npc, jt, js.town_id, v_max, p_max)
         js_next, jrew, jterm, jtrunc, jinfo, jd = jstep(js, jnp.asarray(act))
-        draws = _world_draws(jd, jt, jd[0])
+        draws = _world_draws(jd, jt, jd[0], v_max, p_max)
         one, r1, te1, tr1, info1 = tstep(_torch_world(js), torch.from_numpy(act), npc_draws,
                                          draws)
         for k in ("hit_vehicle", "hit_pedestrian", "hit_other", "collision"):
@@ -311,11 +340,11 @@ def test_world_with_traffic_matches_jax(world_data, rng):
         np.testing.assert_allclose(rr.numpy(), np.asarray(jrew), rtol=0, atol=1e-4)
         _assert_world(ts, js_next, 1e-4, f"free step {i}")
         if i == 0:
-            np.testing.assert_array_equal(np.asarray(jinfo["hit_vehicle"])[:3],
-                                          [True, False, True])
-            np.testing.assert_array_equal(np.asarray(jinfo["hit_pedestrian"])[:3],
-                                          [False, True, True])
-            np.testing.assert_array_equal(rr.numpy()[:3], [-500.0, -1000.0, -1500.0])
+            veh, ped = (list(c) for c in zip(*ahead_of))
+            np.testing.assert_array_equal(np.asarray(jinfo["hit_vehicle"])[:3], veh)
+            np.testing.assert_array_equal(np.asarray(jinfo["hit_pedestrian"])[:3], ped)
+            np.testing.assert_array_equal(rr.numpy()[:3],
+                                          [-500.0 * v - 1000.0 * p for v, p in ahead_of])
         n_done += int(np.sum(np.asarray(jterm | jtrunc)))
         js = js_next
     assert n_done >= B, "the rollout exercised too few auto-resets"
@@ -375,11 +404,11 @@ def test_port_draws_lie_in_range(banks):
 
 def test_physics_kernel_entries_refuse_npc_worlds():
     """No fallback from the physics kernel on worlds with NPCs: its entry
-    points raise on every device, and so does the plain block (NPC worlds
-    step per tick)."""
+    points raise on every device (the plain block steps NPC worlds,
+    tests/test_torch_curriculum.py)."""
     params = tworld.WorldParams(town_names=("Town02",), num_vehicles=50, num_pedestrians=50,
                                 v_max=50, p_max=50)
-    for fn in (P.step_physics_batch, P.step_physics_block, P.step_physics_block_plain):
+    for fn in (P.step_physics_batch, P.step_physics_block):
         with pytest.raises(NotImplementedError, match="without NPCs"):
             fn(None, None, params, None, None, None)
 
