@@ -11,8 +11,9 @@ counterpart:
   ops/        — the CUDA kernels' wrappers (render, physics, ShuffleNet unit)
                 and their plain PyTorch versions
   models/     — ShuffleNetV2 + feature nets + GRUs + Beta policy
-  agents/     — CARLAgent (evaluation only in this slice)
-  curriculum/ — the one-town evaluation driver
+  augment/    — the image augmentations and the learner's training pipeline
+  agents/     — CARLAgent: rollouts, the PPO learner, the evaluation
+  curriculum/ — the five stages and the one-town evaluation
   utils/      — activations, checkpoint reading, kernel builds
   native/     — the C++ route planner (g++, ctypes)
   csrc/       — CUDA C++ kernels (nvcc, ctypes)

@@ -15,7 +15,9 @@ core/carla_agent.py over rl/agents/ppo.py).  One update (`train_iteration`):
     step of the value head and one of the backbone, through the SAME
     dynamics Adam state.
 The two phases stay apart: fusing them into one summed-gradient step was
-measured to starve the policy head (main.py:97-134).
+measured to starve the policy head (main.py:97-134).  With aug_intensity
+> 0 each phase augments the images of its own minibatches
+(augment/simclr.py); the rollout and the targets see clean frames.
 
 Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
   * policy: PPO-clip on the per-action ratio averaged over the action
@@ -25,8 +27,8 @@ Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
     + similarity MSE) without the 0.5, the whole times 0.25.
 
 Only Adam and float32 are ported, with the unfused network or with
-`fused_units` (the ShuffleNet-unit kernels); the JAX package's other
-learner options raise (CARLAgentConfig.check).
+`fused_units` (the ShuffleNet-unit kernels), and with the augmentation;
+the JAX package's other learner options raise (CARLAgentConfig.check).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ import torch
 
 from carla_driving_rl_agent_torch import REPO_ROOT
 from carla_driving_rl_agent_torch.agents import rollout as rollout_mod
+from carla_driving_rl_agent_torch.augment import simclr
 from carla_driving_rl_agent_torch.envs import world as world_mod
 from carla_driving_rl_agent_torch.envs.carla_env import (
     CARLAEnv, EnvState, convert_action, planes_to_image)
@@ -99,9 +102,10 @@ class CARLAgentConfig:
     network: Dict[str, Any] = field(default_factory=dict)
     # stride-1 ShuffleNet units as fused ops (the unit kernels on the card)
     fused_units: bool = False
+    # the training augmentation of every minibatch's images (augment/simclr)
+    aug_intensity: float = 0.0
     # learner options of the JAX package that the port does not have yet;
     # anything but these defaults raises
-    aug_intensity: float = 0.0
     fused_update: bool = False
     two_step_update: bool = False
     two_step_split_adam: bool = False
@@ -111,7 +115,7 @@ class CARLAgentConfig:
     compute_dtype: str = "float32"
 
     def check(self) -> None:
-        unported = dict(aug_intensity=0.0, fused_update=False, two_step_update=False,
+        unported = dict(fused_update=False, two_step_update=False,
                         two_step_split_adam=False, resample_actions=False,
                         expert_rollout=False, ratio_clamp=0.0,
                         compute_dtype="float32")
@@ -282,7 +286,11 @@ class CARLAgent:
     def gather_batch(self, data: dict, idx: torch.Tensor) -> dict:
         """One minibatch of samples `idx` (JAX carla_agent.py:480-504): the
         flat fields, and the image stacks gathered from the frame timeline
-        and turned into the network's (mb, T, H, 3W, C) [0, 1] input."""
+        and turned into the network's (mb, T, H, 3W, C) [0, 1] input, then
+        augmented when aug_intensity > 0: one set of draws per sample from
+        the agent's generator, shared by its T frames (JAX vmaps the
+        pipeline with in_axes=(None, 0, None)), statistics per frame.  With
+        aug_intensity 0 nothing is drawn."""
         keys = ("advantages", "returns", "log_prob", "action", "speed", "similarity",
                 "road", "vehicle", "navigation")
         mb = {k: data[k][idx] for k in keys}
@@ -290,6 +298,7 @@ class CARLAgent:
                                               data["env"][idx], data["timeline"])
         ry, rx = self.env.config.upsample
         img = planes_to_image(img, ry, rx).to(torch.float32) / 255.0
+        img = simclr.augment(self.generator, img, self.config.aug_intensity)
         mb["obs"] = dict(state_image=img, state_road=mb["road"],
                          state_vehicle=mb["vehicle"], state_navigation=mb["navigation"],
                          action=mb["action"])

@@ -1,11 +1,11 @@
-"""Curriculum stages s1-s3, the Stage orchestrator, and the evaluation
+"""The five curriculum stages, the Stage orchestrator, and the evaluation
 protocol for one town at a time.
 
 Counterpart of carla_driving_rl_agent_tpu/curriculum/stages.py (reference
 core/learning.py): `sample_origins` (:19-33), `define_agent`/`define_env`
 (:53-61), `Stage` (:68-189), `stage_s1` (:311-339), `stage_s2` (:342-369),
-`stage_s3` (:372-409) and `evaluate` (:505-530) with its traffic levels
-(`TRAFFIC_SPECS`, :485-487).  Stages s4 and s5 come with a later slice.
+`stage_s3` (:372-409), `stage_s4` (:412-450), `stage_s5` (:453-498) and
+`evaluate` (:505-530) with its traffic levels (`TRAFFIC_SPECS`, :485-487).
 
 Parallelism mapping (as in the JAX package): an epoch runs `episodes`
 updates, each consuming a `timesteps`-step rollout (at most 128 steps)
@@ -235,6 +235,39 @@ def stage_s3(episodes: int, timesteps: int, batch_size: int, save_every=None,
                   env_overrides, kwargs, dict(load=True, load_full=True), town=town,
                   random_weathers=list(TRAIN_WEATHERS),
                   spawn=dict(vehicles=50, pedestrians=50))
+
+
+def stage_s4(episodes: int, timesteps: int, batch_size: int, towns=None,
+             save_every=None, seed: int = 42, stage_name: str = "stage-s4",
+             num_envs: int = 32, town: str = DEFAULT_TOWN,
+             env_overrides: Optional[dict] = None, **kwargs) -> Stage:
+    """Stage-4: stage s3's traffic and weathers, the towns `towns` drawn per
+    episode when given (else `town`), and the training augmentation at
+    aug_intensity 1.0 by default (reference core/learning.py:412-450).
+    With NPCs and more than one town the block rollout raises
+    (envs/carla_env.py); the per-step rollout trains."""
+    kwargs.setdefault("aug_intensity", 1.0)
+    return _stage(stage_name, episodes, timesteps, batch_size, save_every, seed, num_envs,
+                  env_overrides, kwargs, dict(load=True, load_full=True), town=town,
+                  random_towns=towns, random_weathers=list(TRAIN_WEATHERS),
+                  spawn=dict(vehicles=50, pedestrians=50))
+
+
+def stage_s5(episodes: int, timesteps: int, batch_size: int, town: str,
+             save_every=None, seed: int = 42, stage_name: str = "stage-s5",
+             weather=None, traffic: str = "dense", num_envs: int = 32,
+             env_overrides: Optional[dict] = None, **kwargs) -> Stage:
+    """Stage-5: the named town with the `traffic` level of TRAFFIC_SPECS,
+    the weathers `weather` (default the training weathers), the
+    augmentation at 1.0 by default, and the stage's weights loaded unless
+    load=False (reference core/learning.py:453-498)."""
+    if traffic not in TRAFFIC_SPECS:
+        raise ValueError(f"traffic must be one of {tuple(TRAFFIC_SPECS)}, got {traffic!r}")
+    kwargs.setdefault("aug_intensity", 1.0)
+    return _stage(stage_name, episodes, timesteps, batch_size, save_every, seed, num_envs,
+                  env_overrides, kwargs, dict(load=kwargs.pop("load", True), load_full=True),
+                  town=town, random_weathers=weather or list(TRAIN_WEATHERS),
+                  spawn=TRAFFIC_SPECS[traffic])
 
 
 def network_spec(weights: str, weights_dir: str) -> dict:

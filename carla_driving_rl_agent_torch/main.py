@@ -1,9 +1,12 @@
-"""Command line of the PyTorch port: curriculum stages s1-s3 with the
-hand-off between them, and the evaluation sweep, on one GPU.
+"""Command line of the PyTorch port: the five curriculum stages with the
+hand-off between them, the whole curriculum, the no-curriculum "standard"
+agent, and the evaluation sweep, on one GPU.
 
-    python -m carla_driving_rl_agent_torch.main --stage s1|s2|s3 --epochs 1 --block \
-        [--fused-step] [--fused-units] [--safe] [--sharp]
+    python -m carla_driving_rl_agent_torch.main --stage s1|s2|s3|s4|s5 --epochs 1 --block \
+        [--fused-step] [--fused-units] [--safe] [--sharp] [--aug-intensity A]
     python -m carla_driving_rl_agent_torch.main --hand-off s1 s2
+    python -m carla_driving_rl_agent_torch.main --curriculum --epochs 30,16,12,10,10 --block
+    python -m carla_driving_rl_agent_torch.main --standard --epochs 78 --block
     python -m carla_driving_rl_agent_torch.main --evaluate [--weights safe-s5] \
         [--steps 512] [--trials 50]
 
@@ -11,17 +14,25 @@ Mirrors `main.py --stage sN --epochs N [--block]` of the JAX package with the
 shipped sequential float32 trainer (main.FAST_TRAIN = dict()): 5 updates per
 epoch of 32 worlds x 128 steps (512-step episodes), batch 64, Town03; s1
 without traffic, s2 with 50 walkers, s3 with 50 vehicles, 50 walkers and the
-training weathers.  s2 and s3 load the weights their stage directory holds
-(`--hand-off s1 s2` copies stage-s1's there, as the JAX package's hand_off).
+training weathers, s4 as s3 with the training augmentation (aug_intensity
+1.0), s5 with dense traffic (100 vehicles, 200 walkers) and the
+augmentation.  s2-s5 load the weights their stage directory holds
+(`--hand-off s1 s2` copies stage-s1's there, as the JAX package's hand_off);
+`--curriculum` runs s1 -> s5, handing each stage the previous one's
+weights; `--standard` trains stage s5's setting from scratch as
+stage-standard (stage-standard-sharp with `--sharp`), the reference's
+no-curriculum control agent.
 `--fused-step` runs the physics on the CUDA kernel
 (CARLAEnvConfig.fused_step), which computes worlds without NPCs only, so it
-raises with s2 and s3; `--fused-units` runs the backbone's stride-1
-ShuffleNet units on the fused unit kernels (CARLAgentConfig.fused_units,
-the counterpart of the JAX package's main.FAST_TRAIN = dict(fused_units=True));
-`--safe` prices the env as SAFE_ENV; `--sharp` trains with sharp_recipe.
+raises with s2-s5, `--curriculum` and `--standard`; `--fused-units` runs the
+backbone's stride-1 ShuffleNet units on the fused unit kernels
+(CARLAgentConfig.fused_units, the counterpart of the JAX package's
+main.FAST_TRAIN = dict(fused_units=True)); `--safe` prices the env as
+SAFE_ENV; `--sharp` trains with sharp_recipe, and the stages (not
+`--standard`, as in the JAX package) without augmentation;
+`--aug-intensity` overrides every stage's.
 Checkpoints go to weights-torch/stage-sN (and a per-epoch copy
 stage-sN-<epoch>) of the checkout, never into the tracked weights/.
-`--curriculum` raises until stages s4 and s5 are ported.
 
 `--evaluate` is the counterpart of the JAX package's `main.py
 --evaluate` (run_evaluation, main.py:229-240): the 48 scenarios, 2 weather
@@ -49,8 +60,7 @@ TIMESTEPS = 512
 BATCH = 64
 NUM_ENVS = 32
 
-STAGE_ORDER = ["s1", "s2", "s3", "s4", "s5"]
-PORTED_STAGES = ("s1", "s2", "s3")    # curriculum.stages.stage_<name>
+STAGE_ORDER = ["s1", "s2", "s3", "s4", "s5"]    # curriculum.stages.stage_<name>
 
 # safety-shaped env pricing (JAX main.py:145): an off-road exit costs 200,
 # and the reward credits at most 15 km/h
@@ -90,26 +100,35 @@ def acquire_run_lock(weights_dir: str) -> str:
     return lock_path
 
 
+def _common(num_envs: int, block: bool, fused_step: bool, fused_units: bool,
+            weights_dir: str, device, safe: bool) -> dict:
+    """The stage factories' kwargs at the shipped geometry."""
+    return dict(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
+                num_envs=num_envs, save_every="end", rollout_block=block,
+                fused_units=fused_units, weights_dir=weights_dir,
+                env_overrides=dict(fused_step=fused_step, device=device,
+                                   **(SAFE_ENV if safe else {})))
+
+
 def make_stage(which: str, num_envs: int = NUM_ENVS, block: bool = False,
                fused_step: bool = False, fused_units: bool = False,
                weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
                sharp: bool = False, safe: bool = False,
                aug_intensity=None) -> stages.Stage:
-    """Stage `which` at the shipped geometry (JAX main.py make_stage)."""
-    if which not in PORTED_STAGES:
-        raise NotImplementedError(f"stage {which!r}: the port trains stages "
-                                  f"{', '.join(PORTED_STAGES)} so far (s4 and s5 need "
-                                  f"augmentation)")
-    common = dict(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
-                  num_envs=num_envs, save_every="end", rollout_block=block,
-                  fused_units=fused_units, weights_dir=weights_dir,
-                  env_overrides=dict(fused_step=fused_step, device=device,
-                                     **(SAFE_ENV if safe else {})))
+    """Stage `which` at the shipped geometry (JAX main.py make_stage); s5
+    on Town03 with dense traffic."""
+    if which not in STAGE_ORDER:
+        raise ValueError(f"stage {which!r}: one of {', '.join(STAGE_ORDER)}")
+    common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe)
     if sharp:
         common.update(sharp_recipe())
+        # augmenting the minibatches while the rollout's log-probs come from
+        # clean frames collapses a sharpened policy (JAX main.py:167-176)
         common.setdefault("aug_intensity", 0.0)
     if aug_intensity is not None:
         common["aug_intensity"] = aug_intensity
+    if which == "s5":
+        return stages.stage_s5(town="Town03", traffic="dense", **common)
     return getattr(stages, f"stage_{which}")(**common)
 
 
@@ -131,23 +150,26 @@ def hand_off(src_stage: str, dst_stage: str,
     shutil.copytree(src, dst)
 
 
+def _refuse_fused_step(what: str, fused_step: bool) -> None:
+    if fused_step:
+        raise NotImplementedError(f"{what} trains NPC worlds, which the physics kernel "
+                                  f"(--fused-step) does not compute")
+
+
 def run_curriculum(epochs, num_envs: int = NUM_ENVS, block: bool = False,
                    weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, log=print,
-                   **stage_kwargs) -> None:
+                   fused_step: bool = False, **stage_kwargs) -> None:
     """Stages s1 -> s5 in order, each handed the previous one's weights
     (JAX main.py:203).  `epochs`: an int for every stage, or the per-stage
-    list "e1,e2,e3,e4,e5".  Raises before any stage trains while a stage
-    of STAGE_ORDER is not ported."""
+    list "e1,e2,e3,e4,e5".  A wrong list and `fused_step` (s2-s5 are NPC
+    worlds) raise before any stage trains."""
     if isinstance(epochs, str) and "," in epochs:
         per_stage = [int(e) for e in epochs.split(",")]
         if len(per_stage) != len(STAGE_ORDER):
             raise ValueError(f"--epochs {epochs}: one count per stage of {STAGE_ORDER}")
     else:
         per_stage = [int(epochs)] * len(STAGE_ORDER)
-    missing = [s for s in STAGE_ORDER if s not in PORTED_STAGES]
-    if missing:
-        raise NotImplementedError(f"the curriculum needs stages {', '.join(missing)}, "
-                                  f"which are not ported yet (they need augmentation)")
+    _refuse_fused_step("the curriculum", fused_step)
     for i, which in enumerate(STAGE_ORDER):
         if i > 0:
             hand_off(STAGE_ORDER[i - 1], which, weights_dir)
@@ -156,6 +178,28 @@ def run_curriculum(epochs, num_envs: int = NUM_ENVS, block: bool = False,
         make_stage(which, num_envs, block=block, weights_dir=weights_dir,
                    **stage_kwargs).run2(epochs=per_stage[i], copy_weights=False)
         log(f"=== stage-{which} done in {time.perf_counter() - t0:.1f} s ===")
+
+
+def run_standard(epochs: int, num_envs: int = NUM_ENVS, block: bool = False,
+                 fused_step: bool = False, fused_units: bool = False,
+                 weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
+                 sharp: bool = False, safe: bool = False, aug_intensity=None,
+                 callback=None) -> stages.Stage:
+    """The no-curriculum control agent (JAX main.py:243-262, reference
+    README.md:130's "standard" column): stage s5's setting (Town03, dense
+    traffic) trained from scratch (load=False) as stage-standard, or
+    stage-standard-sharp with `sharp`, which adds sharp_recipe and, as in
+    the JAX package, keeps the augmentation on.  Returns the stage."""
+    _refuse_fused_step("--standard", fused_step)
+    common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe)
+    if sharp:
+        common.update(sharp_recipe())
+    if aug_intensity is not None:
+        common["aug_intensity"] = aug_intensity
+    stage = stages.stage_s5(town="Town03", traffic="dense", load=False,
+                            stage_name="stage-standard-sharp" if sharp else "stage-standard",
+                            **common)
+    return stage.run2(epochs=epochs, copy_weights=False, callback=callback)
 
 
 def run_evaluation(weights: str = "stage-s5", steps: int = 512, trials: int = 50,
@@ -180,7 +224,9 @@ def main(argv=None) -> int:
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--stage", choices=STAGE_ORDER)
     what.add_argument("--curriculum", action="store_true",
-                      help="stages s1 -> s5 with hand-offs (raises until s4 and s5 are ported)")
+                      help="stages s1 -> s5, each handed the previous one's checkpoint")
+    what.add_argument("--standard", action="store_true",
+                      help="the no-curriculum control agent: stage s5's setting from scratch")
     what.add_argument("--hand-off", nargs=2, metavar=("SRC", "DST"),
                       help="copy stage-SRC's checkpoint to stage-DST under --weights-dir")
     what.add_argument("--evaluate", action="store_true",
@@ -205,7 +251,8 @@ def main(argv=None) -> int:
                     help="sharp recipe: decaying entropy, Beta-head pre-activation floor, "
                          "gamma 0.999 / lambda 0.95 (sharp_recipe)")
     ap.add_argument("--aug-intensity", type=float, default=None,
-                    help="augmentation intensity (only 0 is ported)")
+                    help="the training augmentation's intensity for every stage "
+                         "(default: 0 for s1-s3, 1 for s4, s5 and --standard, 0 with --sharp)")
     ap.add_argument("--weights-dir", default=stages.DEFAULT_WEIGHTS_DIR)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' only when asked)")
@@ -237,6 +284,12 @@ def main(argv=None) -> int:
             print(f"curriculum in {time.perf_counter() - t0:.1f} s", flush=True)
             return 0
         epochs = int(args.epochs)
+        if args.standard:
+            stage = run_standard(epochs, args.num_envs, block=args.block,
+                                 weights_dir=args.weights_dir, callback=log, **stage_kwargs)
+            print(f"{stage.name}: {epochs} epochs in {time.perf_counter() - t0:.1f} s; "
+                  f"weights in {stage.agent.base_path}", flush=True)
+            return 0
         stage = make_stage(args.stage, args.num_envs, block=args.block,
                            weights_dir=args.weights_dir, **stage_kwargs)
         stage.run2(epochs=epochs, callback=log)

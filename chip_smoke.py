@@ -90,8 +90,8 @@ Phases, each printed with its seconds:
                per minibatch;
  14. train_agree_fused — phase 10 with fused_units=True: the unit kernels on
                the card against the plain versions on the CPU;
- 15. train_s2 — first, `--fused-step` with stage s2 and the curriculum must
-               raise before any training; then stage s2 (50 walkers, 50
+ 15. train_s2 — first, `--fused-step` with stages s2 and s4 must raise
+               before any training; then stage s2 (50 walkers, 50
                origins) at the shipped geometry, unfused, for 2 updates
                (a depth cut), from the tracked weights/stage-s1 copied into
                a temporary weights root and handed off (main.hand_off): the
@@ -102,7 +102,24 @@ Phases, each printed with its seconds:
                weathers) with fused_units=True for one epoch of 5 updates,
                handed train_s2's checkpoint: network and Adam states equal
                to it before the first update, the unit kernels' launches,
-               8 actor rows, training weathers drawn.
+               8 actor rows, training weathers drawn;
+ 17. train_s4 — stage s4 (s3's traffic and weathers, the training
+               augmentation at aug_intensity 1.0), unfused, for 2 updates,
+               from the tracked weights/stage-s3 handed off: the loaded
+               network equal to the checkpoint, update step 290;
+ 18. augment_agree — the augmentation pipeline on the card against the
+               CPU on a real s4 minibatch (64 samples x 4 frames of 90 x
+               360 x 3, after train_s4) with the same draws at alpha 1.0:
+               max |diff| <= 1e-5 before normalize on every frame, and
+               after it on every frame that normalize does not amplify
+               (its range there >= 1e-2; those below entered flat, the
+               stacks' zero frames); then its launches, ms per minibatch
+               (CUDA events, draws included) and device ms (a CUDA graph),
+               and its share of an s4 update;
+ 19. train_s5_fused — stage s5 (Town03, dense traffic: 100 vehicles, 200
+               walkers, the augmentation) with fused_units=True for 2
+               updates, handed train_s4's checkpoint: network and Adam
+               states equal to it, 8 actor rows.
 Each training phase prints the mean reward per step, the episodes that
 ended, the NPCs per world, train env-steps/s and the four parts of an
 update.  With --profile, a last phase breaks an evaluation window (without
@@ -1602,7 +1619,9 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
     return stage, summary
 
 
-S2_UPDATES = 2                # train_s2's depth (a cut for time); train_s3_fused: TRAIN_UPDATES
+# the depth of train_s2, train_s4 and train_s5_fused (a cut for time);
+# train_s3_fused runs TRAIN_UPDATES
+CUT_UPDATES = 2
 
 
 def _traffic_numbers(stage, summary: dict, label: str) -> dict:
@@ -1647,46 +1666,60 @@ def _hold_loaded(agent, network: dict, optimizers=None, update_step: int = None,
 
 
 def stage_refusals(root: str) -> None:
-    """What must fail before any training: `--fused-step` with stage s2
-    (the physics kernel computes worlds without NPCs), and the curriculum
-    while stages s4 and s5 are not ported."""
+    """What must fail before any training: `--fused-step` with stages s2
+    and s4 (the physics kernel computes worlds without NPCs)."""
     from carla_driving_rl_agent_torch import main as cli
-    for what, fn in (("--fused-step with s2",
-                      lambda: cli.make_stage("s2", fused_step=True, device="cuda",
-                                             weights_dir=root).init()),
-                     ("--curriculum", lambda: cli.run_curriculum("1", weights_dir=root))):
+    for which in ("s2", "s4"):
         try:
-            fn()
+            cli.make_stage(which, fused_step=True, device="cuda", weights_dir=root).init()
         except NotImplementedError as e:
-            print(f"  {what} raises before training: {e}", flush=True)
+            print(f"  --fused-step with {which} raises before training: {e}", flush=True)
         else:
-            check(False, f"{what} did not raise")
+            check(False, f"--fused-step with {which} did not raise")
+
+
+def _hand_off_tracked(root: str, src: str, dst: str) -> dict:
+    """The JAX package's tracked weights/stage-`src` copied into `root` and
+    handed off to stage-`dst` there; returns it as the port's tensors."""
+    from carla_driving_rl_agent_torch import main as cli
+    from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax, read_flax_msgpack
+    ckpt = os.path.join("weights", f"stage-{src}")
+    shutil.copytree(ckpt, os.path.join(root, f"stage-{src}"))
+    cli.hand_off(src, dst, root)
+    return params_from_jax(read_flax_msgpack(os.path.join(ckpt, "params.msgpack")),
+                           read_flax_msgpack(os.path.join(ckpt, "batch_stats.msgpack")))
+
+
+def _hand_off_port(root: str, src: str, dst: str) -> tuple:
+    """The port's stage-`src` checkpoint in `root` handed off to
+    stage-`dst`; returns its (network, Adam states, update step)."""
+    from carla_driving_rl_agent_torch import main as cli
+    cli.hand_off(src, dst, root)
+    ckpt = os.path.join(root, f"stage-{dst}")
+    with open(os.path.join(ckpt, "config.json")) as f:
+        update_step = json.load(f)["update_step"]
+    return (torch.load(os.path.join(ckpt, "network.pt"), map_location="cpu"),
+            torch.load(os.path.join(ckpt, "optimizers.pt"), map_location="cpu"), update_step)
 
 
 def train_s2_phase(root: str) -> tuple:
     """Stage s2 (50 walkers, 50 origins) at the shipped geometry, unfused,
-    for S2_UPDATES updates, from the JAX package's tracked stage-s1
+    for CUT_UPDATES updates, from the JAX package's tracked stage-s1
     checkpoint copied into `root` and handed off to stage-s2 there: before
     the first update the network equals params_from_jax of that checkpoint
     (old_policy its policy) and the update step is 150; the physics kernel
     makes no launch (the plain block steps the NPC worlds).  Returns
     (stage, summary)."""
-    from carla_driving_rl_agent_torch import main as cli
     from carla_driving_rl_agent_torch.curriculum import stages
-    from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax, read_flax_msgpack
-    src = os.path.join("weights", "stage-s1")
-    shutil.copytree(src, os.path.join(root, "stage-s1"))
-    cli.hand_off("s1", "s2", root)
-    stage = stages.stage_s2(episodes=S2_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+    ref = _hand_off_tracked(root, "s1", "s2")
+    stage = stages.stage_s2(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
                             num_envs=TRAIN_WORLDS, rollout_block=True, weights_dir=root,
                             env_overrides=dict(device="cuda"))
     stage.init()
-    ref = params_from_jax(read_flax_msgpack(os.path.join(src, "params.msgpack")),
-                          read_flax_msgpack(os.path.join(src, "batch_stats.msgpack")))
     _hold_loaded(stage.agent, ref, update_step=150, what="s2 from the tracked stage-s1")
     print("  stage-s2 loaded weights/stage-s1 through hand_off: every tensor equal, "
           "old_policy = policy, update step 150", flush=True)
-    summary = _train_epoch(stage, S2_UPDATES, "train_s2", 0)
+    summary = _train_epoch(stage, CUT_UPDATES, "train_s2", 0)
     summary.update(_traffic_numbers(stage, summary, "train_s2"))
     return stage, summary
 
@@ -1699,15 +1732,9 @@ def train_s3_fused_phase(root: str) -> tuple:
     exactly; the unit kernels run in every predict and minibatch, the
     physics kernel not at all; the weathers drawn are training weathers.
     Returns (stage, summary)."""
-    from carla_driving_rl_agent_torch import main as cli
     from carla_driving_rl_agent_torch.curriculum import stages
     from carla_driving_rl_agent_torch.envs.weather import TRAIN_WEATHERS, weather_ids
-    cli.hand_off("s2", "s3", root)
-    ckpt = os.path.join(root, "stage-s3")
-    network = torch.load(os.path.join(ckpt, "network.pt"), map_location="cpu")
-    optimizers = torch.load(os.path.join(ckpt, "optimizers.pt"), map_location="cpu")
-    with open(os.path.join(ckpt, "config.json")) as f:
-        update_step = json.load(f)["update_step"]
+    network, optimizers, update_step = _hand_off_port(root, "s2", "s3")
     stage = stages.stage_s3(episodes=TRAIN_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
                             num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
                             weights_dir=root, env_overrides=dict(device="cuda"))
@@ -1722,6 +1749,138 @@ def train_s3_fused_phase(root: str) -> tuple:
     check(drawn <= {int(i) for i in weather_ids(TRAIN_WEATHERS)},
           f"s3 weathers {sorted(drawn)} outside the training weathers")
     print(f"  weather ids at the end: {sorted(drawn)}, all training weathers", flush=True)
+    return stage, summary
+
+
+def train_s4_phase(root: str) -> tuple:
+    """Stage s4 (stage s3's 50 vehicles, 50 walkers and training weathers,
+    the training augmentation at aug_intensity 1.0) at the shipped
+    geometry, unfused, for CUT_UPDATES updates, from the JAX package's
+    tracked stage-s3 checkpoint handed off in `root`: before the first
+    update the network equals params_from_jax of it (old_policy its
+    policy) and the update step is 290.  Returns (stage, summary)."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    ref = _hand_off_tracked(root, "s3", "s4")
+    stage = stages.stage_s4(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, weights_dir=root,
+                            env_overrides=dict(device="cuda"))
+    stage.init()
+    _hold_loaded(stage.agent, ref, update_step=290, what="s4 from the tracked stage-s3")
+    check(stage.agent.config.aug_intensity == 1.0, "s4 trains with augmentation")
+    check(stage.env.n_actors == 8, f"s4 renders {stage.env.n_actors} actor rows")
+    print("  stage-s4 loaded weights/stage-s3 through hand_off: every tensor equal, "
+          "old_policy = policy, update step 290; aug_intensity 1.0", flush=True)
+    summary = _train_epoch(stage, CUT_UPDATES, "train_s4", 0)
+    summary.update(_traffic_numbers(stage, summary, "train_s4"))
+    return stage, summary
+
+
+AUG_BAR = 1e-5       # max |diff| of the pipeline, card against CPU, on [0, 1] images
+AUG_ILL_RANGE = 1e-2  # a range before normalize below which it amplifies rounding past AUG_BAR
+
+
+def _profiled_launches(fn) -> int:
+    """Device kernel launches of one call of `fn` under torch.profiler
+    (after a warm-up call); a window with no kernel record is taken again,
+    up to PROFILE_WINDOWS windows."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.key.startswith(("Memcpy", "Memset")))
+        if n:
+            return n
+    return 0
+
+
+def augment_agree_phase(stage, update_s: float) -> dict:
+    """The training augmentation (augment/simclr.py) on a real s4
+    minibatch: 64 samples of 4 frames of 90 x 360 x 3 from a 128-step
+    rollout of `stage` (stage s4 after train_s4), one set of draws per
+    sample from a CUDA generator, at aug_intensity 1.0.  The card's
+    pipeline against the CPU's on the same images and draws: max |diff|
+    <= AUG_BAR on every frame before normalize, and after it on every
+    frame whose range there is at least AUG_ILL_RANGE (those below must
+    have entered flat: the stacks' zero frames); every output in [0, 1].
+    Then the launches and device ms per minibatch, and its share of an s4
+    update (128 minibatches against `update_s`)."""
+    from carla_driving_rl_agent_torch.agents import rollout as rollout_mod
+    from carla_driving_rl_agent_torch.augment import simclr as S
+    from carla_driving_rl_agent_torch.envs.carla_env import planes_to_image
+    agent = stage.agent
+    _, traj, final_obs = agent.collect(stage._env_states)
+    data = agent.targets(traj, final_obs, stage._env_states.last_action, 2.0)
+    idx = torch.randperm(TRAIN_WORLDS * TRAIN_STEPS, device="cuda")[:TRAIN_BATCH]
+    planes = rollout_mod.gather_image_stacks(data["traj"], data["step"][idx],
+                                             data["env"][idx], data["timeline"])
+    ry, rx = agent.env.config.upsample
+    img = planes_to_image(planes, ry, rx).to(torch.float32) / 255.0
+    n, t, h, w, c = img.shape
+    check((n, t, h, w, c) == (TRAIN_BATCH, 4, 90, 360, 3), f"minibatch {tuple(img.shape)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    draws = S.pipeline_draws(gen, n, h, w, c)
+    draws_cpu = S.PipelineDraws(*(x.cpu() for x in draws))
+    img_cpu = img.cpu()
+    pre = S.distort(img, draws, 1.0)
+    pre_err = float((pre.cpu() - S.distort(img_cpu, draws_cpu, 1.0)).abs().max())
+    check(pre_err <= AUG_BAR, f"augmentation before normalize, card vs CPU: {pre_err:.3e}")
+    span = pre.amax((-3, -2, -1)) - pre.amin((-3, -2, -1))
+    ill = (span < AUG_ILL_RANGE).cpu()
+    flat_in = (img.amax((-3, -2, -1)) == img.amin((-3, -2, -1))).cpu()
+    check(not bool((ill & ~flat_in).any()), "a frame that entered with a range is ill-conditioned")
+    out = S.carla_augment_pipeline(img, draws, 1.0)
+    t0 = time.perf_counter()
+    out_cpu = S.carla_augment_pipeline(img_cpu, draws_cpu, 1.0)
+    cpu_s = time.perf_counter() - t0
+    err = float((out.cpu() - out_cpu)[~ill].abs().max())
+    check(err <= AUG_BAR, f"augmentation, card vs CPU: {err:.3e} > {AUG_BAR}")
+    check(bool(((out >= 0) & (out <= 1)).all()), "augmented values outside [0, 1]")
+    print(f"  minibatch {n} x {t} x {h} x {w} x {c} of an s4 rollout: card vs CPU max |diff| "
+          f"{err:.3e} (before normalize {pre_err:.3e}); {int(flat_in.sum())} frames entered "
+          f"flat, {int(ill.sum())} of them met no blur, salt or noise (normalize divides "
+          f"their rounding by its eps: held before normalize and to [0, 1])", flush=True)
+    launches = graph_launches(lambda: S.carla_augment_pipeline(img, draws, 1.0))
+    draw_launches = _profiled_launches(lambda: S.pipeline_draws(gen, n, h, w, c))
+    ms = cuda_ms(lambda: S.augment(gen, img, 1.0), iters=10)
+    device_ms = graph_ms(lambda: S.carla_augment_pipeline(img, draws, 1.0), reps=5, replays=3)
+    share = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH * ms / 1e3 / update_s
+    print(f"  per minibatch: {launches} launches in the pipeline (CUDA graph) + {draw_launches} "
+          f"for the draws (profiler); {ms:.4f} ms with its draws (CUDA events), {device_ms:.4f} "
+          f"ms of device time without them (CUDA graph); the CPU's pipeline {cpu_s:.3f} s; "
+          f"128 minibatches are {share:.4f} of an s4 update ({update_s:.3f} s)", flush=True)
+    return dict(max_abs_err=err, before_normalize_err=pre_err, flat_frames=int(flat_in.sum()),
+                ill_conditioned_frames=int(ill.sum()), launches=launches,
+                draw_launches=draw_launches, ms=ms, device_ms=device_ms, cpu_s=cpu_s,
+                share_of_update=share)
+
+
+def train_s5_fused_phase(root: str) -> tuple:
+    """Stage s5 (Town03, dense traffic: 100 vehicles, 200 walkers, the
+    augmentation) at the shipped geometry with fused_units=True, for
+    CUT_UPDATES updates, from train_s4's checkpoint handed off in `root`:
+    before the first update the network and the Adam states equal that
+    checkpoint's exactly; 8 actor rows.  Returns (stage, summary)."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    network, optimizers, update_step = _hand_off_port(root, "s4", "s5")
+    stage = stages.stage_s5(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            town=TOWN, traffic="dense", num_envs=TRAIN_WORLDS,
+                            rollout_block=True, fused_units=True, weights_dir=root,
+                            env_overrides=dict(device="cuda"))
+    stage.init()
+    _hold_loaded(stage.agent, network, optimizers, update_step, "s5 from the s4 checkpoint")
+    p = stage.env.params
+    check((p.num_vehicles, p.num_pedestrians) == (100, 200), "s5's dense traffic")
+    check(stage.env.n_actors == 8, f"s5 renders {stage.env.n_actors} actor rows")
+    check(stage.agent.config.aug_intensity == 1.0, "s5 trains with augmentation")
+    print(f"  stage-s5 loaded train_s4's checkpoint through hand_off: network and Adam states "
+          f"equal, update step {update_step}", flush=True)
+    summary = _train_epoch(stage, CUT_UPDATES, "train_s5_fused", 0)
+    summary.update(_traffic_numbers(stage, summary, "train_s5_fused"))
     return stage, summary
 
 
@@ -2127,14 +2286,31 @@ def main(argv=None) -> int:
     with Phase("train_s3_fused") as p:
         stage_s3, summary["train_s3_fused"] = train_s3_fused_phase(stages_root.name)
         launches["train_s3_fused"] = summary["train_s3_fused"].pop("launches")
-        print("  train env-steps/s, s1 unfused / s1 fused / s2 unfused / s3 fused: " + " / ".join(
-            f"{summary[k]['env_steps_per_s']:.1f}"
-            for k in ("train", "train_fused", "train_s2", "train_s3_fused")), flush=True)
-        for k in ("train", "train_fused", "train_s2", "train_s3_fused"):
+    summary["phases"]["train_s3_fused"] = p.seconds
+    # stages s4 and s5 in a root of their own, s4 handed the tracked
+    # stage-s3 (the first root holds train_s3_fused's), s5 handed s4's
+    late_root = tempfile.TemporaryDirectory()
+    with Phase("train_s4") as p:
+        stage_s4, summary["train_s4"] = train_s4_phase(late_root.name)
+        launches["train_s4"] = summary["train_s4"].pop("launches")
+    summary["phases"]["train_s4"] = p.seconds
+    with Phase("augment_agree") as p:
+        summary["augment_agree"] = augment_agree_phase(
+            stage_s4, sum(summary["train_s4"]["parts_mean_s"].values()))
+    summary["phases"]["augment_agree"] = p.seconds
+    with Phase("train_s5_fused") as p:
+        _, summary["train_s5_fused"] = train_s5_fused_phase(late_root.name)
+        launches["train_s5_fused"] = summary["train_s5_fused"].pop("launches")
+        trained = ("train", "train_fused", "train_s2", "train_s3_fused", "train_s4",
+                   "train_s5_fused")
+        print("  train env-steps/s, s1 unfused / s1 fused / s2 unfused / s3 fused / s4 unfused "
+              "/ s5 fused: " + " / ".join(f"{summary[k]['env_steps_per_s']:.1f}"
+                                          for k in trained), flush=True)
+        for k in trained:
             print(f"  seconds per update, {k}: " + ", ".join(
                 f"{part} {v:.4f}" for part, v in summary[k]["parts_mean_s"].items()),
                 flush=True)
-    summary["phases"]["train_s3_fused"] = p.seconds
+    summary["phases"]["train_s5_fused"] = p.seconds
     if args.profile:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)
@@ -2146,6 +2322,7 @@ def main(argv=None) -> int:
             summary["profile_train_s3_fused"] = profile_train_phase(stage_s3.agent, per_call)
         summary["phases"]["profile"] = p.seconds
     stages_root.cleanup()
+    late_root.cleanup()
 
     for name, kr in kernels.items():
         # the unit kernels run on the training path with fused_units=True

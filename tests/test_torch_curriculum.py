@@ -381,6 +381,51 @@ def test_stage_factories_match_jax(which):
         assert got.env_args["random_weathers"] == list(TRAIN_WEATHERS)
 
 
+@pytest.mark.parametrize("which,extra", [
+    ("s4", {}), ("s4", dict(towns=["Town01", "Town02"], aug_intensity=0.5)),
+    ("s5", dict(town="Town02")),
+    ("s5", dict(town="Town02", traffic="regular", weather=["WetNoon"], load=False)),
+    ("s5", dict(town="Town02", traffic="no", stage_name="stage-standard"))])
+def test_stage_s4_s5_factories_match_jax(which, extra):
+    """The env, agent and learning kwargs of stage_s4 / stage_s5 equal the
+    JAX factories': s4 with stage s3's traffic and weathers, random towns
+    when given and aug_intensity 1.0 by default; s5 with a traffic level of
+    TRAFFIC_SPECS, its weathers and its `load`."""
+    kw = dict(episodes=5, timesteps=512, batch_size=64, num_envs=32, save_every="end",
+              rollout_block=True, weights_dir="w", env_overrides=dict(cli.SAFE_ENV))
+    if which == "s4":
+        kw["town"] = "Town02"
+    got = getattr(stages, f"stage_{which}")(**kw, **copy.deepcopy(extra))
+    want = getattr(jstages, f"stage_{which}")(**kw, **copy.deepcopy(extra))
+    assert got.name == want.name == extra.get("stage_name", f"stage-{which}")
+    assert got.env_args == want.env_args
+    assert got.learn_args == want.learn_args
+    assert got.agent_args == want.agent_args
+    assert got.agent_args["load"] == extra.get("load", True) and got.agent_args["load_full"]
+    assert got.agent_args["aug_intensity"] == extra.get("aug_intensity", 1.0)
+    traffic = stages.TRAFFIC_SPECS[extra.get("traffic", "dense")] if which == "s5" \
+        else dict(vehicles=50, pedestrians=50)
+    assert got.env_args["spawn"] == traffic
+    assert got.env_args["random_weathers"] == extra.get("weather", list(TRAIN_WEATHERS))
+    with pytest.raises(ValueError, match="traffic"):
+        stages.stage_s5(**dict(kw, town="Town02"), traffic="heavy")
+
+
+def test_make_stage_s4_s5_augmentation(monkeypatch):
+    """make_stage hands s4 and s5 their factories' augmentation (1.0), 0
+    with --sharp, the --aug-intensity given otherwise; s5 on Town03 with
+    dense traffic."""
+    for which in ("s4", "s5"):
+        monkeypatch.setattr(cli.stages, f"stage_{which}", lambda **kw: kw)
+    assert "aug_intensity" not in cli.make_stage("s4", weights_dir="w")
+    kw = cli.make_stage("s5", weights_dir="w")
+    assert (kw["town"], kw["traffic"]) == ("Town03", "dense") and "aug_intensity" not in kw
+    for which in ("s4", "s5"):
+        assert cli.make_stage(which, sharp=True, weights_dir="w")["aug_intensity"] == 0.0
+        assert cli.make_stage(which, sharp=True, aug_intensity=0.3,
+                              weights_dir="w")["aug_intensity"] == 0.3
+
+
 def test_sharp_recipe_matches_jax(monkeypatch):
     got, want = cli.sharp_recipe(), jmain.sharp_recipe()
     assert set(got) == set(want)
@@ -428,17 +473,18 @@ def test_hand_off_copies_and_refuses_the_tracked_weights(tmp_path):
         == before
 
 
-def test_hand_off_of_the_tracked_stage_s1_loads_exactly(tmp_path):
-    """Stage s2 at full width loads the JAX package's tracked stage-s1
-    checkpoint (params.msgpack, no optimizer states) through a hand-off in
-    a temporary weights root: every tensor equals params_from_jax of the
-    checkpoint, old_policy equals policy, and the update step is 150."""
-    ckpt = os.path.join(REPO_ROOT, "weights", "stage-s1")
-    shutil.copytree(ckpt, tmp_path / "stage-s1")
-    cli.hand_off("s1", "s2", str(tmp_path))
-    stage = stages.stage_s2(episodes=1, timesteps=8, batch_size=16, num_envs=4,
-                            town="Town02", weights_dir=str(tmp_path),
-                            env_overrides=dict(device="cpu", num_routes=8))
+def _load_tracked_hand_off(tmp_path, src: str, dst: str, update_step: int, **stage_kw):
+    """Stage `dst` at full width loads the JAX package's tracked
+    stage-`src` checkpoint (params.msgpack, no optimizer states) through a
+    hand-off in a temporary weights root: every tensor equals
+    params_from_jax of the checkpoint, old_policy equals policy, and the
+    update step is `update_step`."""
+    ckpt = os.path.join(REPO_ROOT, "weights", f"stage-{src}")
+    shutil.copytree(ckpt, tmp_path / f"stage-{src}")
+    cli.hand_off(src, dst, str(tmp_path))
+    stage = getattr(stages, f"stage_{dst}")(
+        episodes=1, timesteps=8, batch_size=16, num_envs=4, town="Town02",
+        weights_dir=str(tmp_path), env_overrides=dict(device="cpu", num_routes=8), **stage_kw)
     stage.init()
     ref = params_from_jax(read_flax_msgpack(os.path.join(ckpt, "params.msgpack")),
                           read_flax_msgpack(os.path.join(ckpt, "batch_stats.msgpack")))
@@ -448,22 +494,51 @@ def test_hand_off_of_the_tracked_stage_s1_loads_exactly(tmp_path):
             assert torch.equal(v, sd[name.replace("old_policy.", "policy.", 1)]), name
         else:
             assert torch.equal(v, ref[name]), name
-    assert stage.agent.update_step == 150
-    assert stage.agent.base_path == str(tmp_path / "stage-s2")
+    assert stage.agent.update_step == update_step
+    assert stage.agent.base_path == str(tmp_path / f"stage-{dst}")
+    return stage
+
+
+def test_hand_off_of_the_tracked_stage_s1_loads_exactly(tmp_path):
+    _load_tracked_hand_off(tmp_path, "s1", "s2", 150)
+
+
+@pytest.mark.parametrize("src,dst,update_step", [("s3", "s4", 290), ("s4", "s5", 340)])
+def test_hand_off_of_the_tracked_stages_s3_s4_loads_exactly(tmp_path, src, dst, update_step):
+    """The tracked weights/stage-s3 into a full-width s4 (with augmentation)
+    and weights/stage-s4 into s5 (dense traffic), as the curriculum hands
+    them off."""
+    stage = _load_tracked_hand_off(tmp_path, src, dst, update_step)
+    assert stage.agent.config.aug_intensity == 1.0
 
 
 def test_curriculum_raises_before_any_stage_trains(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="augmentation"):
-        cli.make_stage("s4", weights_dir=str(tmp_path))
+    """`--fused-step` with stages s4 and s5 (NPC worlds, which the physics
+    kernel does not compute), with the curriculum and with `--standard`,
+    and a per-stage epoch list of the wrong length, raise before any
+    stage trains."""
+    root = ["--weights-dir", str(tmp_path), "--device", "cpu"]
+    for which in ("s4", "s5"):
+        stage = cli.make_stage(which, fused_step=True, device="cpu", weights_dir=str(tmp_path))
+        with pytest.raises(NotImplementedError, match="NPC"):
+            stage.init()
+        with pytest.raises(NotImplementedError, match="NPC"):
+            cli.main(["--stage", which, "--fused-step", "--epochs", "1"] + root)
     made = []
     monkeypatch.setattr(cli, "make_stage", lambda *a, **k: made.append(a))
-    for epochs in ("1", "30,16,12,10,10"):
-        with pytest.raises(NotImplementedError, match="s4, s5"):
+    monkeypatch.setattr(cli.stages, "stage_s5", lambda **k: made.append(k))
+    with pytest.raises(NotImplementedError, match="NPC"):
+        cli.run_curriculum("1", weights_dir=str(tmp_path), fused_step=True)
+    for what in ("--curriculum", "--standard"):
+        with pytest.raises(NotImplementedError, match="NPC"):
+            cli.main([what, "--fused-step", "--epochs", "1"] + root)
+    for epochs in ("1,2,3", "30,16,12,10,10,5"):
+        with pytest.raises(ValueError, match="one count per stage"):
             cli.run_curriculum(epochs, weights_dir=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="s4, s5"):
-        cli.main(["--curriculum", "--epochs", "1", "--device", "cpu",
-                  "--weights-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="one count per stage"):
+        cli.main(["--curriculum", "--epochs", "1,2"] + root)
     assert not made and not (tmp_path / ".train.lock").exists()
+    assert not any(p.name.startswith("stage-") for p in tmp_path.iterdir())
 
 
 @pytest.fixture
@@ -475,7 +550,7 @@ def small_cli(monkeypatch):
     monkeypatch.setattr(cli, "EPISODES", 1)
     monkeypatch.setattr(cli, "TIMESTEPS", 8)
     monkeypatch.setattr(cli, "BATCH", 16)
-    for which in cli.PORTED_STAGES:
+    for which in cli.STAGE_ORDER:
         factory = getattr(stages, f"stage_{which}")
 
         def small(factory=factory, **kw):
@@ -527,31 +602,62 @@ def test_cli_stage_s2_loads_a_hand_off_checkpoint(tmp_path, small_cli):
     assert not (tmp_path / ".train.lock").exists()
 
 
-def test_curriculum_hands_off_between_stages(tmp_path, small_cli, monkeypatch):
-    """run_curriculum's loop over s1 -> s2 -> s3 (the order cut to the
-    ported stages): s3 starts from s2's checkpoint, the port's own
-    network.pt and optimizers.pt, with its network and Adam states equal
-    to the saved ones."""
-    monkeypatch.setattr(cli, "STAGE_ORDER", ["s1", "s2", "s3"])
+def _held(at_init: dict, path) -> None:
+    """The network and Adam states a stage started from equal the
+    checkpoint under `path`, old_policy its policy."""
+    net = torch.load(path / "network.pt")
+    for name, v in at_init["network"].items():
+        ref = net[name.replace("old_policy.", "policy.", 1)] if "running" not in name \
+            else net[name]
+        assert torch.equal(v, ref), name
+    opt = torch.load(path / "optimizers.pt")
+    for g, state in at_init["optimizers"].items():
+        for i, st in opt[g]["state"].items():
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                assert torch.equal(state["state"][i][key], st[key]), (g, i, key)
+
+
+def test_curriculum_hands_off_between_stages(tmp_path, small_cli):
+    """run_curriculum's loop over s1 -> s5: each of s2-s5 starts from the
+    previous stage's checkpoint, the port's own network.pt and
+    optimizers.pt, with its network and Adam states equal to the saved
+    ones; s4 trains with augmentation, s5 with dense traffic."""
     logs = []
     cli.run_curriculum("1", num_envs=4, block=True, weights_dir=str(tmp_path),
                        log=logs.append, device="cpu")
-    assert [m.split()[1] for m in logs[::2]] == ["stage-s1", "stage-s2", "stage-s3"]
-    s2_net = torch.load(tmp_path / "stage-s2" / "network.pt")
-    s2_opt = torch.load(tmp_path / "stage-s2" / "optimizers.pt")
-    stage, at_init = small_cli["stage-s3"][0]
-    for name, v in at_init["network"].items():
-        ref = s2_net[name.replace("old_policy.", "policy.", 1)] if "running" not in name \
-            else s2_net[name]
-        assert torch.equal(v, ref), name
-    for g, state in at_init["optimizers"].items():
-        for i, st in s2_opt[g]["state"].items():
-            for key in ("exp_avg", "exp_avg_sq", "step"):
-                assert torch.equal(state["state"][i][key], st[key]), (g, i, key)
-    assert at_init["update_step"] == 2 and stage.agent.update_step == 3
-    p = stage.env.params
+    assert [m.split()[1] for m in logs[::2]] == [f"stage-s{i}" for i in range(1, 6)]
+    for i in range(2, 6):
+        stage, at_init = small_cli[f"stage-s{i}"][0]
+        _held(at_init, tmp_path / f"stage-s{i - 1}")
+        assert at_init["update_step"] == i - 1 and stage.agent.update_step == i
+    s3, s4, s5 = (small_cli[f"stage-s{i}"][0][0] for i in (3, 4, 5))
+    p = s3.env.params
     assert (p.num_vehicles, p.num_pedestrians) == (50, 50) and p.origin_spawns is None
     assert p.weather_ids == tuple(int(i) for i in weather_ids(TRAIN_WEATHERS))
+    assert s3.agent.config.aug_intensity == 0.0 and s4.agent.config.aug_intensity == 1.0
+    assert (s4.env.params.num_vehicles, s4.env.params.num_pedestrians) == (50, 50)
+    assert (s5.env.params.num_vehicles, s5.env.params.num_pedestrians) == (100, 200)
+    assert s5.agent.config.aug_intensity == 1.0 and s5.env.n_actors == 8
+
+
+def test_cli_standard_trains_from_scratch(tmp_path, small_cli):
+    """`--standard`: stage s5's setting (dense traffic, augmentation) from
+    a fresh network into stage-standard; what that directory held is not
+    read."""
+    (tmp_path / "stage-standard").mkdir()
+    (tmp_path / "stage-standard" / "network.pt").write_bytes(b"not a checkpoint")
+    assert cli.main(["--standard"] + ARGS + ["--weights-dir", str(tmp_path)]) == 0
+    stage, at_init = small_cli["stage-standard"][0]
+    fresh = CARLAgent(stage.env, stage.agent.config, name="fresh", weights_dir="unused")
+    for name, v in fresh.network.state_dict().items():
+        assert torch.equal(at_init["network"][name], v), name
+    assert at_init["update_step"] == 0 and stage.agent.update_step == 1
+    assert not at_init["optimizers"]["policy"]["state"]
+    assert stage.agent.config.aug_intensity == 1.0 and not stage.agent_args["load"]
+    assert (stage.env.params.num_vehicles, stage.env.params.num_pedestrians) == (100, 200)
+    assert torch.load(tmp_path / "stage-standard" / "network.pt").keys() == \
+        fresh.network.state_dict().keys()
+    assert not (tmp_path / "stage-s5").exists() and not (tmp_path / ".train.lock").exists()
 
 
 @pytest.mark.parametrize("block", [True, False])

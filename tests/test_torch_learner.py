@@ -405,7 +405,7 @@ def test_stage_s1_run2(tmp_path):
 
 def test_unported_options_raise(env):
     for kw in (dict(fused_update=True), dict(compute_dtype="bfloat16"),
-               dict(aug_intensity=1.0), dict(optimizer="sgd")):
+               dict(two_step_update=True), dict(optimizer="sgd")):
         with pytest.raises(NotImplementedError):
             CARLAgent(env, CARLAgentConfig(network=TINY_NET, **kw))
 
