@@ -44,3 +44,24 @@ def resolve_device(device=None) -> torch.device:
                 "port on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def __getattr__(name):
+    """Lazy top-level exports (the JAX package's __init__.py:69-74) without
+    import-time cost."""
+    lazy = {
+        "CARLAgent": "carla_driving_rl_agent_torch.agents.carla_agent",
+        "CARLAgentConfig": "carla_driving_rl_agent_torch.agents.carla_agent",
+        "CARLAEnv": "carla_driving_rl_agent_torch.envs.carla_env",
+        "CARLAEnvConfig": "carla_driving_rl_agent_torch.envs.carla_env",
+        "CARLACollectWrapper": "carla_driving_rl_agent_torch.envs.wrappers",
+        "CARLAPlayWrapper": "carla_driving_rl_agent_torch.envs.wrappers",
+        "CARLABenchmark": "carla_driving_rl_agent_torch.envs.wrappers",
+        "CARLANetwork": "carla_driving_rl_agent_torch.models.carla_network",
+        "Stage": "carla_driving_rl_agent_torch.curriculum.stages",
+        "DynamicParameter": "carla_driving_rl_agent_torch.utils.schedules",
+    }
+    if name in lazy:
+        import importlib
+        return getattr(importlib.import_module(lazy[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

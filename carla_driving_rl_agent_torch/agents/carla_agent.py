@@ -17,7 +17,16 @@ core/carla_agent.py over rl/agents/ppo.py).  One update (`train_iteration`):
 The two phases stay apart: fusing them into one summed-gradient step was
 measured to starve the policy head (main.py:97-134).  With aug_intensity
 > 0 each phase augments the images of its own minibatches
-(augment/simclr.py); the rollout and the targets see clean frames.
+(augment/simclr.py); the rollout and the targets see clean frames.  With
+`expert_rollout` the rollout's actions come from the privileged expert
+(envs/expert.py), behaviours mixed over the worlds, and the same update
+learns from them (the device-resident imitation, JAX carla_agent.py:378-411).
+
+Trace collection and imitation (JAX carla_agent.py:1110-1280, reference
+rl/agents/ppo.py:360-462): `collect` writes episodes of the current policy
+as npz traces (utils/traces.py), `imitate` learns from traces, the
+expert's (envs/wrappers.CARLACollectWrapper) or the network's, with one
+combined step per minibatch (see `imitation_step`).
 
 Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
   * policy: PPO-clip on the per-action ratio averaged over the action
@@ -27,13 +36,15 @@ Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
     + similarity MSE) without the 0.5, the whole times 0.25.
 
 Only Adam and float32 are ported, with the unfused network or with
-`fused_units` (the ShuffleNet-unit kernels), and with the augmentation;
-the JAX package's other learner options raise (CARLAgentConfig.check).
+`fused_units` (the ShuffleNet-unit kernels), with the augmentation, the
+expert rollout and `ratio_clamp`; the JAX package's other learner options
+raise (CARLAgentConfig.check).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import time
 from dataclasses import dataclass, field
@@ -45,6 +56,7 @@ import torch
 from carla_driving_rl_agent_torch import REPO_ROOT
 from carla_driving_rl_agent_torch.agents import rollout as rollout_mod
 from carla_driving_rl_agent_torch.augment import simclr
+from carla_driving_rl_agent_torch.envs import expert as expert_mod
 from carla_driving_rl_agent_torch.envs import world as world_mod
 from carla_driving_rl_agent_torch.envs.carla_env import (
     CARLAEnv, EnvState, convert_action, planes_to_image)
@@ -53,6 +65,7 @@ from carla_driving_rl_agent_torch.models.distributions import Beta
 from carla_driving_rl_agent_torch.models.layers import init_flax_
 from carla_driving_rl_agent_torch.utils import checkpoint as ckpt
 from carla_driving_rl_agent_torch.utils import math as um
+from carla_driving_rl_agent_torch.utils import traces as trace_io
 from carla_driving_rl_agent_torch.utils.optimizers import (
     get_optimizer_by_name, set_learning_rate)
 from carla_driving_rl_agent_torch.utils.schedules import DynamicParameter
@@ -104,20 +117,27 @@ class CARLAgentConfig:
     fused_units: bool = False
     # the training augmentation of every minibatch's images (augment/simclr)
     aug_intensity: float = 0.0
+    # the device-resident imitation: the rollout's actions from the
+    # privileged expert, behaviours cycled over the worlds, log-probs from
+    # the old policy and values from the value head; nothing is sampled.
+    # Takes precedence over rollout_block, as in the JAX package.
+    expert_rollout: bool = False
+    expert_behaviour_mix: Tuple[str, ...] = ("cautious", "normal", "aggressive")
+    # per-action importance-ratio ceiling of the policy objective, applied
+    # in log space (0 = off): expert actions can sit in the policy's far
+    # tail, where exp(log-ratio) overflows (JAX carla_agent.py:303-315)
+    ratio_clamp: float = 0.0
     # learner options of the JAX package that the port does not have yet;
     # anything but these defaults raises
     fused_update: bool = False
     two_step_update: bool = False
     two_step_split_adam: bool = False
     resample_actions: bool = False
-    expert_rollout: bool = False
-    ratio_clamp: float = 0.0
     compute_dtype: str = "float32"
 
     def check(self) -> None:
         unported = dict(fused_update=False, two_step_update=False,
                         two_step_split_adam=False, resample_actions=False,
-                        expert_rollout=False, ratio_clamp=0.0,
                         compute_dtype="float32")
         for name, default in unported.items():
             if getattr(self, name) != default:
@@ -190,7 +210,12 @@ class CARLAgent:
         log_prob = dist.log_prob(dist.clip(batch["obs"]["action"]))
         entropy = torch.mean(dist.entropy())
         adv = batch["advantages"]
-        ratio = torch.exp(log_prob - batch["log_prob"])
+        log_ratio = log_prob - batch["log_prob"]
+        if self.config.ratio_clamp:
+            # in log space: min(exp(x), c) would overflow exp first and
+            # backpropagate 0 * inf = NaN through the clamped branch
+            log_ratio = torch.clamp(log_ratio, max=math.log(self.config.ratio_clamp))
+        ratio = torch.exp(log_ratio)
         ratio = torch.mean(ratio, dim=1)                   # per-action-ratio mean (quirk)
         clip_v = hyper["clip_ratio"]
         min_adv = torch.where(adv > 0.0, (1.0 + clip_v) * adv, (1.0 - clip_v) * adv)
@@ -225,10 +250,15 @@ class CARLAgent:
         if self.env.device.type == "cuda":
             torch.cuda.synchronize(self.env.device)
 
-    def collect(self, env_states: EnvState):
-        """The rollout with the old policy (reference core/networks.py:
-        181-193).  Returns (env_states', Trajectory, final_obs)."""
+    def _rollout(self, env_states: EnvState):
+        """The training rollout (reference core/networks.py:181-193): the
+        expert's actions with the old policy's log-probs with
+        `expert_rollout`, else the old policy's samples, per step or in
+        blocks.  Returns (env_states', Trajectory, final_obs)."""
         cfg, net, gen = self.config, self.network, self.generator
+        if cfg.expert_rollout:
+            return rollout_mod.run_rollout(self.env, self._expert_log_prob_fn(), env_states,
+                                           cfg.rollout_steps, expert_fn=self._expert_fn())
         if cfg.rollout_block:
             return rollout_mod.run_rollout_blocks(
                 self.env, lambda net_in, n: net.predict(net_in, gen, num_samples=n),
@@ -236,6 +266,32 @@ class CARLAgent:
         return rollout_mod.run_rollout(
             self.env, lambda net_in: net.predict(net_in, gen), env_states,
             cfg.rollout_steps)
+
+    def _expert_fn(self):
+        """expert_fn(env_states) of the expert rollout: the expert's actions
+        with the behaviours of expert_behaviour_mix cycled over the worlds,
+        traffic lights ignored (JAX carla_agent.py:382-397)."""
+        env = self.env
+        profiles = expert_mod.behaviour_profiles(expert_mod.mixed_behaviour_ids(
+            self.config.expert_behaviour_mix, self.config.num_envs, env.device))
+        return lambda states: expert_mod.expert_action(
+            states.world, env.params, env.town, env.routes, ignore_traffic_light=True,
+            profile=profiles)
+
+    def _expert_log_prob_fn(self):
+        """predict_fn(net_in, action01) of the expert rollout: the old
+        policy's log-prob of the action and the value, in inference mode
+        (JAX carla_agent.py:399-407); imitate takes an expert trace's
+        log-probs from it too (:1218-1227)."""
+        net = self.network
+
+        @torch.no_grad()
+        def predict(net_in, action01):
+            feat = net.dynamics_apply(net_in)
+            pol = net.policy_apply(feat, old=True)
+            return dict(log_prob=pol["dist"].log_prob(action01),
+                        value=net.value_apply(feat)["value"])
+        return predict
 
     @torch.no_grad()
     def targets(self, traj: rollout_mod.Trajectory, final_obs: dict,
@@ -368,7 +424,7 @@ class CARLAgent:
         seconds."""
         cfg = self.config
         t0 = time.perf_counter()
-        env_states, traj, final_obs = self.collect(env_states)
+        env_states, traj, final_obs = self._rollout(env_states)
         self._sync()
         t1 = time.perf_counter()
         data = self.targets(traj, final_obs, env_states.last_action, hyper["adv_scale"])
@@ -443,6 +499,141 @@ class CARLAgent:
             if callback is not None:
                 callback(self.update_step, metrics)
         return env_states, history
+
+    # ------------------------------------------------------------------
+    # trace collection and imitation (JAX carla_agent.py:1110-1280,
+    # reference rl/agents/ppo.py:360-462)
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def collect(self, episodes: int, timesteps: int, record_threshold: float = 0.0,
+                traces_dir: str = "traces", seed: int = 42) -> int:
+        """Write `episodes` traces of the current policy into `traces_dir`
+        (reference PPOAgent.collect, rl/agents/ppo.py:360-413): rounds of
+        min(num_envs, episodes) fresh worlds for `timesteps` steps, each
+        world's first episode kept when its total reward is at least
+        `record_threshold`, with the observations, the sampled actions in
+        [0, 1], their log-probs, the values, rewards, dones, speed and
+        similarity (utils/traces.py).  The worlds come from the env's
+        generator seeded with `seed` and restored afterwards, the samples
+        from a generator of that seed, so that training draws as it would
+        have.  Returns the number written."""
+        from carla_driving_rl_agent_torch.envs.wrappers import seeded
+        env, net = self.env, self.network
+        num_envs = min(self.config.num_envs, max(episodes, 1))
+        os.makedirs(traces_dir, exist_ok=True)
+        gen = torch.Generator(device=env.device).manual_seed(seed)
+
+        def act(states, net_in):
+            pred = net.predict(net_in, gen)
+            return dict(env_action=convert_action(pred["action"]), action=pred["action"],
+                        log_prob=pred["log_prob"], value=pred["value"])
+
+        written = 0
+        with seeded(env, seed):
+            while written < episodes:
+                states, _ = env.reset_batch(num_envs)
+                recs = trace_io.record_steps(env, states, act, timesteps)
+                written = trace_io.save_episodes(recs, traces_dir, written, episodes,
+                                                 lambda total: total >= record_threshold)
+        return written
+
+    def _trace_targets(self, trace: dict, adv_scale: float) -> dict:
+        """Advantages and (base, exp) returns of one trace, in float32 as
+        the JAX package computes them (carla_agent.py:1238-1250): GAE over
+        the trace with its values (zero without) and dones, bootstrapped
+        with 0, then sign-preserving max-norm times adv_scale; the
+        discounted sum of the rewards, without episode masks, decomposed."""
+        dev, cfg = self.env.device, self.config
+        n = len(trace["reward"])
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+        rewards = f32(trace["reward"])
+        values = (um.compose_number(f32(trace["value"][:, 0]), f32(trace["value"][:, 1]))
+                  if "value" in trace else torch.zeros(n, device=dev))
+        dones = f32(trace["done"]) if "done" in trace else torch.zeros(n, device=dev)
+        zero = torch.zeros(1, device=dev)
+        adv, _ = um.batched_gae(rewards[:, None], values[:, None], dones[:, None], zero,
+                                cfg.gamma, cfg.lambda_)
+        adv = um.sp_norm(adv[:, 0]) * adv_scale
+        rets = um.discounted_returns(rewards[:, None], torch.zeros_like(rewards[:, None]),
+                                     zero, cfg.gamma)[:, 0]
+        base, exp = um.decompose_number(rets)
+        return dict(advantages=adv, returns=torch.stack([base, exp], dim=-1))
+
+    def imitation_step(self, batch: dict, hyper: dict) -> Tuple[float, float]:
+        """One imitation update on a minibatch (JAX imitation_update,
+        carla_agent.py:1185-1215): the policy and value objectives from one
+        training-mode pass of the backbone (JAX runs it twice from the same
+        parameters and statistics: the same values); the policy and the
+        value head one clipped Adam step each, the backbone ONE clipped Adam
+        step on the sum of both objectives' gradients; old_policy becomes
+        the policy from before the step; the batch statistics of the three
+        parts are folded once.  Returns (policy loss, value loss)."""
+        cfg, net = self.config, self.network
+        feat = net.dynamics_apply(batch["obs"], training=True)
+        p_total, _ = self._policy_objective(net.policy_apply(feat, training=True), batch, hyper)
+        v_total, _ = self._value_objective(net.value_apply(feat, training=True), batch)
+        grads = self._grads(p_total + v_total, ("policy", "value", "dynamics"))
+        net.update_old_policy()
+        self._apply("policy", grads["policy"], cfg.clip_norm[0])
+        self._apply("value", grads["value"], cfg.clip_norm[1])
+        self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+        return float(p_total.detach()), float(v_total.detach())
+
+    def imitate(self, epochs: int = 1, batch_size: Optional[int] = None,
+                traces_dir: str = "traces", shuffle_data: bool = True,
+                seed: Optional[int] = None) -> list:
+        """Learn from the traces of `traces_dir` (reference PPOAgent.imitate,
+        rl/agents/ppo.py:415-462): per epoch, every trace of 4 steps or more
+        in load_traces' order (shuffled with `seed`), its targets
+        (_trace_targets), then its samples in a permutation of
+        numpy.random.default_rng(seed) cut into full minibatches of
+        `batch_size`, each one imitation_step.  A trace without log_prob
+        (the expert's) takes it from the current old policy.  The inputs
+        are computed in float32 (the images as the stored u8 / 255), then
+        cast to the network's dtype.  Returns the (policy loss, value loss)
+        of every step."""
+        full_float32()
+        cfg, dev = self.config, self.env.device
+        batch_size = batch_size or cfg.batch_size
+        dtype = next(self.network.parameters()).dtype
+        hyper = dict(clip_ratio=float(self.clip_ratio()), entropy=float(self.entropy_strength()),
+                     adv_scale=float(self.adv_scale()))
+        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+        old_log_prob = self._expert_log_prob_fn()
+        rng = np.random.default_rng(seed)
+        losses = []
+        for _ in range(epochs):
+            for trace in trace_io.load_traces(traces_dir, shuffle=True, seed=seed):
+                n = len(trace["reward"])
+                if n < 4:
+                    continue
+                targets = self._trace_targets(trace, hyper["adv_scale"])
+                order = rng.permutation(n) if shuffle_data else np.arange(n)
+                zeros = np.zeros(n, np.float32)
+                for i0 in range(0, n - batch_size + 1, batch_size):
+                    idx = order[i0:i0 + batch_size]
+                    image = torch.as_tensor(trace["state_image"][idx], device=dev)
+                    # float32 as stored, cast to the network's dtype after the
+                    # arithmetic; the action stays float32, so that its log is
+                    # taken in float32 as the JAX package takes it
+                    obs = dict(state_image=(image.to(torch.float32) / 255.0).to(dtype),
+                               state_road=f32(trace["state_road"][idx]).to(dtype),
+                               state_vehicle=f32(trace["state_vehicle"][idx]).to(dtype),
+                               state_navigation=f32(trace["state_navigation"][idx]).to(dtype),
+                               action=f32(trace["action"][idx]))
+                    tidx = torch.as_tensor(idx, device=dev)
+                    log_prob = (torch.as_tensor(trace["log_prob"][idx], device=dev).to(dtype)
+                                if "log_prob" in trace else
+                                old_log_prob(obs, (obs["action"] + 1.0) / 2.0)["log_prob"])
+                    batch = dict(obs=obs, advantages=targets["advantages"][tidx].to(dtype),
+                                 returns=targets["returns"][tidx].to(dtype), log_prob=log_prob,
+                                 speed=(f32(trace.get("speed", zeros)[idx]) / 100.0).to(dtype),
+                                 similarity=f32(trace.get("similarity", zeros)[idx]).to(dtype))
+                    losses.append(self.imitation_step(batch, hyper))
+        return losses
+
+    # the Stage orchestrator's name (reference core/learning.py:180-181)
+    imitation_learning = imitate
 
     # ------------------------------------------------------------------
     # checkpointing (reference core/networks.py:297-310, rl/agents/ppo.py:601-616)

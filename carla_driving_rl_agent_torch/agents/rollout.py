@@ -73,18 +73,28 @@ def _stack(records: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 
 def run_rollout(env: CARLAEnv, predict_fn: Callable, env_states: EnvState,
-                num_steps: int):
+                num_steps: int, expert_fn: Optional[Callable] = None):
     """`num_steps` lock-step transitions of all worlds, one network forward
     pass and one env step (one rendered frame) per step: the per-step path
     (JAX run_rollout, rollout.py:49).  predict_fn(net_in) returns a dict
     with action (B, A) in [0, 1], log_prob (B, A) and value (B, 2).
+
+    With `expert_fn` (the device-resident imitation, JAX rollout.py:66-75),
+    the actions come from the privileged expert: expert_fn(env_states)
+    gives (B, 2) env actions in [-1, 1], the recorded action is
+    (action + 1) / 2, and predict_fn(net_in, action01) returns the old
+    policy's log_prob of it and the value; nothing is sampled.
     Returns (env_states', Trajectory, final_obs)."""
     init_stack, states = _start(env, env_states)
     records, frames = [], []
     for step in range(num_steps):
         obs, net_in = _net_input(env, states)
-        pred = predict_fn(net_in)
-        action01 = pred["action"]
+        if expert_fn is None:
+            pred = predict_fn(net_in)
+            action01 = pred["action"]
+        else:
+            action01 = (expert_fn(states) + 1.0) / 2.0
+            pred = predict_fn(net_in, action01)
         new_states, _, reward, term, trunc, info = env.step(
             states, convert_action(action01), frame_id=step)
         new_states = new_states._replace(last_action=action01)

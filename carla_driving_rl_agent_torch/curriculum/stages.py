@@ -6,6 +6,7 @@ core/learning.py): `sample_origins` (:19-33), `define_agent`/`define_env`
 (:53-61), `Stage` (:68-189), `stage_s1` (:311-339), `stage_s2` (:342-369),
 `stage_s3` (:372-409), `stage_s4` (:412-450), `stage_s5` (:453-498) and
 `evaluate` (:505-530) with its traffic levels (`TRAFFIC_SPECS`, :485-487).
+The imitation helpers are in curriculum/imitation.py.
 
 Parallelism mapping (as in the JAX package): an epoch runs `episodes`
 updates, each consuming a `timesteps`-step rollout (at most 128 steps)
@@ -118,16 +119,24 @@ def build_env(town: str = DEFAULT_TOWN, image_shape=(90, 120, 3),
 
 
 class Stage:
-    """A curriculum learning stage (reference core/learning.py:68-189):
-    RL epochs with a checkpoint and a per-epoch snapshot after each."""
+    """A curriculum learning stage (reference core/learning.py:68-189): RL
+    epochs with a checkpoint and a per-epoch snapshot after each (`run2`),
+    or the expert's collection then RL per epoch (`run`); with `imitation`
+    kwargs, `run2` imitates before each epoch's RL."""
 
     def __init__(self, agent: dict, environment: dict, learning: dict,
-                 name: str = "Stage"):
+                 representation: Optional[dict] = None, collect: Optional[dict] = None,
+                 imitation: Optional[dict] = None, name: str = "Stage"):
         if not isinstance(learning.get("agent"), dict):
             raise ValueError("learning must hold an 'agent' dict")
         self.agent_args = dict(agent)
         self.env_args = dict(environment)
         self.learn_args = dict(learning)
+        self.repr_args = representation
+        self.collect_args = collect
+        self.imitation_args = imitation
+        self.should_imitate = isinstance(imitation, dict)
+        self.should_collect = isinstance(collect, dict)
         self.name = name
         self.agent: Optional[CARLAgent] = None
         self.env: Optional[CARLAEnv] = None
@@ -151,7 +160,7 @@ class Stage:
 
     def run2(self, epochs: int, copy_weights: bool = True,
              epoch_offset: int = 0, callback=None) -> "Stage":
-        """RL per epoch + per-epoch weight snapshot
+        """(imitation ->) RL per epoch + per-epoch weight snapshot
         (reference core/learning.py:144-161)."""
         if epochs <= 0:
             raise ValueError(f"epochs must be positive, got {epochs}")
@@ -159,6 +168,8 @@ class Stage:
         learn = self.learn_args["agent"]
         updates = int(learn.get("episodes", 5))
         for epoch in range(epochs):
+            if self.should_imitate:
+                self.imitation_learning()
             self._env_states, _ = self.agent.learn(
                 num_updates=updates, env_states=self._env_states, callback=callback)
             if learn.get("save_every") or copy_weights:
@@ -167,6 +178,75 @@ class Stage:
                 copy_folder(self.agent.base_path,
                             f"{self.agent.base_path}-{epoch + epoch_offset}")
         return self
+
+    def run(self, epochs: int, collect: Union[bool, int] = True,
+            representation: bool = True) -> "Stage":
+        """The expert's collection, then RL, per epoch (reference
+        core/learning.py:119-142): with `collect` kwargs given to the stage,
+        collect=True collects in every epoch (its count is epochs + 1, as
+        in the reference), an int in that many first epochs, False never.
+        Representation learning is a hook the reference declares but never
+        implemented (representation_learning raises)."""
+        if epochs <= 0:
+            raise ValueError(f"epochs must be positive, got {epochs}")
+        self.init()
+        if (collect is False) or (not self.should_collect):
+            collect_left = 0
+        elif collect is True:
+            collect_left = epochs + 1
+        else:
+            collect_left = int(collect)
+        for _ in range(epochs):
+            if collect_left > 0:
+                self.collect()
+                collect_left -= 1
+            if self.repr_args and representation:
+                self.representation_learning()
+            self.reinforcement_learning()
+        return self
+
+    def representation_learning(self):
+        raise NotImplementedError(
+            "representation learning is a hook in the reference as well "
+            "(Stage.run calls agent.learn_representation, which CARLAgent "
+            "never defines); use imitation_learning instead")
+
+    def evaluate(self, **kwargs) -> "Stage":
+        self.init()
+        self.agent.evaluate(**kwargs)
+        return self
+
+    def record(self, **kwargs) -> "Stage":
+        """envs/wrappers.record_episodes of the stage's agent."""
+        from carla_driving_rl_agent_torch.envs.wrappers import record_episodes
+        self.init()
+        record_episodes(self.agent, **kwargs)
+        return self
+
+    def collect(self, **kwargs) -> int:
+        """The expert's traces (envs/wrappers.CARLACollectWrapper with the
+        stage's `collect` kwargs); the collection's own kwargs are
+        learning["collect"], else `kwargs`.  Returns the number written."""
+        from carla_driving_rl_agent_torch.envs.wrappers import CARLACollectWrapper
+        self.init()
+        wrapper = CARLACollectWrapper(self.env, **(self.collect_args or {}))
+        return wrapper.collect(**self.learn_args.get("collect", kwargs))
+
+    def imitation_learning(self):
+        self.init()
+        return self.agent.imitation_learning(**(self.imitation_args or {}))
+
+    def reinforcement_learning(self):
+        self.init()
+        learn = self.learn_args["agent"]
+        self._env_states, _ = self.agent.learn(num_updates=int(learn.get("episodes", 5)),
+                                               env_states=self._env_states)
+
+    def cleanup(self, close: bool = True):
+        if close:
+            self.env = None
+            self.agent = None
+            self._env_states = None
 
 
 def _stage_common(kwargs: dict) -> dict:
@@ -243,9 +323,7 @@ def stage_s4(episodes: int, timesteps: int, batch_size: int, towns=None,
              env_overrides: Optional[dict] = None, **kwargs) -> Stage:
     """Stage-4: stage s3's traffic and weathers, the towns `towns` drawn per
     episode when given (else `town`), and the training augmentation at
-    aug_intensity 1.0 by default (reference core/learning.py:412-450).
-    With NPCs and more than one town the block rollout raises
-    (envs/carla_env.py); the per-step rollout trains."""
+    aug_intensity 1.0 by default (reference core/learning.py:412-450)."""
     kwargs.setdefault("aug_intensity", 1.0)
     return _stage(stage_name, episodes, timesteps, batch_size, save_every, seed, num_envs,
                   env_overrides, kwargs, dict(load=True, load_full=True), town=town,

@@ -325,22 +325,19 @@ class CARLAEnv:
         `fused_step` is on (ops/physics.step_physics_block; the plain version
         for CPU tensors), else K plain ticks, which also tick the NPCs of a
         world with traffic (fused_step is refused there, in __init__).  The
-        block's NPC tick draws (K, B, ...) and then its (K, B) reset draws,
-        with their NPC spawns, come from the env's generator, one call each
-        (two for the resets with NPCs), unless given; without NPCs nothing
-        is drawn for them.  Returns (state' after the last tick, reward,
+        block's NPC tick uniforms (K, B, V + 3P; tick k's row scaled by the
+        towns the worlds hold at tick k, so that a world restarting
+        mid-block in another town draws on its new town) and then its (K, B)
+        reset draws, with their NPC spawns, come from the env's generator,
+        one call each (two for the resets with NPCs), unless given
+        (`npc_draws`: the uniforms or NPCStepDraws (K, B, ...)); without NPCs
+        nothing is drawn for them.  Returns (state' after the last tick, reward,
         terminated, truncated, info {speed, similarity}, was_reset), each
         row (K, B)."""
         k, n = actions.shape[0], actions.shape[1]
         if npc_draws is None and self.params.has_npcs:
-            if self.params.random_towns and len(self.params.town_names) > 1:
-                # a world that restarts mid-block in another town would draw
-                # its goals on the old town's waypoint count
-                raise NotImplementedError("the NPC block path with random towns (stage s4) "
-                                          "is not ported yet")
-            npc_draws = traffic.block_npc_step_draws(self.generator, self.town,
-                                                     states.world.town_id, k,
-                                                     self.params.v_max, self.params.p_max)
+            npc_draws = traffic.block_npc_step_uniforms(self.generator, k, n, self.params.v_max,
+                                                        self.params.p_max, self.device)
         if draws is None:
             draws = world_mod.block_reset_draws(self.generator, k, n, self.params, self.routes,
                                                 self.weather_table, self.town)

@@ -191,25 +191,36 @@ def npc_step_draws(gen: torch.Generator, town, town_id: torch.Tensor,
     """One tick's draws of len(town_id) worlds from one call of `gen`."""
     n = town_id.shape[0]
     u = torch.rand((n, v_max + 3 * p_max), generator=gen, device=town_id.device)
-    return _step_draws_from_uniforms(u, town, town_id, v_max, p_max)
+    return step_draws_from_uniforms(u, town, town_id, v_max, p_max)
+
+
+def block_npc_step_uniforms(gen: torch.Generator, k: int, n: int, v_max: int, p_max: int,
+                            device) -> torch.Tensor:
+    """The uniforms of k NPC ticks of n worlds from one call of `gen`,
+    (k, n, V + 3P): a rollout block's NPC ticks before they are scaled.
+    Tick i's row becomes that tick's draws by step_draws_from_uniforms with
+    the towns the worlds hold at tick i (a world that restarts mid-block in
+    another town draws its goals on its new town's waypoints, as JAX's
+    per-tick keys do)."""
+    return torch.rand((k, n, v_max + 3 * p_max), generator=gen, device=device)
 
 
 def block_npc_step_draws(gen: torch.Generator, town, town_id: torch.Tensor, k: int,
                          v_max: int, p_max: int) -> NPCStepDraws:
     """The draws of k ticks of len(town_id) worlds from one call of `gen`,
-    (k, B, V) and (k, B, P): a rollout block's NPC ticks, each world's
-    goal waypoints scaled by the num_wp of its town `town_id` (B,), as
-    npc_step_draws scales one tick.  Tick i's draws are
+    (k, B, V) and (k, B, P): block_npc_step_uniforms, each world's goal
+    waypoints scaled by the num_wp of its town `town_id` (B,) for every
+    tick, as npc_step_draws scales one tick.  Tick i's draws are
     world.map_tensors(lambda d: d[i], draws)."""
     n = town_id.shape[0]
-    u = torch.rand((k, n, v_max + 3 * p_max), generator=gen, device=town_id.device)
-    draws = _step_draws_from_uniforms(u.reshape(k * n, -1), town, town_id.repeat(k),
-                                      v_max, p_max)
+    u = block_npc_step_uniforms(gen, k, n, v_max, p_max, town_id.device)
+    draws = step_draws_from_uniforms(u.reshape(k * n, -1), town, town_id.repeat(k),
+                                     v_max, p_max)
     rows = lambda t: t.reshape((k, n) + tuple(t.shape[1:]))  # noqa: E731
     return NPCStepDraws(branch=rows(draws.branch), goal=GoalDraws(*map(rows, draws.goal)))
 
 
-def _step_draws_from_uniforms(u: torch.Tensor, town, town_id: torch.Tensor, v_max: int,
+def step_draws_from_uniforms(u: torch.Tensor, town, town_id: torch.Tensor, v_max: int,
                               p_max: int) -> NPCStepDraws:
     """NPCStepDraws of B worlds from (B, V + 3P) uniforms in [0, 1): each
     vehicle's branch, then each walker's goal waypoint, side and offset."""

@@ -9,6 +9,8 @@ agent, and the evaluation sweep, on one GPU.
     python -m carla_driving_rl_agent_torch.main --standard --epochs 78 --block
     python -m carla_driving_rl_agent_torch.main --evaluate [--weights safe-s5] \
         [--steps 512] [--trials 50]
+    python -m carla_driving_rl_agent_torch.main --record [--weights stage-s5] \
+        [--steps 512] [--trials 3] [--record-dir record]
 
 Mirrors `main.py --stage sN --epochs N [--block]` of the JAX package with the
 shipped sequential float32 trainer (main.FAST_TRAIN = dict()): 5 updates per
@@ -39,6 +41,13 @@ stage-sN-<epoch>) of the checkout, never into the tracked weights/.
 modes x 8 towns x 3 traffic levels, at seed 42, of the checkpoint
 weights/<weights>; one record per scenario under
 weights-torch/<weights>/evaluation/.
+
+`--record` is the counterpart of `main.py --record` (run_record,
+main.py:265-269): stage s5's env on Town03 with regular traffic, the agent
+of weights/<weights>, and `--trials` episodes of up to `--steps` steps
+recorded as frames.npz and info.json under
+<record-dir>/Town03/demo/<trial>/ (default record/ of the checkout, never
+under weights/).
 """
 
 from __future__ import annotations
@@ -52,6 +61,7 @@ import time
 import warnings
 
 from carla_driving_rl_agent_torch.curriculum import stages
+from carla_driving_rl_agent_torch.envs.wrappers import record_episodes
 from carla_driving_rl_agent_torch.utils.checkpoint import refuse_tracked
 from carla_driving_rl_agent_torch.utils.schedules import ExponentialDecay
 
@@ -219,6 +229,26 @@ def run_evaluation(weights: str = "stage-s5", steps: int = 512, trials: int = 50
                       flush=True)
 
 
+def run_record(weights: str = "stage-s5", timesteps: int = 512, trials: int = 3,
+               record_dir: str = os.path.join(stages.REPO_ROOT, "record"),
+               weights_dir: str = None, device=None) -> list:
+    """Record `trials` episodes of the agent of `weights_dir`/`weights`
+    (default the tracked weights/, only read) on stage s5's Town03 with
+    regular traffic (JAX main.py:265-269; its 4 worlds and batch 1 are the
+    stage's, the recording drives one world), the network built with the
+    checkpoint's spec (config.json; the JAX package builds the default
+    one).  Returns the trials' directories under `record_dir`."""
+    weights_dir = weights_dir or os.path.join(stages.REPO_ROOT, "weights")
+    stage = stages.stage_s5(episodes=1, timesteps=timesteps, batch_size=1, town="Town03",
+                            stage_name=weights, traffic="regular", aug_intensity=0.0,
+                            num_envs=4, weights_dir=weights_dir,
+                            network=stages.network_spec(weights, weights_dir),
+                            env_overrides=dict(device=device))
+    stage.init()
+    return record_episodes(stage.agent, name="demo", timesteps=timesteps, trials=trials,
+                           record_dir=record_dir)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     what = ap.add_mutually_exclusive_group(required=True)
@@ -231,10 +261,18 @@ def main(argv=None) -> int:
                       help="copy stage-SRC's checkpoint to stage-DST under --weights-dir")
     what.add_argument("--evaluate", action="store_true",
                       help="the 48-scenario evaluation of --weights, seed 42")
+    what.add_argument("--record", action="store_true",
+                      help="record --trials episodes of --weights on Town03 with regular "
+                           "traffic under --record-dir")
     ap.add_argument("--weights", default="stage-s5",
-                    help="--evaluate: the checkpoint under weights/")
-    ap.add_argument("--steps", type=int, default=512, help="--evaluate: steps per episode")
-    ap.add_argument("--trials", type=int, default=50, help="--evaluate: trials per scenario")
+                    help="--evaluate, --record: the checkpoint under weights/")
+    ap.add_argument("--steps", type=int, default=512,
+                    help="--evaluate, --record: steps per episode")
+    ap.add_argument("--trials", type=int, default=None,
+                    help="--evaluate: trials per scenario (default 50); --record: "
+                         "episodes (default 3)")
+    ap.add_argument("--record-dir", default=os.path.join(stages.REPO_ROOT, "record"),
+                    help="--record: the root of the records")
     ap.add_argument("--epochs", default="10",
                     help="an int, or with --curriculum the per-stage list 'e1,...,e5'")
     ap.add_argument("--num-envs", type=int, default=NUM_ENVS)
@@ -257,9 +295,14 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' only when asked)")
     args = ap.parse_args(argv)
+    if args.record:
+        paths = run_record(args.weights, args.steps, args.trials or 3, args.record_dir,
+                           device=args.device)
+        print("\n".join(f"recorded {p}" for p in paths), flush=True)
+        return 0
     if args.evaluate:
         t0 = time.perf_counter()
-        run_evaluation(args.weights, args.steps, args.trials, device=args.device)
+        run_evaluation(args.weights, args.steps, args.trials or 50, device=args.device)
         print(f"evaluation of {args.weights}: 48 scenarios in {time.perf_counter() - t0:.1f} s",
               flush=True)
         return 0

@@ -33,8 +33,9 @@ The kernel computes worlds without NPCs: `step_physics_batch` and
 (the JAX package quietly takes its XLA step there).  The plain versions
 step NPC worlds too: the single tick from the tick's NPC draws, the block
 from a block's NPC draws (K rows, traffic.block_npc_step_draws), tick k
-from row k, and the NPC spawn of each tick's fresh state from the reset
-draws' `npc` rows.
+from row k, or from its NPC uniforms (traffic.block_npc_step_uniforms),
+tick k's row scaled by the towns the worlds hold at tick k, and the NPC
+spawn of each tick's fresh state from the reset draws' `npc` rows.
 """
 
 from __future__ import annotations
@@ -93,18 +94,24 @@ def _zero_npcs(params: WorldParams, what: str) -> None:
 def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
                              params: WorldParams, town: TownDev,
                              routes: RoutesDev, draws: ResetDraws,
-                             npc_draws: Optional[traffic.NPCStepDraws] = None):
+                             npc_draws=None):
     """The plain version of `step_physics_block`: K calls of
     step_physics_batch_plain, tick k with actions[k], the k-th row of each
     reset draw and, in a configuration with NPCs, the k-th row of
-    `npc_draws` (K, B, ...).  Returns (world', reward, terminated,
-    truncated, info {speed, similarity}, was_reset), each row (K, B)."""
+    `npc_draws`: NPCStepDraws (K, B, ...), or the block's (K, B, V + 3P)
+    NPC uniforms, tick k's row scaled by the towns the worlds hold at tick
+    k.  Returns (world', reward, terminated, truncated, info {speed,
+    similarity}, was_reset), each row (K, B)."""
     rows = []
     for k in range(actions.shape[0]):
         row = lambda d: d[k]  # noqa: E731
+        if isinstance(npc_draws, torch.Tensor):
+            npc_k = traffic.step_draws_from_uniforms(npc_draws[k], town, world.town_id,
+                                                     params.v_max, params.p_max)
+        else:
+            npc_k = world_mod.map_tensors(row, npc_draws)
         world, reward, term, trunc, info, done = step_physics_batch_plain(
-            world, actions[k], params, town, routes, world_mod.map_tensors(row, draws),
-            world_mod.map_tensors(row, npc_draws))
+            world, actions[k], params, town, routes, world_mod.map_tensors(row, draws), npc_k)
         rows.append((reward, term, trunc, info["speed"], info["similarity"], done))
     reward, term, trunc, speed, similarity, done = (torch.stack(r) for r in zip(*rows))
     return world, reward, term, trunc, dict(speed=speed, similarity=similarity), done

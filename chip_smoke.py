@@ -99,7 +99,7 @@ Phases, each printed with its seconds:
                no physics-kernel launch (the plain block steps NPC worlds),
                32 render launches per update and one at the reset;
  16. train_s3_fused — stage s3 (50 vehicles, 50 walkers, the training
-               weathers) with fused_units=True for one epoch of 5 updates,
+               weathers) with fused_units=True for 2 updates (a depth cut),
                handed train_s2's checkpoint: network and Adam states equal
                to it before the first update, the unit kernels' launches,
                8 actor rows, training weathers drawn;
@@ -119,7 +119,39 @@ Phases, each printed with its seconds:
  19. train_s5_fused — stage s5 (Town03, dense traffic: 100 vehicles, 200
                walkers, the augmentation) with fused_units=True for 2
                updates, handed train_s4's checkpoint: network and Adam
-               states equal to it, 8 actor rows.
+               states equal to it, 8 actor rows;
+ 20. expert  — the privileged expert (envs/expert.py) drives 32 Town03
+               worlds with stage s3's 50/50 NPCs for 128 steps on the
+               card, its actions at every step equal to the plain CPU
+               port's on the same state within the world bar (1e-5 +
+               2.5e-7 relative); the mean similarity >= 0.7, the collision
+               rate and env-steps/s;
+ 21. imitate — CARLACollectWrapper writes 4 expert episodes of 128 steps
+               (Town03, 90 x 360 frames) into a temporary root; then
+               CARLAgent.imitate at batch 64 with the shipped network from
+               the same seeded weights, fused units against the unfused
+               backbone, one step on a trace cut to 64 samples (the losses
+               and the BatchNorm buffer changes within train_agree's
+               float32 bars), then one epoch over the traces with fused
+               units: ms per update and the unit kernels' launches;
+ 22. train_expert_fused — 2 updates of learn with expert_rollout=True and
+               ratio_clamp at stage s1's geometry with fused units: the
+               losses finite, the rollout's similarity >= 0.7, one render
+               and one predict per step, no physics-kernel launch (the
+               per-step env.step), env-steps/s beside train_fused's;
+ 23. benchmark — CARLABenchmark of safe-s5 with fused units, preset test
+               (a new Town02 env per task), tasks empty and regular, 25
+               trials of 1024 steps: the success, collision and timeout
+               rates, env-steps/s, the Town02 env's build seconds; the
+               route lengths within 1e-4 of a float64 recompute on the
+               CPU from the same spawn states, the budgets nocrash_success's;
+ 24. record  — main.run_record of safe-s5 for 1 trial of 64 steps into a
+               temporary root: frames (t, 90, 360, 3) u8 and info.json
+               with reward and timestep;
+ 25. s4_towns — stage s4's NPC block path over random towns (Town01 +
+               Town02, 50/50 NPCs, the training weathers) on the card
+               against the CPU from the same draws, 3 blocks of 16 worlds
+               restarting mid-block, some into the other town.
 Each training phase prints the mean reward per step, the episodes that
 ended, the NPCs per world, train env-steps/s and the four parts of an
 update.  With --profile, a last phase breaks an evaluation window (without
@@ -673,16 +705,20 @@ def _hold_npcs(gpu_npc, cpu_npc, where: str) -> float:
     return worst
 
 
-def agree_block_traffic(gpu, blocks: int = 3, n: int = 8) -> None:
+def agree_block_traffic(gpu, blocks: int = 3, n: int = 8,
+                        what: str = "stage s3's traffic") -> dict:
     """GPU vs CPU on the block path with traffic (stage s3's env: Town03,
-    50 vehicles, 50 walkers, the training weathers): `blocks` calls of
-    env.step_physics_block and push_block_frame_batch on the card and on a
-    CPU twin from the same reset, NPC-tick and auto-reset draws (drawn on
-    the card, a block's at once) and actions; the worlds start 4-7 ticks
+    50 vehicles, 50 walkers, the training weathers; or stage s4's over
+    random towns): `blocks` calls of env.step_physics_block and
+    push_block_frame_batch on the card and on a CPU twin from the same
+    reset, NPC-tick and auto-reset draws (drawn on the card, a block's at
+    once: the NPC ticks' uniforms, which each side scales per tick by the
+    towns its worlds hold then) and actions; the worlds start 4-7 ticks
     before their episode's end, so that they restart mid-block and spawn
     new NPCs.  agree_traffic's bars: NPC indices and masks, flags and ints
     equal, NPC floats within 1e-3, rewards within 1e-4 + 1e-5 relative,
-    frames within 2 u8 on > 99 %."""
+    frames within 2 u8 on > 99 %.  Returns the restarts, the worlds that
+    changed town, the worst NPC float difference and image share."""
     from carla_driving_rl_agent_torch.envs import traffic, world as world_mod
     from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
     cpu_env = CARLAEnv(gpu.config, device="cpu")
@@ -696,40 +732,45 @@ def agree_block_traffic(gpu, blocks: int = 3, n: int = 8) -> None:
     sg = sg._replace(world=sg.world._replace(timestep=end.to(gpu.device)))
     sc = sc._replace(world=sc.world._replace(timestep=end))
     p, k, T = gpu.params, gpu.config.past_obs_freq, gpu.config.time_horizon
-    worst_img, worst_npc, resets, slot = 1.0, 0.0, 0, T - 1
+    worst_img, worst_npc, resets, switched, slot = 1.0, 0.0, 0, 0, T - 1
     for b in range(blocks):
         a = torch.as_tensor(rng.uniform(-1.0, 1.0, (k, n, 2)).astype(np.float32))
-        nd = traffic.block_npc_step_draws(gpu.generator, gpu.town, sg.world.town_id, k,
-                                          p.v_max, p.p_max)
+        nd = traffic.block_npc_step_uniforms(gpu.generator, k, n, p.v_max, p.p_max, gpu.device)
         rd = world_mod.block_reset_draws(gpu.generator, k, n, p, gpu.routes, gpu.weather_table,
                                          gpu.town)
+        towns = sc.world.town_id.clone()
         out_g = gpu.step_physics_block(sg, a.to(gpu.device), draws=rd, npc_draws=nd)
-        out_c = cpu_env.step_physics_block(sc, a, draws=to_cpu(rd), npc_draws=to_cpu(nd))
+        out_c = cpu_env.step_physics_block(sc, a, draws=to_cpu(rd), npc_draws=nd.cpu())
         for name, x, y in (("terminated", out_g[2], out_c[2]), ("truncated", out_g[3], out_c[3]),
                            ("was_reset", out_g[5], out_c[5])):
-            check(torch.equal(x.cpu(), y), f"block {b}: {name} GPU vs CPU with traffic")
+            check(torch.equal(x.cpu(), y), f"block {b}: {name} GPU vs CPU with {what}")
         check(torch.allclose(out_g[1].cpu(), out_c[1], rtol=1e-5, atol=1e-4),
-              f"block {b}: rewards GPU vs CPU with traffic: "
+              f"block {b}: rewards GPU vs CPU with {what}: "
               f"{(out_g[1].cpu() - out_c[1]).abs().max()}")
-        for f in ("route_id", "wp_idx", "timestep", "episode", "weather_id", "should_terminate"):
+        for f in ("route_id", "wp_idx", "timestep", "episode", "weather_id", "town_id",
+                  "should_terminate"):
             check(torch.equal(getattr(out_g[0].world, f).cpu(), getattr(out_c[0].world, f)),
-                  f"block {b}: world {f} GPU vs CPU with traffic")
+                  f"block {b}: world {f} GPU vs CPU with {what}")
         worst_npc = max(worst_npc, _hold_npcs(out_g[0].world.npc, out_c[0].world.npc,
                                               f"block {b}"))
         resets += int(out_c[5].sum())
+        switched += int((out_c[0].world.town_id != towns).sum())
         sg = gpu.push_block_frame_batch(out_g[0], out_g[5].any(0), frame_ids=b, slot=slot)
         sc = cpu_env.push_block_frame_batch(out_c[0], out_c[5].any(0), frame_ids=b, slot=slot)
         slot = (slot + 1) % T
         diff = (sg.image_stack.cpu().to(torch.int32) - sc.image_stack.to(torch.int32)).abs()
         worst_img = min(worst_img, float((diff <= 2).float().mean()))
-    check(worst_img > 0.99, f"block image stacks GPU vs CPU with traffic: {worst_img:.6f} "
+    check(worst_img > 0.99, f"block image stacks GPU vs CPU with {what}: {worst_img:.6f} "
                             f"within 2")
     check(resets > 0, "no world restarted in the block path's agreement run")
     npc = sg.world.npc
-    print(f"  block path, stage s3's traffic, {blocks} blocks of {k} ticks x {n} worlds "
-          f"({resets} restarts; {float(npc.veh_active.sum()) / n:.1f} vehicles, "
+    print(f"  block path, {what}, {blocks} blocks of {k} ticks x {n} worlds "
+          f"({resets} restarts, {switched} into another town; "
+          f"{float(npc.veh_active.sum()) / n:.1f} vehicles, "
           f"{float(npc.ped_active.sum()) / n:.1f} walkers per world): NPC floats max |diff| "
           f"{worst_npc:.3e}, images within 2 u8 {worst_img:.6f}", flush=True)
+    return dict(restarts=resets, switched=switched, npc_max_abs_diff=worst_npc,
+                image_within_2=worst_img)
 
 
 def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
@@ -1510,14 +1551,17 @@ def env_phase() -> dict:
 
 
 
-def _train_epoch(stage, updates: int, label: str, physics_per_update: int) -> dict:
+def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
+                 frames_per_update: int = TRAIN_STEPS // 4) -> dict:
     """Run2 of `stage` for one epoch of `updates` updates after stage.init,
     with the launch counts set to 0 just before: the metrics finite, every
     parameter group moved, `physics_per_update` physics-kernel block
-    launches per update and no single-tick ones, one render launch per
-    4-step block and one at the reset, and with fused units a pass of the
-    13 stride-1 units per predict (inference) and per minibatch (forward
-    and backward).  Prints and returns what it measured."""
+    launches per update and no single-tick ones, `frames_per_update`
+    render launches and predicts per update (one per 4-step block, or one
+    per step on the per-step path) and one render at the reset, and with
+    fused units a pass of the 13 stride-1 units per predict (inference) and
+    per minibatch (forward and backward).  Prints and returns what it
+    measured."""
     agent = stage.agent
     fused_units = agent.config.fused_units
     check(agent.config.rollout_steps == TRAIN_STEPS, "128-step rollouts")
@@ -1544,12 +1588,12 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int) -> di
           and counts["step_physics_batch"] == 0,
           f"{label}: physics launches {counts['step_physics_block']} block, "
           f"{counts['step_physics_batch']} single-tick")
-    check(counts["render_planes"] == updates * TRAIN_STEPS // 4 + 1,
+    check(counts["render_planes"] == updates * frames_per_update + 1,
           f"{label}: render launches {counts['render_planes']}")
-    # per update: a predict per 4-step block and the bootstrap value's pass
+    # per update: a predict per frame and the bootstrap value's pass
     # (inference), and a training pass of each minibatch of the two phases
     minibatches = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
-    passes = dict(shuffle_unit_infer=TRAIN_STEPS // 4 + 1, shuffle_unit_train=minibatches,
+    passes = dict(shuffle_unit_infer=frames_per_update + 1, shuffle_unit_train=minibatches,
                   shuffle_unit_train_bwd=minibatches)
     for name, per_update in passes.items():
         want = updates * per_update * UNITS_PER_PASS if fused_units else 0
@@ -1619,8 +1663,8 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
     return stage, summary
 
 
-# the depth of train_s2, train_s4 and train_s5_fused (a cut for time);
-# train_s3_fused runs TRAIN_UPDATES
+# the depth of train_s2, train_s3_fused, train_s4, train_s5_fused and
+# train_expert_fused (a cut for time)
 CUT_UPDATES = 2
 
 
@@ -1726,8 +1770,8 @@ def train_s2_phase(root: str) -> tuple:
 
 def train_s3_fused_phase(root: str) -> tuple:
     """Stage s3 (50 vehicles, 50 walkers, the training weathers) at the
-    shipped geometry with fused_units=True, for one epoch of TRAIN_UPDATES
-    updates, from train_s2's checkpoint handed off in `root`: before the
+    shipped geometry with fused_units=True, for CUT_UPDATES updates (a cut
+    for time), from train_s2's checkpoint handed off in `root`: before the
     first update the network and the Adam states equal that checkpoint's
     exactly; the unit kernels run in every predict and minibatch, the
     physics kernel not at all; the weathers drawn are training weathers.
@@ -1735,7 +1779,7 @@ def train_s3_fused_phase(root: str) -> tuple:
     from carla_driving_rl_agent_torch.curriculum import stages
     from carla_driving_rl_agent_torch.envs.weather import TRAIN_WEATHERS, weather_ids
     network, optimizers, update_step = _hand_off_port(root, "s2", "s3")
-    stage = stages.stage_s3(episodes=TRAIN_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+    stage = stages.stage_s3(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
                             num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
                             weights_dir=root, env_overrides=dict(device="cuda"))
     stage.init()
@@ -1743,7 +1787,7 @@ def train_s3_fused_phase(root: str) -> tuple:
     print(f"  stage-s3 loaded train_s2's checkpoint through hand_off: network and Adam states "
           f"equal, update step {update_step}", flush=True)
     check(stage.env.n_actors == 8, f"s3 renders {stage.env.n_actors} actor rows")
-    summary = _train_epoch(stage, TRAIN_UPDATES, "train_s3_fused", 0)
+    summary = _train_epoch(stage, CUT_UPDATES, "train_s3_fused", 0)
     summary.update(_traffic_numbers(stage, summary, "train_s3_fused"))
     drawn = set(stage._env_states.world.weather_id.tolist())
     check(drawn <= {int(i) for i in weather_ids(TRAIN_WEATHERS)},
@@ -1813,7 +1857,7 @@ def augment_agree_phase(stage, update_s: float) -> dict:
     from carla_driving_rl_agent_torch.augment import simclr as S
     from carla_driving_rl_agent_torch.envs.carla_env import planes_to_image
     agent = stage.agent
-    _, traj, final_obs = agent.collect(stage._env_states)
+    _, traj, final_obs = agent._rollout(stage._env_states)
     data = agent.targets(traj, final_obs, stage._env_states.last_action, 2.0)
     idx = torch.randperm(TRAIN_WORLDS * TRAIN_STEPS, device="cuda")[:TRAIN_BATCH]
     planes = rollout_mod.gather_image_stacks(data["traj"], data["step"][idx],
@@ -2068,7 +2112,7 @@ def profile_train_phase(agent, per_call: dict) -> dict:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
-    states, traj, final_obs = agent.collect(states)
+    states, traj, final_obs = agent._rollout(states)
     data = agent.targets(traj, final_obs, states.last_action, hyper["adv_scale"])
     batch = agent.gather_batch(data, torch.arange(agent.config.batch_size,
                                                   device=agent.env.device))
@@ -2077,7 +2121,7 @@ def profile_train_phase(agent, per_call: dict) -> dict:
     agent.config.rollout_steps = agent.env.config.past_obs_freq
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as r_prof:
-        agent.collect(states)
+        agent._rollout(states)
         torch.cuda.synchronize()
     rollout_launches = sum(e.count for e in r_prof.key_averages()
                            if e.device_type == torch.autograd.DeviceType.CUDA)
@@ -2150,6 +2194,293 @@ def profile_train_phase(agent, per_call: dict) -> dict:
             f"{k} host {v['host_ms']:.4f} ms, device {v['device_ms']:.4f} ms, "
             f"{v['launches']} launches" for k, v in out["npc"].items()), flush=True)
     return out
+
+
+# ---------------------------------------------------------------- the imitation path
+
+EXPERT_WORLDS, EXPERT_STEPS = 32, 128
+EXPERT_SIMILARITY = 0.7      # JAX tests/test_curriculum.py's bar for the expert's driving
+WORLD_BAR = (1e-5, 2.5e-7)   # the world tests' bar: absolute, relative
+
+
+def expert_phase(env) -> dict:
+    """The privileged expert drives EXPERT_WORLDS worlds of `env` (stage
+    s3's: Town03 with 50 vehicles and 50 walkers) for EXPERT_STEPS steps on
+    the card, auto-resets included; at every step its actions on the card
+    equal the plain CPU port's on the same state (copied to the CPU)
+    within the world bar.  Holds the mean similarity >= EXPERT_SIMILARITY
+    and prints it with the collision rate (worlds whose first episode
+    ended in a collision) and env-steps/s (the CPU comparisons excluded)."""
+    from carla_driving_rl_agent_torch.envs import expert, world as world_mod
+    from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
+    cpu_env = CARLAEnv(env.config, device="cpu")
+    env.seed(7)
+    states, _ = env.reset_batch(EXPERT_WORLDS)
+    sims, worst, drive_s = [], 0.0, 0.0
+    first = torch.zeros(EXPERT_WORLDS, dtype=torch.bool, device="cuda")
+    hit = torch.zeros_like(first)
+    _zero_counts()
+    for _ in range(EXPERT_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        a = expert.expert_action(states.world, env.params, env.town, env.routes)
+        world = states.world
+        states, _, _, term, trunc, info = env.step(states, a)
+        torch.cuda.synchronize()
+        drive_s += time.perf_counter() - t0
+        want = expert.expert_action(world_mod.map_tensors(lambda t: t.cpu(), world),
+                                    cpu_env.params, cpu_env.town, cpu_env.routes)
+        err = (a.cpu() - want).abs() - WORLD_BAR[1] * want.abs()
+        worst = max(worst, float(err.max()))
+        sims.append(info["similarity"])
+        done = term | trunc
+        hit |= info["collision"] & done & ~first
+        first |= done
+    counts = _counts()
+    check(worst <= WORLD_BAR[0], f"the expert's actions, card vs CPU: {worst:.3e} over the bar")
+    similarity = float(torch.stack(sims).mean())
+    n_first = int(first.sum())
+    rate = float(hit.sum()) / EXPERT_WORLDS
+    sps = EXPERT_WORLDS * EXPERT_STEPS / drive_s
+    print(f"  expert: {EXPERT_WORLDS} Town03 worlds with 50/50 NPCs x {EXPERT_STEPS} steps: "
+          f"mean similarity {similarity:.4f}, collision rate {rate:.4f} ({int(hit.sum())} "
+          f"worlds; {n_first} first episodes ended), {sps:.1f} env-steps/s; actions card vs CPU within "
+          f"the world bar (worst excess {worst:.3e}); launches: render "
+          f"{counts['render_planes']}", flush=True)
+    check(similarity >= EXPERT_SIMILARITY, f"the expert's mean similarity {similarity:.4f}")
+    check(counts["render_planes"] == EXPERT_STEPS, "one render launch per expert step")
+    return dict(similarity=similarity, collision_rate=rate, episodes_ended=n_first,
+                env_steps_per_s=sps, worst_excess=worst, launches=counts)
+
+
+IMITATE_EPISODES, IMITATE_STEPS = 4, 128
+# fused against unfused imitation, one step from the same weights: the
+# float32 bars of TRAIN_AGREE_BARS (loss, BatchNorm buffer changes)
+IMITATE_BARS = dict(loss=TRAIN_AGREE_BARS["float32"]["loss"],
+                    buffer=TRAIN_AGREE_BARS["float32"]["buffer"])
+
+
+def imitate_phase(root: str) -> dict:
+    """CARLACollectWrapper writes IMITATE_EPISODES expert episodes of
+    IMITATE_STEPS steps (Town03, no traffic, the shipped 90 x 360 frames)
+    into `root`; then CARLAgent.imitate at batch 64 with the shipped
+    network, from the same seeded weights, with fused units and unfused:
+    first one step on a trace cut to 64 samples, held to IMITATE_BARS
+    (the losses, and the BatchNorm buffers' changes as ||fused - unfused||
+    / ||unfused||), the parameter changes printed; then one epoch over all
+    traces with fused units, timed per update, its unit-kernel launches
+    counted."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent, CARLAgentConfig
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.envs.wrappers import CARLACollectWrapper
+    from carla_driving_rl_agent_torch.utils import traces as trace_io
+    env = stages.build_env(town=TOWN, max_timesteps=IMITATE_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    n = CARLACollectWrapper(env, traces_dir=root, name="expert",
+                            num_envs=IMITATE_EPISODES).collect(IMITATE_EPISODES, IMITATE_STEPS)
+    torch.cuda.synchronize()
+    collect_s = time.perf_counter() - t0
+    collect_counts = _counts()
+    check(n == IMITATE_EPISODES, f"{n} expert traces written")
+    tdir = os.path.join(root, "expert")
+    traces = list(trace_io.load_traces(tdir))
+    check(all(t["state_image"].shape[1:] == (4, 90, 360, 3) for t in traces), "trace frames")
+    one = os.path.join(root, "one")
+    os.makedirs(one)
+    np.savez(os.path.join(one, "trace-0-cut.npz"),
+             **{k: v[:TRAIN_BATCH] for k, v in max(traces, key=lambda t: len(t["reward"])).items()})
+    print(f"  collection: {n} expert traces of {[len(t['reward']) for t in traces]} steps in "
+          f"{collect_s:.3f} s; launches: render {collect_counts['render_planes']}", flush=True)
+
+    def agent(fused: bool):
+        return CARLAgent(env, CARLAgentConfig(fused_units=fused, seed=3), name="imitate",
+                         weights_dir=root)
+
+    runs = {}
+    for fused in (True, False):
+        a = agent(fused)
+        before = {k: v.detach().clone() for k, v in a.network.state_dict().items()}
+        losses = a.imitate(epochs=1, batch_size=TRAIN_BATCH, traces_dir=one, seed=1)
+        after = a.network.state_dict()
+        runs[fused] = (losses, {k: after[k] - before[k] for k in after})
+    (lf, df), (lu, du) = runs[True], runs[False]
+    check(len(lf) == len(lu) == 1, "one imitation step on the cut trace")
+    loss_rel = max(abs(x - y) / abs(y) for x, y in zip(lf[0], lu[0]))
+    buffers = [k for k in du if "running" in k]
+    params = [k for k in du if "running" not in k and not k.startswith("old_policy.")]
+    r = dict(loss=loss_rel, buffer=_rel_l2(df, du, buffers), param=_rel_l2(df, du, params),
+             losses_fused=lf[0], losses_unfused=lu[0])
+    print(f"  imitate, one step fused vs unfused: losses (policy, value) {lf[0]} / {lu[0]}; "
+          f"relative differences: loss {r['loss']:.3e}, BatchNorm buffer changes "
+          f"{r['buffer']:.3e}, parameter changes {r['param']:.3e} (not held: float32 Adam)",
+          flush=True)
+    for k, bar in IMITATE_BARS.items():
+        check(r[k] <= bar, f"imitate fused vs unfused: {k} differs by {r[k]:.3e} > {bar:.0e}")
+
+    a = agent(True)
+    a.imitate(epochs=1, batch_size=TRAIN_BATCH, traces_dir=one, seed=1)     # warm-up
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    losses = a.imitate(epochs=1, batch_size=TRAIN_BATCH, traces_dir=tdir, seed=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    check(all(math.isfinite(x) for pair in losses for x in pair), "imitation losses finite")
+    steps = len(losses)
+    check(counts["shuffle_unit_train"] == steps * UNITS_PER_PASS
+          and counts["shuffle_unit_train_bwd"] == steps * UNITS_PER_PASS,
+          f"unit kernel launches in imitation: {counts}")
+    # the expert traces take their log-probs from a predict-like pass
+    check(counts["shuffle_unit_infer"] == steps * UNITS_PER_PASS, f"inference launches {counts}")
+    ms = seconds / steps * 1e3
+    print(f"  imitate, fused units: {steps} updates at batch {TRAIN_BATCH} in {seconds:.3f} s, "
+          f"{ms:.2f} ms per update (trace loading included); launches per update: forward "
+          f"{counts['shuffle_unit_train'] / steps:.0f}, backward "
+          f"{counts['shuffle_unit_train_bwd'] / steps:.0f}, inference "
+          f"{counts['shuffle_unit_infer'] / steps:.0f}", flush=True)
+    r.update(collect_s=collect_s, updates=steps, ms_per_update=ms, launches=counts,
+             collect_launches=collect_counts)
+    return r
+
+
+def train_expert_fused_phase(root: str) -> tuple:
+    """learn with expert_rollout=True and ratio_clamp on stage s1's geometry
+    (32 worlds x 128 steps, batch 64, fused units) for CUT_UPDATES updates
+    from a fresh seeded network: the losses finite, the rollout's
+    similarity >= EXPERT_SIMILARITY; the expert rollout steps per step
+    (env.step, whose physics is the plain version: no physics-kernel
+    launch), one render and one predict per step.  Returns (stage,
+    summary)."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    stage = stages.stage_s1(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+                            expert_rollout=True, ratio_clamp=4.0, weights_dir=root,
+                            env_overrides=dict(fused_step=True, device="cuda"))
+    stage.init()
+    summary = _train_epoch(stage, CUT_UPDATES, "train_expert_fused", 0,
+                           frames_per_update=TRAIN_STEPS)
+    sims = [m["similarity_mean"] for m in summary["history"]]
+    print(f"  expert rollout similarity per update: {sims}", flush=True)
+    for sim in sims:
+        check(sim >= EXPERT_SIMILARITY, f"the expert rollout's similarity {sim:.4f}")
+    summary["similarity"] = sims
+    return stage, summary
+
+
+BENCH_TASKS, BENCH_TRIALS, BENCH_STEPS = ("empty", "regular"), 25, 1024
+
+
+def _route_lengths_numpy(world, routes) -> np.ndarray:
+    """Each world's route length from its waypoint, from the polyline on the
+    CPU in float64, world by world: the recompute that CARLABenchmark's
+    route_length_m is held against."""
+    xyy, length = routes.xyy.cpu().numpy().astype(np.float64), routes.length.cpu().numpy()
+    out = []
+    for t, r, w in zip(*(x.cpu().numpy() for x in (world.town_id, world.route_id,
+                                                   world.wp_idx))):
+        xy = xyy[t, r, :length[t, r], :2]
+        seg = np.sqrt(((xy[1:] - xy[:-1]) ** 2).sum(-1))
+        out.append(seg[w:].sum())
+    return np.array(out)
+
+
+def benchmark_phase(agent) -> dict:
+    """CARLABenchmark of `agent` (safe-s5 with fused units), preset test
+    (Town02, the test weathers), tasks BENCH_TASKS, BENCH_TRIALS trials of
+    BENCH_STEPS steps: the success, collision and timeout rates, env-steps/s
+    and the Town02 env's first build; the route lengths within 1e-4 of a
+    float64 recompute on the CPU from the same spawn states, the budgets
+    nocrash_success's of those."""
+    from carla_driving_rl_agent_torch.envs.wrappers import CARLABenchmark, nocrash_success
+    out = {}
+    for task in BENCH_TASKS:
+        bench = CARLABenchmark(agent, task=task, preset="test")
+        t0 = time.perf_counter()
+        bench._build_env(BENCH_STEPS)
+        build_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        _zero_counts()
+        t0 = time.perf_counter()
+        r = bench.run(timesteps=BENCH_STEPS, trials=BENCH_TRIALS, initial_seed=SEED)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = _counts()
+        env = bench.last_env
+        env.seed(SEED)
+        states, _ = env.reset_batch(BENCH_TRIALS)
+        want = _route_lengths_numpy(states.world, env.routes)
+        got = np.array(r["route_length_m"])
+        err = float(np.max(np.abs(got - want) / np.maximum(want, 1.0)))
+        check(err <= 1e-4, f"benchmark {task}: route lengths vs the CPU recompute {err:.3e}")
+        budget = nocrash_success(0, False, False, want)[2]
+        check(np.allclose(r["budget_steps"], budget, rtol=1e-4), f"benchmark {task}: budgets")
+        check(counts["render_planes"] == BENCH_STEPS + 1, f"benchmark render launches {counts}")
+        check(counts["shuffle_unit_infer"] == BENCH_STEPS * UNITS_PER_PASS,
+              f"benchmark inference launches {counts}")
+        sps = BENCH_TRIALS * BENCH_STEPS / seconds
+        print(f"  benchmark {task} (Town02, {env.params.num_vehicles} vehicles, "
+              f"{env.params.num_pedestrians} walkers): success {r['success_rate']:.4f}, "
+              f"collision {r['collision_rate']:.4f}, timeout {r['timeout_rate']:.4f}, mean steps "
+              f"{r['avg_timesteps']:.1f}, route {r['avg_route_length_m']:.1f} m, budget "
+              f"{r['avg_budget_steps']:.1f} steps; {sps:.1f} env-steps/s ({seconds:.3f} s, the "
+              f"env's build included); Town02 env build {build_s:.3f} s; route lengths vs the "
+              f"CPU recompute {err:.3e}", flush=True)
+        out[task] = dict(r, seconds=seconds, env_steps_per_s=sps, build_s=build_s,
+                         route_err=err, launches=counts)
+    return out
+
+
+RECORD_STEPS = 64
+
+
+def record_phase(root: str) -> dict:
+    """main.run_record of safe-s5 for 1 trial of RECORD_STEPS steps into
+    `root`: stage s5's Town03 with regular traffic; frames.npz (t, 90, 360,
+    3) u8, the JAX package's shape, and info.json with reward and
+    timestep."""
+    from carla_driving_rl_agent_torch import main as cli
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    paths = cli.run_record(WEIGHTS, timesteps=RECORD_STEPS, trials=1, record_dir=root,
+                           device="cuda")
+    seconds = time.perf_counter() - t0
+    counts = _counts()
+    check(len(paths) == 1 and paths[0].endswith(os.path.join("Town03", "demo", "1")),
+          f"record paths {paths}")
+    frames = np.load(os.path.join(paths[0], "frames.npz"))["frames"]
+    with open(os.path.join(paths[0], "info.json")) as f:
+        info = json.load(f)
+    check(set(info) == {"reward", "timestep"}, f"info.json {info}")
+    check(frames.dtype == np.uint8 and frames.shape == (info["timestep"], 90, 360, 3),
+          f"frames {frames.dtype} {frames.shape}")
+    print(f"  record: {paths[0][len(root):]}: frames {frames.shape} {frames.dtype}, info "
+          f"{info}, {seconds:.3f} s (stage build and load included); launches: render "
+          f"{counts['render_planes']}", flush=True)
+    return dict(frames=list(frames.shape), info=info, seconds=seconds, launches=counts)
+
+
+def s4_towns_phase() -> dict:
+    """The NPC block path of stage s4 over random towns (Town01 + Town02,
+    50 vehicles, 50 walkers, the training weathers) on the card against the
+    plain CPU port on the same draws for 3 blocks (agree_block_traffic), 16
+    worlds restarting mid-block, some into the other town."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.envs.weather import TRAIN_WEATHERS
+    t0 = time.perf_counter()
+    env = stages.build_env(town="Town01", random_towns=["Town01", "Town02"],
+                           random_weathers=list(TRAIN_WEATHERS),
+                           spawn=dict(vehicles=50, pedestrians=50), device="cuda")
+    build_s = time.perf_counter() - t0
+    _zero_counts()
+    r = agree_block_traffic(env, n=16, what="stage s4's random towns (Town01 + Town02)")
+    check(r["switched"] > 0, "no world restarted into another town")
+    r.update(build_s=build_s, launches=_counts())
+    print(f"  Town01 + Town02 env build {build_s:.3f} s", flush=True)
+    return r
 
 
 def main(argv=None) -> int:
@@ -2311,6 +2642,37 @@ def main(argv=None) -> int:
                 f"{part} {v:.4f}" for part, v in summary[k]["parts_mean_s"].items()),
                 flush=True)
     summary["phases"]["train_s5_fused"] = p.seconds
+    # the imitation and tooling path
+    with Phase("expert") as p:
+        summary["expert"] = expert_phase(s3_env)
+        launches["expert"] = summary["expert"].pop("launches")
+    summary["phases"]["expert"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("imitate") as p:
+        summary["imitate"] = imitate_phase(root)
+        launches["imitate_fused"] = summary["imitate"].pop("launches")
+        launches["collect"] = summary["imitate"].pop("collect_launches")
+    summary["phases"]["imitate"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("train_expert_fused") as p:
+        _, summary["train_expert_fused"] = train_expert_fused_phase(root)
+        launches["train_expert_fused"] = summary["train_expert_fused"].pop("launches")
+        on, off = (summary[k]["env_steps_per_s"] for k in ("train_expert_fused", "train_fused"))
+        print(f"  train env-steps/s, expert rollout (per step) / policy rollout (blocks), "
+              f"fused units: {on:.1f} / {off:.1f}", flush=True)
+    summary["phases"]["train_expert_fused"] = p.seconds
+    with Phase("benchmark") as p:
+        summary["benchmark"] = benchmark_phase(fused_agent)
+        for task in BENCH_TASKS:
+            launches[f"benchmark_{task}"] = summary["benchmark"][task].pop("launches")
+    summary["phases"]["benchmark"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("record") as p:
+        summary["record"] = record_phase(root)
+        launches["record"] = summary["record"].pop("launches")
+    summary["phases"]["record"] = p.seconds
+    with Phase("s4_towns") as p:
+        summary["s4_towns"] = s4_towns_phase()
+        launches["s4_towns"] = summary["s4_towns"].pop("launches")
+    summary["phases"]["s4_towns"] = p.seconds
+    print(f"  phases: {sum(summary['phases'].values()):.1f} s", flush=True)
     if args.profile:
         with Phase("profile") as p:
             summary["profile"] = profile_phase(agent)

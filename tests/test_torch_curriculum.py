@@ -1,5 +1,6 @@
-"""Curriculum stages s2 and s3 of the PyTorch port on the CPU, on Town02:
-the NPC block path, the stage factories, the hand-off and the command line.
+"""Curriculum stages s2-s5 of the PyTorch port on the CPU, on Town02 (and
+Town01 + Town02 for stage s4's random towns): the NPC block path, the
+stage factories, the hand-off and the command line.
 
   * `traffic.block_npc_step_draws` and `world.block_reset_draws` with NPCs:
     one generator call each (two for the resets), rows scaled by each
@@ -15,6 +16,13 @@ the NPC block path, the stage factories, the hand-off and the command line.
     port's NPC tick, reset and spawn draws (tests/test_torch_traffic.py's
     `jax_reset_draws` / `jax_step_draws`); the JAX renderer in Pallas
     interpret mode;
+  * stage s4's random towns: a block on a Town01 + Town02 bank
+    whose worlds restart mid-block into the other town equals its K
+    per-step ticks, each tick's NPC draws the block's uniforms scaled by
+    the towns the worlds hold at that tick; and the two-town block rollout
+    with 5/10 NPCs against JAX's (its renderer off: the frames are held by
+    the one-town rollout), JAX's NPC tick draws replayed by the town each
+    world holds at each tick;
   * `stage_s2` / `stage_s3` against the JAX factories, `sharp_recipe`
     against JAX main.py's, `hand_off` (the tracked JAX checkpoint of stage
     s1 and the port's own of s2, nothing written under weights/),
@@ -64,6 +72,7 @@ from carla_driving_rl_agent_torch.envs.weather import TRAIN_WEATHERS
 from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax, read_flax_msgpack
 
 from test_torch_block import _to_draws, _to_state, _within2
+from test_torch_imitation import share_towns
 from test_torch_learner import TINY_NET
 from test_torch_traffic import assert_npc, jax_reset_draws, jax_step_draws
 
@@ -264,16 +273,20 @@ class _InjectedTrafficEnv(CARLAEnv):
         return super().step_physics_block(states, actions, *map(_stack, zip(*ticks)))
 
 
-def _jax_draws(jenv, d):
+def _jax_draws(jenv, d, v_max=5, p_max=10):
     """The port's ResetDraws, NPC spawn included, of a vmapped
     jworld._reset_draws."""
-    return _to_draws(d)._replace(npc=jax_reset_draws(d[6], jenv.town, d[0], 5, 10))
+    return _to_draws(d)._replace(npc=jax_reset_draws(d[6], jenv.town, d[0], v_max, p_max))
 
 
-@pytest.fixture(scope="module")
-def traffic_rollouts():
-    jenv = JEnv(JEnvConfig(world=jworld.WorldParams(**TRAFFIC), render_mode="pallas"))
-    tenv = _InjectedTrafficEnv(CARLAEnvConfig(world=tworld.WorldParams(**TRAFFIC)),
+def _traffic_rollout(world: dict, render_mode: str):
+    """JAX's run_rollout_blocks and the port's on B worlds of `world` for
+    STEPS steps from the same reset, actions and draws: JAX's per-world
+    draws of every tick replayed into the port's, each NPC tick's scaled by
+    the town its world holds at that tick.  Returns (JAX final state, JAX
+    trajectory, port final state, port trajectory, towns (STEPS + 1, B))."""
+    jenv = JEnv(JEnvConfig(world=jworld.WorldParams(**world), render_mode=render_mode))
+    tenv = _InjectedTrafficEnv(CARLAEnvConfig(world=tworld.WorldParams(**world)),
                                device="cpu")
     keys = jax.random.split(jax.random.PRNGKey(3), B)
     js, _ = jax.jit(jax.vmap(jenv.reset))(keys, jnp.zeros((B,), jnp.int32))
@@ -295,7 +308,8 @@ def traffic_rollouts():
     # JAX's draws of every tick from each world's key, replayed along the
     # rollout's done flags: step_world splits (key', k_npc) off the state's
     # key, the auto-reset draws from split(key')[0] and a world that ends
-    # carries on with the reset's key (world.py:341, carla_env.py:502)
+    # carries on with the reset's key (world.py:341, carla_env.py:502); its
+    # next ticks are in the reset's town
     @jax.jit
     def tick(key, done):
         split = lambda ks, i: jax.vmap(lambda k: jax.random.split(k)[i])(ks)  # noqa: E731
@@ -306,28 +320,35 @@ def traffic_rollouts():
 
     done = np.asarray(jtraj.terminated + jtraj.truncated) > 0
     key, per_tick = js.world.key, []
+    towns = [np.asarray(js.world.town_id)]
     for i in range(STEPS):
         key, d, k_npc = tick(key, jnp.asarray(done[i]))
         per_tick.append((d, k_npc))
-    # every tick's draws converted at once, then split by tick; the NPC tick
-    # draws scale by the world's town, Town02 (the only one) for every tick
+        towns.append(np.where(done[i], np.asarray(d[0]), towns[-1]))
+    # every tick's draws converted at once, then split by tick
     cat = lambda xs: jnp.concatenate(xs)  # noqa: E731
     d, k_npc = (jax.tree_util.tree_map(lambda *x: cat(x), *col) for col in zip(*per_tick))
     split = lambda tree: [tworld.map_tensors(lambda t: t[i * B:(i + 1) * B], tree)  # noqa: E731
                           for i in range(STEPS)]
-    town_id = jnp.zeros((STEPS * B,), jnp.int32)
-    tenv.ticks = list(zip(split(_jax_draws(jenv, d)),
-                          split(jax_step_draws(k_npc, jenv.town, town_id, 5, 10))))
+    town_id = jnp.asarray(np.concatenate(towns[:-1]))
+    v, p = world["v_max"], world["p_max"]
+    tenv.ticks = list(zip(split(_jax_draws(jenv, d, v, p)),
+                          split(jax_step_draws(k_npc, jenv.town, town_id, v, p))))
     blocks = iter(actions)
 
     def tpredict(net_in, n):
         a = torch.from_numpy(next(blocks).copy())
         return dict(action=a, log_prob=torch.log(a), value=torch.zeros(B, 2))
 
-    tstate, _ = tenv.reset(_jax_draws(jenv, d0))
+    tstate, _ = tenv.reset(_jax_draws(jenv, d0, v, p))
     tfinal, ttraj, _ = trollout.run_rollout_blocks(tenv, tpredict, tstate, STEPS)
     assert tenv.calls == STEPS // K and not tenv.ticks, "one physics call per block"
-    return jfinal, jtraj, tfinal, ttraj
+    return jfinal, jtraj, tfinal, ttraj, np.stack(towns)
+
+
+@pytest.fixture(scope="module")
+def traffic_rollouts():
+    return _traffic_rollout(TRAFFIC, "pallas")[:4]
 
 
 def test_block_rollout_with_traffic_matches_jax(traffic_rollouts):
@@ -354,6 +375,82 @@ def test_block_rollout_with_traffic_matches_jax(traffic_rollouts):
                                    rtol=0, atol=1e-4, err_msg=f)
     assert_npc(tfinal.world.npc, jfinal.world.npc, 1e-4, "final NPCs")
     assert float(tfinal.world.npc.veh_active.sum()) > 0
+
+
+# ---------------------------------------------------------------- random towns (stage s4)
+
+TWO_TOWNS = dict(TRAFFIC, town_names=("Town01", "Town02"), random_towns=True)
+
+
+def test_block_restarting_into_another_town_equals_its_ticks():
+    """env.step_physics_block with NPCs on a Town01 + Town02 bank, worlds
+    restarting mid-block: it draws the block's NPC uniforms, then its reset
+    draws, and equals K per-step ticks (env.step_physics) whose NPC draws
+    are tick k's uniforms scaled by the towns the worlds hold at tick k.
+    Some world restarts mid-block into the other town, and there those
+    draws differ from the same uniforms scaled by the block's starting
+    towns (what the block used to draw)."""
+    share_towns("Town01", "Town02")
+    env = stages.build_env(town="Town02", random_towns=["Town01", "Town02"], max_timesteps=6,
+                           device="cpu", spawn=dict(vehicles=5, pedestrians=10), **SMALL_ENV)
+    states, _ = env.reset_batch(B)
+    states = states._replace(world=states.world._replace(
+        timestep=torch.arange(B, dtype=torch.int64) % 6))
+    gen = torch.Generator().manual_seed(2)
+    p = env.params
+    moved = differ = 0
+    for blk in range(3):
+        actions = torch.rand((K, B, 2), generator=gen) * 2.0 - 1.0
+        twin = torch.Generator().manual_seed(0)
+        twin.set_state(env.generator.get_state())
+        out = env.step_physics_block(states, actions)
+        u = ttraffic.block_npc_step_uniforms(twin, K, B, p.v_max, p.p_max, "cpu")
+        rd = tworld.block_reset_draws(twin, K, B, p, env.routes, env.weather_table, env.town)
+        assert torch.equal(twin.get_state(), env.generator.get_state())
+        st, rows = states, []
+        for k in range(K):
+            nd = ttraffic.step_draws_from_uniforms(u[k], env.town, st.world.town_id,
+                                                   p.v_max, p.p_max)
+            stale = ttraffic.step_draws_from_uniforms(u[k], env.town, states.world.town_id,
+                                                      p.v_max, p.p_max)
+            switched = st.world.town_id != states.world.town_id
+            moved += int(switched.sum())
+            differ += int((nd.goal.wp != stale.goal.wp).any(dim=1)[switched].sum())
+            st, *row = env.step_physics(st, actions[k], draws=_row(rd, k), npc_draws=nd)
+            rows.append((row[0], row[1], row[2], row[4]))
+        assert _equal(out[0].world, st.world), f"block {blk}: the state after the block"
+        for name, x, y in zip(("reward", "term", "trunc", "done"), (out[1], out[2], out[3], out[5]),
+                              [torch.stack(r) for r in zip(*rows)]):
+            assert torch.equal(x, y), f"block {blk}: {name}"
+        states = out[0]
+    assert moved > 0, "no world restarted mid-block into another town"
+    assert differ > 0, "the new town's draws equal the old town's"
+
+
+def test_two_town_block_rollout_with_traffic_matches_jax():
+    """run_rollout_blocks on the Town01 + Town02 bank with 5 vehicles and
+    10 walkers (stage s4's random towns) against JAX's, as
+    test_block_rollout_with_traffic_matches_jax, the JAX renderer off
+    (render_mode "zeros"; the frames are held by that test): worlds
+    restart into either town, mid-block too."""
+    share_towns("Town01", "Town02")
+    jfinal, jtraj, tfinal, ttraj, towns = _traffic_rollout(TWO_TOWNS, "zeros")
+    assert float(np.sum(np.asarray(jtraj.post_reset))) > 0, "no mid-block reset"
+    assert len(np.unique(towns)) == 2 and np.any(towns[1:] != towns[:-1]), "no town change"
+    for k in ("terminated", "truncated", "post_reset", "stack_ids"):
+        np.testing.assert_array_equal(getattr(ttraj, k).numpy(),
+                                      np.asarray(getattr(jtraj, k)), k)
+    for k in ("reward", "speed", "similarity", "road", "vehicle", "navigation"):
+        np.testing.assert_allclose(getattr(ttraj, k).numpy(), np.asarray(getattr(jtraj, k)),
+                                   rtol=0, atol=1e-4, err_msg=k)
+    want = _to_state(jfinal).world
+    for f in ("town_id", "route_id", "wp_idx", "timestep", "episode", "weather_id"):
+        np.testing.assert_array_equal(getattr(tfinal.world, f).numpy(),
+                                      getattr(want, f).numpy(), f)
+    for f in ("x", "y", "yaw", "v", "total_reward"):
+        np.testing.assert_allclose(getattr(tfinal.world, f).numpy(), getattr(want, f).numpy(),
+                                   rtol=0, atol=1e-4, err_msg=f)
+    assert_npc(tfinal.world.npc, jfinal.world.npc, 1e-4, "final NPCs")
 
 
 # ---------------------------------------------------------------- stages and the CLI
