@@ -8,8 +8,9 @@ host modules it needs (envs/town.py, native/route_planner.cpp).
 Layout mirrors the JAX package so that each module has an obvious
 counterpart:
   envs/       — towns, routes, weather, dynamics, the batched world, CARLAEnv
+                and its variants, spaces, sensors
   ops/        — the CUDA kernels' wrappers (render, physics, ShuffleNet unit)
-                and their plain PyTorch versions
+                and their plain PyTorch versions; the analytic renderer
   models/     — ShuffleNetV2 + feature nets + GRUs + Beta policy
   augment/    — the image augmentations and the learner's training pipeline
   agents/     — CARLAgent: rollouts, the PPO learner, the evaluation

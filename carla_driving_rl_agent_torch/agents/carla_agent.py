@@ -166,7 +166,7 @@ class CARLAgent:
             control_value=spec.get("control_value"),
             dynamics=spec.get("dynamics"),
             image_channels=env.config.image_shape[2],
-            nav_dim=env.params.num_waypoints_for_feature,
+            nav_dim=world_mod.nav_feature_dim(env.params),
             fused_units=cfg.fused_units,
         )
         # flax's initialisers from a CPU generator, so that one seed gives
@@ -655,15 +655,17 @@ class CARLAgent:
         path = path or self.base_path
         loaded = ckpt.load_agent(path, self.env.device)
         if full:
+            ckpt.check_shapes(loaded["network"], self.network.state_dict(), path)
             self.network.load_state_dict(loaded["network"], strict=True)
             self.network.update_old_policy()
             for g, state in (loaded.get("optimizers") or {}).items():
                 self.optimizers[g].load_state_dict(state)
         else:
             prefix = "dynamics."
-            self.network.dynamics.load_state_dict(
-                {k[len(prefix):]: v for k, v in loaded["network"].items()
-                 if k.startswith(prefix)}, strict=True)
+            sd = {k[len(prefix):]: v for k, v in loaded["network"].items()
+                  if k.startswith(prefix)}
+            ckpt.check_shapes(sd, self.network.dynamics.state_dict(), path)
+            self.network.dynamics.load_state_dict(sd, strict=True)
         self.load_config(loaded.get("config", {}))
 
     def serialize_config(self) -> dict:
@@ -691,13 +693,18 @@ class CARLAgent:
     @torch.no_grad()
     def rollout(self, num_worlds: int, timesteps: int,
                 draws: Optional[world_mod.ResetDraws] = None) -> Dict[str, torch.Tensor]:
-        """Per-step evaluation rollout: `num_worlds` worlds, one network
-        prediction and one env step (one rendered frame) per timestep.  The
-        worlds start from `draws` (default: drawn from the env's generator);
-        every other random draw comes from the env's generator.  Returns the
-        per-world accumulators of each world's FIRST episode; with NPCs also
-        how it ended (hit_vehicle, hit_pedestrian, hit_other) and the active
-        vehicles and walkers it started with."""
+        """Evaluation rollout of `num_worlds` worlds for `timesteps` steps,
+        from `draws` (default: drawn from the env's generator); every other
+        random draw comes from the env's generator.  Per step, one network
+        prediction and one env step (one rendered frame); with
+        `rollout_block` and `timesteps` a multiple of past_obs_freq, in
+        blocks as the JAX package evaluates (carla_agent.py:1016-1042): one
+        prediction of past_obs_freq samples, the block's ticks in one
+        env.step_physics_block call (one physics-kernel launch with
+        fused_step) and one frame push (env.push_block_frame_batch).
+        Returns the per-world accumulators of each world's FIRST episode;
+        with NPCs also how it ended (hit_vehicle, hit_pedestrian,
+        hit_other) and the active vehicles and walkers it started with."""
         env, net = self.env, self.network
         gen = env.generator
         states, obs = env.reset(draws) if draws is not None else env.reset_batch(num_worlds)
@@ -710,11 +717,8 @@ class CARLAgent:
         if npc is not None:
             typed = dict(hit_vehicle=zeros, hit_pedestrian=zeros, hit_other=zeros)
             counts = dict(vehicles=npc.veh_active.sum(1), walkers=npc.ped_active.sum(1))
-        for _ in range(timesteps):
-            net_in = {f"state_{k}": v for k, v in obs.items()}
-            pred = net.predict(net_in, gen)
-            states, obs, reward, term, trunc, info = env.step(
-                states, convert_action(pred["action"]))
+
+        def accumulate(acc, typed, reward, term, trunc, info):
             a = acc["active"]
             done = (term | trunc).to(torch.float32)
             acc = dict(
@@ -729,10 +733,33 @@ class CARLAgent:
                     acc["collision"],
                     info["collision"].to(torch.float32) * a * done),
             )
-            if typed:
-                ended = a * done
-                typed = {k: torch.maximum(v, info[k].to(torch.float32) * ended)
-                         for k, v in typed.items()}
+            ended = a * done
+            typed = {k: torch.maximum(v, info[k].to(torch.float32) * ended)
+                     for k, v in typed.items()}
+            return acc, typed
+
+        block = env.config.past_obs_freq
+        if self.config.rollout_block and timesteps % block == 0:
+            T = env.config.time_horizon
+            slot = T - 1                # every world's newest frame after the reset
+            for _ in range(timesteps // block):
+                net_in = {f"state_{k}": v for k, v in env.observe(states).items()}
+                action01 = net.predict(net_in, gen, num_samples=block)["action"]
+                states, reward, term, trunc, info, did_reset = env.step_physics_block(
+                    states, convert_action(action01))
+                states = states._replace(last_action=action01[-1])
+                for i in range(block):
+                    acc, typed = accumulate(acc, typed, reward[i], term[i], trunc[i],
+                                            {k: v[i] for k, v in info.items()})
+                states = env.push_block_frame_batch(states, did_reset.any(dim=0), slot=slot)
+                slot = (slot + 1) % T
+        else:
+            for _ in range(timesteps):
+                net_in = {f"state_{k}": v for k, v in obs.items()}
+                pred = net.predict(net_in, gen)
+                states, obs, reward, term, trunc, info = env.step(
+                    states, convert_action(pred["action"]))
+                acc, typed = accumulate(acc, typed, reward, term, trunc, info)
         if typed:
             acc.update(typed, **counts)
         return acc

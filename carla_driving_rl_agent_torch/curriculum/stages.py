@@ -86,16 +86,15 @@ def build_env(town: str = DEFAULT_TOWN, image_shape=(90, 120, 3),
               speed_over_cap_penalty: float = 0.0,
               lateral_obs: bool = False,
               fused_step: bool = False,
+              reward_mode: str = "default",
               seed: int = 42, device=None, **_ignored) -> CARLAEnv:
     """A CARLAEnv from stage-style kwargs.  `render_mode` "pallas" (the
-    JAX package's kernel renderer) is the port's CUDA renderer, the only one
-    it has; `fused_step` turns on the physics kernel (bench.py's
-    CDRL_FUSED_STEP; the JAX build_env ignores the keyword)."""
-    if render_mode != "pallas":
-        raise NotImplementedError(f"render_mode={render_mode!r}: the port renders "
-                                  f"with its CUDA kernel only")
-    if lateral_obs:
-        raise NotImplementedError("lateral_obs is not ported yet")
+    JAX package's kernel renderer) is the port's CUDA render kernel,
+    "rasterizer" the analytic renderer, "zeros" no image; `lateral_obs`
+    widens the navigation feature (checkpoints do not carry across it).
+    `fused_step` turns on the physics kernel (bench.py's CDRL_FUSED_STEP;
+    the JAX build_env ignores the keyword), and `reward_mode` reaches the
+    world's parameters, which the JAX build_env leaves at 'default'."""
     spawn = spawn or {}
     nv = int(spawn.get("vehicles", 0) or 0)
     np_ = int(spawn.get("pedestrians", 0) or 0)
@@ -111,10 +110,11 @@ def build_env(town: str = DEFAULT_TOWN, image_shape=(90, 120, 3),
         off_road_penalty_divisor=off_road_penalty_divisor,
         reward_speed_cap=reward_speed_cap,
         speed_over_cap_penalty=speed_over_cap_penalty,
+        lateral_obs=lateral_obs, reward_mode=reward_mode,
         seed=seed)
     return CARLAEnv(CARLAEnvConfig(
         world=params, image_height=image_shape[0], image_width=image_shape[1],
-        stack_depth=stack_depth, time_horizon=time_horizon,
+        stack_depth=stack_depth, render_mode=render_mode, time_horizon=time_horizon,
         past_obs_freq=past_obs_freq, fused_step=fused_step), device=device)
 
 
@@ -362,13 +362,19 @@ def network_spec(weights: str, weights_dir: str) -> dict:
 
 def build_eval_agent(mode: str, town: str, steps: int, weights: str,
                      weights_dir: Optional[str] = None, device=None,
-                     fused_units: bool = False, traffic: str = "no") -> CARLAgent:
+                     fused_units: bool = False, traffic: str = "no",
+                     env_overrides: Optional[dict] = None,
+                     rollout_block: bool = False) -> CARLAgent:
     """A one-town evaluation env with the `traffic` level of TRAFFIC_SPECS
     and the agent loaded with `weights`, as the JAX package's _eval_stage
     configures them: the seven training weathers in train mode, the seven
     held-out ones in test mode.  `fused_units` runs the backbone's stride-1
-    units as fused ops.  The weights are read from `weights_dir`/`weights`
-    (default weights/); the agent's records go to weights-torch/`weights`."""
+    units as fused ops; `env_overrides` are build_env kwargs the checkpoint
+    was trained with where they are structural (e.g. lateral_obs=True,
+    which widens the navigation input), or fused_step; `rollout_block`
+    evaluates in blocks of past_obs_freq steps.  The weights are read from
+    `weights_dir`/`weights` (default weights/); the agent's records go to
+    weights-torch/`weights`."""
     if mode not in ("train", "test"):
         raise ValueError(f"mode must be 'train' or 'test', got {mode!r}")
     if traffic not in TRAFFIC_SPECS:
@@ -377,9 +383,10 @@ def build_eval_agent(mode: str, town: str, steps: int, weights: str,
     weather = TRAIN_WEATHERS if mode == "train" else TEST_WEATHERS
     env = build_env(town=town, random_weathers=list(weather), spawn=TRAFFIC_SPECS[traffic],
                     throttle_as_desired_speed=True, disable_reverse=True,
-                    max_timesteps=steps, seed=42, device=device)
+                    max_timesteps=steps, seed=42, device=device, **(env_overrides or {}))
     agent = CARLAgent(env, CARLAgentConfig(network=network_spec(weights, weights_dir),
-                                           fused_units=fused_units), name=weights)
+                                           fused_units=fused_units,
+                                           rollout_block=rollout_block), name=weights)
     agent.load(os.path.join(weights_dir, weights))
     return agent
 
@@ -387,15 +394,18 @@ def build_eval_agent(mode: str, town: str, steps: int, weights: str,
 def evaluate(mode: str, town: str, seeds: list, traffic: str, steps: int = 512,
              trials: int = 50, weights: str = "stage-s5",
              weights_dir: Optional[str] = None,
-             evaluation_dir: Optional[str] = None, device=None) -> List[dict]:
+             evaluation_dir: Optional[str] = None, device=None,
+             env_overrides: Optional[dict] = None) -> List[dict]:
     """Evaluate `weights` on one scenario (a town, a traffic level of
     TRAFFIC_SPECS) for each seed, writing one JSON per seed named
     `{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}` (into
     `evaluation_dir`, default weights-torch/<weights>/evaluation; the
     weights are read from `weights_dir`, default weights/).  Returns the
-    records.  Equivalent to build_eval_agent() then CARLAgent.evaluate()
-    per seed."""
-    agent = build_eval_agent(mode, town, steps, weights, weights_dir, device, traffic=traffic)
+    records.  `env_overrides`: structural env flags the checkpoint was
+    trained with (e.g. dict(lateral_obs=True)).  Equivalent to
+    build_eval_agent() then CARLAgent.evaluate() per seed."""
+    agent = build_eval_agent(mode, town, steps, weights, weights_dir, device, traffic=traffic,
+                             env_overrides=env_overrides)
     return [agent.evaluate(
         name=f"{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}",
         timesteps=steps, trials=trials, initial_seed=seed,

@@ -1,8 +1,14 @@
 """CARLAEnv: the batched driving environment.
 
 Counterpart of carla_driving_rl_agent_tpu/envs/carla_env.py: the world
-core, the CUDA renderer and the time-horizon frame stacks, with auto-reset,
-over a batch of worlds on one device.  Two paths step it: the per-step
+core, a renderer and the time-horizon frame stacks, with auto-reset, over
+a batch of worlds on one device.  `render_mode` picks the renderer: "pallas"
+(the port's default, and every stage's) is the CUDA kernel of
+ops/render.py, the JAX package's Pallas kernel; "rasterizer" is the
+analytic renderer of ops/rasterizer.py in plain PyTorch (the JAX env's
+default), which also draws the one-camera variant (`cameras=1`, with
+depth as a 4th channel or as a modulation of the colour); "zeros" renders
+nothing (vector-only configurations).  Two paths step it: the per-step
 `step` (evaluation) and the block path of training rollouts
 (`step_physics_block` for a block of past_obs_freq ticks,
 `push_block_frame_batch` once per block), whose physics runs the CUDA
@@ -16,8 +22,11 @@ Observation contract (reference core/carla_env.py:128-131): dict(image
 (B, T, N)) where T = time_horizon = 4 frames pushed every past_obs_freq = 4
 steps (core/carla_env.py:76-81,290-325); action Box(-1, 1, (2,)).
 
-Frames are stored as uint8 planes at the renderer's half resolution, (C, 45,
-180) per frame; `observe` upsamples 2x and interleaves the channels.
+Frames are stored as uint8 planes, (C, 45, 180) per frame at the render
+kernel's half resolution, or at the full resolution with the other
+renderers; `observe` upsamples and interleaves the channels.  The
+one-camera observation also holds `past_control` and `command`.
+`CARLAEnvDiscrete` quantises the actions into bins.
 """
 
 from __future__ import annotations
@@ -28,11 +37,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from carla_driving_rl_agent_torch import resolve_device
-from carla_driving_rl_agent_torch.envs import traffic, world as world_mod
+from carla_driving_rl_agent_torch.envs import spaces, traffic, world as world_mod
 from carla_driving_rl_agent_torch.envs.weather import WEATHER_PARAMS
 from carla_driving_rl_agent_torch.envs.world import ResetDraws, WorldParams, WorldState
 from carla_driving_rl_agent_torch.ops import physics as physics_ops
+from carla_driving_rl_agent_torch.ops import rasterizer
 from carla_driving_rl_agent_torch.ops import render as render_ops
+
+RENDER_MODES = ("pallas", "rasterizer", "zeros")
 
 
 def planes_to_image(planar: torch.Tensor, ry: int, rx: int) -> torch.Tensor:
@@ -82,8 +94,17 @@ class EnvState(NamedTuple):
 class CARLAEnvConfig:
     world: WorldParams = field(default_factory=WorldParams)
     image_height: int = 90
-    image_width: int = 120          # per camera; the full image is 3x this
+    image_width: int = 120          # per camera; the full image is `cameras`x this
     stack_depth: bool = False       # +1 log-depth channel (core/carla_env.py:49-54,271-288)
+    # the one-camera image times (1 - depth / 255), the reference's fusion
+    # of an attached depth sensor (environment.py:1038-1049); exclusive
+    # with stack_depth
+    depth_modulate: bool = False
+    # 'pallas': the CUDA render kernel (ops/render.py); 'rasterizer': the
+    # analytic renderer (ops/rasterizer.py); 'zeros': no image
+    render_mode: str = "pallas"
+    render_quality: str = "fast"    # the rasterizer's 'full' | 'fast'
+    cameras: int = 3                # 3: the ThreeCamera concat; 1: the front camera
     time_horizon: int = 4
     past_obs_freq: int = 4
     num_actions: int = 2
@@ -93,16 +114,36 @@ class CARLAEnvConfig:
     # XLA step there; the port has no such fallback)
     fused_step: bool = False
 
+    def __post_init__(self):
+        if self.render_mode not in RENDER_MODES:
+            raise ValueError(f"render_mode must be one of {RENDER_MODES}, "
+                             f"got {self.render_mode!r}")
+        if self.render_quality not in rasterizer.QUALITY:
+            raise ValueError(f"render_quality must be one of {tuple(rasterizer.QUALITY)}, "
+                             f"got {self.render_quality!r}")
+        if self.cameras not in (1, 3):
+            raise ValueError(f"cameras must be 1 or 3, got {self.cameras}")
+        if self.render_mode == "pallas" and self.cameras != 3:
+            raise ValueError("the render kernel (render_mode='pallas') renders the "
+                             "three-camera rig; cameras=1 needs render_mode='rasterizer'")
+        if self.depth_modulate and self.stack_depth:
+            raise ValueError("stack_depth and depth_modulate are exclusive")
+        if self.depth_modulate and self.cameras != 1:
+            raise ValueError("depth_modulate modulates the one-camera image (cameras=1)")
+
     @property
     def image_shape(self) -> Tuple[int, int, int]:
-        return (self.image_height, 3 * self.image_width,
+        return (self.image_height, self.image_width * self.cameras,
                 3 + (1 if self.stack_depth else 0))
 
     @property
     def storage_shape(self) -> Tuple[int, int, int]:
-        """(C, 45, 180) planar uint8 frame storage: the renderer's native
-        half-res views side by side."""
+        """(C, SH, SW) planar uint8 frame storage: the render kernel's
+        native half-res views side by side, (C, 45, 180); the other
+        renderers upsample themselves and store full-resolution planes."""
         h, w, c = self.image_shape
+        if self.render_mode != "pallas":
+            return (c, h, w)
         if h % render_ops.VIEW_H or w % (3 * render_ops.VIEW_W):
             raise ValueError(f"image {h}x{w} is not a multiple of the "
                              f"renderer's {render_ops.VIEW_H}x"
@@ -122,11 +163,8 @@ class CARLAEnv:
     its reset draws."""
 
     def __init__(self, config: CARLAEnvConfig, device=None, seed: int = 0):
-        if config.fused_step and config.world.has_npcs:
-            raise NotImplementedError(
-                f"fused_step: the physics kernel steps worlds without NPCs, and this world has "
-                f"{config.world.num_vehicles} vehicles and {config.world.num_pedestrians} "
-                f"pedestrians")
+        if config.fused_step:
+            physics_ops.refuse_unsupported(config.world, "fused_step: the physics kernel")
         self.config = config
         self.params = config.world
         self.n_actors = self._static_n_actors()
@@ -142,6 +180,31 @@ class CARLAEnv:
     def seed(self, seed: int) -> None:
         self.generator.manual_seed(seed)
 
+    # ---- spaces (reference core/carla_env.py:18-24,128-131), of one world ----
+    @property
+    def action_space(self) -> spaces.Box:
+        return spaces.Box(low=-1.0, high=1.0, shape=(self.config.num_actions,))
+
+    @property
+    def observation_space(self) -> spaces.Dict:
+        n = world_mod.nav_feature_dim(self.params)
+        nav_low = -3.0 if self.params.lateral_obs else 0.0
+        extra = {}
+        if self.config.cameras == 1:
+            # the OneCamera env's keys (reference environment.py:840-859)
+            extra = dict(past_control=spaces.Box(low=-1.0, high=1.0, shape=(4,)),
+                         command=spaces.Box(low=0.0, high=1.0, shape=(7,)))
+        return spaces.Dict(
+            road=spaces.Box(low=0.0, high=1.0, shape=(9,)),
+            vehicle=spaces.Box(low=0.0, high=1.0, shape=(4,)),
+            image=spaces.Box(low=0.0, high=1.0, shape=self.config.image_shape),
+            navigation=spaces.Box(low=nav_low, high=25.0, shape=(n,)),
+            **extra)
+
+    @property
+    def time_horizon(self) -> int:
+        return self.config.time_horizon
+
     # ---- frames ----
     def _static_n_actors(self) -> int:
         """The actor rows of the render pack that this configuration can
@@ -154,11 +217,38 @@ class CARLAEnv:
         return min(half, self.params.v_max) + min(half, self.params.p_max)
 
     def render_frame(self, world: WorldState) -> torch.Tensor:
-        """(B, C, 45, 180) uint8 planar frames of every world."""
-        geom = render_ops.pack_geometry_banked(
-            self.town, world, self.weather_params[world.weather_id], n_actors=self.n_actors)
-        return render_ops.render_planes(geom, with_depth=self.config.stack_depth,
-                                        n_actors=self.n_actors)
+        """(B,) + storage_shape uint8 planar frames of every world."""
+        cfg = self.config
+        if cfg.render_mode == "zeros":
+            return torch.zeros((world.x.shape[0],) + cfg.storage_shape, dtype=torch.uint8,
+                               device=self.device)
+        if cfg.render_mode == "pallas":
+            geom = render_ops.pack_geometry_banked(
+                self.town, world, self.weather_params[world.weather_id],
+                n_actors=self.n_actors)
+            return render_ops.render_planes(geom, with_depth=cfg.stack_depth,
+                                            n_actors=self.n_actors)
+        inputs = self.render_inputs(world)
+        if cfg.cameras == 1:
+            img = rasterizer.render_one_camera(
+                inputs, cfg.image_height, cfg.image_width, cfg.render_quality,
+                stack_depth=cfg.stack_depth, depth_modulate=cfg.depth_modulate)
+        else:
+            img = rasterizer.render_cameras(inputs, cfg.image_height, cfg.image_width,
+                                            cfg.render_quality, return_depth=cfg.stack_depth)
+        return img.permute(0, 3, 1, 2).contiguous()          # full-resolution planes
+
+    def render_inputs(self, world: WorldState) -> rasterizer.RenderInputs:
+        """The analytic renderer's inputs of every world: its town's
+        geometry, its pose, its NPCs and its weather."""
+        t, tid = self.town, world.town_id
+        return rasterizer.RenderInputs(
+            edges_xy=t.edges_xy[tid], num_edges=t.num_edges[tid],
+            buildings=t.buildings[tid], junctions=t.junction_xy[tid],
+            num_junctions=t.num_junctions[tid],
+            ego_xy=torch.stack([world.x, world.y], dim=-1), ego_yaw=world.yaw,
+            weather=self.weather_params[world.weather_id], road_half=t.road_half[tid],
+            **rasterizer.actor_fields(world.npc, world.x.shape[0], self.device))
 
     def frame_obs(self, world: WorldState) -> dict:
         vec = world_mod.vector_observation(world, self.params, self.town, self.routes)
@@ -220,9 +310,20 @@ class CARLAEnv:
         ordered = ordered_image_stack(state.image_stack, state.stack_ids,
                                       state.stack_slot)
         img = planes_to_image(ordered, ry, rx)             # (B, T, H, 3W, C)
-        return dict(image=img.to(torch.float32) / 255.0,
-                    road=state.road_stack, vehicle=state.vehicle_stack,
-                    navigation=state.nav_stack)
+        obs = dict(image=img.to(torch.float32) / 255.0,
+                   road=state.road_stack, vehicle=state.vehicle_stack,
+                   navigation=state.nav_stack)
+        if self.config.cameras == 1:
+            # the OneCamera env's current-frame keys: the control (throttle,
+            # brake, steer, reverse; reference environment.py:1103-1104) and
+            # the route's RoadOption one-hot (:1092-1093)
+            w = state.world
+            obs["past_control"] = torch.stack(
+                [w.throttle, w.brake, w.steer, torch.zeros_like(w.steer)], dim=-1)
+            opt = self.routes.option[w.town_id, w.route_id, w.wp_idx]
+            obs["command"] = (opt[:, None] == torch.arange(7, device=self.device)).to(
+                torch.float32)
+        return obs
 
     def step(self, state: EnvState, action: torch.Tensor, frame_id=-1,
              draws: Optional[ResetDraws] = None,
@@ -413,3 +514,51 @@ def convert_action(action01: torch.Tensor, low: float = -1.0,
     """Beta samples in [0, 1] -> env action range
     (reference rl/agents/ppo.py:158-163)."""
     return action01 * (high - low) + low
+
+
+class CARLAEnvDiscrete:
+    """Discrete-action wrapper (reference ThreeCameraCARLAEnvironmentDiscrete,
+    environment.py:1267-1301): each action dimension quantised into `bins`
+    bins of the Box; `to_continuous` / `to_discrete` map between the two.
+    Every step of the env is batched, so `step` and `step_batch` are one."""
+
+    def __init__(self, env: CARLAEnv, bins: int = 4):
+        if bins < 2 or bins % 2:
+            raise ValueError(f"bins must be even and >= 2, got {bins}")
+        self.env = env
+        self.bins = bins
+        box = env.action_space
+        self._low = torch.tensor(box.low, device=env.device)
+        self._delta = torch.tensor((box.high - box.low) / bins, device=env.device)
+
+    @property
+    def action_space(self) -> spaces.MultiDiscrete:
+        return spaces.MultiDiscrete(nvec=[self.bins] * self.env.config.num_actions)
+
+    @property
+    def observation_space(self) -> spaces.Dict:
+        return self.env.observation_space
+
+    @property
+    def time_horizon(self) -> int:
+        return self.env.time_horizon
+
+    def to_continuous(self, discrete_actions: torch.Tensor) -> torch.Tensor:
+        return self._delta * discrete_actions.to(torch.float32) + self._low
+
+    def to_discrete(self, continuous_actions: torch.Tensor) -> torch.Tensor:
+        return ((continuous_actions - self._low) / self._delta).to(torch.int32)
+
+    def reset(self, draws: ResetDraws, **kwargs):
+        return self.env.reset(draws, **kwargs)
+
+    def reset_batch(self, num_envs: int):
+        return self.env.reset_batch(num_envs)
+
+    def observe(self, state: EnvState) -> dict:
+        return self.env.observe(state)
+
+    def step(self, state: EnvState, action: torch.Tensor, frame_id=-1, **kwargs):
+        return self.env.step(state, self.to_continuous(action), frame_id, **kwargs)
+
+    step_batch = step

@@ -16,10 +16,13 @@ Behaviour contracts (reference file:line):
   * action space Box(-1,1,(2,)) = [throttle/brake, steer]  — core/carla_env.py:18
   * reward: -penalty on collision, else speed * similarity
     damped by max(1, (d_waypoint/2)^2)                      — core/carla_env.py:182-202
+    (reward_mode "shaped": the OneCamera time-cost / waypoint /
+    direction / speed-limit shaping                          — environment.py:905-923)
   * collision penalties: pedestrian penalty, vehicle penalty / 2,
     off-road penalty / off_road_penalty_divisor, all terminal — core/carla_env.py:254-269
   * terminal when destination within 2 m                    — environment.py:946-950
   * vector features (road 9 / vehicle 4 / navigation N)     — core/carla_env.py:335-382
+    (with lateral_obs, N + 1: the signed lateral offset from the route)
 """
 
 from __future__ import annotations
@@ -58,6 +61,11 @@ class TownDev(NamedTuple):
     spawn_yaw: torch.Tensor        # (T, S)
     spawn_wp: torch.Tensor         # (T, S) the waypoint each spawn point faces
     num_spawn: torch.Tensor        # (T,)
+    # the analytic renderer's and the lidar's geometry (ops/rasterizer.py)
+    edges_xy: torch.Tensor         # (T, E, 4) road centre-line segments
+    num_edges: torch.Tensor        # (T,)
+    buildings: torch.Tensor        # (T, NB, 5) cx, cy, half_w, half_h, height
+    num_buildings: torch.Tensor    # (T,)
 
 
 class RoutesDev(NamedTuple):
@@ -66,6 +74,7 @@ class RoutesDev(NamedTuple):
     xyy: torch.Tensor      # (T, R, L, 4) [x, y, yaw, 0]
     start: torch.Tensor    # (T, R, 4)    [x0, y0, yaw0, 0]
     end_xy: torch.Tensor   # (T, R, 2)    destination point
+    option: torch.Tensor   # (T, R, L)    int64 RoadOption per waypoint
 
 
 class WorldState(NamedTuple):
@@ -142,13 +151,26 @@ class WorldParams:
     disable_reverse: bool = True
     max_timesteps: int = 512
     num_waypoints_for_feature: int = 5
+    # append the signed lateral offset from the route segment to the
+    # navigation feature (the JAX package's opt-in deviation: the
+    # reference's observation has no lateral cue).  It widens the network's
+    # navigation input, so checkpoints do not carry across this flag.
+    lateral_obs: bool = False
     num_routes: int = 128
     max_route_len: int = 512
     origin_spawns: Optional[Tuple[int, ...]] = None
     range_controls: Tuple[Tuple[float, float], ...] = ((0.0, 1.0), (0.0, 1.0), (-1.0, 1.0))
     off_road_threshold: float = 5.5
     force_green_lights: bool = True
+    # 'default': CARLAEnv's speed * similarity / d^2 (core/carla_env.py:182-202);
+    # 'shaped': the OneCamera shaping (environment.py:905-923)
+    reward_mode: str = "default"
     seed: int = 42
+
+    def __post_init__(self):
+        if self.reward_mode not in ("default", "shaped"):
+            raise ValueError(f"reward_mode must be 'default' or 'shaped', "
+                             f"got {self.reward_mode!r}")
 
     @property
     def has_npcs(self) -> bool:
@@ -176,6 +198,7 @@ def build_world_data(params: WorldParams, device) -> Tuple[TownDev, RoutesDev]:
     xy_s = np.stack([b.xy for b in banks])            # (T, R, L, 2)
     yaw_s = np.stack([b.yaw for b in banks])          # (T, R, L)
     len_s = np.stack([b.length for b in banks])       # (T, R)
+    opt_s = np.stack([b.option for b in banks])       # (T, R, L)
     xyy = np.concatenate(
         [xy_s, yaw_s[..., None], np.zeros_like(yaw_s[..., None])],
         axis=-1).astype(np.float32)                   # (T, R, L, 4)
@@ -187,6 +210,7 @@ def build_world_data(params: WorldParams, device) -> Tuple[TownDev, RoutesDev]:
         xyy=dev(xyy),
         start=dev(np.ascontiguousarray(xyy[:, :, 0])),
         end_xy=dev(end_xy.astype(np.float32)),
+        option=dev(opt_s.astype(np.int64)),
     )
     return town, routes
 
@@ -214,6 +238,8 @@ def town_dev(bank: town_mod.TownBank, device) -> TownDev:
         cell_geom=dev(bank.cell_geom),
         spawn_xy=dev(bank.spawn_xy), spawn_yaw=dev(bank.spawn_yaw),
         spawn_wp=dev(bank.spawn_wp, i64), num_spawn=dev(bank.num_spawn, i64),
+        edges_xy=dev(bank.edges_xy), num_edges=dev(bank.num_edges, i64),
+        buildings=dev(bank.buildings), num_buildings=dev(bank.num_buildings, i64),
     )
 
 
@@ -450,12 +476,26 @@ def step_world(state: WorldState, action: torch.Tensor, params: WorldParams,
                                            0.0))
         should_terminate = hit_veh | hit_ped | hit_other
 
-    # default CARLAEnv reward (core/carla_env.py:182-202)
     spd_kmh = dynamics.speed_kmh(v)
-    r_drive = torch.clamp(spd_kmh, max=params.reward_speed_cap) * similarity
-    damp = torch.clamp((d_next / 2.0) ** 2, min=1.0)
-    r_drive = torch.where(r_drive != 0.0, r_drive / damp, r_drive)
-    reward = torch.where(collision_penalty > 0.0, -collision_penalty, r_drive)
+    if params.reward_mode == "shaped":
+        # the OneCamera shaping (reference environment.py:905-923): a time
+        # cost, the collision, a waypoint term, a direction term and the
+        # speed limit
+        speed_c = torch.clamp(spd_kmh, max=params.reward_speed_cap)
+        direction = torch.where((similarity >= 0.75) & (similarity <= 1.0),
+                                speed_c * similarity,
+                                (speed_c + 1.0) * torch.abs(similarity) * -2.0)
+        wp_term = torch.clamp(d_next, max=100.0)
+        wp_term = torch.where(wp_term <= 5.0, -wp_term, wp_term * -3.0)
+        limit = _speed_limit(town, state.town_id)
+        speed_pen = torch.where(spd_kmh > limit, 2.0 * (limit - spd_kmh), 0.0)
+        reward = -1.0 - collision_penalty + wp_term + direction + speed_pen
+    else:
+        # default CARLAEnv reward (core/carla_env.py:182-202)
+        r_drive = torch.clamp(spd_kmh, max=params.reward_speed_cap) * similarity
+        damp = torch.clamp((d_next / 2.0) ** 2, min=1.0)
+        r_drive = torch.where(r_drive != 0.0, r_drive / damp, r_drive)
+        reward = torch.where(collision_penalty > 0.0, -collision_penalty, r_drive)
     if params.speed_over_cap_penalty:
         reward = reward - params.speed_over_cap_penalty * torch.clamp(
             spd_kmh - params.reward_speed_cap, min=0.0)
@@ -532,12 +572,29 @@ def vehicle_features(state: WorldState) -> torch.Tensor:
 
 def navigation_features(state: WorldState, params: WorldParams,
                         routes: RoutesDev) -> torch.Tensor:
-    """(B, N): distances to the next N route waypoints / N."""
+    """(B, N): distances to the next N route waypoints / N; with
+    lateral_obs (B, N + 1), the last the signed lateral offset from the
+    current route segment (w0 -> w1), positive to the LEFT of the direction
+    of travel, over a 3 m half-road scale and clipped to [-3, 3]."""
     amount = params.num_waypoints_for_feature
     w_row, rem = _route_window(routes, state.town_id, state.route_id,
                                state.wp_idx, amount)
     pos = torch.stack([state.x, state.y], dim=-1)
-    return route_mod.next_waypoint_distances(w_row[..., :2], pos)
+    w_xy = w_row[..., :2]
+    dists = route_mod.next_waypoint_distances(w_xy, pos)
+    if not params.lateral_obs:
+        return dists
+    d = w_xy[:, 1] - w_xy[:, 0]
+    rel = pos - w_xy[:, 0]
+    cross = d[:, 0] * rel[:, 1] - d[:, 1] * rel[:, 0]
+    lat = cross / torch.clamp(torch.sqrt(d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1]), min=1e-6)
+    lat = torch.clamp(dynamics.true_div(lat, 3.0), -3.0, 3.0)
+    return torch.cat([dists, lat[:, None]], dim=-1)
+
+
+def nav_feature_dim(params: WorldParams) -> int:
+    """The length of the navigation feature."""
+    return params.num_waypoints_for_feature + (1 if params.lateral_obs else 0)
 
 
 def vector_observation(state: WorldState, params: WorldParams, town: TownDev,

@@ -3,7 +3,7 @@ hand-off between them, the whole curriculum, the no-curriculum "standard"
 agent, and the evaluation sweep, on one GPU.
 
     python -m carla_driving_rl_agent_torch.main --stage s1|s2|s3|s4|s5 --epochs 1 --block \
-        [--fused-step] [--fused-units] [--safe] [--sharp] [--aug-intensity A]
+        [--fused-step] [--fused-units] [--safe] [--sharp] [--lateral] [--aug-intensity A]
     python -m carla_driving_rl_agent_torch.main --hand-off s1 s2
     python -m carla_driving_rl_agent_torch.main --curriculum --epochs 30,16,12,10,10 --block
     python -m carla_driving_rl_agent_torch.main --standard --epochs 78 --block
@@ -32,7 +32,11 @@ backbone's stride-1 ShuffleNet units on the fused unit kernels
 main.FAST_TRAIN = dict(fused_units=True)); `--safe` prices the env as
 SAFE_ENV; `--sharp` trains with sharp_recipe, and the stages (not
 `--standard`, as in the JAX package) without augmentation;
-`--aug-intensity` overrides every stage's.
+`--aug-intensity` overrides every stage's; `--lateral` appends the signed
+lateral offset from the route to the navigation observation
+(WorldParams.lateral_obs, JAX main.py:296-300), in training and in
+`--evaluate`: it widens the network's input, so checkpoints do not carry
+across it, and a stage that loads a checkpoint of the other width raises.
 Checkpoints go to weights-torch/stage-sN (and a per-epoch copy
 stage-sN-<epoch>) of the checkout, never into the tracked weights/.
 
@@ -111,25 +115,28 @@ def acquire_run_lock(weights_dir: str) -> str:
 
 
 def _common(num_envs: int, block: bool, fused_step: bool, fused_units: bool,
-            weights_dir: str, device, safe: bool) -> dict:
+            weights_dir: str, device, safe: bool, lateral: bool = False) -> dict:
     """The stage factories' kwargs at the shipped geometry."""
     return dict(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
                 num_envs=num_envs, save_every="end", rollout_block=block,
                 fused_units=fused_units, weights_dir=weights_dir,
                 env_overrides=dict(fused_step=fused_step, device=device,
-                                   **(SAFE_ENV if safe else {})))
+                                   **(SAFE_ENV if safe else {}),
+                                   **(dict(lateral_obs=True) if lateral else {})))
 
 
 def make_stage(which: str, num_envs: int = NUM_ENVS, block: bool = False,
                fused_step: bool = False, fused_units: bool = False,
                weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
                sharp: bool = False, safe: bool = False,
-               aug_intensity=None) -> stages.Stage:
+               aug_intensity=None, lateral: bool = False) -> stages.Stage:
     """Stage `which` at the shipped geometry (JAX main.py make_stage); s5
-    on Town03 with dense traffic."""
+    on Town03 with dense traffic; `lateral` adds the lateral offset to the
+    navigation observation."""
     if which not in STAGE_ORDER:
         raise ValueError(f"stage {which!r}: one of {', '.join(STAGE_ORDER)}")
-    common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe)
+    common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe,
+                     lateral)
     if sharp:
         common.update(sharp_recipe())
         # augmenting the minibatches while the rollout's log-probs come from
@@ -194,14 +201,15 @@ def run_standard(epochs: int, num_envs: int = NUM_ENVS, block: bool = False,
                  fused_step: bool = False, fused_units: bool = False,
                  weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
                  sharp: bool = False, safe: bool = False, aug_intensity=None,
-                 callback=None) -> stages.Stage:
+                 lateral: bool = False, callback=None) -> stages.Stage:
     """The no-curriculum control agent (JAX main.py:243-262, reference
     README.md:130's "standard" column): stage s5's setting (Town03, dense
     traffic) trained from scratch (load=False) as stage-standard, or
     stage-standard-sharp with `sharp`, which adds sharp_recipe and, as in
     the JAX package, keeps the augmentation on.  Returns the stage."""
     _refuse_fused_step("--standard", fused_step)
-    common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe)
+    common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe,
+                     lateral)
     if sharp:
         common.update(sharp_recipe())
     if aug_intensity is not None:
@@ -213,16 +221,18 @@ def run_standard(epochs: int, num_envs: int = NUM_ENVS, block: bool = False,
 
 
 def run_evaluation(weights: str = "stage-s5", steps: int = 512, trials: int = 50,
-                   device=None) -> None:
+                   device=None, lateral: bool = False) -> None:
     """The full sweep (reference main.py:94-101): 8 towns x 3 traffic
-    levels x 2 weather modes, seed 42."""
+    levels x 2 weather modes, seed 42; `lateral` for a checkpoint trained
+    with the lateral observation (JAX main.py:165-166)."""
+    overrides = dict(lateral_obs=True) if lateral else None
     for mode in ("train", "test"):
         for town in stages.EVAL_TOWNS:
             for traffic in stages.TRAFFIC_SPECS:
                 t0 = time.perf_counter()
                 rec = stages.evaluate(mode=mode, town=town, seeds=[42], traffic=traffic,
                                       steps=steps, trials=trials, weights=weights,
-                                      device=device)[0]
+                                      device=device, env_overrides=overrides)[0]
                 print(json.dumps(dict(mode=mode, town=town, traffic=traffic,
                                       seconds=round(time.perf_counter() - t0, 3),
                                       **{k: v for k, v in rec.items() if k.endswith("_mean")})),
@@ -288,6 +298,10 @@ def main(argv=None) -> int:
     ap.add_argument("--sharp", action="store_true",
                     help="sharp recipe: decaying entropy, Beta-head pre-activation floor, "
                          "gamma 0.999 / lambda 0.95 (sharp_recipe)")
+    ap.add_argument("--lateral", action="store_true",
+                    help="append the signed lateral offset from the route to the navigation "
+                         "observation (WorldParams.lateral_obs); checkpoints do not carry "
+                         "across this flag")
     ap.add_argument("--aug-intensity", type=float, default=None,
                     help="the training augmentation's intensity for every stage "
                          "(default: 0 for s1-s3, 1 for s4, s5 and --standard, 0 with --sharp)")
@@ -302,7 +316,8 @@ def main(argv=None) -> int:
         return 0
     if args.evaluate:
         t0 = time.perf_counter()
-        run_evaluation(args.weights, args.steps, args.trials or 50, device=args.device)
+        run_evaluation(args.weights, args.steps, args.trials or 50, device=args.device,
+                       lateral=args.lateral)
         print(f"evaluation of {args.weights}: 48 scenarios in {time.perf_counter() - t0:.1f} s",
               flush=True)
         return 0
@@ -316,7 +331,7 @@ def main(argv=None) -> int:
 
     stage_kwargs = dict(fused_step=args.fused_step, fused_units=args.fused_units,
                         device=args.device, sharp=args.sharp, safe=args.safe,
-                        aug_intensity=args.aug_intensity)
+                        aug_intensity=args.aug_intensity, lateral=args.lateral)
     lock = acquire_run_lock(args.weights_dir)
     try:
         t0 = time.perf_counter()

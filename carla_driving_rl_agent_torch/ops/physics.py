@@ -28,14 +28,16 @@ The reset draws are inputs (ResetDraws for every world and tick, used where
 the episode ended), drawn beforehand from the env's generator, so that the
 kernel and the plain version take identical inputs.
 
-The kernel computes worlds without NPCs: `step_physics_batch` and
-`step_physics_block` raise on a configuration with NPCs, on every device
-(the JAX package quietly takes its XLA step there).  The plain versions
-step NPC worlds too: the single tick from the tick's NPC draws, the block
-from a block's NPC draws (K rows, traffic.block_npc_step_draws), tick k
-from row k, or from its NPC uniforms (traffic.block_npc_step_uniforms),
-tick k's row scaled by the towns the worlds hold at tick k, and the NPC
-spawn of each tick's fresh state from the reset draws' `npc` rows.
+The kernel computes worlds without NPCs and the default reward:
+`step_physics_batch` and `step_physics_block` raise on a configuration
+with NPCs or with the shaped reward, on every device (the JAX package
+quietly takes its XLA step there, physics_pallas.fused_step_supported).
+The plain versions step NPC worlds too: the single tick from the tick's
+NPC draws, the block from a block's NPC draws (K rows,
+traffic.block_npc_step_draws), tick k from row k, or from its NPC
+uniforms (traffic.block_npc_step_uniforms), tick k's row scaled by the
+towns the worlds hold at tick k, and the NPC spawn of each tick's fresh
+state from the reset draws' `npc` rows.
 """
 
 from __future__ import annotations
@@ -61,7 +63,8 @@ STATE_B = ("should_terminate",)
 TICK_F = ("reward", "speed", "similarity", "distance_to_next_waypoint",
           "distance_to_destination", "off_road_distance", "total_reward")
 TICK_B = ("terminated", "truncated", "done", "hit_other")
-BLOCK_TICK_F, BLOCK_TICK_B = 3, 3
+# a block call writes what a rollout and an evaluation accumulate per tick
+BLOCK_TICK_F, BLOCK_TICK_B = 4, 4
 
 _F32_STATE = ("x", "y", "yaw", "v", "sim_time", "total_reward")
 _I64_STATE = ("route_id", "wp_idx", "town_id", "weather_id", "timestep", "episode")
@@ -83,12 +86,18 @@ def step_physics_batch_plain(world: WorldState, action: torch.Tensor,
     return world_mod.where_state(done, fresh, w), reward, term, trunc, info, done
 
 
-def _zero_npcs(params: WorldParams, what: str) -> None:
+def refuse_unsupported(params: WorldParams, what: str) -> None:
+    """Raise unless the kernel computes this configuration: worlds without
+    NPCs, with the default reward."""
     if params.has_npcs:
         raise NotImplementedError(
             f"{what} steps worlds without NPCs; this configuration has "
             f"{params.num_vehicles} vehicles and {params.num_pedestrians} pedestrians "
             f"(the plain versions step them: CARLAEnv without fused_step)")
+    if params.reward_mode != "default":
+        raise NotImplementedError(
+            f"{what} computes the default reward, not reward_mode="
+            f"{params.reward_mode!r} (the plain versions do: CARLAEnv without fused_step)")
 
 
 def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
@@ -100,9 +109,13 @@ def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
     reset draw and, in a configuration with NPCs, the k-th row of
     `npc_draws`: NPCStepDraws (K, B, ...), or the block's (K, B, V + 3P)
     NPC uniforms, tick k's row scaled by the towns the worlds hold at tick
-    k.  Returns (world', reward, terminated, truncated, info {speed,
-    similarity}, was_reset), each row (K, B)."""
+    k.  Returns (world', reward, terminated, truncated, info, was_reset),
+    each row (K, B); info holds speed, similarity,
+    distance_to_next_waypoint, collision and the collision's kind
+    (hit_vehicle, hit_pedestrian, hit_other)."""
     rows = []
+    keys = ("speed", "similarity", "distance_to_next_waypoint", "collision", "hit_vehicle",
+            "hit_pedestrian", "hit_other")
     for k in range(actions.shape[0]):
         row = lambda d: d[k]  # noqa: E731
         if isinstance(npc_draws, torch.Tensor):
@@ -112,9 +125,9 @@ def step_physics_block_plain(world: WorldState, actions: torch.Tensor,
             npc_k = world_mod.map_tensors(row, npc_draws)
         world, reward, term, trunc, info, done = step_physics_batch_plain(
             world, actions[k], params, town, routes, world_mod.map_tensors(row, draws), npc_k)
-        rows.append((reward, term, trunc, info["speed"], info["similarity"], done))
-    reward, term, trunc, speed, similarity, done = (torch.stack(r) for r in zip(*rows))
-    return world, reward, term, trunc, dict(speed=speed, similarity=similarity), done
+        rows.append((reward, term, trunc, done) + tuple(info[n] for n in keys))
+    reward, term, trunc, done, *per_tick = (torch.stack(r) for r in zip(*rows))
+    return world, reward, term, trunc, dict(zip(keys, per_tick)), done
 
 
 class _Args(ctypes.Structure):
@@ -274,10 +287,13 @@ def _unpack_tick(state, ticks, consts: Optional[PhysicsConsts] = None):
 
 def _unpack_block(state, ticks, consts: Optional[PhysicsConsts] = None):
     """step_physics_block's returns: the state and (K, B) rows."""
-    reward, speed, similarity = ticks[0].unbind(0)
-    term, trunc, done = ticks[1].unbind(0)
-    return (_unpack_state(state, consts), reward, term, trunc,
-            dict(speed=speed, similarity=similarity), done)
+    reward, speed, similarity, d_next = ticks[0].unbind(0)
+    term, trunc, done, hit_other = ticks[1].unbind(0)
+    # the kernel's worlds have no NPCs: the collision is the off-road exit,
+    # and no NPC collision rows are made (each would cost a launch)
+    info = dict(speed=speed, similarity=similarity, distance_to_next_waypoint=d_next,
+                collision=hit_other, hit_other=hit_other)
+    return _unpack_state(state, consts), reward, term, trunc, info, done
 
 
 # ------------------------------------------------------------------
@@ -339,9 +355,9 @@ def step_physics_batch(world: WorldState, action: torch.Tensor,
     current stream (and count the launch in `step_physics_batch.launches`);
     CPU tensors run `step_physics_batch_plain`.  Anything else raises.
     `consts` is the env's PhysicsConsts of (params, town, routes), packed
-    here when not given.  Raises on a configuration with NPCs, on every
-    device."""
-    _zero_npcs(params, "the physics kernel")
+    here when not given.  Raises on a configuration with NPCs or the
+    shaped reward, on every device."""
+    refuse_unsupported(params, "the physics kernel")
     dev = _device(world)
     if dev.type == "cpu":
         return step_physics_batch_plain(world, action, params, town, routes, draws)
@@ -362,14 +378,15 @@ def step_physics_block(world: WorldState, actions: torch.Tensor,
                        draws: ResetDraws, consts: Optional[PhysicsConsts] = None):
     """K ticks of every world with auto-reset, tick k with actions[k]
     (actions (K, B, A)) and the k-th rows of `draws` ((K, B) each); returns
-    (world' after the last tick, reward, terminated, truncated, info {speed,
-    similarity}, was_reset), each row (K, B).
+    (world' after the last tick, reward, terminated, truncated, info,
+    was_reset), each row (K, B), info as step_physics_block_plain's
+    without the NPC collision rows (hit_vehicle, hit_pedestrian).
 
     CUDA tensors launch the kernel of csrc/physics.cu once for all K ticks
     (counted in `step_physics_block.launches`); CPU tensors run
     `step_physics_block_plain`.  Anything else raises, and so does a
-    configuration with NPCs."""
-    _zero_npcs(params, "the physics kernel")
+    configuration with NPCs or the shaped reward."""
+    refuse_unsupported(params, "the physics kernel")
     dev = _device(world)
     if dev.type == "cpu":
         return step_physics_block_plain(world, actions, params, town, routes, draws)

@@ -204,6 +204,19 @@ def load_agent(base_path: str, device=None) -> Dict[str, Any]:
     return out
 
 
+def check_shapes(loaded: Dict[str, torch.Tensor], current: Dict[str, torch.Tensor],
+                 path: str) -> None:
+    """Raise, before anything is copied, where a checkpoint's tensor and the
+    network's differ in shape (load_state_dict would copy the tensors that
+    fit before it raised): e.g. a navigation layer trained with another
+    navigation width (WorldParams.lateral_obs)."""
+    bad = [f"{k}: {tuple(v.shape)} in the checkpoint, {tuple(current[k].shape)} here"
+           for k, v in loaded.items() if k in current and v.shape != current[k].shape]
+    if bad:
+        raise ValueError(f"{path} does not fit this network (e.g. it was trained with "
+                         f"another navigation width, lateral_obs): " + "; ".join(bad))
+
+
 def copy_folder(src: str, dst: str) -> None:
     """Per-epoch weight snapshots (reference rl/utils.py:568-570)."""
     if os.path.exists(dst):

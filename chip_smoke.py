@@ -151,7 +151,23 @@ Phases, each printed with its seconds:
  25. s4_towns — stage s4's NPC block path over random towns (Town01 +
                Town02, 50/50 NPCs, the training weathers) on the card
                against the CPU from the same draws, 3 blocks of 16 worlds
-               restarting mid-block, some into the other town.
+               restarting mid-block, some into the other town;
+ 26. eval_block — the safe-s5 evaluation of phase 12 in blocks
+               (rollout_block, fused_step and fused_units: the JAX
+               package's block evaluation): 129 render launches (the reset
+               and 128 pushes), 128 physics-kernel launches (a block of 4
+               ticks each) and 13 x 128 unit-inference launches; similarity,
+               speed and timesteps within 4 standard errors of the per-step
+               record; env-steps/s beside phase 12's per-step evaluation;
+ 27. variants — the analytic renderer (render_mode="rasterizer") on the
+               card against the same code on the CPU from the same states:
+               32 Town03 worlds without NPCs and with stage s3's fleet, the
+               three cameras at 'fast' and the one camera at 'full' with
+               depth_modulate (bytes equal on >= 99.9 %, depth within one
+               level), each timed per frame; then 2 stage-s1 updates with
+               the rasterizer, the shaped reward and the lateral
+               observation (fused units; the physics kernel computes the
+               default reward only): finite losses, train env-steps/s.
 Each training phase prints the mean reward per step, the episodes that
 ended, the NPCs per world, train env-steps/s and the four parts of an
 update.  With --profile, a last phase breaks an evaluation window (without
@@ -864,11 +880,12 @@ HELD_METRICS = ("similarity", "speed", "timesteps")
 
 def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") -> dict:
     """The shipped evaluation of safe-s5 on Town03 with `agent`, whose env
-    has the `traffic` level (its fused_units decides the backbone's path),
-    beside the recorded evaluation of that scenario; with `unfused`, the
-    means of an unfused run are printed beside.  With traffic, also the
-    kept trials' collisions by type and the NPCs their worlds started
-    with."""
+    has the `traffic` level (its fused_units decides the backbone's path,
+    its rollout_block whether it evaluates per step or in blocks of 4
+    steps), beside the recorded evaluation of that scenario; with
+    `unfused`, the means of an unfused (or per-step) run are printed
+    beside.  With traffic, also the kept trials' collisions by type and
+    the NPCs their worlds started with."""
     from carla_driving_rl_agent_torch.evaluate_seeds import z_score
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     num_worlds = max(TRIALS + 8, int(TRIALS * 1.25))
@@ -882,17 +899,25 @@ def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") 
     seconds = time.perf_counter() - t0
     counts = _counts()
     launches = counts["render_planes"]
-    frames = STEPS + 1          # the reset frame, then one per step
+    block = agent.env.config.past_obs_freq if agent.config.rollout_block else 1
+    predicts = STEPS // block
+    frames = predicts + 1       # the reset frame, then one per step or block
     print(f"  render launches {launches}, frames rendered {frames} "
           f"(x {num_worlds} worlds); {num_worlds * STEPS / seconds:.1f} env-steps/s "
           f"({num_worlds} worlds x {STEPS} steps in {seconds:.3f} s)", flush=True)
     check(launches == frames, f"render launches {launches} != frames {frames}")
+    physics = counts["step_physics_block"]
+    want = predicts if block > 1 and agent.env.config.fused_step else 0
+    print(f"  physics kernel launches {physics} (blocks of {block} ticks)", flush=True)
+    check(physics == want and counts["step_physics_batch"] == 0,
+          f"physics launches {physics} block, {counts['step_physics_batch']} single-tick; "
+          f"{want} blocks expected")
     units = counts["shuffle_unit_infer"]
     if agent.config.fused_units:
-        print(f"  unit inference kernel launches {units}: {units / STEPS:.1f} per predict "
-              f"({STEPS} predicts)", flush=True)
-        check(units == UNITS_PER_PASS * STEPS,
-              f"unit inference launches {units} != {UNITS_PER_PASS} x {STEPS} predicts")
+        print(f"  unit inference kernel launches {units}: {units / predicts:.1f} per predict "
+              f"({predicts} predicts)", flush=True)
+        check(units == UNITS_PER_PASS * predicts,
+              f"unit inference launches {units} != {UNITS_PER_PASS} x {predicts} predicts")
     else:
         check(units == 0, f"unfused evaluation launched the unit kernel {units} times")
     with open(reference(traffic)) as f:
@@ -901,7 +926,8 @@ def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") 
         v = np.asarray(record[m], np.float64)
         check(len(v) == TRIALS and bool(np.all(np.isfinite(v))), f"{m}: {len(v)} finite values")
         z = z_score(record, ref, m)
-        beside = (f"   unfused {unfused['means'][m]:.6f}" if unfused else "")
+        beside = (f"   {'per step' if block > 1 else 'unfused'} {unfused['means'][m]:.6f}"
+                  if unfused else "")
         print(f"  {m:18s} port {record[f'{m}_mean']:.6f} +- {record[f'{m}_std']:.6f}   "
               f"recorded {ref[f'{m}_mean']:.6f} +- {ref[f'{m}_std']:.6f}   "
               f"(port - recorded) / SE {z:+.3f}{beside}", flush=True)
@@ -1552,7 +1578,7 @@ def env_phase() -> dict:
 
 
 def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
-                 frames_per_update: int = TRAIN_STEPS // 4) -> dict:
+                 frames_per_update: int = TRAIN_STEPS // 4, render_kernel: bool = True) -> dict:
     """Run2 of `stage` for one epoch of `updates` updates after stage.init,
     with the launch counts set to 0 just before: the metrics finite, every
     parameter group moved, `physics_per_update` physics-kernel block
@@ -1561,7 +1587,8 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
     per step on the per-step path) and one render at the reset, and with
     fused units a pass of the 13 stride-1 units per predict (inference) and
     per minibatch (forward and backward).  Prints and returns what it
-    measured."""
+    measured.  With `render_kernel` False (another render_mode) no render
+    launch is expected."""
     agent = stage.agent
     fused_units = agent.config.fused_units
     check(agent.config.rollout_steps == TRAIN_STEPS, "128-step rollouts")
@@ -1588,8 +1615,9 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
           and counts["step_physics_batch"] == 0,
           f"{label}: physics launches {counts['step_physics_block']} block, "
           f"{counts['step_physics_batch']} single-tick")
-    check(counts["render_planes"] == updates * frames_per_update + 1,
-          f"{label}: render launches {counts['render_planes']}")
+    renders = updates * frames_per_update + 1 if render_kernel else 0
+    check(counts["render_planes"] == renders,
+          f"{label}: render launches {counts['render_planes']} != {renders}")
     # per update: a predict per frame and the bootstrap value's pass
     # (inference), and a training pass of each minibatch of the two phases
     minibatches = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
@@ -1608,7 +1636,8 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
     print("  seconds per update: " + ", ".join(
         f"{k} {np.mean(v):.4f}" for k, v in parts.items())
         + f"; launches per update: physics {counts['step_physics_block'] / updates:.0f}, "
-          f"render {(counts['render_planes'] - 1) / updates:.0f} (+1 at the reset)",
+          + (f"render {(counts['render_planes'] - 1) / updates:.0f} (+1 at the reset)"
+             if render_kernel else "render kernel 0 (another renderer)"),
         flush=True)
     if fused_units:
         print("  unit kernel launches per update: " + ", ".join(
@@ -2483,6 +2512,77 @@ def s4_towns_phase() -> dict:
     return r
 
 
+def eval_block_phase(out_dir: str, per_step: dict) -> dict:
+    """The safe-s5 evaluation in blocks (rollout_block, fused_step,
+    fused_units) against the per-step record, with the per-step fused
+    evaluation of the same call (`per_step`, phase slice_fused) beside."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    agent = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda",
+                                    fused_units=True, rollout_block=True,
+                                    env_overrides=dict(fused_step=True))
+    out = slice_phase(agent, out_dir, unfused=per_step)
+    on, off = out["env_steps_per_s"], per_step["env_steps_per_s"]
+    print(f"  evaluation env-steps/s, fused units, blocks / per step: {on:.1f} / {off:.1f} "
+          f"({on / off:.3f})", flush=True)
+    return out
+
+
+VARIANT_WORLDS = 32
+VARIANT_BYTES_EQUAL = 0.999     # tests/test_torch_env_variants.py's bar
+
+
+def _rasterizer_frames(inputs, one_camera: bool):
+    from carla_driving_rl_agent_torch.ops import rasterizer
+    if one_camera:
+        return rasterizer.render_one_camera(inputs, quality="full", depth_modulate=True)
+    return rasterizer.render_cameras(inputs, quality="fast", return_depth=True)
+
+
+def variants_phase(root: str, envs: dict) -> dict:
+    """The analytic renderer on the card against the same code on the CPU
+    from the same states (`envs`: label -> a Town03 env whose fresh states
+    are rendered, with or without NPCs), timed per frame; then 2 stage-s1
+    updates with render_mode="rasterizer", the shaped reward and the
+    lateral observation."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.envs.world import map_tensors
+    out = dict(render={})
+    for label, env in envs.items():
+        states, _ = env.reset_batch(VARIANT_WORLDS)
+        inputs = env.render_inputs(states.world)
+        cpu = map_tensors(lambda t: t.cpu(), inputs)
+        for one_camera in (False, True):
+            view = "one camera full, depth_modulate" if one_camera else "three cameras fast"
+            card = _rasterizer_frames(inputs, one_camera)
+            host = _rasterizer_frames(cpu, one_camera)
+            colour = card[..., :3].cpu() == host[..., :3]
+            share = float(colour.to(torch.float32).mean())
+            depth = (int((card[..., 3].cpu().to(torch.int32) - host[..., 3].to(torch.int32))
+                         .abs().max()) if card.shape[-1] == 4 else 0)
+            ms = cuda_ms(lambda: _rasterizer_frames(inputs, one_camera), iters=5, warmup=1)
+            print(f"  rasterizer, {label}, {view}: {tuple(card.shape)} u8, card vs CPU "
+                  f"{share:.6f} of the bytes equal, depth max |diff| {depth}; "
+                  f"{ms:.3f} ms per frame of {VARIANT_WORLDS} worlds on the card", flush=True)
+            check(share >= VARIANT_BYTES_EQUAL and depth <= 1,
+                  f"rasterizer {label} {view}: {share:.6f} equal, depth {depth}")
+            out["render"][f"{label}, {view}"] = dict(share_equal=share, depth_max_diff=depth,
+                                                     ms_per_frame=ms)
+    stage = stages.stage_s1(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+                            weights_dir=os.path.join(root, "weights-torch"),
+                            env_overrides=dict(render_mode="rasterizer", reward_mode="shaped",
+                                               lateral_obs=True, device="cuda"))
+    stage.init()
+    env = stage.env
+    check(env.config.render_mode == "rasterizer" and env.params.reward_mode == "shaped"
+          and env.config.storage_shape == (3, 90, 360), "the variant env's configuration")
+    check(stage.agent.network.dynamics.FeatureNet_2.Dense_0.weight.shape[1] == 6,
+          "the network's navigation input is 6 wide")
+    out["train"] = _train_epoch(stage, CUT_UPDATES, "variants (rasterizer, shaped, lateral)",
+                                0, render_kernel=False)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the run's numbers to this JSON file")
@@ -2672,6 +2772,15 @@ def main(argv=None) -> int:
         summary["s4_towns"] = s4_towns_phase()
         launches["s4_towns"] = summary["s4_towns"].pop("launches")
     summary["phases"]["s4_towns"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("eval_block") as p:
+        summary["eval_block"] = eval_block_phase(out_dir, summary["slice_fused"])
+        launches["evaluate_block"] = summary["eval_block"].pop("launches")
+    summary["phases"]["eval_block"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("variants") as p:
+        summary["variants"] = variants_phase(
+            root, {"no NPCs": agent.env, "stage s3's 50/50 NPCs": s3_env})
+        launches["train_variants"] = summary["variants"]["train"].pop("launches")
+    summary["phases"]["variants"] = p.seconds
     print(f"  phases: {sum(summary['phases'].values()):.1f} s", flush=True)
     if args.profile:
         with Phase("profile") as p:

@@ -259,7 +259,8 @@ assert not bad, bad
 need = ["carla_driving_rl_agent_torch." + m for m in (
     "main", "ops.physics", "ops.render", "ops.shuffle_unit", "envs.carla_env", "agents.rollout",
     "agents.carla_agent", "utils.math", "utils.optimizers", "utils.schedules",
-    "utils.checkpoint", "curriculum.stages", "models.layers", "models.recurrent")]
+    "utils.checkpoint", "curriculum.stages", "models.layers", "models.recurrent",
+    "ops.rasterizer", "envs.spaces", "envs.sensors")]
 missing = [m for m in need if m not in sys.modules]
 assert not missing, missing
 print("ok")

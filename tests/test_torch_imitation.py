@@ -59,6 +59,7 @@ from carla_driving_rl_agent_tpu.envs.carla_env import CARLAEnv as JEnv
 from carla_driving_rl_agent_tpu.envs.carla_env import CARLAEnvConfig as JEnvConfig
 from carla_driving_rl_agent_tpu.envs.dynamics import tgather as jtgather
 from carla_driving_rl_agent_tpu.models.distributions import Beta as JBeta
+from carla_driving_rl_agent_tpu.utils import math as jum
 from carla_driving_rl_agent_tpu.utils import traces as jtraces
 from carla_driving_rl_agent_tpu.utils.optimizers import get_optimizer_by_name as jopt
 from carla_driving_rl_agent_tpu.utils.schedules import DynamicParameter as JDynamic
@@ -128,15 +129,22 @@ def world_data():
     return (jworld.WorldParams(**kw), jt, jr), (tp, tt, tr)
 
 
+_LAYOUT = []
+
+
 def jax_trees(net, dtype=jnp.float32):
     """The JAX package's (params, batch_stats) trees of the port's network
     `net` (the inverse of utils/checkpoint.params_from_jax), laid out by
-    jax.eval_shape of the JAX network's init, which compiles nothing."""
+    jax.eval_shape of the JAX network's init, which compiles nothing.  The
+    layout (the trees and their shapes) does not depend on the compute
+    dtype, so it is traced once per module; the leaves take `dtype`."""
     jnet = JNet(**TINY_NET, compute_dtype=dtype)
-    sample = dict(state_image=jnp.zeros((1, 4, 45, 180, 3)), state_road=jnp.zeros((1, 4, 9)),
-                  state_vehicle=jnp.zeros((1, 4, 4)), state_navigation=jnp.zeros((1, 4, 5)),
-                  action=jnp.zeros((1, 2)))
-    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0), sample)
+    if not _LAYOUT:
+        sample = dict(state_image=jnp.zeros((1, 4, 45, 180, 3)),
+                      state_road=jnp.zeros((1, 4, 9)), state_vehicle=jnp.zeros((1, 4, 4)),
+                      state_navigation=jnp.zeros((1, 4, 5)), action=jnp.zeros((1, 2)))
+        _LAYOUT.append(jax.eval_shape(JNet(**TINY_NET).init, jax.random.PRNGKey(0), sample))
+    shapes = _LAYOUT[0]
     sd = {k: v.detach().numpy() for k, v in net.state_dict().items()}
 
     def fill(tree, prefix, stats):
@@ -201,7 +209,8 @@ def expert_drive(world_data):
     actions})] per step."""
     (jp, jt, jr), _ = world_data
     keys = jax.random.split(jax.random.PRNGKey(11), B)
-    js = jax.vmap(lambda k: jworld.reset_world(k, jp, jt, jr))(keys)
+    # compiled once (eagerly, the reset compiles one program per operation)
+    js = jax.jit(jax.vmap(lambda k: jworld.reset_world(k, jp, jt, jr)))(keys)
     w = jax.tree_util.tree_map(np.array, js)
     fwd = np.stack([np.cos(w.yaw), np.sin(w.yaw)], -1)
     w.npc.veh_xy[0, 0], w.npc.veh_yaw[0, 0], w.npc.veh_active[0, 0] = (
@@ -364,8 +373,9 @@ def test_policy_objective_with_ratio_clamp_matches_jax():
     js = _jself(jnet)
     js.config = JConfig(network=TINY_NET, ratio_clamp=3.0)
     feat = np.random.default_rng(0).normal(0, 1, (MB, 64)).astype(np.float32)
-    jtot, jaux = js._policy_objective(params, stats, jnp.asarray(feat), jb, HYPER,
-                                      jax.random.PRNGKey(0))
+    # one compiled program instead of an eager compile per operation
+    jtot, jaux = jax.jit(lambda p, s, f, b: js._policy_objective(
+        p, s, f, b, HYPER, jax.random.PRNGKey(0)))(params, stats, jnp.asarray(feat), jb)
     pol = agent.network.policy_apply(torch.from_numpy(feat), training=True)
     ttot, taux = agent._policy_objective(pol, tb, HYPER)
     assert float(jaux["ratio"]) == pytest.approx(3.0, rel=1e-6), "the clamp is not active"
@@ -448,13 +458,18 @@ def _jax_agent(jnet, params, stats):
     return js
 
 
-def test_imitate_matches_jax(tmp_path):
+def test_imitate_matches_jax(tmp_path, monkeypatch):
     """One epoch of imitate at batch 8 on two expert traces (16 and 12
     steps: their log-probs from the current old policy, their actions
     reaching -1 and 1), a network trace (10 steps) and one of 3 steps
     (skipped), from the same parameters, in float64.  The network trace's
     log-probs are stored in float64, the dtype of the expert's, so that
-    JAX traces its update once."""
+    JAX traces its update once.  JAX's imitate computes each trace's
+    targets eagerly, one compile per operation and trace length; here its
+    target helpers run compiled, one program each (the same operations)."""
+    for name, static in (("compose_number", ()), ("batched_gae", (4, 5)), ("sp_norm", ()),
+                         ("discount_cumsum", (1,)), ("decompose_number", ())):
+        monkeypatch.setattr(jum, name, jax.jit(getattr(jum, name), static_argnums=static))
     _write_traces(str(tmp_path), [16, 12, 10, 3], with_net=(2,), seed=1, log_prob=np.float64)
     env = CARLAEnv(CARLAEnvConfig(world=tworld.WorldParams(**ROLL), image_height=45,
                                   image_width=60), device="cpu")
@@ -517,7 +532,7 @@ def test_route_length_per_world_matches_jax(world_data):
     their routes."""
     (jp, jt, jr), (tp, tt, tr) = world_data
     keys = jax.random.split(jax.random.PRNGKey(3), B)
-    js = jax.vmap(lambda k: jworld.reset_world(k, jp, jt, jr))(keys)
+    js = jax.jit(jax.vmap(lambda k: jworld.reset_world(k, jp, jt, jr)))(keys)
     js = js._replace(wp_idx=jnp.asarray(np.arange(B) * 7, jnp.int32))
 
     def route_len_m(w):
@@ -528,7 +543,7 @@ def test_route_length_per_world_matches_jax(world_data):
         m = (i >= w.wp_idx) & (i < r_len - 1)
         return jnp.sum(seg * m)
 
-    want = np.asarray(jax.vmap(route_len_m)(js))
+    want = np.asarray(jax.jit(jax.vmap(route_len_m))(js))
     got = twrappers.route_length_m(_torch_world(js), tr).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-4)
     assert want.min() > 0.0

@@ -142,12 +142,18 @@ def _f64(tree):
     return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
 
 
+_JNET64 = []
+
+
 def _x64(env, jnet_init, **cfg):
     """The JAX network computing in float64 with float64 parameters, and a
     port agent holding the same parameters in double.  Call inside
-    jax.enable_x64(True)."""
+    jax.enable_x64(True).  The JAX network is one object for the module,
+    so that its compiled gradients (_jax_grads) serve every test."""
     _, params, stats = jnet_init
-    jnet = JNet(**TINY_NET, compute_dtype=jnp.float64)
+    if not _JNET64:
+        _JNET64.append(JNet(**TINY_NET, compute_dtype=jnp.float64))
+    jnet = _JNET64[0]
     agent = _agent(env, jnet_init, **cfg)
     agent.network.double()
     return jnet, _f64(params), _f64(stats), agent
@@ -205,18 +211,23 @@ def test_params_from_jax_init_round_trip(env, jnet_init):
     for k, v in conv.items():
         assert torch.equal(sd[k], v), k
     jb, tb = _batch(0)
-    feat, _ = jnet.dynamics_apply(params, stats, jb["obs"])
-    jpol, _ = jnet.policy_apply(params, stats, feat, old=True)
-    jval, _ = jnet.value_apply(params, stats, feat)
+
+    @jax.jit        # one compiled program instead of an eager compile per operation
+    def forward(params, stats, obs):
+        feat, _ = jnet.dynamics_apply(params, stats, obs)
+        jpol, _ = jnet.policy_apply(params, stats, feat, old=True)
+        jval, _ = jnet.value_apply(params, stats, feat)
+        return feat, jpol["dist"].alpha, jval["value"]
+
+    feat, alpha, value = forward(params, stats, jb["obs"])
     with torch.no_grad():
         tfeat = agent.network.dynamics_apply(tb["obs"])
         tpol = agent.network.policy_apply(tfeat, old=True)
         tval = agent.network.value_apply(tfeat)
     np.testing.assert_allclose(tfeat.numpy(), np.asarray(feat), rtol=0, atol=1e-5)
-    np.testing.assert_allclose(tpol["dist"].alpha.numpy(), np.asarray(jpol["dist"].alpha),
-                               rtol=0, atol=1e-5)
-    np.testing.assert_allclose(tval["value"].numpy(), np.asarray(jval["value"]),
-                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tpol["dist"].alpha.numpy(), np.asarray(alpha), rtol=0,
+                               atol=1e-5)
+    np.testing.assert_allclose(tval["value"].numpy(), np.asarray(value), rtol=0, atol=1e-5)
 
 
 def test_objectives_match_jax(env, jnet_init):
@@ -226,9 +237,15 @@ def test_objectives_match_jax(env, jnet_init):
     agent = _agent(env, jnet_init)
     jb, tb = _batch(1)
     js = _jself(jnet)
-    feat, _ = jnet.dynamics_apply(params, stats, jb["obs"], training=True)
-    jtot, jaux = js._policy_objective(params, stats, feat, jb, HYPER, jax.random.PRNGKey(0))
-    jvtot, jvaux = js._value_objective(params, stats, feat, jb)
+
+    @jax.jit        # one compiled program instead of an eager compile per operation
+    def objectives(params, stats, jb):
+        feat, _ = jnet.dynamics_apply(params, stats, jb["obs"], training=True)
+        return (feat, js._policy_objective(params, stats, feat, jb, HYPER,
+                                           jax.random.PRNGKey(0)),
+                js._value_objective(params, stats, feat, jb))
+
+    feat, (jtot, jaux), (jvtot, jvaux) = objectives(params, stats, jb)
     net = agent.network
     tfeat = torch.from_numpy(np.array(feat))
     ttot, taux = agent._policy_objective(net.policy_apply(tfeat, training=True), tb, HYPER)
@@ -239,18 +256,25 @@ def test_objectives_match_jax(env, jnet_init):
         np.testing.assert_allclose(float(t.detach()), float(j), rtol=1e-5, atol=1e-5)
 
 
+_GRAD_FNS = {}
+
+
 def _jax_grads(jnet, params, stats, jb, phase):
     """(loss, aux, grads) of the JAX learner's phase loss (carla_agent.py
-    _policy_loss / _value_loss) w.r.t. the phase's head and the dynamics."""
-    js = _jself(jnet)
+    _policy_loss / _value_loss) w.r.t. the phase's head and the dynamics;
+    compiled once per phase and network for the module."""
+    key = (phase, id(jnet))
+    if key not in _GRAD_FNS:
+        js = _jself(jnet)
 
-    def loss(pd, stats, jb):
-        if phase == "policy":
-            return js._policy_loss(pd["policy"], pd["dynamics"], stats, jb, HYPER,
-                                   jax.random.PRNGKey(0))
-        return js._value_loss(pd["value"], pd["dynamics"], stats, jb)
+        def loss(pd, stats, jb):
+            if phase == "policy":
+                return js._policy_loss(pd["policy"], pd["dynamics"], stats, jb, HYPER,
+                                       jax.random.PRNGKey(0))
+            return js._value_loss(pd["value"], pd["dynamics"], stats, jb)
 
-    (value, aux), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        _GRAD_FNS[key] = (jnet, jax.jit(jax.value_and_grad(loss, has_aux=True)))
+    (value, aux), g = _GRAD_FNS[key][1](
         {phase: params[phase], "dynamics": params["dynamics"]}, stats, jb)
     return value, aux, g
 
@@ -278,48 +302,58 @@ def test_phase_gradients_match_jax(env, jnet_init, phase):
                                    err_msg=name)
 
 
-def test_policy_and_value_steps_match_jax(env, jnet_init):
+def test_policy_and_value_steps_match_jax(env, jnet_init, jax_steps):
     """One policy-phase step then one value-phase step, from the same
     parameters, Adam states and minibatches."""
-    _steps_match_jax(env, jnet_init)
+    _steps_match_jax(env, jnet_init, jax_steps)
 
 
-def test_fused_units_steps_match_jax(env, jnet_init):
+def test_fused_units_steps_match_jax(env, jnet_init, jax_steps):
     """The same two steps with fused_units=True (the backbone's stride-1
     units through the fused op, its plain version on the CPU: forward,
     batch statistics, fold and backward) against the JAX learner's unfused
     steps, at the same bars."""
-    _steps_match_jax(env, jnet_init, fused_units=True)
+    _steps_match_jax(env, jnet_init, jax_steps, fused_units=True)
 
 
-def _steps_match_jax(env, jnet_init, **cfg):
+@pytest.fixture(scope="module")
+def jax_steps(env, jnet_init):
+    """The JAX learner's policy_minibatch then value_minibatch
+    (carla_agent.py:711-785), composed from its own functions, once for
+    the module: the tensors after the two steps, the tensors whose
+    gradient is rounding noise in each phase, and the policy before."""
     with jax.enable_x64(True):
-        jnet, params, stats, agent = _x64(env, jnet_init, **cfg)
-        jb_p, tb_p = _batch64(3)
-        jb_v, tb_v = _batch64(4)
-        # the JAX learner's policy_minibatch then value_minibatch
-        # (carla_agent.py:711-785), composed from its own functions
+        jnet, params, stats, _ = _x64(env, jnet_init)
+        jb_p, _ = _batch64(3)
+        jb_v, _ = _batch64(4)
         opts = {g: jopt("adam", LR) for g in ("policy", "value", "dynamics")}
         opt_state = {g: opts[g].init(params[g]) for g in opts}
+        # each group's clipped Adam step, compiled (eagerly it compiles one
+        # program per operation)
+        adam = {grp: jax.jit(lambda g, st, p, grp=grp: (
+            lambda up: (optax.apply_updates(p, up[0]), up[1]))(
+                opts[grp].update(jm.clip_gradients(g, 1.0), st, p))) for grp in opts}
         _, paux, g = _jax_grads(jnet, params, stats, jb_p, "policy")
         noise = _noise_tensors(params, stats, g)
         new = dict(params, old_policy=params["policy"])
         for grp in ("policy", "dynamics"):
-            up, opt_state[grp] = opts[grp].update(jm.clip_gradients(g[grp], 1.0),
-                                                  opt_state[grp], params[grp])
-            new[grp] = optax.apply_updates(params[grp], up)
+            new[grp], opt_state[grp] = adam[grp](g[grp], opt_state[grp], params[grp])
         stats1 = dict(stats, dynamics=paux["d_stats"], policy=paux["p_stats"])
         _, vaux, g = _jax_grads(jnet, new, stats1, jb_v, "value")
         noise_v = _noise_tensors(params, stats, g)
         new2 = dict(new)
         for grp in ("value", "dynamics"):
-            up, opt_state[grp] = opts[grp].update(jm.clip_gradients(g[grp], 1.0),
-                                                  opt_state[grp], new[grp])
-            new2[grp] = optax.apply_updates(new[grp], up)
+            new2[grp], opt_state[grp] = adam[grp](g[grp], opt_state[grp], new[grp])
         stats2 = dict(stats1, dynamics=vaux["d_stats"], value=vaux["v_stats"])
-        ref = params_from_jax(new2, stats2)
-        pol0 = _as_torch(params, stats, {})
+        return params_from_jax(new2, stats2), noise, noise_v, _as_torch(params, stats, {})
 
+
+def _steps_match_jax(env, jnet_init, jax_steps, **cfg):
+    ref, noise, noise_v, pol0 = jax_steps
+    with jax.enable_x64(True):
+        _, _, _, agent = _x64(env, jnet_init, **cfg)
+        _, tb_p = _batch64(3)
+        _, tb_v = _batch64(4)
     agent.policy_step(tb_p, HYPER)
     agent.value_step(tb_v)
     sd = agent.network.state_dict()

@@ -107,10 +107,10 @@ def _obs(batch, seed=0):
 def test_backbone(trees, tnet):
     P, S = trees
     obs = _obs(2, seed=3)
-    ref = jsn.ShuffleNetV2(g=1.0, last_channels=768).apply(
+    ref = jax.jit(lambda v, x: jsn.ShuffleNetV2(g=1.0, last_channels=768).apply(
+        v, x, training=False))(
         {"params": P["dynamics"]["ShuffleNetV2_0"],
-         "batch_stats": S["dynamics"]["ShuffleNetV2_0"]},
-        jnp.asarray(obs["state_image"]), training=False)
+         "batch_stats": S["dynamics"]["ShuffleNetV2_0"]}, jnp.asarray(obs["state_image"]))
     with torch.no_grad():
         out = tnet.dynamics.ShuffleNetV2_0(torch.from_numpy(obs["state_image"]))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-4)
@@ -122,10 +122,16 @@ def test_predict_matches_jax(trees, tnet):
     jin = {k: jnp.asarray(v) for k, v in obs.items()}
     jin["action"] = jnp.zeros((3, 2))
     jnet = JNet(**SPEC)
-    out = jnet.predict(P, S, jin, jax.random.PRNGKey(0))
     action = np.asarray([[0.2, 0.7], [0.5, 0.5], [0.9, 0.1]], np.float32)
-    feat_ref, _ = jnet.dynamics_apply(P, S, jin)
-    pol_ref, _ = jnet.policy_apply(P, S, feat_ref, old=True)
+
+    @jax.jit        # one compiled program instead of an eager compile per operation
+    def reference(P, S, jin, action):
+        out = jnet.predict(P, S, jin, jax.random.PRNGKey(0))
+        feat_ref, _ = jnet.dynamics_apply(P, S, jin)
+        pol_ref, _ = jnet.policy_apply(P, S, feat_ref, old=True)
+        return out, feat_ref, pol_ref["dist"].log_prob(action)
+
+    out, feat_ref, log_prob_ref = reference(P, S, jin, jnp.asarray(action))
     with torch.no_grad():
         feat = tnet.dynamics({k: torch.from_numpy(v) for k, v in obs.items()})
         pol, val = tnet.old_policy(feat), tnet.value(feat)
@@ -133,8 +139,7 @@ def test_predict_matches_jax(trees, tnet):
     np.testing.assert_allclose(feat.numpy(), np.asarray(feat_ref), rtol=0, atol=1e-4)
     checks = dict(mean=(d.mean(), out["mean"]), std=(d.stddev(), out["std"]),
                   value=(val["value"], out["value"]),
-                  log_prob=(d.log_prob(torch.from_numpy(action)),
-                            pol_ref["dist"].log_prob(jnp.asarray(action))),
+                  log_prob=(d.log_prob(torch.from_numpy(action)), log_prob_ref),
                   speed=(pol["speed"], out["speed"]),
                   similarity=(pol["similarity"], out["similarity"]))
     for k, (a, b) in checks.items():

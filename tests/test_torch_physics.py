@@ -253,17 +253,28 @@ def _bind_reset(env, key, consts, batch):
 
 
 def test_fused_step_unsupported_raises():
-    """NPC traffic with fused_step raises: the JAX package steps such worlds
-    on its XLA path, and the port has no fallback from the kernel; without
-    fused_step the env builds an NPC world.  (The shaped reward cannot be
-    asked for: the port's WorldParams has no reward_mode.)"""
+    """NPC traffic or the shaped reward with fused_step raises: the JAX
+    package steps such worlds on its XLA path (physics_pallas.
+    fused_step_supported), and the port has no fallback from the kernel;
+    without fused_step the env builds them, and the kernel's entry points
+    refuse the shaped reward on every device."""
     for spawn in (dict(vehicles=2), dict(pedestrians=3)):
         with pytest.raises(NotImplementedError, match="NPC"):
             stages.build_env(town="Town02", num_routes=8, spawn=spawn,
                              fused_step=True, device="cpu")
         env = stages.build_env(town="Town02", num_routes=8, spawn=spawn, device="cpu")
         assert env.params.has_npcs and not env.config.fused_step
-    assert not hasattr(tworld.WorldParams(), "reward_mode")
+    with pytest.raises(NotImplementedError, match="default reward"):
+        stages.build_env(town="Town02", num_routes=8, reward_mode="shaped", fused_step=True,
+                         device="cpu")
+    env = stages.build_env(town="Town02", num_routes=8, reward_mode="shaped", device="cpu")
+    assert env.params.reward_mode == "shaped" and not env.config.fused_step
+    world = tworld.reset_world(env.reset_draws(2), env.routes)
+    draws = tworld.block_reset_draws(env.generator, K, 2, env.params, env.routes,
+                                     env.weather_table)
+    with pytest.raises(NotImplementedError, match="default reward"):
+        P.step_physics_block(world, torch.zeros(K, 2, 2), env.params, env.town, env.routes,
+                             draws)
 
 
 def test_cpu_tensors_take_the_plain_version(envs):
@@ -348,8 +359,11 @@ def test_cuda_block_kernel_matches_plain(envs):
         for x, y in zip(tuple(tworld.tensors(out[0])) + out[1:4] + out[5:],
                         tuple(tworld.tensors(ref[0])) + ref[1:4] + ref[5:]):
             assert torch.equal(x, y)
-        for key in ref[4]:
+        for key in out[4]:
             assert torch.equal(out[4][key], ref[4][key]), key
+        # the plain block's NPC collision rows, all false here, are not the kernel's
+        assert set(ref[4]) - set(out[4]) == {"hit_vehicle", "hit_pedestrian"}
+        assert not bool(ref[4]["hit_vehicle"].any() | ref[4]["hit_pedestrian"].any())
         resets += int(out[5].sum())
         world = out[0]
     assert resets > 0
