@@ -14,8 +14,16 @@ core/carla_agent.py over rl/agents/ppo.py).  One update (`train_iteration`):
   * the value phase: another permutation, each minibatch one clipped Adam
     step of the value head and one of the backbone, through the SAME
     dynamics Adam state.
-The two phases stay apart: fusing them into one summed-gradient step was
-measured to starve the policy head (main.py:97-134).  With aug_intensity
+The two phases stay apart by default: fusing them into one summed-gradient
+step was measured to starve the policy head (main.py:97-134).  The JAX
+package's three other update schemes are here too, each one backbone
+forward per minibatch of one permutation (reused by every epoch): with
+`fused_update` one step on the summed objectives (`fused_step`); with
+`two_step_update` the forward pulled back twice, and the backbone stepped
+twice through one Adam state, the policy's gradient first (`two_step`);
+with `two_step_split_adam` the same through two Adam states, one per phase.
+They time the minibatches as one part, `update`, where the sequential
+update has `policy` and `value`.  With aug_intensity
 > 0 each phase augments the images of its own minibatches
 (augment/simclr.py); the rollout and the targets see clean frames.  With
 `expert_rollout` the rollout's actions come from the privileged expert
@@ -35,10 +43,14 @@ Objectives (JAX carla_agent.py:283-359, reference core/carla_agent.py:394-486):
   * value: 0.25 * MSE(base) + MSE(exp) / exp_scale^2, plus aux * (speed MSE
     + similarity MSE) without the 0.5, the whole times 0.25.
 
-Only Adam and float32 are ported, with the unfused network or with
-`fused_units` (the ShuffleNet-unit kernels), with the augmentation, the
-expert rollout and `ratio_clamp`; the JAX package's other learner options
-raise (CARLAgentConfig.check).
+Every option of the JAX package's CARLAgentConfig is here: the eight
+optimizers (utils/optimizers.py, `flat_optimizer` too), `compute_dtype`
+"bfloat16" (flax's dtype rules, models/layers.py; with `fused_units` the
+bfloat16 unit kernels), `resample_actions` (the policy's log-prob of a
+fresh reparameterised sample, models/distributions.Beta.rsample),
+`repeat_action` on the per-step rollout, `seed_regularization` and
+`updates_per_dispatch` (learn).  CARLAgentConfig.check raises only where
+the JAX package refuses.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import secrets
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
@@ -67,7 +80,7 @@ from carla_driving_rl_agent_torch.utils import checkpoint as ckpt
 from carla_driving_rl_agent_torch.utils import math as um
 from carla_driving_rl_agent_torch.utils import traces as trace_io
 from carla_driving_rl_agent_torch.utils.optimizers import (
-    get_optimizer_by_name, set_learning_rate)
+    OPTIMIZERS, get_optimizer_by_name, set_learning_rate)
 from carla_driving_rl_agent_torch.utils.schedules import DynamicParameter
 
 
@@ -77,8 +90,9 @@ DEFAULT_WEIGHTS_DIR = os.path.join(REPO_ROOT, "weights-torch")
 
 def full_float32() -> None:
     """Full float32 on the card: no TF32 in cuDNN convolutions (PyTorch's
-    default) or in matmuls.  The shipped recipe trains in float32; bf16 was
-    rejected for quantising away the Beta logits' small shifts
+    default) or in matmuls.  The shipped recipe trains in float32; bf16
+    (compute_dtype "bfloat16", whose float32 parts keep TF32 off as well)
+    was rejected for quantising away the Beta logits' small shifts
     (main.py:94-96)."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -104,13 +118,26 @@ class CARLAgentConfig:
     clip_norm: Tuple[float, float, float] = (1.0, 1.0, 1.0)
     polyak: float = 1.0
     update_dynamics: bool = True
+    # one of utils/optimizers.OPTIMIZERS, each with optax's defaults
     optimizer: str = "adam"
+    # each optimizer's update math on one flat buffer per group (the JAX
+    # package's optax.flatten): the same numbers, another checkpoint layout
+    flat_optimizer: bool = False
+    # the per-step rollout applies each action this many times, summing the
+    # rewards (a world that ends stops repeating); 1 with rollout_block
+    repeat_action: int = 1
     # one forward pass and one rendered frame per past_obs_freq steps
     rollout_block: bool = False
     # zero the advantage of block sub-steps after a mid-block auto-reset
     mask_post_reset: bool = True
     aux: float = 1.0
     seed: int = 42
+    # re-seed the agent's generator from the OS before every update
+    # (reference rl/agents/ppo.py:44-52)
+    seed_regularization: bool = False
+    # learn() runs up to this many updates, then moves their metrics to the
+    # host at once; the numbers are those of one update at a time
+    updates_per_dispatch: int = 8
     # network spec (reference core/carla_agent.py:61-68)
     network: Dict[str, Any] = field(default_factory=dict)
     # stride-1 ShuffleNet units as fused ops (the unit kernels on the card)
@@ -127,29 +154,41 @@ class CARLAgentConfig:
     # in log space (0 = off): expert actions can sit in the policy's far
     # tail, where exp(log-ratio) overflows (JAX carla_agent.py:303-315)
     ratio_clamp: float = 0.0
-    # learner options of the JAX package that the port does not have yet;
-    # anything but these defaults raises
+    # the update schemes (see the module docstring; JAX CARLAgentConfig
+    # :78-116): one summed-gradient step per minibatch, or one forward
+    # pulled back twice with two backbone steps through one Adam state, or
+    # through one per phase
     fused_update: bool = False
     two_step_update: bool = False
     two_step_split_adam: bool = False
+    # the policy's log-prob of a fresh sample of the current policy instead
+    # of the stored action (the CARLA reference's quirk, JAX :130-137)
     resample_actions: bool = False
+    # "bfloat16": the network computes in bfloat16 with float32 parameters
+    # (models/layers.py); anything else float32
     compute_dtype: str = "float32"
 
     def check(self) -> None:
-        unported = dict(fused_update=False, two_step_update=False,
-                        two_step_split_adam=False, resample_actions=False,
-                        compute_dtype="float32")
-        for name, default in unported.items():
-            if getattr(self, name) != default:
-                raise NotImplementedError(
-                    f"CARLAgentConfig.{name}={getattr(self, name)!r} is not ported; "
-                    f"the port trains the sequential float32 update only")
+        """Raise where the JAX package refuses the config: fused_update with
+        a two-step scheme (carla_agent.py:191-193), an unknown optimizer
+        (utils/optimizers.py:84-85), repeat_action above 1 with the block
+        rollout (:413-414, the expert rollout takes precedence over both)."""
+        if self.fused_update and (self.two_step_update or self.two_step_split_adam):
+            raise ValueError("fused_update and two_step_update/_split_adam are mutually "
+                             "exclusive")
+        if self.optimizer.lower() not in OPTIMIZERS:
+            raise ValueError(f"Cannot find optimizer {self.optimizer}. Select one of "
+                             f"{sorted(OPTIMIZERS)}.")
+        if self.repeat_action > 1 and self.rollout_block and not self.expert_rollout:
+            raise ValueError("block rollout composes with repeat_action=1 only")
 
 
 class CARLAgent:
-    """Owns the network, the three Adam optimizers (policy, value,
-    dynamics), the schedules and the agent's generator (action samples and
-    minibatch permutations; the env's generator draws the resets)."""
+    """Owns the network, the three optimizers (policy, value, dynamics; with
+    two_step_split_adam the dynamics entry is a pair, one per phase), the
+    schedules and the agent's generator (action samples, minibatch
+    permutations and augmentation draws; the env's generator draws the
+    resets)."""
 
     def __init__(self, env: CARLAEnv, config: Optional[CARLAgentConfig] = None,
                  name: str = "carla", weights_dir: Optional[str] = None):
@@ -168,6 +207,7 @@ class CARLAgent:
             image_channels=env.config.image_shape[2],
             nav_dim=world_mod.nav_feature_dim(env.params),
             fused_units=cfg.fused_units,
+            compute_dtype=torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None,
         )
         # flax's initialisers from a CPU generator, so that one seed gives
         # the same network on every device
@@ -189,11 +229,13 @@ class CARLAgent:
         self.params = dict(policy=list(self.network.policy.parameters()),
                            value=list(self.network.value.parameters()),
                            dynamics=list(self.network.dynamics.parameters()))
+        make = lambda group, lr: get_optimizer_by_name(  # noqa: E731
+            cfg.optimizer, self.params[group], lr, flat=cfg.flat_optimizer)
+        dyn_lr = self.dynamics_lr()
         self.optimizers = dict(
-            policy=get_optimizer_by_name(cfg.optimizer, self.params["policy"], self.policy_lr()),
-            value=get_optimizer_by_name(cfg.optimizer, self.params["value"], self.value_lr()),
-            dynamics=get_optimizer_by_name(cfg.optimizer, self.params["dynamics"],
-                                           self.dynamics_lr()))
+            policy=make("policy", self.policy_lr()), value=make("value", self.value_lr()),
+            dynamics=((make("dynamics", dyn_lr), make("dynamics", dyn_lr))
+                      if cfg.two_step_split_adam else make("dynamics", dyn_lr)))
         self.update_step = 0
         # seconds of the last update's parts, each ended by a synchronise
         self.last_timings: Dict[str, float] = {}
@@ -205,9 +247,17 @@ class CARLAgent:
     def _policy_objective(self, pol: dict, batch: dict, hyper: dict):
         """PPO-clip + entropy + aux on the policy head's output `pol` (JAX
         carla_agent.py:283-330); the log-prob is of the STORED rollout
-        action (the reference's base objective, rl/agents/ppo.py:322-325)."""
+        action (the reference's base objective, rl/agents/ppo.py:322-325),
+        or with resample_actions of a fresh sample of the current policy
+        through which the gradient flows (JAX :290-296), drawn from the
+        agent's generator, or from the Gamma variates batch["gammas"] when
+        the batch holds them."""
         dist: Beta = pol["dist"]
-        log_prob = dist.log_prob(dist.clip(batch["obs"]["action"]))
+        if self.config.resample_actions:
+            sample = dist.rsample(self.generator, batch.get("gammas"))
+        else:
+            sample = batch["obs"]["action"]
+        log_prob = dist.log_prob(dist.clip(sample))
         entropy = torch.mean(dist.entropy())
         adv = batch["advantages"]
         log_ratio = log_prob - batch["log_prob"]
@@ -265,7 +315,7 @@ class CARLAgent:
                 env_states, cfg.rollout_steps)
         return rollout_mod.run_rollout(
             self.env, lambda net_in: net.predict(net_in, gen), env_states,
-            cfg.rollout_steps)
+            cfg.rollout_steps, repeat_action=cfg.repeat_action)
 
     def _expert_fn(self):
         """expert_fn(env_states) of the expert rollout: the expert's actions
@@ -360,23 +410,31 @@ class CARLAgent:
                          action=mb["action"])
         return mb
 
-    def _apply(self, group: str, grads, clip_norm: float) -> None:
-        """One Adam step of a parameter group on its per-tensor clipped
-        gradients, then polyak averaging with the pre-step values."""
+    def _apply(self, group: str, grads, clip_norm: float, opt=None) -> None:
+        """One optimizer step (the group's, or `opt`) of a parameter group
+        on its per-tensor clipped gradients, then polyak averaging with the
+        pre-step values."""
         params = self.params[group]
+        opt = opt or self.optimizers[group]
         old = ([p.detach().clone() for p in params]
                if self.config.polyak < 1.0 and group != "dynamics" else None)
         for p, g in zip(params, um.clip_gradients(grads, clip_norm)):
             p.grad = g
-        self.optimizers[group].step()
-        self.optimizers[group].zero_grad(set_to_none=True)
+        opt.step()
+        opt.zero_grad(set_to_none=True)
         if old is not None:
             # the reference averages both heads (rl/agents/ppo.py:264-275)
             um.polyak_average_(params, old, self.config.polyak)
 
-    def _grads(self, loss: torch.Tensor, groups):
+    def _dynamics_optimizers(self) -> tuple:
+        """(the policy phase's, the value phase's) backbone optimizer: one
+        optimizer twice, or the two of two_step_split_adam."""
+        opt = self.optimizers["dynamics"]
+        return opt if isinstance(opt, tuple) else (opt, opt)
+
+    def _grads(self, loss: torch.Tensor, groups, retain_graph: bool = False):
         params = [p for g in groups for p in self.params[g]]
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = torch.autograd.grad(loss, params, allow_unused=True, retain_graph=retain_graph)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         out, i = {}, 0
         for g in groups:
@@ -399,7 +457,8 @@ class CARLAgent:
         net.update_old_policy()
         self._apply("policy", grads["policy"], cfg.clip_norm[0])
         if cfg.update_dynamics:
-            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
+                        self._dynamics_optimizers()[0])
         aux["loss_total"] = total.detach()
         return aux
 
@@ -414,14 +473,65 @@ class CARLAgent:
         grads = self._grads(total, ("value", "dynamics"))
         self._apply("value", grads["value"], cfg.clip_norm[1])
         if cfg.update_dynamics:
-            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
+                        self._dynamics_optimizers()[1])
         # the JAX learner reports the phase's total as loss_value
         return dict(loss_value=total.detach())
 
-    def train_iteration(self, env_states: EnvState, hyper: dict):
-        """Rollout + targets + policy phase + value phase.  Returns
-        (env_states', metrics); self.last_timings holds the parts'
-        seconds."""
+    def _joint_forward(self, batch: dict, hyper: dict):
+        """One training-mode pass of the backbone on a minibatch, both heads
+        on its feature: (policy objective, value objective, the policy's
+        metrics).  The BatchNorms fold the batch statistics once."""
+        net = self.network
+        feat = net.dynamics_apply(batch["obs"], training=True)
+        p_total, aux = self._policy_objective(net.policy_apply(feat, training=True), batch,
+                                              hyper)
+        v_total, _ = self._value_objective(net.value_apply(feat, training=True), batch)
+        return p_total, v_total, aux
+
+    def fused_step(self, batch: dict, hyper: dict) -> dict:
+        """One fused_update step (JAX carla_agent.py:510-569): the gradients
+        of the summed objectives of one backbone pass, each group's clipped
+        once, one step of each; old_policy becomes the policy from before
+        the step.  Reports the value objective's total as loss_value."""
+        cfg = self.config
+        p_total, v_total, aux = self._joint_forward(batch, hyper)
+        grads = self._grads(p_total + v_total, ("policy", "value", "dynamics"))
+        self.network.update_old_policy()
+        self._apply("policy", grads["policy"], cfg.clip_norm[0])
+        self._apply("value", grads["value"], cfg.clip_norm[1])
+        if cfg.update_dynamics:
+            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+        aux.update(loss_value=v_total.detach(), loss_total=(p_total + v_total).detach())
+        return aux
+
+    def two_step(self, batch: dict, hyper: dict) -> dict:
+        """One two_step_update or two_step_split_adam step (JAX
+        carla_agent.py:601-682): one backbone pass, pulled back twice, so
+        both gradients are taken at the same parameters; four clipped
+        gradients; the heads one step each; the backbone two steps, the
+        policy objective's gradient first, through one optimizer or (split)
+        one per phase."""
+        cfg = self.config
+        p_total, v_total, aux = self._joint_forward(batch, hyper)
+        gp = self._grads(p_total, ("policy", "dynamics"), retain_graph=True)
+        gv = self._grads(v_total, ("value", "dynamics"))
+        self.network.update_old_policy()
+        self._apply("policy", gp["policy"], cfg.clip_norm[0])
+        self._apply("value", gv["value"], cfg.clip_norm[1])
+        if cfg.update_dynamics:
+            opt_p, opt_v = self._dynamics_optimizers()
+            self._apply("dynamics", gp["dynamics"], cfg.clip_norm[2], opt_p)
+            self._apply("dynamics", gv["dynamics"], cfg.clip_norm[2], opt_v)
+        aux.update(loss_value=v_total.detach(), loss_total=(p_total + v_total).detach())
+        return aux
+
+    def train_iteration(self, env_states: EnvState, hyper: dict, host: bool = True):
+        """Rollout + targets + the minibatch steps (the policy phase and the
+        value phase, or the fused or two-step scheme).  Returns
+        (env_states', metrics), the metrics as floats, or with host=False as
+        one tensor on the device and their names; self.last_timings holds
+        the parts' seconds."""
         cfg = self.config
         t0 = time.perf_counter()
         env_states, traj, final_obs = self._rollout(env_states)
@@ -433,20 +543,30 @@ class CARLAgent:
         self._sync()
         t2 = time.perf_counter()
 
-        perm = torch.randperm(n, generator=self.generator, device=self.env.device)
-        p_metrics = [self.policy_step(self.gather_batch(data, perm[m * cfg.batch_size:
-                                                                   (m + 1) * cfg.batch_size]), hyper)
-                     for _ in range(cfg.optimization_steps[0]) for m in range(n_mb)]
-        self._sync()
-        t3 = time.perf_counter()
-        perm = torch.randperm(n, generator=self.generator, device=self.env.device)
-        v_metrics = [self.value_step(self.gather_batch(data, perm[m * cfg.batch_size:
-                                                                  (m + 1) * cfg.batch_size]))
-                     for _ in range(cfg.optimization_steps[1]) for m in range(n_mb)]
-        self._sync()
-        t4 = time.perf_counter()
-        self.last_timings = dict(rollout=t1 - t0, targets=t2 - t1, policy=t3 - t2,
-                                 value=t4 - t3)
+        def minibatches(epochs):
+            perm = torch.randperm(n, generator=self.generator, device=self.env.device)
+            return (self.gather_batch(data, perm[m * cfg.batch_size:(m + 1) * cfg.batch_size])
+                    for _ in range(epochs) for m in range(n_mb))
+
+        if cfg.fused_update or cfg.two_step_update or cfg.two_step_split_adam:
+            # one permutation, optimization_steps[0] epochs over it (JAX
+            # :571-572, :684-685)
+            step = self.fused_step if cfg.fused_update else self.two_step
+            p_metrics = v_metrics = [step(b, hyper)
+                                     for b in minibatches(cfg.optimization_steps[0])]
+            self._sync()
+            self.last_timings = dict(rollout=t1 - t0, targets=t2 - t1,
+                                     update=time.perf_counter() - t2)
+        else:
+            p_metrics = [self.policy_step(b, hyper)
+                         for b in minibatches(cfg.optimization_steps[0])]
+            self._sync()
+            t3 = time.perf_counter()
+            v_metrics = [self.value_step(b) for b in minibatches(cfg.optimization_steps[1])]
+            self._sync()
+            t4 = time.perf_counter()
+            self.last_timings = dict(rollout=t1 - t0, targets=t2 - t1, policy=t3 - t2,
+                                     value=t4 - t3)
 
         st = data["stats"]
 
@@ -468,36 +588,55 @@ class CARLAgent:
             entropy=mean_of(p_metrics, "entropy"),
             ratio=mean_of(p_metrics, "ratio"),
             kl=mean_of(p_metrics, "kl"))
-        values = torch.stack(list(metrics.values())).tolist()
-        return env_states, dict(zip(metrics, values))
+        values = torch.stack(list(metrics.values()))
+        if not host:
+            return env_states, (list(metrics), values)
+        return env_states, dict(zip(metrics, values.tolist()))
 
     def learn(self, num_updates: int, env_states: Optional[EnvState] = None,
               callback=None):
         """Main training loop (reference rl/agents/ppo.py:464-568).  One
         update = rollout_steps x num_envs env steps and the PPO update.
-        Returns (env_states, list of metrics dicts)."""
+        Runs the updates in chunks of updates_per_dispatch and moves a
+        chunk's metrics to the host in one transfer after its last update
+        (JAX carla_agent.py:920-960); the history and the callback get one
+        entry per update with its own step, and its parts' seconds, timed
+        when it ran.  With seed_regularization the agent's generator is
+        re-seeded from the OS before each update (JAX :904-905).  Returns
+        (env_states, list of metrics dicts)."""
         full_float32()
+        cfg = self.config
         if env_states is None:
-            env_states, _ = self.env.reset_batch(self.config.num_envs)
+            env_states, _ = self.env.reset_batch(cfg.num_envs)
         history = []
-        for _ in range(num_updates):
-            # read this update's learning rates and scalars, THEN step the
-            # schedules (JAX carla_agent.py:898-912)
-            for group, param in (("policy", self.policy_lr), ("value", self.value_lr),
-                                 ("dynamics", self.dynamics_lr)):
-                set_learning_rate(self.optimizers[group], param())
-            hyper = dict(clip_ratio=float(self.clip_ratio()),
-                         entropy=float(self.entropy_strength()),
-                         adv_scale=float(self.adv_scale()))
-            self.update_step += 1
-            for p in (self.policy_lr, self.value_lr, self.dynamics_lr,
-                      self.clip_ratio, self.entropy_strength, self.adv_scale):
-                p.on_episode()
-            env_states, metrics = self.train_iteration(env_states, hyper)
-            metrics.update({f"seconds_{k}": v for k, v in self.last_timings.items()})
-            history.append(metrics)
-            if callback is not None:
-                callback(self.update_step, metrics)
+        chunk = max(1, int(cfg.updates_per_dispatch))
+        for first in range(0, num_updates, chunk):
+            pending = []
+            for _ in range(min(chunk, num_updates - first)):
+                # read this update's learning rates and scalars, THEN step the
+                # schedules (JAX carla_agent.py:898-912)
+                for group, param in (("policy", self.policy_lr), ("value", self.value_lr),
+                                     ("dynamics", self.dynamics_lr)):
+                    set_learning_rate(self.optimizers[group], param())
+                hyper = dict(clip_ratio=float(self.clip_ratio()),
+                             entropy=float(self.entropy_strength()),
+                             adv_scale=float(self.adv_scale()))
+                if cfg.seed_regularization:
+                    self.generator.manual_seed(secrets.randbits(63))
+                self.update_step += 1
+                for p in (self.policy_lr, self.value_lr, self.dynamics_lr,
+                          self.clip_ratio, self.entropy_strength, self.adv_scale):
+                    p.on_episode()
+                env_states, (names, values) = self.train_iteration(env_states, hyper,
+                                                                   host=False)
+                pending.append((self.update_step, names, values, dict(self.last_timings)))
+            rows = torch.stack([v for _, _, v, _ in pending]).tolist()
+            for (step, names, _, timings), row in zip(pending, rows):
+                metrics = dict(zip(names, row))
+                metrics.update({f"seconds_{k}": v for k, v in timings.items()})
+                history.append(metrics)
+                if callback is not None:
+                    callback(step, metrics)
         return env_states, history
 
     # ------------------------------------------------------------------
@@ -568,15 +707,14 @@ class CARLAgent:
         step on the sum of both objectives' gradients; old_policy becomes
         the policy from before the step; the batch statistics of the three
         parts are folded once.  Returns (policy loss, value loss)."""
-        cfg, net = self.config, self.network
-        feat = net.dynamics_apply(batch["obs"], training=True)
-        p_total, _ = self._policy_objective(net.policy_apply(feat, training=True), batch, hyper)
-        v_total, _ = self._value_objective(net.value_apply(feat, training=True), batch)
+        cfg = self.config
+        p_total, v_total, _ = self._joint_forward(batch, hyper)
         grads = self._grads(p_total + v_total, ("policy", "value", "dynamics"))
-        net.update_old_policy()
+        self.network.update_old_policy()
         self._apply("policy", grads["policy"], cfg.clip_norm[0])
         self._apply("value", grads["value"], cfg.clip_norm[1])
-        self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+        self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
+                    self._dynamics_optimizers()[0])
         return float(p_total.detach()), float(v_total.detach())
 
     def imitate(self, epochs: int = 1, batch_size: Optional[int] = None,
@@ -639,12 +777,12 @@ class CARLAgent:
     # checkpointing (reference core/networks.py:297-310, rl/agents/ppo.py:601-616)
     # ------------------------------------------------------------------
     def save(self, path: Optional[str] = None) -> None:
-        """network.pt (the state dict), optimizers.pt (the three Adam
-        states) and config.json (schedule steps, update step, network
-        spec) under `path` (default base_path)."""
+        """network.pt (the state dict), optimizers.pt (the three optimizer
+        states; with two_step_split_adam the dynamics entry is a list of
+        the two phases') and config.json (schedule steps, update step,
+        network spec) under `path` (default base_path)."""
         ckpt.save_agent(path or self.base_path, self.network.state_dict(),
-                        {g: o.state_dict() for g, o in self.optimizers.items()},
-                        self.serialize_config())
+                        ckpt.optimizer_states(self.optimizers), self.serialize_config())
 
     def load(self, path: Optional[str] = None, full: bool = True) -> None:
         """Restore a checkpoint of the port (network.pt) or of the JAX
@@ -658,8 +796,7 @@ class CARLAgent:
             ckpt.check_shapes(loaded["network"], self.network.state_dict(), path)
             self.network.load_state_dict(loaded["network"], strict=True)
             self.network.update_old_policy()
-            for g, state in (loaded.get("optimizers") or {}).items():
-                self.optimizers[g].load_state_dict(state)
+            ckpt.load_optimizer_states(self.optimizers, loaded.get("optimizers"))
         else:
             prefix = "dynamics."
             sd = {k[len(prefix):]: v for k, v in loaded["network"].items()

@@ -19,6 +19,7 @@ import torch
 
 from carla_driving_rl_agent_torch.envs.carla_env import (
     CARLAEnv, EnvState, convert_action, newest_frame, ordered_image_stack)
+from carla_driving_rl_agent_torch.envs.world import where_state
 
 
 class Trajectory(NamedTuple):
@@ -73,7 +74,8 @@ def _stack(records: List[Dict[str, torch.Tensor]]) -> Dict[str, torch.Tensor]:
 
 
 def run_rollout(env: CARLAEnv, predict_fn: Callable, env_states: EnvState,
-                num_steps: int, expert_fn: Optional[Callable] = None):
+                num_steps: int, expert_fn: Optional[Callable] = None,
+                repeat_action: int = 1):
     """`num_steps` lock-step transitions of all worlds, one network forward
     pass and one env step (one rendered frame) per step: the per-step path
     (JAX run_rollout, rollout.py:49).  predict_fn(net_in) returns a dict
@@ -84,6 +86,12 @@ def run_rollout(env: CARLAEnv, predict_fn: Callable, env_states: EnvState,
     gives (B, 2) env actions in [-1, 1], the recorded action is
     (action + 1) / 2, and predict_fn(net_in, action01) returns the old
     policy's log_prob of it and the value; nothing is sampled.
+
+    With `repeat_action` > 1 (JAX rollout.py:108-119) each action is
+    applied that many times: every repeat is one env.step of all worlds
+    (with its own reset and NPC draws), and a world whose episode ended in
+    an earlier repeat keeps that repeat's state, reward, flags and info;
+    the others add the repeat's reward and or its flags.
     Returns (env_states', Trajectory, final_obs)."""
     init_stack, states = _start(env, env_states)
     records, frames = [], []
@@ -95,8 +103,17 @@ def run_rollout(env: CARLAEnv, predict_fn: Callable, env_states: EnvState,
         else:
             action01 = (expert_fn(states) + 1.0) / 2.0
             pred = predict_fn(net_in, action01)
-        new_states, _, reward, term, trunc, info = env.step(
-            states, convert_action(action01), frame_id=step)
+        action_env = convert_action(action01)
+        new_states, _, reward, term, trunc, info = env.step(states, action_env, frame_id=step)
+        for _ in range(repeat_action - 1):
+            # further repeats are skipped for the worlds already done
+            ns2, _, r2, t2, tr2, info2 = env.step(new_states, action_env, frame_id=step)
+            done = term | trunc
+            new_states = where_state(done, new_states, ns2)
+            reward = torch.where(done, reward, reward + r2)
+            term, trunc = term | t2, trunc | tr2
+            info = {k: torch.where(done.reshape(done.shape + (1,) * (v.dim() - 1)), v, info2[k])
+                    for k, v in info.items()}
         new_states = new_states._replace(last_action=action01)
         frames.append(newest_frame(new_states.image_stack, new_states.stack_slot))
         records.append(dict(

@@ -45,6 +45,13 @@
 // together.  No float atomics and a fixed split (shuffle_unit.cuh `make_plan`):
 // two runs give the same bits.  Everything is in true float32
 // (or float64), as the plain version computes on the card with TF32 off.
+// In bfloat16 (storage type S = bf16, compute type T = float; see
+// shuffle_unit.cuh) x, out, the output gradient and gx are stored in bf16
+// and converted on load, W1 and W3 rounded to bf16 as the weight panel is
+// loaded (no conversion launch); everything in shared memory and every other
+// array stays float32, so the plan and the shared-memory sizes are the
+// float32 ones.  The products keep float32 CUDA-core FMAs: their bf16
+// operands are exact in float32.
 //
 // What bounds it on the H100: the function moves ~0.1 GB and does ~1-4
 // GFLOP per call at N = 256, 0.03-0.06 ms at the card's peaks (operations
@@ -233,13 +240,13 @@ enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK, PW3_INFER };
 // operand and step); the loader holds channels lr, lr + 16 of a chunk at
 // pixels lc + 16 j; in the epilogue warp w owns rows w + 8 i, lane l
 // pixels l and l + 32.
-template <class T, int kMode>
+template <class T, class S, int kMode>
 __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   constexpr bool kW1 = kMode == PW1_INFER || kMode == PW1_TRAIN || kMode == PW1_BACK;
   constexpr bool kBack = kMode == PW3_BACK || kMode == PW1_BACK;
   constexpr bool kStats = kMode == PW1_TRAIN || kMode == PW3_TRAIN;
   constexpr bool kInfer = kMode == PW1_INFER || kMode == PW3_INFER;
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int tx = (warp & 1) * 8 + (lane & 7), ty = (warp >> 1) * 4 + (lane >> 3);
@@ -266,7 +273,8 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   // backward), W's are its columns
   for (int e = tid; e < kpad * PM; e += kThreads) {
     const int k = kBack ? e / PM : e % kpad, m = kBack ? e % PM : e / kpad, mm = m0 + m;
-    panel[k * PMP + m] = k < hc && mm < hc ? (kBack ? wm[k * hc + mm] : wm[mm * hc + k]) : T(0);
+    panel[k * PMP + m] =
+        k < hc && mm < hc ? round_to<S>(kBack ? wm[k * hc + mm] : wm[mm * hc + k]) : T(0);
   }
   for (int k = tid; k < hc; k += kThreads) {
     bsum[k] = T(0);
@@ -348,14 +356,14 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
         r0[h][j] = r1[h][j] = T(0);
         if (k < hc && cl.h[j] >= 0) {
           if (kW1 && !kBack) {
-            r0[h][j] = o.x[cl.c[j] + (hc + k) * hw];
+            r0[h][j] = wide(o.x[cl.c[j] + (hc + k) * hw]);
           } else if (kMode == PW3_INFER) {
             r0[h][j] = o.b2n[cl.h[j] + k * hw];
           } else if (kMode == PW3_TRAIN) {
             r0[h][j] = o.z2[cl.h[j] + k * hw];
           } else if (kMode == PW3_BACK) {
             r0[h][j] = o.u[cl.h[j] + k * hw];
-            r1[h][j] = o.gout[cl.c[j] + shuffle_dest(g.c, hc + k) * hw];
+            r1[h][j] = wide(o.gout[cl.c[j] + shuffle_dest(g.c, hc + k) * hw]);
           } else {
             r0[h][j] = o.gpre1[cl.h[j] + k * hw];
             r1[h][j] = o.z1[cl.h[j] + k * hw];
@@ -376,7 +384,8 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
           if ((kW1 && !kBack) || kMode == PW3_INFER) {
             v[j] = r0[h][j];
           } else if (kMode == PW3_TRAIN) {
-            v[j] = bn(r0[h][j], prm[k], prm[hc + k], prm[2 * hc + k], prm[3 * hc + k]);
+            // b2n, rounded to S before the W3 product
+            v[j] = round_to<S>(bn(r0[h][j], prm[k], prm[hc + k], prm[2 * hc + k], prm[3 * hc + k]));
           } else if (kMode == PW3_BACK) {
             v[j] = gu_v(r0[h][j], r1[h][j], prm[k], prm[hc + k], prm[2 * hc + k],
                         prm[3 * hc + k], prm[4 * hc + k], prm[5 * hc + k], inv_m, o.leak);
@@ -395,8 +404,11 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
         for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off, 16);
         if (lc == 0 && k < hc) bsum[k] += s;
       }
+      // g_z1 enters the gx product rounded to S; its saved copy and its sum
+      // (dW1, db1) are not
 #pragma unroll
-      for (int j = 0; j < 4; ++j) dst[(lr + 16 * h) * PTILE + lc + 16 * j] = v[j];
+      for (int j = 0; j < 4; ++j)
+        dst[(lr + 16 * h) * PTILE + lc + 16 * j] = kMode == PW1_BACK ? round_to<S>(v[j]) : v[j];
     }
   };
 
@@ -459,7 +471,7 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
           const T y = bn_act(v[h] + epi[r], epi[PM + r], epi[2 * PM + r], epi[3 * PM + r],
                              epi[4 * PM + r], o.leak);
           if (kMode == PW1_INFER) o.z1[ih] = y;
-          else o.out[cbh[PTILE + col] + shuffle_dest(g.c, hc + oo) * hw] = y;
+          else o.out[cbh[PTILE + col] + shuffle_dest(g.c, hc + oo) * hw] = narrow<S>(y);
         } else if (kMode == PW1_TRAIN) {
           v[h] += epi[r];
           o.z1[ih] = v[h];
@@ -473,7 +485,7 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
           s1[i] += v[h];
           s2[i] += v[h] * xh2;
         } else {
-          o.out[cbh[PTILE + col] + (hc + oo) * hw] = v[h];
+          o.out[cbh[PTILE + col] + (hc + oo) * hw] = narrow<S>(v[h]);
         }
       }
       if (kStats && ok[0]) {
@@ -605,9 +617,9 @@ __device__ __forceinline__ ChannelBlock channel_block(const Call& a, const Geo& 
 
 // Training: z2 = depthwise(act(BN1(z1))) + dwb on BN1's batch statistics,
 // saved, and BN2's statistics.
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_dw_train(Call a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   T* pad = smem<T>();
   const int planes = planes_per_pass(g.h, g.w, a.ipb) * (g.h + 2) * (g.w + 2);
@@ -658,9 +670,9 @@ __global__ void __launch_bounds__(kThreads) k_dw_train(Call a) {
 // written over a1 (each plane of a1 is read only by its own block, into
 // shared memory, before that block writes it), and the shortcut's channel
 // k copied to its shuffled channel.
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_dw_infer(Call a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   T* pad = smem<T>();
   const int planes = planes_per_pass(g.h, g.w, a.ipb) * (g.h + 2) * (g.w + 2);
@@ -682,8 +694,8 @@ __global__ void __launch_bounds__(kThreads) k_dw_infer(Call a) {
       pad[e] = f >= 0 ? o.z1[base + f] : T(0);
     }
     // the pass's shortcut planes, their loads in flight with the fill's
-    const T* src = o.x + n * img + static_cast<int64_t>(k) * hw;
-    T* dst = o.out + n * img + static_cast<int64_t>(shuffle_dest(g.c, k)) * hw;
+    const S* src = o.x + n * img + static_cast<int64_t>(k) * hw;
+    S* dst = o.out + n * img + static_cast<int64_t>(shuffle_dest(g.c, k)) * hw;
 #pragma unroll 4
     for (int e = tid; e < np * hw; e += kThreads) {
       const int i = e / hw, r = e - i * hw;
@@ -692,14 +704,15 @@ __global__ void __launch_bounds__(kThreads) k_dw_infer(Call a) {
     __syncthreads();
 #pragma unroll 4
     for (int e = tid; e < np * hw; e += kThreads)
-      o.b2n[base + b.og[e]] = dw_bn(wt, bias, pad + b.oc[e], b.pitch, m2, r2, g2, be2);
+      o.b2n[base + b.og[e]] =
+          round_to<S>(dw_bn(wt, bias, pad + b.oc[e], b.pitch, m2, r2, g2, be2));
   }
 }
 
 // Training: out = shuffle(concat(shortcut, act(BN3(u)))).
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_out_train(Call a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw;
   T* cm = smem<T>();     // [4][hc]: m3, rstd3, g3, be3
@@ -718,16 +731,16 @@ __global__ void __launch_bounds__(kThreads) k_out_train(Call a) {
     const int nn = static_cast<int>(plane / hc), k = static_cast<int>(plane - int64_t(nn) * hc);
     const int64_t base = static_cast<int64_t>(nn) * g.c * hw + r;
     o.out[base + shuffle_dest(g.c, hc + k) * hw] =
-        act(bn(o.u[e], cm[k], cm[hc + k], cm[2 * hc + k], cm[3 * hc + k]), o.leak);
+        narrow<S>(act(bn(o.u[e], cm[k], cm[hc + k], cm[2 * hc + k], cm[3 * hc + k]), o.leak));
     o.out[base + shuffle_dest(g.c, k) * hw] = o.x[base + k * hw];
   }
 }
 
 // Backward 1: BN3's sums (sum g_a3 xh3, sum g_a3), and the shortcut half of
 // gx, the unshuffled output gradient.
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_bn3_back(Call a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw, k = blockIdx.y;
   const int n0 = blockIdx.x * a.ipb, n1 = min(g.n, n0 + a.ipb);
@@ -739,8 +752,8 @@ __global__ void __launch_bounds__(kThreads) k_bn3_back(Call a) {
   while (nn < n1) {
     const int64_t base = static_cast<int64_t>(nn) * g.c * hw + r;
     T xh;
-    const T ga = ga3_v(o.u[(static_cast<int64_t>(nn) * hc + k) * hw + r], o.gout[base + dk * hw],
-                       m3, r3, g3, be3, o.leak, &xh);
+    const T ga = ga3_v(o.u[(static_cast<int64_t>(nn) * hc + k) * hw + r],
+                       T(wide(o.gout[base + dk * hw])), m3, r3, g3, be3, o.leak, &xh);
     s[0] += ga * xh;
     s[1] += ga;
     o.out[base + k * hw] = o.gout[base + ds * hw];
@@ -759,9 +772,9 @@ __global__ void __launch_bounds__(kThreads) k_bn3_back(Call a) {
 // Backward 3: g_z2 through BN2, the depthwise transpose, the activation's
 // gradient: g_pre1 saved; the sums of g_pre1 xh1, g_pre1, g_z2 and
 // g_z2 a1(tap t) for the 9 taps.
-template <class T>
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_dw_back(Call a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int planes = planes_per_pass(g.h, g.w, a.ipb) * (g.h + 2) * (g.w + 2);
   T* gz = smem<T>();                  // padded planes of g_z2
@@ -835,11 +848,14 @@ __global__ void __launch_bounds__(kThreads) k_dw_back(Call a) {
 // fastest so that the blocks of one pixel segment run together.  Partials
 // part[((w * tiles + tile) * nseg + seg) * 4096 + e]; the last block of each
 // group of gsz segments adds its group's in order, and the last group of a
-// tile adds the groups' in order into dW.
-template <class T>
+// tile adds the groups' in order into dW, rounded to S.  With S = bf16 the
+// branch input of dW1 is loaded and converted by the threads (cp.async
+// copies 4 bytes or more); every other operand goes by cp.async.
+template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
+  constexpr bool kConvert = sizeof(S) != sizeof(T);
   constexpr int TT = WTILE * WTILE;
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw, tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int nt = (hc + WTILE - 1) / WTILE, tiles = nt * nt;
@@ -847,7 +863,7 @@ __global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
   const int seg = rest % a.nseg, which = rest / a.nseg;
   const int o0 = (tile / nt) * WTILE, k0 = (tile % nt) * WTILE;
   const T* A = which == 0 ? o.gu : o.gz1;
-  const T* B = which == 0 ? o.b2n : o.x;
+  const T* B = which == 0 ? o.b2n : reinterpret_cast<const T*>(o.x);   // S = T for o.x
   const int bch = which == 0 ? hc : g.c, boff = which == 0 ? 0 : hc;
   const int64_t n_chunks = (g.p + WCHUNK - 1) / WCHUNK;
   const int64_t c0 = static_cast<int64_t>(seg) * a.cps;
@@ -862,13 +878,17 @@ __global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
     const int nn = v ? static_cast<int>(q / hw) : 0;
     const int r = v ? static_cast<int>(q - int64_t(nn) * hw) : 0;
     const T* pa = A + static_cast<int64_t>(nn) * hc * hw + r;
-    const T* pb = B + (static_cast<int64_t>(nn) * bch + boff) * hw + r;
+    const int64_t ob = (static_cast<int64_t>(nn) * bch + boff) * hw + r;
+    const T* pb = B + ob;
 #pragma unroll
     for (int i = 0; i < WTILE / kWarps; ++i) {
       const int row = lr + kWarps * i;
       const bool va = v && o0 + row < hc, vb = v && k0 + row < hc;
       cp_async(as + (st * WTILE + row) * WL + lp, va ? pa + (o0 + row) * hw : A, va);
-      cp_async(bs + (st * WTILE + row) * WL + lp, vb ? pb + (k0 + row) * hw : B, vb);
+      if (kConvert && which == 1)
+        bs[(st * WTILE + row) * WL + lp] = vb ? T(wide(o.x[ob + (k0 + row) * hw])) : T(0);
+      else
+        cp_async(bs + (st * WTILE + row) * WL + lp, vb ? pb + (k0 + row) * hw : B, vb);
     }
   };
 
@@ -960,7 +980,7 @@ __global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
 #pragma unroll
   for (int i = 0; i < E; ++i) {
     const int e = tid + i * kThreads, oo = o0 + e / WTILE, kk = k0 + e % WTILE;
-    if (oo < hc && kk < hc) dst[oo * hc + kk] = s[i];
+    if (oo < hc && kk < hc) dst[oo * hc + kk] = round_to<S>(s[i]);
   }
 }
 
@@ -992,46 +1012,46 @@ void launch(Errors& err, void (*kernel)(P...), dim3 grid, size_t smem, cudaStrea
 
 int pw_grid(const Call& a) { return (a.c / 2 + PM - 1) / PM * a.n_pb; }
 
-template <class T>
+template <class T, class S>
 int infer(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
   Errors err;
-  launch(err, k_pw<T, PW1_INFER>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_pw<T, S, PW1_INFER>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
   Call d = a;   // the depthwise stage's own split of the images
   d.ipb = a.ipi;
   d.n_s = a.n_si;
-  launch(err, k_dw_infer<T>, dim3(d.n_s, g.hc), channel_smem_bytes(g.h, g.w, d.ipb, 1, sizeof(T)),
-         s, d);
-  launch(err, k_pw<T, PW3_INFER>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_dw_infer<T, S>, dim3(d.n_s, g.hc),
+         channel_smem_bytes(g.h, g.w, d.ipb, 1, sizeof(T)), s, d);
+  launch(err, k_pw<T, S, PW3_INFER>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
   return static_cast<int>(err.first);
 }
 
-template <class T>
+template <class T, class S>
 int train_fwd(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
   const dim3 cgrid(a.n_s, g.hc);
   const int64_t total = static_cast<int64_t>(g.n) * g.hc * g.hw;
   const int64_t ogrid = (total + kThreads - 1) / kThreads;
   Errors err;
-  launch(err, k_pw<T, PW1_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
-  launch(err, k_dw_train<T>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 1, sizeof(T)), s, a);
-  launch(err, k_pw<T, PW3_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
-  launch(err, k_out_train<T>, static_cast<int>(ogrid < 2048 ? ogrid : 2048),
+  launch(err, k_pw<T, S, PW1_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_dw_train<T, S>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 1, sizeof(T)), s, a);
+  launch(err, k_pw<T, S, PW3_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_out_train<T, S>, static_cast<int>(ogrid < 2048 ? ogrid : 2048),
          4 * g.hc * sizeof(T), s, a);
   return static_cast<int>(err.first);
 }
 
-template <class T>
+template <class T, class S>
 int train_bwd(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
   const dim3 cgrid(a.n_s, g.hc);
   const int nt = (g.hc + WTILE - 1) / WTILE;
   Errors err;
-  launch(err, k_bn3_back<T>, cgrid, 0, s, a);
-  launch(err, k_pw<T, PW3_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
-  launch(err, k_dw_back<T>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 3, sizeof(T)), s, a);
-  launch(err, k_pw<T, PW1_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
-  launch(err, k_wgrad<T>, 2 * nt * nt * a.nseg, sizeof(T) * 2 * WS * WTILE * WL, s, a);
+  launch(err, k_bn3_back<T, S>, cgrid, 0, s, a);
+  launch(err, k_pw<T, S, PW3_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_dw_back<T, S>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 3, sizeof(T)), s, a);
+  launch(err, k_pw<T, S, PW1_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_wgrad<T, S>, 2 * nt * nt * a.nseg, sizeof(T) * 2 * WS * WTILE * WL, s, a);
   return static_cast<int>(err.first);
 }
 
@@ -1069,20 +1089,27 @@ extern "C" int cdrl_unit_plan(int device, int n, int c, int h, int w, Plan* out)
 }
 
 // Entry points: `args` is read on the host and passed to the kernels by
-// value; dtype 0 is float32, 1 float64.  Each zeroes the call's ticket
-// counters and returns the first CUDA error of its launches (0 on success),
-// or a negative PlanError for a shape the kernels do not take.
+// value; dtype 0 is float32, 1 float64, 2 bfloat16 storage with float32
+// compute.  Each zeroes the call's ticket counters and returns the first
+// CUDA error of its launches (0 on success), or a negative PlanError for a
+// shape the kernels do not take.
 extern "C" int cdrl_unit_infer(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? run(infer<float>, args, s) : run(infer<double>, args, s);
+  return dtype == 0   ? run(infer<float, float>, args, s)
+         : dtype == 1 ? run(infer<double, double>, args, s)
+                      : run(infer<float, bf16>, args, s);
 }
 
 extern "C" int cdrl_unit_train_fwd(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? run(train_fwd<float>, args, s) : run(train_fwd<double>, args, s);
+  return dtype == 0   ? run(train_fwd<float, float>, args, s)
+         : dtype == 1 ? run(train_fwd<double, double>, args, s)
+                      : run(train_fwd<float, bf16>, args, s);
 }
 
 extern "C" int cdrl_unit_train_bwd(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? run(train_bwd<float>, args, s) : run(train_bwd<double>, args, s);
+  return dtype == 0   ? run(train_bwd<float, float>, args, s)
+         : dtype == 1 ? run(train_bwd<double, double>, args, s)
+                      : run(train_bwd<float, bf16>, args, s);
 }

@@ -23,12 +23,25 @@
 // combined with Chan et al.'s formula).  `merge` combines the blocks'
 // moments in block order, which keeps the variance free of the cancellation
 // of E[z^2] - m^2 and gives the same bits on every run.
+//
+// Storage and compute types.  The kernels are templated on the compute
+// type T (float or double) and the storage type S of x, out, the output
+// gradient and gx: S = T, or S = bf16 with T = float (the JAX kernels with
+// cd = bfloat16 and f32 MXU passes).  In bf16 everything else stays
+// float32: the parameters, the BN statistics, the saved z1, z2 and u, the
+// scratch, the vector gradients and every product's accumulation.  Rounded
+// to bf16, at the JAX kernels' points (ops/shuffle_unit_pallas.py): W1 and
+// W3 as the products load them (JAX's operands are their bf16 copies), BN2's
+// output b2n before the W3 product, the output, the gradient of z1 before
+// the gx product, gx, and dW1 and dW3.
 #pragma once
 
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 
 #ifdef __CUDACC__
+#include <cuda_bf16.h>
 #define CDRL_HD __host__ __device__ __forceinline__
 #else
 #define CDRL_HD inline
@@ -36,6 +49,69 @@
 
 namespace cdrl {
 namespace unit {
+
+// bfloat16 storage: the card's type under nvcc, its bits under g++; the
+// conversions round to nearest even, as __float2bfloat16_rn does.
+#ifdef __CUDACC__
+using bf16 = __nv_bfloat16;
+#else
+struct bf16 {
+  uint16_t bits;
+};
+#endif
+
+CDRL_HD float bf16_bits_to_float(uint16_t b) {
+  const uint32_t u = uint32_t(b) << 16;
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+CDRL_HD uint16_t float_to_bf16_bits(float f) {
+  uint32_t u;
+  memcpy(&u, &f, 4);
+  if ((u & 0x7fffffffu) > 0x7f800000u) return uint16_t((u >> 16) | 0x40u);   // NaN stays NaN
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return uint16_t(u >> 16);
+}
+
+CDRL_HD float wide(float v) { return v; }
+CDRL_HD double wide(double v) { return v; }
+CDRL_HD float wide(bf16 v) {
+#ifdef __CUDA_ARCH__
+  return __bfloat162float(v);
+#else
+  uint16_t b;
+  memcpy(&b, &v, 2);
+  return bf16_bits_to_float(b);
+#endif
+}
+
+// A compute-type value stored as S (a no-op for S = T).
+template <class S, class T>
+struct Narrow {
+  CDRL_HD static S of(T v) { return v; }
+};
+template <>
+struct Narrow<bf16, float> {
+  CDRL_HD static bf16 of(float v) {
+#ifdef __CUDA_ARCH__
+    return __float2bfloat16_rn(v);
+#else
+    const uint16_t b = float_to_bf16_bits(v);
+    bf16 r;
+    memcpy(&r, &b, 2);
+    return r;
+#endif
+  }
+};
+
+template <class S, class T>
+CDRL_HD S narrow(T v) { return Narrow<S, T>::of(v); }
+
+// v rounded to S and back: a rounding point of the bf16 unit, exact for S = T
+template <class S, class T>
+CDRL_HD T round_to(T v) { return wide(narrow<S>(v)); }
 
 constexpr int PTILE = 64;  // pixels per tile of the 1x1 products
 constexpr int PM = 64;     // output channels per block of the 1x1 products
@@ -420,23 +496,26 @@ inline int64_t channel_smem_bytes(int h, int w, int ipb, int arrays, int64_t tsi
   return tsize * arrays * pl * plane + int64_t(sizeof(int)) * pl * (plane + 2 * h * w);
 }
 
-// The typed view of UnitArgs.
-template <class T>
+// The typed view of UnitArgs: x, the output gradient and out (or gx) in
+// the storage type S, everything else in the compute type T.
+template <class T, class S = T>
 struct Ops {
-  const T *x, *w1, *b1, *g1, *be1, *dw, *dwb, *g2, *be2, *w3, *b3, *g3, *be3;
-  const T *m1, *v1, *m2, *v2, *m3, *v3, *gout;
-  T *out, *stats, *z1, *z2, *u, *gb2n, *gpre1, *gu, *b2n, *gz1, *dw1, *ddw, *dw3, *dvec,
-      *partial;
+  const S *x, *gout;
+  const T *w1, *w3, *b1, *g1, *be1, *dw, *dwb, *g2, *be2, *b3, *g3, *be3;
+  const T *m1, *v1, *m2, *v2, *m3, *v3;
+  S* out;
+  T *stats, *z1, *z2, *u, *gb2n, *gpre1, *gu, *b2n, *gz1, *dw1, *ddw, *dw3, *dvec, *partial;
   int* counters;
   T eps, leak;
 
   CDRL_HD explicit Ops(const UnitArgs& a)
-      : x((const T*)a.x), w1((const T*)a.w1), b1((const T*)a.b1), g1((const T*)a.g1),
+      : x((const S*)a.x), gout((const S*)a.gout), w1((const T*)a.w1), w3((const T*)a.w3),
+        b1((const T*)a.b1), g1((const T*)a.g1),
         be1((const T*)a.be1), dw((const T*)a.dw), dwb((const T*)a.dwb),
-        g2((const T*)a.g2), be2((const T*)a.be2), w3((const T*)a.w3), b3((const T*)a.b3),
+        g2((const T*)a.g2), be2((const T*)a.be2), b3((const T*)a.b3),
         g3((const T*)a.g3), be3((const T*)a.be3), m1((const T*)a.m1), v1((const T*)a.v1),
         m2((const T*)a.m2), v2((const T*)a.v2), m3((const T*)a.m3), v3((const T*)a.v3),
-        gout((const T*)a.gout), out((T*)a.out), stats((T*)a.stats), z1((T*)a.z1),
+        out((S*)a.out), stats((T*)a.stats), z1((T*)a.z1),
         z2((T*)a.z2), u((T*)a.u), gb2n((T*)a.gb2n), gpre1((T*)a.gpre1), gu((T*)a.gu),
         b2n((T*)a.b2n), gz1((T*)a.gz1), dw1((T*)a.dw1), ddw((T*)a.ddw), dw3((T*)a.dw3),
         dvec((T*)a.dvec), partial((T*)a.partial), counters((int*)a.counters),
@@ -444,8 +523,8 @@ struct Ops {
 };
 
 // a1 = act(BN1(z1)) at channel k of pixel q, from the saved z1
-template <class T>
-CDRL_HD T a1_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r) {
+template <class T, class S>
+CDRL_HD T a1_at(const Ops<T, S>& o, const Geo& g, int64_t q, int k, T m, T r) {
   return act(bn(o.z1[at(g, q, k, g.hc)], m, r, o.g1[k], o.be1[k]), o.leak);
 }
 
@@ -454,8 +533,8 @@ CDRL_HD T a1_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r) {
 #ifdef __CUDACC__
 #pragma nv_exec_check_disable
 #endif
-template <class T, class A1>
-CDRL_HD T depthwise(const Ops<T>& o, const Geo& g, int64_t q, int k, A1 a1) {
+template <class T, class S, class A1>
+CDRL_HD T depthwise(const Ops<T, S>& o, const Geo& g, int64_t q, int k, A1 a1) {
   T z = o.dwb[k];
   for (int t = 0; t < 9; ++t) {
     int64_t nb;
@@ -466,8 +545,8 @@ CDRL_HD T depthwise(const Ops<T>& o, const Geo& g, int64_t q, int k, A1 a1) {
 
 // Gradient of BN2's input z2 at channel k of pixel q (backward), from the
 // gradient of b2n and the BN2 sums t1 = sum g_b2n, t2 = sum g_b2n xh2.
-template <class T>
-CDRL_HD T gz2_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T t1, T t2,
+template <class T, class S>
+CDRL_HD T gz2_at(const Ops<T, S>& o, const Geo& g, int64_t q, int k, T m, T r, T t1, T t2,
                  T inv_m) {
   const int64_t i = at(g, q, k, g.hc);
   return gin_v(o.gb2n[i], o.z2[i], m, r, o.g2[k], t1, t2, inv_m);
@@ -475,34 +554,34 @@ CDRL_HD T gz2_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T t1
 
 // Gradient of act(BN3(u)) at branch channel k of pixel q, before BN3's
 // backward: the shuffled gradient times the activation's gradient.
-template <class T>
-CDRL_HD T ga3_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T* xh) {
-  return ga3_v(o.u[at(g, q, k, g.hc)], o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)], m,
-               r, o.g3[k], o.be3[k], o.leak, xh);
+template <class T, class S>
+CDRL_HD T ga3_at(const Ops<T, S>& o, const Geo& g, int64_t q, int k, T m, T r, T* xh) {
+  const T go = wide(o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)]);
+  return ga3_v(o.u[at(g, q, k, g.hc)], go, m, r, o.g3[k], o.be3[k], o.leak, xh);
 }
 
 // Gradient of u (BN3's input) at channel k of pixel q, from the BN3 sums
 // s1 = sum g_a3, s2 = sum g_a3 xh3.
-template <class T>
-CDRL_HD T gu_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T s1, T s2,
+template <class T, class S>
+CDRL_HD T gu_at(const Ops<T, S>& o, const Geo& g, int64_t q, int k, T m, T r, T s1, T s2,
                 T inv_m) {
-  return gu_v(o.u[at(g, q, k, g.hc)], o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)], m,
-              r, o.g3[k], o.be3[k], s1, s2, inv_m, o.leak);
+  const T go = wide(o.gout[at(g, q, shuffle_dest(g.c, g.hc + k), g.c)]);
+  return gu_v(o.u[at(g, q, k, g.hc)], go, m, r, o.g3[k], o.be3[k], s1, s2, inv_m, o.leak);
 }
 
 // Gradient of z1 (BN1's input) at channel k of pixel q, from the saved
 // gradient of BN1's output and the BN1 sums u1 = sum g_pre1, u2 = sum
 // g_pre1 xh1.
-template <class T>
-CDRL_HD T gz1_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r, T u1, T u2,
+template <class T, class S>
+CDRL_HD T gz1_at(const Ops<T, S>& o, const Geo& g, int64_t q, int k, T m, T r, T u1, T u2,
                  T inv_m) {
   const int64_t i = at(g, q, k, g.hc);
   return gin_v(o.gpre1[i], o.z1[i], m, r, o.g1[k], u1, u2, inv_m);
 }
 
 // b2n = BN2(z2) at channel k of pixel q, from the saved z2
-template <class T>
-CDRL_HD T b2n_at(const Ops<T>& o, const Geo& g, int64_t q, int k, T m, T r) {
+template <class T, class S>
+CDRL_HD T b2n_at(const Ops<T, S>& o, const Geo& g, int64_t q, int k, T m, T r) {
   return bn(o.z2[at(g, q, k, g.hc)], m, r, o.g2[k], o.be2[k]);
 }
 

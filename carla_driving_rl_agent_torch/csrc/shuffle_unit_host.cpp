@@ -5,7 +5,9 @@
 // shuffle_unit.cu: the per-pixel functions, the blocks' moments of the
 // batch statistics and their block-order merge, the BatchNorm backward sums
 // and the weight-gradient definitions are the kernels'; only the order of
-// the parallel sums differs (sequential here).
+// the parallel sums differs (sequential here).  Also the bfloat16 unit
+// (dtype 2): bf16 storage and float32 compute, rounded at the kernels'
+// points (shuffle_unit.cuh).
 
 #include <vector>
 
@@ -39,33 +41,33 @@ void channel_stats(const Geo& g, const T* t, int k, T* mean, T* var) {
   block_stats(g.p, g.hw, [&](int64_t q) { return t[at(g, q, k, g.hc)]; }, mean, var);
 }
 
-// u[o] = b[o] + sum_k w[o][k] v[k] over a pixel's channel vector v
-template <class T>
+// u[o] = sum_k w[o][k] v[k] with w rounded to the storage type S
+template <class S, class T>
 T dot_row(const T* w, const T* v, int hc, int o) {
   T s = T(0);
-  for (int k = 0; k < hc; ++k) s += w[o * hc + k] * v[k];
+  for (int k = 0; k < hc; ++k) s += round_to<S>(w[o * hc + k]) * v[k];
   return s;
 }
 
-template <class T>
-void branch_of(const Ops<T>& o, const Geo& g, int64_t q, std::vector<T>* v) {
-  for (int k = 0; k < g.hc; ++k) (*v)[k] = o.x[at(g, q, g.hc + k, g.c)];
+template <class T, class S>
+void branch_of(const Ops<T, S>& o, const Geo& g, int64_t q, std::vector<T>* v) {
+  for (int k = 0; k < g.hc; ++k) (*v)[k] = wide(o.x[at(g, q, g.hc + k, g.c)]);
 }
 
 // Inference in the card's three stages: a1 = act(BN1(W1 . branch + b1));
 // per channel and image, b2n = BN2(depthwise(a1) + dwb) from a zero-padded
 // plane of a1, written over it, and the shortcut's copy; then
 // act(BN3(W3 . b2n + b3)) to the branch's shuffled channels.
-template <class T>
+template <class T, class S>
 void infer(const UnitArgs& a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, pitch = g.w + 2;
   std::vector<T> v(hc), plane((g.h + 2) * pitch);
   for (int64_t q = 0; q < g.p; ++q) {
     branch_of(o, g, q, &v);
     for (int k = 0; k < hc; ++k)
-      o.z1[at(g, q, k, hc)] = bn_act(dot_row(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
+      o.z1[at(g, q, k, hc)] = bn_act(dot_row<S>(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
                                      rstd(o.v1[k], o.eps), o.g1[k], o.be1[k], o.leak);
   }
   for (int n = 0; n < g.n; ++n)
@@ -78,8 +80,9 @@ void infer(const UnitArgs& a) {
         }
       const T r2 = rstd(o.v2[k], o.eps);
       for (int r = 0; r < g.hw; ++r)
-        o.b2n[base + r] = dw_bn(o.dw + k * 9, o.dwb[k], plane.data() + (r / g.w + 1) * pitch +
-                                r % g.w + 1, pitch, o.m2[k], r2, o.g2[k], o.be2[k]);
+        o.b2n[base + r] = round_to<S>(dw_bn(o.dw + k * 9, o.dwb[k], plane.data() +
+                                            (r / g.w + 1) * pitch + r % g.w + 1, pitch,
+                                            o.m2[k], r2, o.g2[k], o.be2[k]));
       const int64_t img = static_cast<int64_t>(n) * g.c * g.hw;
       for (int r = 0; r < g.hw; ++r)
         o.out[img + shuffle_dest(g.c, k) * g.hw + r] = o.x[img + k * g.hw + r];
@@ -88,21 +91,22 @@ void infer(const UnitArgs& a) {
     for (int k = 0; k < hc; ++k) v[k] = o.b2n[at(g, q, k, hc)];
     for (int k = 0; k < hc; ++k)
       o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
-          bn_act(dot_row(o.w3, v.data(), hc, k) + o.b3[k], o.m3[k], rstd(o.v3[k], o.eps),
-                 o.g3[k], o.be3[k], o.leak);
+          narrow<S>(bn_act(dot_row<S>(o.w3, v.data(), hc, k) + o.b3[k], o.m3[k],
+                           rstd(o.v3[k], o.eps), o.g3[k], o.be3[k], o.leak));
   }
 }
 
-template <class T>
+template <class T, class S>
 void train_fwd(const UnitArgs& a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc;
   T* st = o.stats;
   std::vector<T> v(hc);
   for (int64_t q = 0; q < g.p; ++q) {
     branch_of(o, g, q, &v);
-    for (int k = 0; k < hc; ++k) o.z1[at(g, q, k, hc)] = dot_row(o.w1, v.data(), hc, k) + o.b1[k];
+    for (int k = 0; k < hc; ++k)
+      o.z1[at(g, q, k, hc)] = dot_row<S>(o.w1, v.data(), hc, k) + o.b1[k];
   }
   for (int k = 0; k < hc; ++k) channel_stats(g, o.z1, k, st + k, st + hc + k);
   for (int64_t q = 0; q < g.p; ++q)
@@ -113,22 +117,24 @@ void train_fwd(const UnitArgs& a) {
     }
   for (int k = 0; k < hc; ++k) channel_stats(g, o.z2, k, st + 2 * hc + k, st + 3 * hc + k);
   for (int64_t q = 0; q < g.p; ++q) {
-    for (int k = 0; k < hc; ++k) v[k] = b2n_at(o, g, q, k, o.m2[k], rstd(o.v2[k], o.eps));
-    for (int k = 0; k < hc; ++k) o.u[at(g, q, k, hc)] = dot_row(o.w3, v.data(), hc, k) + o.b3[k];
+    for (int k = 0; k < hc; ++k)
+      v[k] = round_to<S>(b2n_at(o, g, q, k, o.m2[k], rstd(o.v2[k], o.eps)));
+    for (int k = 0; k < hc; ++k)
+      o.u[at(g, q, k, hc)] = dot_row<S>(o.w3, v.data(), hc, k) + o.b3[k];
   }
   for (int k = 0; k < hc; ++k) channel_stats(g, o.u, k, st + 4 * hc + k, st + 5 * hc + k);
   for (int64_t q = 0; q < g.p; ++q)
     for (int k = 0; k < hc; ++k) {
-      o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
+      o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] = narrow<S>(
           act(bn(o.u[at(g, q, k, hc)], o.m3[k], rstd(o.v3[k], o.eps), o.g3[k], o.be3[k]),
-              o.leak);
+              o.leak));
       o.out[at(g, q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, q, k, g.c)];
     }
 }
 
-template <class T>
+template <class T, class S>
 void train_bwd(const UnitArgs& a) {
-  const Ops<T> o(a);
+  const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc;
   const T inv_m = T(1.0 / static_cast<double>(g.p));
@@ -157,7 +163,7 @@ void train_bwd(const UnitArgs& a) {
       for (int k = 0; k < hc; ++k) o.dw3[oo * hc + k] += gu[oo] * b2n[k];
     for (int k = 0; k < hc; ++k) {
       T s = T(0);
-      for (int oo = 0; oo < hc; ++oo) s += o.w3[oo * hc + k] * gu[oo];
+      for (int oo = 0; oo < hc; ++oo) s += round_to<S>(o.w3[oo * hc + k]) * gu[oo];
       const int64_t i = at(g, q, k, hc);
       o.gb2n[i] = s;
       dv[D_G2 * hc + k] += s * (o.z2[i] - o.m2[k]) * rstd(o.v2[k], o.eps);
@@ -200,26 +206,52 @@ void train_bwd(const UnitArgs& a) {
     }
     for (int oo = 0; oo < hc; ++oo)
       for (int i = 0; i < hc; ++i) o.dw1[oo * hc + i] += gz1[oo] * v[i];
+    // g_z1 enters the gx product rounded to S; dW1 and db1 take it unrounded
     for (int i = 0; i < hc; ++i) {
       T s = T(0);
-      for (int oo = 0; oo < hc; ++oo) s += o.w1[oo * hc + i] * gz1[oo];
-      o.out[at(g, q, hc + i, g.c)] = s;
+      for (int oo = 0; oo < hc; ++oo) s += round_to<S>(o.w1[oo * hc + i]) * round_to<S>(gz1[oo]);
+      o.out[at(g, q, hc + i, g.c)] = narrow<S>(s);
     }
   }
+  for (int i = 0; i < hc * hc; ++i) {
+    o.dw1[i] = round_to<S>(o.dw1[i]);
+    o.dw3[i] = round_to<S>(o.dw3[i]);
+  }
 }
+
+// dtype 0 float32, 1 float64, 2 bfloat16 storage with float32 compute
+template <template <class, class> class F>
+void dispatch(const UnitArgs* args, int dtype) {
+  if (dtype == 0) F<float, float>::run(*args);
+  else if (dtype == 1) F<double, double>::run(*args);
+  else F<float, bf16>::run(*args);
+}
+
+template <class T, class S>
+struct Infer {
+  static void run(const UnitArgs& a) { infer<T, S>(a); }
+};
+template <class T, class S>
+struct TrainFwd {
+  static void run(const UnitArgs& a) { train_fwd<T, S>(a); }
+};
+template <class T, class S>
+struct TrainBwd {
+  static void run(const UnitArgs& a) { train_bwd<T, S>(a); }
+};
 
 }  // namespace
 
 extern "C" void cdrl_unit_infer_host(const UnitArgs* args, int dtype) {
-  dtype == 0 ? infer<float>(*args) : infer<double>(*args);
+  dispatch<Infer>(args, dtype);
 }
 
 extern "C" void cdrl_unit_train_fwd_host(const UnitArgs* args, int dtype) {
-  dtype == 0 ? train_fwd<float>(*args) : train_fwd<double>(*args);
+  dispatch<TrainFwd>(args, dtype);
 }
 
 extern "C" void cdrl_unit_train_bwd_host(const UnitArgs* args, int dtype) {
-  dtype == 0 ? train_bwd<float>(*args) : train_bwd<double>(*args);
+  dispatch<TrainBwd>(args, dtype);
 }
 
 // The reduction of the batch statistics alone: mean and biased variance of

@@ -3,7 +3,8 @@ hand-off between them, the whole curriculum, the no-curriculum "standard"
 agent, and the evaluation sweep, on one GPU.
 
     python -m carla_driving_rl_agent_torch.main --stage s1|s2|s3|s4|s5 --epochs 1 --block \
-        [--fused-step] [--fused-units] [--safe] [--sharp] [--lateral] [--aug-intensity A]
+        [--fused-step] [--fused-units] [--safe] [--sharp] [--lateral] [--aug-intensity A] \
+        [--probe-cfg '{"two_step_split_adam": true}'] [--slow]
     python -m carla_driving_rl_agent_torch.main --hand-off s1 s2
     python -m carla_driving_rl_agent_torch.main --curriculum --epochs 30,16,12,10,10 --block
     python -m carla_driving_rl_agent_torch.main --standard --epochs 78 --block
@@ -37,6 +38,13 @@ lateral offset from the route to the navigation observation
 (WorldParams.lateral_obs, JAX main.py:296-300), in training and in
 `--evaluate`: it widens the network's input, so checkpoints do not carry
 across it, and a stage that loads a checkpoint of the other width raises.
+`--probe-cfg` takes a JSON dict of CARLAgentConfig overrides (e.g.
+'{"compute_dtype": "bfloat16", "fused_update": true}'), laid over each
+stage's settings after FAST_TRAIN and before --sharp's recipe (JAX
+main.py:153-162), for --stage, --curriculum and --standard (the JAX
+package's run_standard takes no probe config; here it does).  `--slow`
+leaves FAST_TRAIN out (JAX main.py:301-303); FAST_TRAIN is empty in both
+packages, so it changes nothing.
 Checkpoints go to weights-torch/stage-sN (and a per-epoch copy
 stage-sN-<epoch>) of the checkout, never into the tracked weights/.
 
@@ -75,6 +83,11 @@ BATCH = 64
 NUM_ENVS = 32
 
 STAGE_ORDER = ["s1", "s2", "s3", "s4", "s5"]    # curriculum.stages.stage_<name>
+
+# the shipped trainer's CARLAgentConfig overrides (JAX main.py:135): none;
+# the speed levers (fused_update, two_step_update, bfloat16, fused_units)
+# were each rejected for training quality or speed there
+FAST_TRAIN: dict = dict()
 
 # safety-shaped env pricing (JAX main.py:145): an off-road exit costs 200,
 # and the reward credits at most 15 km/h
@@ -115,28 +128,36 @@ def acquire_run_lock(weights_dir: str) -> str:
 
 
 def _common(num_envs: int, block: bool, fused_step: bool, fused_units: bool,
-            weights_dir: str, device, safe: bool, lateral: bool = False) -> dict:
-    """The stage factories' kwargs at the shipped geometry."""
-    return dict(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
-                num_envs=num_envs, save_every="end", rollout_block=block,
-                fused_units=fused_units, weights_dir=weights_dir,
-                env_overrides=dict(fused_step=fused_step, device=device,
-                                   **(SAFE_ENV if safe else {}),
-                                   **(dict(lateral_obs=True) if lateral else {})))
+            weights_dir: str, device, safe: bool, lateral: bool = False,
+            fast: bool = True, probe_cfg: dict = None) -> dict:
+    """The stage factories' kwargs at the shipped geometry, then FAST_TRAIN
+    (with `fast`), then the `probe_cfg` overrides of CARLAgentConfig."""
+    common = dict(episodes=EPISODES, timesteps=TIMESTEPS, batch_size=BATCH,
+                  num_envs=num_envs, save_every="end", rollout_block=block,
+                  fused_units=fused_units, weights_dir=weights_dir,
+                  env_overrides=dict(fused_step=fused_step, device=device,
+                                     **(SAFE_ENV if safe else {}),
+                                     **(dict(lateral_obs=True) if lateral else {})))
+    if fast:
+        common.update(FAST_TRAIN)
+    common.update(probe_cfg or {})
+    return common
 
 
 def make_stage(which: str, num_envs: int = NUM_ENVS, block: bool = False,
                fused_step: bool = False, fused_units: bool = False,
                weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
                sharp: bool = False, safe: bool = False,
-               aug_intensity=None, lateral: bool = False) -> stages.Stage:
+               aug_intensity=None, lateral: bool = False, fast: bool = True,
+               probe_cfg: dict = None) -> stages.Stage:
     """Stage `which` at the shipped geometry (JAX main.py make_stage); s5
     on Town03 with dense traffic; `lateral` adds the lateral offset to the
-    navigation observation."""
+    navigation observation; `fast` applies FAST_TRAIN, `probe_cfg` then
+    overrides the agent's config."""
     if which not in STAGE_ORDER:
         raise ValueError(f"stage {which!r}: one of {', '.join(STAGE_ORDER)}")
     common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe,
-                     lateral)
+                     lateral, fast, probe_cfg)
     if sharp:
         common.update(sharp_recipe())
         # augmenting the minibatches while the rollout's log-probs come from
@@ -201,7 +222,8 @@ def run_standard(epochs: int, num_envs: int = NUM_ENVS, block: bool = False,
                  fused_step: bool = False, fused_units: bool = False,
                  weights_dir: str = stages.DEFAULT_WEIGHTS_DIR, device=None,
                  sharp: bool = False, safe: bool = False, aug_intensity=None,
-                 lateral: bool = False, callback=None) -> stages.Stage:
+                 lateral: bool = False, fast: bool = True, probe_cfg: dict = None,
+                 callback=None) -> stages.Stage:
     """The no-curriculum control agent (JAX main.py:243-262, reference
     README.md:130's "standard" column): stage s5's setting (Town03, dense
     traffic) trained from scratch (load=False) as stage-standard, or
@@ -209,7 +231,7 @@ def run_standard(epochs: int, num_envs: int = NUM_ENVS, block: bool = False,
     the JAX package, keeps the augmentation on.  Returns the stage."""
     _refuse_fused_step("--standard", fused_step)
     common = _common(num_envs, block, fused_step, fused_units, weights_dir, device, safe,
-                     lateral)
+                     lateral, fast, probe_cfg)
     if sharp:
         common.update(sharp_recipe())
     if aug_intensity is not None:
@@ -305,6 +327,13 @@ def main(argv=None) -> int:
     ap.add_argument("--aug-intensity", type=float, default=None,
                     help="the training augmentation's intensity for every stage "
                          "(default: 0 for s1-s3, 1 for s4, s5 and --standard, 0 with --sharp)")
+    ap.add_argument("--probe-cfg", default=None, type=json.loads,
+                    help="a JSON dict of CARLAgentConfig overrides for a trainer that is not "
+                         "shipped, e.g. '{\"two_step_split_adam\": true}' or "
+                         "'{\"compute_dtype\": \"bfloat16\"}' (after FAST_TRAIN)")
+    ap.add_argument("--slow", action="store_true",
+                    help="leave FAST_TRAIN out (it is empty, as in the JAX package, so this "
+                         "changes nothing)")
     ap.add_argument("--weights-dir", default=stages.DEFAULT_WEIGHTS_DIR)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' only when asked)")
@@ -331,7 +360,8 @@ def main(argv=None) -> int:
 
     stage_kwargs = dict(fused_step=args.fused_step, fused_units=args.fused_units,
                         device=args.device, sharp=args.sharp, safe=args.safe,
-                        aug_intensity=args.aug_intensity, lateral=args.lateral)
+                        aug_intensity=args.aug_intensity, lateral=args.lateral,
+                        fast=not args.slow, probe_cfg=args.probe_cfg)
     lock = acquire_run_lock(args.weights_dir)
     try:
         t0 = time.perf_counter()

@@ -16,6 +16,13 @@ Counterpart of carla_driving_rl_agent_tpu/models/carla_network.py
 
 Submodule names follow the flax parameter tree, so utils/checkpoint.py maps
 a JAX checkpoint onto `state_dict()` name by name.
+
+`compute_dtype=torch.bfloat16` computes the backbone, the GRUs, the
+dynamics' linear combination and the heads' control branches in bfloat16
+with flax's dtype rules (models/layers.py): the parameters stay float32,
+the dynamics feature and the branches' outputs are cast back to float32,
+so the Beta head, the value head and every loss stay float32 (JAX
+carla_network.py:77,98,123).
 """
 
 from __future__ import annotations
@@ -45,40 +52,44 @@ DEFAULT_DYNAMICS = dict(
 
 class DynamicsModel(nn.Module):
     def __init__(self, spec: Optional[Dict[str, Any]] = None, image_channels: int = 3,
-                 road_dim: int = 9, vehicle_dim: int = 4, nav_dim: int = 5):
+                 road_dim: int = 9, vehicle_dim: int = 4, nav_dim: int = 5, dtype=None):
         super().__init__()
         s = dict(DEFAULT_DYNAMICS)
         s.update(spec or {})
         rnn = s["rnn"]
-        self.ShuffleNetV2_0 = ShuffleNetV2(in_channels=image_channels, **s["shufflenet"])
-        self.FeatureNet_0 = FeatureNet(road_dim, **s["road"])
-        self.FeatureNet_1 = FeatureNet(vehicle_dim, **s["vehicle"])
-        self.FeatureNet_2 = FeatureNet(nav_dim, **s["navigation"])
-        self.GRU_0 = GRU(s["shufflenet"]["last_channels"], rnn["image"])
-        self.GRU_1 = GRU(s["road"]["units"], rnn["road"])
-        self.GRU_2 = GRU(s["vehicle"]["units"], rnn["vehicle"])
-        self.GRU_3 = GRU(s["navigation"]["units"], rnn["navigation"])
+        self.dtype = dtype
+        self.ShuffleNetV2_0 = ShuffleNetV2(in_channels=image_channels, dtype=dtype,
+                                           **s["shufflenet"])
+        self.FeatureNet_0 = FeatureNet(road_dim, dtype=dtype, **s["road"])
+        self.FeatureNet_1 = FeatureNet(vehicle_dim, dtype=dtype, **s["vehicle"])
+        self.FeatureNet_2 = FeatureNet(nav_dim, dtype=dtype, **s["navigation"])
+        self.GRU_0 = GRU(s["shufflenet"]["last_channels"], rnn["image"], dtype)
+        self.GRU_1 = GRU(s["road"]["units"], rnn["road"], dtype)
+        self.GRU_2 = GRU(s["vehicle"]["units"], rnn["vehicle"], dtype)
+        self.GRU_3 = GRU(s["navigation"]["units"], rnn["navigation"], dtype)
         n_in = rnn["image"] + rnn["road"] + rnn["vehicle"] + rnn["navigation"]
-        self.LinearCombination_0 = LinearCombination(n_in, **s["dynamics"])
+        self.LinearCombination_0 = LinearCombination(n_in, dtype=dtype, **s["dynamics"])
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         image = self.GRU_0(self.ShuffleNetV2_0(obs["state_image"]))
         road = self.GRU_1(self.FeatureNet_0(obs["state_road"]))
         vehicle = self.GRU_2(self.FeatureNet_1(obs["state_vehicle"]))
         nav = self.GRU_3(self.FeatureNet_2(obs["state_navigation"]))
-        return self.LinearCombination_0(torch.cat([image, road, vehicle, nav], dim=-1))
+        out = self.LinearCombination_0(torch.cat([image, road, vehicle, nav], dim=-1))
+        return out if self.dtype is None else out.to(torch.float32)
 
 
 class PolicyHead(nn.Module):
     def __init__(self, in_features: int = 512, num_actions: int = 2,
-                 spec: Optional[Dict[str, Any]] = None):
+                 spec: Optional[Dict[str, Any]] = None, dtype=None):
         super().__init__()
         s = dict(DEFAULT_CONTROL)
         s.update(spec or {})
         # leaky floor on the concentration pre-activations (the JAX package's
         # saturation guard; safe-s5 trains with preact_floor = -3)
         self.preact_floor = s.pop("preact_floor", None)
-        self.ControlBranch_0 = ControlBranch(in_features, **s)
+        self.dtype = dtype
+        self.ControlBranch_0 = ControlBranch(in_features, dtype=dtype, **s)
         self.alpha = nn.Linear(s["units"], num_actions)
         self.beta = nn.Linear(s["units"], num_actions)
         self.pi_similarity = nn.Linear(s["units"], 1)
@@ -86,6 +97,7 @@ class PolicyHead(nn.Module):
 
     def forward(self, feat: torch.Tensor) -> dict:
         x = self.ControlBranch_0(feat)
+        x = x if self.dtype is None else x.to(torch.float32)
         za, zb = self.alpha(x), self.beta(x)
         if self.preact_floor is not None:
             f = float(self.preact_floor)
@@ -98,12 +110,13 @@ class PolicyHead(nn.Module):
 
 class ValueHead(nn.Module):
     def __init__(self, in_features: int = 512, spec: Optional[Dict[str, Any]] = None,
-                 exp_scale: float = 6.0):
+                 exp_scale: float = 6.0, dtype=None):
         super().__init__()
         s = dict(DEFAULT_CONTROL)
         s.update(spec or {})
         self.exp_scale = exp_scale
-        self.ControlBranch_0 = ControlBranch(in_features, **s)
+        self.dtype = dtype
+        self.ControlBranch_0 = ControlBranch(in_features, dtype=dtype, **s)
         self.v_base = nn.Linear(s["units"], 1)
         self.v_exp = nn.Linear(s["units"], 1)
         self.v_speed = nn.Linear(s["units"], 1)
@@ -111,6 +124,7 @@ class ValueHead(nn.Module):
 
     def forward(self, feat: torch.Tensor) -> dict:
         x = self.ControlBranch_0(feat)
+        x = x if self.dtype is None else x.to(torch.float32)
         value = torch.cat([torch.tanh(self.v_base(x)),
                            self.exp_scale * torch.sigmoid(self.v_exp(x))], dim=-1)
         return dict(value=value, speed=2.0 * torch.sigmoid(self.v_speed(x)),
@@ -122,7 +136,9 @@ class CARLANetwork(nn.Module):
     parameters one optimizer owns (reference core/carla_agent.py:108-124).
 
     With `fused_units=True` the backbone's stride-1 units run as fused ops
-    (models/shufflenet.ShuffleUnit); the parameter tree does not change.
+    (models/shufflenet.ShuffleUnit); the parameter tree does not change, nor
+    does it with `compute_dtype` (None: the parameters' dtype; or
+    torch.bfloat16).
 
     `old_policy` has its own parameters but reads the policy's BatchNorm
     running statistics: the JAX package keeps one `policy` statistics tree
@@ -133,7 +149,7 @@ class CARLANetwork(nn.Module):
     def __init__(self, num_actions: int = 2, control_policy: Optional[dict] = None,
                  control_value: Optional[dict] = None, dynamics: Optional[dict] = None,
                  exp_scale: float = 6.0, image_channels: int = 3, nav_dim: int = 5,
-                 fused_units: bool = False):
+                 fused_units: bool = False, compute_dtype=None):
         super().__init__()
         self.exp_scale = exp_scale
         dyn_spec = dict(dynamics or {})
@@ -145,11 +161,11 @@ class CARLANetwork(nn.Module):
             sn["fused_units"] = True
             dyn_spec["shufflenet"] = sn
         self.dynamics = DynamicsModel(dyn_spec, image_channels=image_channels,
-                                      nav_dim=nav_dim)
+                                      nav_dim=nav_dim, dtype=compute_dtype)
         units = self.dynamics.LinearCombination_0.Dense_0.out_features
-        self.policy = PolicyHead(units, num_actions, control_policy)
-        self.old_policy = PolicyHead(units, num_actions, control_policy)
-        self.value = ValueHead(units, control_value, exp_scale)
+        self.policy = PolicyHead(units, num_actions, control_policy, compute_dtype)
+        self.old_policy = PolicyHead(units, num_actions, control_policy, compute_dtype)
+        self.value = ValueHead(units, control_value, exp_scale, compute_dtype)
         self._tie_old_policy_stats()
         self.update_old_policy()
         self.eval()

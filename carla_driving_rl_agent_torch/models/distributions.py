@@ -3,6 +3,9 @@
 Counterpart of `Beta` in carla_driving_rl_agent_tpu/models/distributions.py.
 torch.distributions.Beta cannot take a generator, so `sample` draws the two
 Gamma variates itself (Marsaglia-Tsang) from an explicit torch.Generator.
+`rsample` is the reparameterised draw of the policy objective's
+`resample_actions` (JAX carla_agent.py:290-296): jax.random.beta
+differentiates its Gamma variates implicitly, and so does `_ImplicitGamma`.
 """
 
 from __future__ import annotations
@@ -51,6 +54,23 @@ def sample_gamma(conc: torch.Tensor, gen: torch.Generator,
     return torch.where(boost, out * u ** (1.0 / conc), out)
 
 
+class _ImplicitGamma(torch.autograd.Function):
+    """x, a Gamma(conc, 1) variate drawn without a graph, as a function of
+    conc: the implicit reparameterisation gradient dx/dconc = -(dF/dconc) /
+    p(x) of its CDF F, which torch._standard_gamma_grad computes (the
+    gradient that jax.random.gamma's custom JVP gives)."""
+
+    @staticmethod
+    def forward(ctx, conc, x):
+        ctx.save_for_backward(conc, x)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        conc, x = ctx.saved_tensors
+        return g * torch._standard_gamma_grad(conc, x), None
+
+
 @dataclass
 class Beta:
     """Beta(alpha, beta) over [0, 1], elementwise over the action axis."""
@@ -61,6 +81,18 @@ class Beta:
     def sample(self, gen: torch.Generator) -> torch.Tensor:
         x = sample_gamma(self.alpha, gen)
         y = sample_gamma(self.beta, gen)
+        return x / (x + y)
+
+    def rsample(self, gen: torch.Generator, gammas=None) -> torch.Tensor:
+        """A sample through which gradients reach alpha and beta: the Gamma
+        variates x ~ Gamma(alpha), y ~ Gamma(beta) drawn from `gen` as
+        `sample` draws them, or the given `gammas` (x, y) (a test feeds
+        JAX's), each differentiated implicitly, then x / (x + y)."""
+        if gammas is None:
+            with torch.no_grad():
+                gammas = (sample_gamma(self.alpha, gen), sample_gamma(self.beta, gen))
+        x = _ImplicitGamma.apply(self.alpha, gammas[0])
+        y = _ImplicitGamma.apply(self.beta, gammas[1])
         return x / (x + y)
 
     def sample_n(self, gen: torch.Generator, n: int) -> torch.Tensor:

@@ -5,6 +5,15 @@ Counterpart of carla_driving_rl_agent_tpu/models/layers.py (reference
 core/architectures.py:9-27, core/networks.py:24-30,59-66).  Module and
 parameter names follow the flax tree (Dense_0, BatchNorm_1, ...) so that the
 checkpoint converter maps names one to one.
+
+`dtype` (None, or torch.bfloat16 for CARLAgentConfig.compute_dtype
+"bfloat16") follows flax's dtype rules, not torch.autocast's: the
+parameters stay float32; a Dense or Conv casts its input and its kernel to
+the dtype and returns the dtype, its product and its bias add each rounded
+as flax's are; a BatchNorm computes its statistics and its normalisation
+in float32 from its input, keeps float32 running averages, and returns its
+input's dtype; the feature nets cast their input at entry.  None computes
+in the parameters' dtype, as before.
 """
 
 from __future__ import annotations
@@ -18,6 +27,41 @@ from torch import nn
 from carla_driving_rl_agent_torch.utils.activations import get_activation
 
 BN_EPS = 1e-3  # keras BatchNormalization default, as in the flax nets
+
+
+class Dense(nn.Linear):
+    """nn.Linear computing in `dtype` (flax's nn.Dense(dtype=...)): the
+    product of the input and the kernel in the dtype, then the bias added
+    in it."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype=None):
+        super().__init__(in_features, out_features, bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Conv(nn.Conv2d):
+    """nn.Conv2d without padding computing in `dtype` (flax's
+    nn.Conv(dtype=...)), as Dense; the callers pad."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, groups: int = 1, dtype=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, groups=groups)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = F.conv2d(x.to(dt), self.weight.to(dt), None, self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y + self.bias.to(dt).view(1, -1, 1, 1)
 
 
 class BatchNorm(nn.Module):
@@ -44,6 +88,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            # flax with dtype bfloat16: statistics and normalisation in
+            # float32, one rounding of the output
+            return self.forward(x.to(torch.float32)).to(x.dtype)
         # (N, C, ...) for F.batch_norm
         xx = x if self.channel_axis == 1 else x.reshape(-1, self.features)
         if not self.training:
@@ -65,16 +113,18 @@ class FeatureNet(nn.Module):
     the time axis."""
 
     def __init__(self, in_features: int, units: int = 32, num_layers: int = 2,
-                 activation="relu"):
+                 activation="relu", dtype=None):
         super().__init__()
         self.act = get_activation(activation)
+        self.dtype = dtype
         dims = [in_features] + [units] * num_layers
         for i in range(num_layers):
-            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"Dense_{i}", Dense(dims[i], dims[i + 1], dtype=dtype))
             self.add_module(f"BatchNorm_{i}", BatchNorm(units))
         self.num_layers = num_layers
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x if self.dtype is None else x.to(self.dtype)
         for i in range(self.num_layers):
             x = getattr(self, f"BatchNorm_{i}")(self.act(getattr(self, f"Dense_{i}")(x)))
         return x
@@ -85,16 +135,18 @@ class ControlBranch(nn.Module):
     feature (reference core/networks.py:59-66)."""
 
     def __init__(self, in_features: int, units: int = 320, num_layers: int = 2,
-                 activation="swish6"):
+                 activation="swish6", dtype=None):
         super().__init__()
         self.act = get_activation(activation)
+        self.dtype = dtype
         dims = [in_features] + [units] * num_layers
         for i in range(num_layers):
             self.add_module(f"BatchNorm_{i}", BatchNorm(dims[i]))
-            self.add_module(f"Dense_{i}", nn.Linear(dims[i], dims[i + 1]))
+            self.add_module(f"Dense_{i}", Dense(dims[i], dims[i + 1], dtype=dtype))
         self.num_layers = num_layers
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x if self.dtype is None else x.to(self.dtype)
         for i in range(self.num_layers):
             x = self.act(getattr(self, f"Dense_{i}")(getattr(self, f"BatchNorm_{i}")(x)))
         return x
@@ -103,12 +155,14 @@ class ControlBranch(nn.Module):
 class LinearCombination(nn.Module):
     """BatchNorm -> Dense(units, linear) (reference core/networks.py:24-30)."""
 
-    def __init__(self, in_features: int, units: int = 32):
+    def __init__(self, in_features: int, units: int = 32, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.BatchNorm_0 = BatchNorm(in_features)
-        self.Dense_0 = nn.Linear(in_features, units)
+        self.Dense_0 = Dense(in_features, units, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x if self.dtype is None else x.to(self.dtype)
         return self.Dense_0(self.BatchNorm_0(x))
 
 

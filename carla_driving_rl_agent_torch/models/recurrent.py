@@ -30,26 +30,34 @@ class FlaxGRUCell(nn.Module):
 
 
 class GRU(nn.Module):
-    """Final hidden state of a GRU run over (B, T, D), from a zero state."""
+    """Final hidden state of a GRU run over (B, T, D), from a zero state.
+    With `dtype` (bfloat16) the cell and its carry compute in it as flax's
+    GRUCell(dtype=...) does: each product rounded, then its bias added
+    (models/layers.py)."""
 
-    def __init__(self, in_features: int, units: int):
+    def __init__(self, in_features: int, units: int, dtype=None):
         super().__init__()
         self.units = units
+        self.dtype = dtype
         self.GRUCell_0 = FlaxGRUCell(in_features, units)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.GRUCell_0
         u = self.units
         g_in = getattr(c, "in")
+        dt = self.dtype
+        cast = (lambda t: t) if dt is None else (lambda t: t.to(dt))
+        x = cast(x)
         # the three input projections of every step in one product
-        xi = F.linear(x, torch.cat([c.ir.weight, c.iz.weight, g_in.weight]),
-                      torch.cat([c.ir.bias, c.iz.bias, g_in.bias]))
-        w_h = torch.cat([c.hr.weight, c.hz.weight, c.hn.weight])
+        w_i = cast(torch.cat([c.ir.weight, c.iz.weight, g_in.weight]))
+        b_i = cast(torch.cat([c.ir.bias, c.iz.bias, g_in.bias]))
+        xi = F.linear(x, w_i, b_i) if dt is None else F.linear(x, w_i) + b_i
+        w_h, b_hn = cast(torch.cat([c.hr.weight, c.hz.weight, c.hn.weight])), cast(c.hn.bias)
         h = torch.zeros(x.shape[0], u, dtype=x.dtype, device=x.device)
         for t in range(x.shape[1]):
             hh = F.linear(h, w_h)
             r = torch.sigmoid(xi[:, t, :u] + hh[:, :u])
             z = torch.sigmoid(xi[:, t, u:2 * u] + hh[:, u:2 * u])
-            n = torch.tanh(xi[:, t, 2 * u:] + r * (hh[:, 2 * u:] + c.hn.bias))
+            n = torch.tanh(xi[:, t, 2 * u:] + r * (hh[:, 2 * u:] + b_hn))
             h = (1.0 - z) * n + z * h
         return h

@@ -16,6 +16,12 @@ With `fused_units=True` every stride-1 unit runs as one fused op
 the CPU), as the JAX package's `fused_units` dispatches to its Pallas
 kernels; stride-2 units stay unfused there and here.  The parameter and
 statistics tree is the same either way.
+
+`dtype` (bfloat16 for CARLAgentConfig.compute_dtype "bfloat16") is
+flax's: the frames are cast at entry, every convolution computes in it
+(models/layers.Conv) and every BatchNorm returns it, so the activations
+between units are bfloat16; the fused units then run their bfloat16
+kernels.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from carla_driving_rl_agent_torch.models.layers import BatchNorm
+from carla_driving_rl_agent_torch.models.layers import BatchNorm, Conv
 from carla_driving_rl_agent_torch.ops import shuffle_unit as fused_unit
 from carla_driving_rl_agent_torch.utils.activations import leaky_relu6
 
@@ -82,7 +88,7 @@ class ShuffleUnit(nn.Module):
     0.99 * running + 0.01 * batch with the biased variance."""
 
     def __init__(self, in_channels: int, num_channels: int, stride: int,
-                 leak: float = 0.0, fused: bool = False):
+                 leak: float = 0.0, fused: bool = False, dtype=None):
         super().__init__()
         self.stride = stride
         self.leak = leak
@@ -90,16 +96,16 @@ class ShuffleUnit(nn.Module):
         sc = in_channels // 2 if stride == 1 else in_channels   # shortcut channels
         bi = in_channels - sc if stride == 1 else in_channels   # branch input
         mid = num_channels // 2
-        self.Conv_0 = nn.Conv2d(bi, mid, 1)
+        self.Conv_0 = Conv(bi, mid, 1, dtype=dtype)
         self.BatchNorm_0 = _bn2d(mid)
-        self.Conv_1 = nn.Conv2d(mid, mid, 3, stride=stride, groups=mid)
+        self.Conv_1 = Conv(mid, mid, 3, stride=stride, groups=mid, dtype=dtype)
         self.BatchNorm_1 = _bn2d(mid)
-        self.Conv_2 = nn.Conv2d(mid, num_channels - sc, 1)
+        self.Conv_2 = Conv(mid, num_channels - sc, 1, dtype=dtype)
         self.BatchNorm_2 = _bn2d(num_channels - sc)
         if stride == 2:
-            self.Conv_3 = nn.Conv2d(sc, sc, 3, stride=2, groups=sc)
+            self.Conv_3 = Conv(sc, sc, 3, stride=2, groups=sc, dtype=dtype)
             self.BatchNorm_3 = _bn2d(sc)
-            self.Conv_4 = nn.Conv2d(sc, sc, 1)
+            self.Conv_4 = Conv(sc, sc, 1, dtype=dtype)
             self.BatchNorm_4 = _bn2d(sc)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -132,27 +138,30 @@ class ShuffleNetV2(nn.Module):
     """Backbone over (B, T, H, W, C) -> (B, T, last_channels)."""
 
     def __init__(self, in_channels: int = 3, g: float = 1.0, leak: float = 0.0,
-                 last_channels: int = 1024, fused_units: bool = False):
+                 last_channels: int = 1024, fused_units: bool = False, dtype=None):
         super().__init__()
+        self.dtype = dtype
         if g not in CHANNELS:
             raise ValueError(f"g={g} not in {sorted(CHANNELS)}")
         self.last_channels = last_channels
         # stem: conv 24f 3x3 s2 VALID + BN/ReLU6 + maxpool 3 s2 SAME
-        self.Conv_0 = nn.Conv2d(in_channels, 24, 3, stride=2)
+        self.Conv_0 = Conv(in_channels, 24, 3, stride=2, dtype=dtype)
         self._BNAct_0 = _BNAct(24, leak)
         c_in, i = 24, 0
         for c, blocks in zip(CHANNELS[g], (4, 8, 4)):
             for j in range(blocks):
                 self.add_module(f"ShuffleUnit_{i}", ShuffleUnit(
-                    c_in, c, stride=2 if j == 0 else 1, leak=leak, fused=fused_units))
+                    c_in, c, stride=2 if j == 0 else 1, leak=leak, fused=fused_units,
+                    dtype=dtype))
                 c_in, i = c, i + 1
         self.num_units = i
-        self.Conv_1 = nn.Conv2d(c_in, last_channels, 1)
+        self.Conv_1 = Conv(c_in, last_channels, 1, dtype=dtype)
         self._BNAct_1 = _BNAct(last_channels, leak)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, t = x.shape[0], x.shape[1]
         x = x.reshape((b * t,) + tuple(x.shape[2:])).permute(0, 3, 1, 2)
+        x = x if self.dtype is None else x.to(self.dtype)
         x = self._BNAct_0(self.Conv_0(x))
         x = F.max_pool2d(_same_pad(x, 3, 2, value=float("-inf")), 3, stride=2)
         for i in range(self.num_units):

@@ -24,10 +24,21 @@ zeroes, so that calls on different streams share no state.
 
 Each kernel has its plain version beside it (`*_plain`); the backward's
 starts, as the kernel does, from the forward's statistics and saved
-tensors.  Each wrapper launches its kernel for CUDA tensors (counting the call in its
-`launches`), runs the plain version for CPU tensors, and raises for
+tensors.  Each wrapper launches its kernel for CUDA tensors (counting the
+call in its `launches`, or for a bfloat16 x in its `launches_bf16`), runs
+the plain version for CPU tensors, and raises for
 anything else: a wrong device, dtype, shape or a non-contiguous tensor.
-The kernels compute in float32 or float64, the dtype of the unit; the
+The kernels compute in float32 or float64, the dtype of the unit, or take
+x in bfloat16 with float32 parameters (CARLAgentConfig.compute_dtype
+"bfloat16"): then x, out, the output gradient and gx are bfloat16, the
+statistics and the saved z1, z2 and u float32, and the kernels round to
+bfloat16 where the JAX kernels with cd = bfloat16 round: W1 and W3 as
+they load them (JAX's operands are their bfloat16 copies; rounding on load
+saves two conversion launches per call), b2n before the W3 product, the
+output, the gradient of z1 before the gx product, gx, and dW1 and dW3
+(csrc/shuffle_unit.cuh).  The plain versions round at the same
+points; in bfloat16 the plain training unit is an autograd.Function of the
+plain forward and the plain backward, as the kernels' is.  The
 1x1 products are computed in the kernels' own bodies, never by cuBLAS or
 cuDNN.  The kernels' arithmetic lives in csrc/shuffle_unit.cuh, which
 csrc/shuffle_unit_host.cpp also builds with g++, so that the CPU tests
@@ -103,11 +114,23 @@ def _rstd(var: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.sqrt(var + BN_EPS)
 
 
+def _rounding(x: torch.Tensor):
+    """(x in its compute dtype, the rounding of a bfloat16 unit's rounding
+    points): float32 and a round trip through bfloat16 for a bfloat16 x,
+    else x and the identity."""
+    if x.dtype != torch.bfloat16:
+        return x, lambda t: t
+    return x.to(torch.float32), lambda t: t.to(torch.bfloat16).to(torch.float32)
+
+
 def _plain(x: torch.Tensor, ops: UnitOperands, leak: float, running=None):
     """The unit with BatchNorm on `running` (m1, v1, ...), or in training
     mode on the batch statistics when `running` is None; returns (out,
-    batch stats (6, hc) or None, (z1, z2, u))."""
+    batch stats (6, hc) or None, (z1, z2, u)).  A bfloat16 x computes in
+    float32 from W1, W3 and b2n rounded to bfloat16 and returns a bfloat16
+    out."""
     hc = x.shape[1] // 2
+    xs, rnd = _rounding(x)
     stats = []
 
     def bn(z, i, gamma, beta):
@@ -119,13 +142,14 @@ def _plain(x: torch.Tensor, ops: UnitOperands, leak: float, running=None):
         stats.extend((mean, var))
         return F.batch_norm(z, None, None, gamma, beta, True, 0.0, BN_EPS)
 
-    shortcut, branch = x[:, :hc], x[:, hc:]
-    z1 = F.conv2d(branch, ops.w1[:, :, None, None], ops.b1)
+    shortcut, branch = xs[:, :hc], xs[:, hc:]
+    z1 = F.conv2d(branch, rnd(ops.w1)[:, :, None, None], ops.b1)
     z2 = F.conv2d(F.pad(leaky_relu6(bn(z1, 0, ops.g1, ops.be1), leak), (1, 1, 1, 1)),
                   ops.dw.view(hc, 1, 3, 3), ops.dwb, groups=hc)
-    u = F.conv2d(bn(z2, 1, ops.g2, ops.be2), ops.w3[:, :, None, None], ops.b3)
+    u = F.conv2d(rnd(bn(z2, 1, ops.g2, ops.be2)), rnd(ops.w3)[:, :, None, None], ops.b3)
     y = leaky_relu6(bn(u, 2, ops.g3, ops.be3), leak)
-    return _shuffle(shortcut, y), (torch.stack(stats) if stats else None), (z1, z2, u)
+    out = _shuffle(shortcut, y).to(x.dtype)
+    return out, (torch.stack(stats) if stats else None), (z1, z2, u)
 
 
 def shuffle_unit_infer_plain(x: torch.Tensor, unit) -> torch.Tensor:
@@ -135,7 +159,10 @@ def shuffle_unit_infer_plain(x: torch.Tensor, unit) -> torch.Tensor:
 
 def shuffle_unit_train_plain(x: torch.Tensor, unit):
     """The plain version of `shuffle_unit_train`: (out, stats (6, hc)),
-    differentiable through autograd."""
+    differentiable through autograd; in bfloat16 through _UnitTrainPlain,
+    whose backward rounds as the backward kernel does."""
+    if x.dtype == torch.bfloat16:
+        return _UnitTrainPlain.apply(x, float(unit.leak), *unit_operands(unit))
     return _plain(x, unit_operands(unit), unit.leak)[:2]
 
 
@@ -149,9 +176,16 @@ def shuffle_unit_train_bwd_plain(x: torch.Tensor, gout: torch.Tensor, ops: UnitO
     the gradients of x and of the 12 operands for the output gradient
     `gout`, from the forward's batch statistics and saved (z1, z2, u).  Its
     pre-activations round as the kernel's (one operation at a time), so
-    both take the same step of the activation's gradient."""
+    both take the same step of the activation's gradient.  A bfloat16 x and
+    gout compute in float32 with W1 and W3 rounded to bfloat16, round the
+    gradient of z1 before the gx product, and return gx in bfloat16 and dW1
+    and dW3 rounded to bfloat16 (in float32, the parameters' dtype)."""
     n, c, h, w = x.shape
     hc = c // 2
+    x_in = x
+    x, rnd = _rounding(x)
+    gout = gout.to(x.dtype)
+    w1, w3 = rnd(ops.w1), rnd(ops.w3)
     inv_m = 1.0 / (n * h * w)
     col = lambda v: v.view(1, hc, 1, 1)
     z1, z2, u = saved
@@ -165,8 +199,8 @@ def shuffle_unit_train_bwd_plain(x: torch.Tensor, gout: torch.Tensor, ops: UnitO
     s1, s2 = sums(ga3), sums(ga3 * xh3)
     gu = col(ops.g3) * r3 * (ga3 - (col(s1) + xh3 * col(s2)) * inv_m)
     b2n = col(ops.g2) * ((z2 - m2) * r2) + col(ops.be2)
-    dw3 = torch.einsum("nohw,nkhw->ok", gu, b2n)
-    gb2n = torch.einsum("ok,nohw->nkhw", ops.w3, gu)
+    dw3 = rnd(torch.einsum("nohw,nkhw->ok", gu, b2n))
+    gb2n = torch.einsum("ok,nohw->nkhw", w3, gu)
     xh2 = (z2 - m2) * r2
     t1, t2 = sums(gb2n), sums(gb2n * xh2)
     gz2 = col(ops.g2) * r2 * (gb2n - (col(t1) + xh2 * col(t2)) * inv_m)
@@ -180,9 +214,31 @@ def shuffle_unit_train_bwd_plain(x: torch.Tensor, gout: torch.Tensor, ops: UnitO
     gpre1 = ga1 * _act_grad(col(ops.g1) * xh1 + col(ops.be1), leak)
     u1, u2 = sums(gpre1), sums(gpre1 * xh1)
     gz1 = col(ops.g1) * r1 * (gpre1 - (col(u1) + xh1 * col(u2)) * inv_m)
-    dw1 = torch.einsum("nohw,nihw->oi", gz1, x[:, hc:])
-    gx = torch.cat([gcat[:, :hc], torch.einsum("oi,nohw->nihw", ops.w1, gz1)], dim=1)
-    return (gx, dw1, sums(gz1), u2, u1, ddw, sums(gz2), t2, t1, dw3, sums(gu), s2, s1)
+    dw1 = rnd(torch.einsum("nohw,nihw->oi", gz1, x[:, hc:]))
+    gx = torch.cat([gcat[:, :hc], torch.einsum("oi,nohw->nihw", w1, rnd(gz1))], dim=1)
+    return (gx.to(x_in.dtype), dw1, sums(gz1), u2, u1, ddw, sums(gz2), t2, t1, dw3, sums(gu),
+            s2, s1)
+
+
+class _UnitTrainPlain(torch.autograd.Function):
+    """The plain bfloat16 training unit: the plain forward, the plain
+    backward (shuffle_unit_train_bwd_plain), as _UnitTrain runs the
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, x, leak, *ops):
+        out, stats, saved = _plain(x, UnitOperands(*ops), leak)
+        ctx.leak = leak
+        ctx.save_for_backward(x, stats, *saved, *ops)
+        ctx.mark_non_differentiable(stats)
+        return out, stats
+
+    @staticmethod
+    def backward(ctx, gout, _gstats):
+        x, stats, z1, z2, u, *ops = ctx.saved_tensors
+        grads = shuffle_unit_train_bwd_plain(x, gout.contiguous(), UnitOperands(*ops),
+                                             ctx.leak, stats, (z1, z2, u))
+        return (grads[0], None) + grads[1:]
 
 
 # ------------------------------------------------------------------
@@ -210,7 +266,8 @@ class _Plan(ctypes.Structure):
                 + [("partial", ctypes.c_int64)])
 
 
-_DTYPES = {torch.float32: 0, torch.float64: 1}
+# the kernels' storage dtypes; bfloat16 computes in float32
+_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # cdrl::unit::PlanError, why the kernels' plan refuses a shape
 _REFUSED = {1: "x is empty", 2: "x has 2^31 elements or more; the kernels index with 32-bit ints",
             3: "the map does not fit the depthwise stages' shared planes",
@@ -233,15 +290,23 @@ def _scratch(device: int, n: int, c: int, h: int, w: int) -> Tuple[int, int]:
     return pl.partial, pl.n_counters
 
 
-def _check(t: torch.Tensor, name: str, x: torch.Tensor, shape) -> int:
-    """t's address, after checking it against x and `shape`."""
-    if (t.device == x.device and t.dtype == x.dtype and t.shape == shape
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype the kernels compute in and keep everything but x, out,
+    the output gradient, gx, W1 and W3 in."""
+    return torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+
+
+def _check(t: torch.Tensor, name: str, x: torch.Tensor, shape, dtype=None) -> int:
+    """t's address, after checking it against x (its device, and `dtype`,
+    default x's) and `shape`."""
+    dtype = dtype or x.dtype
+    if (t.device == x.device and t.dtype == dtype and t.shape == shape
             and t.is_contiguous()):
         return t.data_ptr()
     if t.device != x.device:
         raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-    if t.dtype != x.dtype:
-        raise TypeError(f"{name} must be {x.dtype}, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(t.shape)}")
     raise ValueError(f"{name} must be contiguous")
@@ -252,34 +317,42 @@ _STATS = ("m1", "v1", "m2", "v2", "m3", "v3")
 
 def _pack(x: torch.Tensor, ops: UnitOperands, leak: float, bn_stats=None, inputs=None,
           **ptrs) -> _Args:
-    """Check x, the operands, the BatchNorm statistics and the `inputs`
-    {name: tensor} of x's shape, and lay out the kernels' arguments.
-    `bn_stats` is a (6, hc) tensor of rows m1 v1 m2 v2 m3 v3 or a tuple of
-    the six; `ptrs` are the buffers the wrapper allocated, {name: address}."""
+    """Check x, the operands (in the compute dtype: float32 for a bfloat16
+    x), the BatchNorm statistics and the `inputs` {name: tensor} of x's
+    shape, and lay out the kernels' arguments.  `bn_stats` is a (6, hc)
+    tensor of rows m1 v1 m2 v2 m3 v3 or a tuple of the six; `ptrs` are the
+    buffers the wrapper allocated, {name: address}."""
     if x.dim() != 4 or x.shape[1] % 2:
         raise ValueError(f"x must be (N, C, H, W) with C even, got {tuple(x.shape)}")
     if x.dtype not in _DTYPES:
-        raise TypeError(f"the unit kernels take float32 or float64, got {x.dtype}")
+        raise TypeError(f"the unit kernels take float32, float64 or bfloat16, got {x.dtype}")
     n, c, h, w = x.shape
     hc = c // 2
+    cd = _compute_dtype(x)
     a = _Args()
     a.x = _check(x, "x", x, x.shape)
     vec, mat = (hc,), (hc, hc)
-    a.w1, a.b1, a.g1, a.be1 = (_check(ops.w1, "w1", x, mat), _check(ops.b1, "b1", x, vec),
-                               _check(ops.g1, "g1", x, vec), _check(ops.be1, "be1", x, vec))
-    a.dw, a.dwb, a.g2, a.be2 = (_check(ops.dw, "dw", x, (hc, 9)), _check(ops.dwb, "dwb", x, vec),
-                                _check(ops.g2, "g2", x, vec), _check(ops.be2, "be2", x, vec))
-    a.w3, a.b3, a.g3, a.be3 = (_check(ops.w3, "w3", x, mat), _check(ops.b3, "b3", x, vec),
-                               _check(ops.g3, "g3", x, vec), _check(ops.be3, "be3", x, vec))
+    a.w1, a.b1, a.g1, a.be1 = (_check(ops.w1, "w1", x, mat, cd), _check(ops.b1, "b1", x, vec, cd),
+                               _check(ops.g1, "g1", x, vec, cd), _check(ops.be1, "be1", x, vec, cd))
+    a.dw, a.dwb, a.g2, a.be2 = (_check(ops.dw, "dw", x, (hc, 9), cd),
+                                _check(ops.dwb, "dwb", x, vec, cd),
+                                _check(ops.g2, "g2", x, vec, cd),
+                                _check(ops.be2, "be2", x, vec, cd))
+    a.w3, a.b3, a.g3, a.be3 = (_check(ops.w3, "w3", x, mat, cd), _check(ops.b3, "b3", x, vec, cd),
+                               _check(ops.g3, "g3", x, vec, cd), _check(ops.be3, "be3", x, vec, cd))
     if isinstance(bn_stats, torch.Tensor):
-        base, step = _check(bn_stats, "stats", x, (6, hc)), hc * x.element_size()
+        base = _check(bn_stats, "stats", x, (6, hc), cd)
+        step = hc * bn_stats.element_size()
         a.m1, a.v1, a.m2, a.v2, a.m3, a.v3 = (base + i * step for i in range(6))
     elif bn_stats is not None:
         for name, t in zip(_STATS, bn_stats):
-            setattr(a, name, _check(t, name, x, vec))
+            setattr(a, name, _check(t, name, x, vec, cd))
     act = (n, hc, h, w)
     for name, t in (inputs or {}).items():
-        setattr(a, name, _check(t, name, x, x.shape if name == "gout" else act))
+        if name == "gout":
+            setattr(a, name, _check(t, name, x, x.shape))
+        else:
+            setattr(a, name, _check(t, name, x, act, cd))
     for name, ptr in ptrs.items():
         setattr(a, name, ptr)
     a.eps, a.leak = BN_EPS, float(leak)
@@ -293,7 +366,7 @@ def _infer_args(x: torch.Tensor, unit) -> Tuple[_Args, torch.Tensor, tuple]:
     n, c, h, w = x.shape
     out = torch.empty_like(x)
     # a1, then b2n over it (csrc/shuffle_unit.cu k_dw_infer)
-    a1 = torch.empty((n, c // 2, h, w), dtype=x.dtype, device=x.device)
+    a1 = torch.empty((n, c // 2, h, w), dtype=_compute_dtype(x), device=x.device)
     args = _pack(x, unit_operands(unit), unit.leak, running_stats(unit),
                  out=out.data_ptr(), z1=a1.data_ptr(), b2n=a1.data_ptr())
     return args, out, (a1,)
@@ -305,8 +378,8 @@ def _fwd_args(x: torch.Tensor, ops: UnitOperands, leak: float, scratch: Tuple[in
     `scratch` is `_scratch`'s (partials, counters) at x's shape."""
     n, c, h, w = x.shape
     hc = c // 2
-    new = lambda *shape: torch.empty(shape, dtype=x.dtype, device=x.device)
-    out, stats, partial = new(n, c, h, w), new(6, hc), new(scratch[0])
+    new = lambda *shape: torch.empty(shape, dtype=_compute_dtype(x), device=x.device)
+    out, stats, partial = torch.empty_like(x), new(6, hc), new(scratch[0])
     counters = torch.empty(scratch[1], dtype=torch.int32, device=x.device)
     z1, z2, u = new(n, hc, h, w), new(n, hc, h, w), new(n, hc, h, w)
     args = _pack(x, ops, leak, stats, out=out.data_ptr(), stats=stats.data_ptr(),
@@ -323,7 +396,7 @@ def _bwd_args(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperands, leak: floa
     n, c, h, w = x.shape
     hc = c // 2
     act = n * hc * h * w
-    new = lambda size: torch.empty(size, dtype=x.dtype, device=x.device)
+    new = lambda size: torch.empty(size, dtype=_compute_dtype(x), device=x.device)
     gx = torch.empty_like(x)
     flat = new(2 * hc * hc + 9 * hc + len(DVEC) * hc)
     scratch = new(5 * act + scratch_size[0])
@@ -370,6 +443,15 @@ def _launch(fn: str, args: _Args, x: torch.Tensor) -> None:
         raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
 
 
+def _count(fn, x: torch.Tensor) -> None:
+    """One launch of `fn`'s kernel: its bfloat16 instantiation for a
+    bfloat16 x, else the float32 / float64 one."""
+    if x.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
+
+
 def _device(x: torch.Tensor) -> str:
     if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"the unit runs on cuda or cpu, not {x.device}")
@@ -385,18 +467,18 @@ def shuffle_unit_infer(x: torch.Tensor, unit) -> torch.Tensor:
     args, out, _keep = _infer_args(x, unit)
     if x.numel():
         _launch("cdrl_unit_infer", args, x)
-        shuffle_unit_infer.launches += 1
+        _count(shuffle_unit_infer, x)
     return out
 
 
-shuffle_unit_infer.launches = 0
+shuffle_unit_infer.launches = shuffle_unit_infer.launches_bf16 = 0
 
 
 def _train_fwd_kernel(x: torch.Tensor, ops: UnitOperands, leak: float):
     """The forward kernel: (out, stats, (z1, z2, u))."""
     args, out, stats, saved, _keep = _fwd_args(x, ops, leak, _scratch(x.device.index, *x.shape))
     _launch("cdrl_unit_train_fwd", args, x)
-    shuffle_unit_train.launches += 1
+    _count(shuffle_unit_train, x)
     return out, stats, saved
 
 
@@ -410,11 +492,11 @@ def shuffle_unit_train_bwd(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperand
     args, grads, _keep = _bwd_args(x, gout, ops, leak, stats, saved,
                                    _scratch(x.device.index, *x.shape))
     _launch("cdrl_unit_train_bwd", args, x)
-    shuffle_unit_train_bwd.launches += 1
+    _count(shuffle_unit_train_bwd, x)
     return grads
 
 
-shuffle_unit_train_bwd.launches = 0
+shuffle_unit_train_bwd.launches = shuffle_unit_train_bwd.launches_bf16 = 0
 
 
 class _UnitTrain(torch.autograd.Function):
@@ -446,4 +528,4 @@ def shuffle_unit_train(x: torch.Tensor, unit):
     return _UnitTrain.apply(x, float(unit.leak), *unit_operands(unit))
 
 
-shuffle_unit_train.launches = 0
+shuffle_unit_train.launches = shuffle_unit_train.launches_bf16 = 0

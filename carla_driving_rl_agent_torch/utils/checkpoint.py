@@ -2,9 +2,12 @@
 msgpack read without flax or msgpack.
 
 The port saves a directory with network.pt (the network's state_dict),
-optimizers.pt (the three Adam states) and config.json (schedule steps,
-update step, network spec); `load_agent` reads that or, where only the JAX
-package's params.msgpack and batch_stats.msgpack are there, converts those.
+optimizers.pt (the three optimizer states, {group: state_dict}; with
+CARLAgentConfig.two_step_split_adam the dynamics entry is the list of the
+two phases' states, as the JAX package's opt_state["dynamics"] becomes a
+pair) and config.json (schedule steps, update step, network spec);
+`load_agent` reads that or, where only the JAX package's params.msgpack
+and batch_stats.msgpack are there, converts those.
 
 The JAX package writes each component with flax.serialization.to_bytes:
 a msgpack map of maps whose leaves are numpy arrays encoded as msgpack
@@ -202,6 +205,31 @@ def load_agent(base_path: str, device=None) -> Dict[str, Any]:
         with open(cfg_path) as f:
             out["config"] = json.load(f)
     return out
+
+
+def optimizer_states(optimizers: Dict[str, Any]) -> Dict[str, Any]:
+    """The optimizers.pt content of an agent's {group: optimizer}, where an
+    optimizer may be a tuple (the split backbone states): a list of their
+    state_dicts then."""
+    return {g: ([o.state_dict() for o in opt] if isinstance(opt, tuple) else opt.state_dict())
+            for g, opt in optimizers.items()}
+
+
+def load_optimizer_states(optimizers: Dict[str, Any], states: Optional[Dict[str, Any]]) -> None:
+    """Restore `optimizer_states`' content into an agent's optimizers.  A
+    group whose saved layout does not fit (a split state into a single one
+    or the reverse) keeps its fresh state, with a warning, as the JAX
+    package's load_agent re-initialises a mismatched opt_state."""
+    import warnings
+    for g, state in (states or {}).items():
+        opt = optimizers[g]
+        if isinstance(opt, tuple) != isinstance(state, (list, tuple)) or (
+                isinstance(opt, tuple) and len(opt) != len(state)):
+            warnings.warn(f"the checkpoint's {g} optimizer state does not fit this agent's "
+                          f"(split backbone states or not); it starts fresh")
+            continue
+        for o, st in (zip(opt, state) if isinstance(opt, tuple) else ((opt, state),)):
+            o.load_state_dict(st)
 
 
 def check_shapes(loaded: Dict[str, torch.Tensor], current: Dict[str, torch.Tensor],

@@ -167,7 +167,32 @@ Phases, each printed with its seconds:
                level), each timed per frame; then 2 stage-s1 updates with
                the rasterizer, the shaped reward and the lateral
                observation (fused units; the physics kernel computes the
-               default reward only): finite losses, train env-steps/s.
+               default reward only): finite losses, train env-steps/s;
+ 28. unit_bf16 — the three unit kernels in bfloat16 (bf16 x, out, output
+               gradient and gx; float32 parameters, statistics and saved
+               tensors) against their bfloat16 plain versions at the three
+               maps, N = 128 for inference and 256 for the forward and the
+               backward: relative L2 <= 5e-3 per tensor and max |diff| in
+               bfloat16 ulps, then each timed beside its bound (2-byte
+               activations, the products at the bf16 tensor rate) with its
+               device launches per call and device ms per stage;
+ 29. train_variants — at stage s1's geometry with fused units, 2 updates
+               each of fused_update, two_step_update, two_step_split_adam
+               and compute_dtype "bfloat16" (the sequential update): finite
+               losses, train env-steps/s beside phase 13's, the parts of an
+               update, the unit kernels' launches (the bf16 kernels' for
+               bfloat16, and none of the float32 ones); the split state's
+               checkpoint reloads equal; then each variant's step on one
+               full-width minibatch with the unit kernels against the same
+               step with the plain units, both on the card (train_agree's
+               float32 bars; in bfloat16 each the larger of that and the
+               bf16 plain units' own distance from a float64 step, the
+               gradient tensors beyond 5e-2 counted); then each of the
+               eight optimizers' step on the
+               full network's gradients on the card against the CPU (the
+               update within 1e-6 relative L2).  Every update's timings are
+               read when it ran (learn keeps each update's parts with its
+               metrics), so the phases keep updates_per_dispatch's default.
 Each training phase prints the mean reward per step, the episodes that
 ended, the NPCs per world, train env-steps/s and the four parts of an
 update.  With --profile, a last phase breaks an evaluation window (without
@@ -207,8 +232,9 @@ import numpy as np
 import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): FP32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Float operations of the render function, counted from csrc/render.cuh
@@ -1251,7 +1277,8 @@ def _unit_stages(kind: str, fn, shape: str) -> dict:
     return dict(launches_per_call=per_call, stage_device_ms=stages, host_ms=host_ms)
 
 
-def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4) -> tuple:
+def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4,
+                  bf16: bool = False) -> tuple:
     """Least time for one unit-kernel call: the bytes its function must move
     (each input read once, each output written once) over the memory rate,
     or its float operations over the FP32 peak (the tensor cores are off for
@@ -1262,19 +1289,23 @@ def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4) 
     z2, u) are the kernels' own cost, not the function's.  Operations per
     pixel: the two 1x1 products 2 * 2 hc^2 and the depthwise 2 * 9 hc
     (inference and forward); the backward's four products (W3^T g_u, dW3,
-    W1^T g_z1, dW1) 8 hc^2 and its two depthwise passes 36 hc."""
+    W1^T g_z1, dW1) 8 hc^2 and its two depthwise passes 36 hc.  With
+    `bf16` the activations (x, out, the output gradient, gx) and W1, W3 and
+    their gradients take 2 bytes, the rest 4, and the products count at the
+    bf16 tensor rate, the depthwise at the FP32 rate."""
     hc = c // 2
     p = n * h * w
-    act = p * c * itemsize
-    params = (2 * hc * hc + 19 * hc) * itemsize
-    stats = 6 * hc * itemsize
+    act = p * c * (2 if bf16 else itemsize)
+    params = 2 * hc * hc * (2 if bf16 else itemsize) + 19 * hc * (4 if bf16 else itemsize)
+    stats = 6 * hc * (4 if bf16 else itemsize)
     if kind == "infer":       # x, the parameters and running statistics in; out
-        nbytes, ops = 2 * act + params + stats, p * (4 * hc * hc + 18 * hc)
+        nbytes, prod, dw = 2 * act + params + stats, 4 * hc * hc, 18 * hc
     elif kind == "fwd":       # x and the parameters in; out and the batch statistics
-        nbytes, ops = 2 * act + params + stats, p * (4 * hc * hc + 18 * hc)
+        nbytes, prod, dw = 2 * act + params + stats, 4 * hc * hc, 18 * hc
     else:                     # x, gout and the parameters in; gx and their gradients
-        nbytes, ops = 3 * act + 2 * params, p * (8 * hc * hc + 36 * hc)
-    bytes_s, ops_s = nbytes / PEAK_BYTES_PER_S, ops / PEAK_FP32_FLOPS
+        nbytes, prod, dw = 3 * act + 2 * params, 8 * hc * hc, 36 * hc
+    bytes_s = nbytes / PEAK_BYTES_PER_S
+    ops_s = p * (prod / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS) + dw / PEAK_FP32_FLOPS)
     return (1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes")
 
 
@@ -1511,9 +1542,8 @@ def _zero_counts() -> None:
     R.render_planes.launches = 0
     P.step_physics_batch.launches = 0
     P.step_physics_block.launches = 0
-    SU.shuffle_unit_infer.launches = 0
-    SU.shuffle_unit_train.launches = 0
-    SU.shuffle_unit_train_bwd.launches = 0
+    for fn in (SU.shuffle_unit_infer, SU.shuffle_unit_train, SU.shuffle_unit_train_bwd):
+        fn.launches = fn.launches_bf16 = 0
 
 
 def _counts() -> dict:
@@ -1524,7 +1554,10 @@ def _counts() -> dict:
                 step_physics_block=P.step_physics_block.launches,
                 shuffle_unit_infer=SU.shuffle_unit_infer.launches,
                 shuffle_unit_train=SU.shuffle_unit_train.launches,
-                shuffle_unit_train_bwd=SU.shuffle_unit_train_bwd.launches)
+                shuffle_unit_train_bwd=SU.shuffle_unit_train_bwd.launches,
+                shuffle_unit_infer_bf16=SU.shuffle_unit_infer.launches_bf16,
+                shuffle_unit_train_bf16=SU.shuffle_unit_train.launches_bf16,
+                shuffle_unit_train_bwd_bf16=SU.shuffle_unit_train_bwd.launches_bf16)
 
 
 
@@ -1619,15 +1652,27 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
     check(counts["render_planes"] == renders,
           f"{label}: render launches {counts['render_planes']} != {renders}")
     # per update: a predict per frame and the bootstrap value's pass
-    # (inference), and a training pass of each minibatch of the two phases
-    minibatches = 2 * TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
-    passes = dict(shuffle_unit_infer=frames_per_update + 1, shuffle_unit_train=minibatches,
-                  shuffle_unit_train_bwd=minibatches)
+    # (inference), and a training pass of each minibatch of the two phases;
+    # the fused and two-step schemes pass each minibatch once, the two-step
+    # ones pull it back twice; a bfloat16 network launches the bf16
+    # instantiations only
+    cfg = agent.config
+    minibatches = TRAIN_WORLDS * TRAIN_STEPS // TRAIN_BATCH
+    one_pass = cfg.fused_update or cfg.two_step_update or cfg.two_step_split_adam
+    fwd_mb = minibatches if one_pass else 2 * minibatches
+    bwd_mb = minibatches if cfg.fused_update else 2 * minibatches
+    bf16 = cfg.compute_dtype == "bfloat16"
+    passes = dict(shuffle_unit_infer=frames_per_update + 1, shuffle_unit_train=fwd_mb,
+                  shuffle_unit_train_bwd=bwd_mb)
     for name, per_update in passes.items():
         want = updates * per_update * UNITS_PER_PASS if fused_units else 0
-        check(counts[name] == want, f"{label}: {name} launches {counts[name]} != {want}")
-    parts = {k: [m[f"seconds_{k}"] for m in history]
-             for k in ("rollout", "targets", "policy", "value")}
+        got, other = (counts[name + "_bf16"], counts[name]) if bf16 else \
+            (counts[name], counts[name + "_bf16"])
+        check(got == want and other == 0,
+              f"{label}: {name} launches {got} != {want}, the other dtype's {other}")
+    passes = {(k + "_bf16" if bf16 else k): v for k, v in passes.items()}
+    parts = {k[len("seconds_"):]: [m[k] for m in history]
+             for k in history[0] if k.startswith("seconds_")}
     update_s = sum(sum(v) for v in parts.values())
     sps = updates * TRAIN_WORLDS * TRAIN_STEPS / update_s
     print(f"  {label}: {updates} updates of {TRAIN_WORLDS} worlds x {TRAIN_STEPS} steps, "
@@ -1640,10 +1685,11 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
              if render_kernel else "render kernel 0 (another renderer)"),
         flush=True)
     if fused_units:
+        names = list(passes)
         print("  unit kernel launches per update: " + ", ".join(
             f"{k} {counts[k] / updates:.0f}" for k in passes)
-            + f"; per minibatch: forward {counts['shuffle_unit_train'] / (updates * minibatches):.0f}"
-              f", backward {counts['shuffle_unit_train_bwd'] / (updates * minibatches):.0f}",
+            + f"; per minibatch step: forward {counts[names[1]] / (updates * fwd_mb):.0f}"
+              f", backward {counts[names[2]] / (updates * fwd_mb):.0f}",
             flush=True)
     for i, m in enumerate(history):
         print(f"  update {i + 1}: " + ", ".join(
@@ -2583,6 +2629,349 @@ def variants_phase(root: str, envs: dict) -> dict:
     return out
 
 
+
+# phase unit_bf16's bar: relative L2 per tensor of each bf16 kernel against
+# its bf16 plain version (the same rounding points; float32 sums in other
+# orders can put a value on the other side of a bf16 rounding boundary)
+UNIT_BF16_BAR = 5e-3
+
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """(max |a - b| in bfloat16 ulps of the larger of |a| and |b|, the share
+    of values that differ by more than one such ulp)."""
+    af, bf = a.float(), b.float()
+    big = torch.maximum(af.abs(), bf.abs()).clamp_min(2.0 ** -126)
+    ulps = (af - bf).abs() / torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return float(ulps.max()), float((ulps > 1.0).float().mean())
+
+
+def unit_bf16_phase(kernels: dict) -> dict:
+    """The unit kernels in bfloat16 against their bfloat16 plain versions
+    at the three full-width maps: inference at N = 128 (a rollout predict),
+    the forward and the backward at N = 256 (a minibatch), the backward on
+    the forward kernel's statistics and saved tensors.  Each timed beside
+    its bf16 bound, with its launches per call and device ms per stage."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import full_float32
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+    full_float32()
+    full = dict(infer={}, fwd={}, bwd={})
+    err = dict(infer=0.0, fwd=0.0, bwd=0.0)
+    for i, (h, w, c, units) in enumerate(UNIT_MAPS):
+        unit = _random_unit(c, torch.float32, seed=30 + i)
+        ops = SU.unit_operands(unit)
+        shape = f"{h}x{w}x{c}"
+        with torch.no_grad():
+            n = UNIT_N["rollout"]
+            x = _unit_inputs(n, h, w, c, torch.float32, seed=30 + n)[0].to(torch.bfloat16)
+            unit.eval()
+            k, p = SU.shuffle_unit_infer(x, unit), SU.shuffle_unit_infer_plain(x, unit)
+            check(k.dtype == torch.bfloat16 == p.dtype, "the bf16 inference's output is bf16")
+            r, (ulps, share) = _rel(k, p), _bf16_ulps(k, p)
+            check(r <= UNIT_BF16_BAR, f"bf16 inference kernel at ({n}, {shape}): {r:.3e}")
+            err["infer"] = max(err["infer"], float((k.float() - p.float()).abs().max()))
+            ms = cuda_ms(lambda: SU.shuffle_unit_infer(x, unit), iters=20)
+            plain_ms = cuda_ms(lambda: SU.shuffle_unit_infer_plain(x, unit), iters=10)
+            bound, by = unit_bound_ms("infer", n, h, w, c, bf16=True)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, rel_l2=r,
+                       max_ulps=ulps, share_over_1ulp=share, units=units)
+            row.update(_unit_stages("infer", lambda: SU.shuffle_unit_infer(x, unit),
+                                    f"bf16 ({n}, {shape})"))
+            full["infer"][f"{n}x{shape}"] = row
+            print(f"  unit bf16 infer ({n}, {c}, {h}, {w}): relative L2 {r:.3e}, max |diff| "
+                  f"{ulps:.0f} bf16 ulps ({share:.2e} of the values beyond 1); kernel "
+                  f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms ({by}), {ms / bound:.2f}x the bound", flush=True)
+            n = UNIT_N["train"]
+            x, gout = (t.to(torch.bfloat16) for t in
+                       _unit_inputs(n, h, w, c, torch.float32, seed=30 + n + i))
+            out, stats, saved = SU._train_fwd_kernel(x, ops, unit.leak)
+            p_out, p_stats, _ = SU._plain(x, ops, unit.leak)
+            check(out.dtype == torch.bfloat16 and stats.dtype == torch.float32
+                  and all(t.dtype == torch.float32 for t in saved),
+                  "the bf16 forward: bf16 out, float32 statistics and saved tensors")
+            r_out, r_stats = _rel(out, p_out), _rel(stats, p_stats)
+            ulps, share = _bf16_ulps(out, p_out)
+            check(max(r_out, r_stats) <= UNIT_BF16_BAR,
+                  f"bf16 forward kernel at ({n}, {shape}): out {r_out:.3e}, stats {r_stats:.3e}")
+            err["fwd"] = max(err["fwd"], float((out.float() - p_out.float()).abs().max()),
+                             float((stats - p_stats).abs().max()))
+            ms = cuda_ms(lambda: SU._train_fwd_kernel(x, ops, unit.leak), iters=20)
+            plain_ms = cuda_ms(lambda: SU._plain(x, ops, unit.leak), iters=10)
+            bound, by = unit_bound_ms("fwd", n, h, w, c, bf16=True)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       rel_l2=max(r_out, r_stats), max_ulps=ulps, share_over_1ulp=share,
+                       units=units)
+            row.update(_unit_stages("fwd", lambda: SU._train_fwd_kernel(x, ops, unit.leak),
+                                    f"bf16 ({n}, {shape})"))
+            full["fwd"][f"{n}x{shape}"] = row
+            print(f"  unit bf16 train forward ({n}, {c}, {h}, {w}): relative L2 out "
+                  f"{r_out:.3e} (max {ulps:.0f} bf16 ulps, {share:.2e} beyond 1), stats "
+                  f"{r_stats:.3e}; kernel "
+                  f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by})",
+                  flush=True)
+            bwd = lambda: SU.shuffle_unit_train_bwd(x, gout, ops, unit.leak, stats, saved)
+            bwd_plain = lambda: SU.shuffle_unit_train_bwd_plain(x, gout, ops, unit.leak,
+                                                                stats, saved)
+            got, ref = bwd(), bwd_plain()
+            check(got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32,
+                  "the bf16 backward: bf16 gx, float32 parameter gradients")
+            check(all(torch.equal(t, t.to(torch.bfloat16).float()) for t in (got[1], got[9])),
+                  "the bf16 backward's dW1 and dW3 are rounded to bf16")
+            worst, noise, diff = _hold_unit_grads(got, ref, f"bf16 backward kernel at "
+                                                  f"({n}, {shape})", UNIT_BF16_BAR, UNIT_BF16_BAR)
+            ulps, share = _bf16_ulps(got[0], ref[0])
+            err["bwd"] = max(err["bwd"], diff)
+            ms, plain_ms = cuda_ms(bwd, iters=20), cuda_ms(bwd_plain, iters=10)
+            bound, by = unit_bound_ms("bwd", n, h, w, c, bf16=True)
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, rel_l2=worst,
+                       noise=noise, gx_max_ulps=ulps, gx_share_over_1ulp=share, units=units)
+            row.update(_unit_stages("bwd", bwd, f"bf16 ({n}, {shape})"))
+            full["bwd"][f"{n}x{shape}"] = row
+            print(f"  unit bf16 train backward ({n}, {c}, {h}, {w}): gradients' relative L2 "
+                  f"<= {worst:.3e} (gx max {ulps:.0f} bf16 ulps, {share:.2e} beyond 1), noise "
+                  f"tensors {noise:.3e} of "
+                  f"the largest; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms ({by})", flush=True)
+            del x, gout, out, stats, saved, got, ref
+    h, w, c, _ = UNIT_MAPS[0]
+    src = "carla_driving_rl_agent_torch/csrc/shuffle_unit.cu"
+    pallas = "carla_driving_rl_agent_tpu/ops/shuffle_unit_pallas.py"
+    for name, kind, n, line in (("shuffle_unit_infer_bf16", "infer", UNIT_N["rollout"], 383),
+                                ("shuffle_unit_train_bf16", "fwd", UNIT_N["train"], 286),
+                                ("shuffle_unit_train_bwd_bf16", "bwd", UNIT_N["train"], 405)):
+        t = full[kind][f"{n}x{h}x{w}x{c}"]
+        kernels[name] = dict(name=name, route="cuda", source=src,
+                             replaces=f"{pallas}:{line}", launches=None,
+                             max_abs_err=err[kind], ms=t["ms"], plain_ms=t["plain_ms"],
+                             bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
+                             by_shape=full[kind], launches_per_call=t["launches_per_call"])
+    print("  unit bf16 kernels: library call: none computes a ShuffleNet unit", flush=True)
+    return full
+
+
+# train_variants: the update schemes and the bfloat16 network, each at stage
+# s1's geometry with fused units
+VARIANTS = (("fused_update", dict(fused_update=True)),
+            ("two_step_update", dict(two_step_update=True)),
+            ("two_step_split_adam", dict(two_step_split_adam=True)),
+            ("bfloat16", dict(compute_dtype="bfloat16")))
+VARIANT_BF16_GRAD_BAR = 5e-2     # per gradient tensor, bf16 kernels against plain: counted
+OPTIMIZER_BAR = 1e-6             # relative L2 of an optimizer's update, card against CPU
+
+
+class _PlainUnits:
+    """Within it, the backbone's fused units run their plain versions on
+    CUDA tensors (models/shufflenet.py calls the module's functions)."""
+
+    def __enter__(self):
+        from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+        self.saved = SU.shuffle_unit_train, SU.shuffle_unit_infer
+        SU.shuffle_unit_train = SU.shuffle_unit_train_plain
+        SU.shuffle_unit_infer = SU.shuffle_unit_infer_plain
+        return self
+
+    def __exit__(self, *_):
+        from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+        SU.shuffle_unit_train, SU.shuffle_unit_infer = self.saved
+        return False
+
+
+def _variant_step(agent, label: str, batch: dict, hyper: dict) -> tuple:
+    """The variant's step on one minibatch: (its loss, {name: gradient}
+    for every gradient the step takes, a two-step's second pull-back and a
+    sequential value step's under '<name>@1')."""
+    names = {id(p): n for n, p in agent.network.named_parameters()}
+    grads, inner, calls = {}, agent._grads, [0]
+
+    def grab(loss, groups, **kw):
+        out = inner(loss, groups, **kw)
+        tag = "" if calls[0] == 0 else f"@{calls[0]}"
+        calls[0] += 1
+        for g in groups:
+            grads.update({names[id(p)] + tag: t.detach().cpu().clone()
+                          for p, t in zip(agent.params[g], out[g])})
+        return out
+
+    agent._grads = grab
+    if label == "fused_update":
+        loss = agent.fused_step(batch, hyper)["loss_total"]
+    elif label in ("two_step_update", "two_step_split_adam"):
+        loss = agent.two_step(batch, hyper)["loss_total"]
+    else:
+        loss = agent.policy_step(batch, hyper)["loss_total"] + agent.value_step(batch)["loss_value"]
+    del agent._grads
+    return float(loss), grads
+
+
+def variant_agree(env, label: str, kw: dict) -> dict:
+    """One step of the variant on one full-width minibatch (64 samples,
+    Town03 frames' shape) from the same seeded network, with the unit
+    kernels and with the plain units, both on the card; a float64 step with
+    the plain units names the noise tensors (true gradient 0).  Held to
+    train_agree's float32 bars (the loss, the gradients of the held tensors
+    together, the BatchNorm buffers' changes; the parameter changes are
+    printed).  In bfloat16 each bar is the larger of that and the bf16
+    plain units' own distance from the float64 step: bf16 training
+    gradients through training-mode BatchNorms at random init are rounding
+    noise (the bf16 plain units lie ~1 relative L2 from float64 per tensor,
+    as JAX's bf16 network lies from its float32 one: tests/
+    bf16_noise_floor.py), so the per-tensor 5e-2 is printed, not held."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent, CARLAgentConfig
+    rng = np.random.default_rng(11)
+    mb, T = TRAIN_BATCH, env.config.time_horizon
+    h, w, c = env.config.image_shape
+    a = rng.uniform(0.05, 0.95, (mb, 2)).astype(np.float32)
+    batch = dict(obs=dict(state_image=rng.uniform(0, 1, (mb, T, h, w, c)).astype(np.float32),
+                          state_road=rng.uniform(0, 1, (mb, T, 9)).astype(np.float32),
+                          state_vehicle=rng.uniform(0, 1, (mb, T, 4)).astype(np.float32),
+                          state_navigation=rng.uniform(0, 3, (mb, T, 5)).astype(np.float32),
+                          action=a),
+                 advantages=rng.normal(0, 1, mb).astype(np.float32),
+                 returns=np.stack([rng.uniform(-1, 1, mb), rng.integers(0, 4, mb)],
+                                  -1).astype(np.float32),
+                 log_prob=(np.log(a) - 0.3).astype(np.float32),
+                 speed=rng.uniform(0, 0.5, mb).astype(np.float32),
+                 similarity=rng.uniform(0.5, 1, mb).astype(np.float32))
+    hyper = dict(clip_ratio=0.2, entropy=0.1, adv_scale=2.0)
+    bf16 = kw.get("compute_dtype") == "bfloat16"
+    runs = {}
+    for mode in ("float64", "kernels", "plain"):
+        cfg = dict(kw)
+        if mode == "float64":
+            cfg.pop("compute_dtype", None)
+        agent = CARLAgent(env, CARLAgentConfig(seed=5, fused_units=True, batch_size=mb, **cfg))
+        dtype = torch.float64 if mode == "float64" else torch.float32
+        agent.network.to(dtype)
+        conv = lambda t: {k: conv(v) if isinstance(v, dict) else  # noqa: E731
+                          torch.from_numpy(v).to("cuda", dtype) for k, v in t.items()}
+        before = {k: v.detach().cpu().clone() for k, v in agent.network.state_dict().items()}
+        _zero_counts()
+        if mode == "kernels":
+            loss, grads = _variant_step(agent, label, conv(batch), hyper)
+            counts = _counts()
+            k = "shuffle_unit_train_bwd_bf16" if bf16 else "shuffle_unit_train_bwd"
+            check(counts[k] > 0 and counts["shuffle_unit_train" + ("_bf16" if bf16 else "")] > 0,
+                  f"variant_agree {label}: the card's step launched the unit kernels: {counts}")
+        else:
+            with _PlainUnits():
+                loss, grads = _variant_step(agent, label, conv(batch), hyper)
+            counts = _counts()
+            check(sum(counts[k] for k in counts if k.startswith("shuffle_unit")) == 0,
+                  f"variant_agree {label}: the plain step launched a unit kernel: {counts}")
+        after = {k: v.detach().cpu() for k, v in agent.network.state_dict().items()}
+        runs[mode] = (loss, grads, {k: after[k] - before[k] for k in after})
+        del agent
+    l64, g64, d64 = runs["float64"]
+    (lk, gk, dk), (lp, gp, dp) = runs["kernels"], runs["plain"]
+    top = max(float(g.abs().max()) for g in g64.values())
+    noise = sorted(k for k, g in g64.items() if float(g.abs().max()) < 1e-6 * top)
+    held = [k for k in gp if k not in noise]
+    buffers = [k for k in dp if "running" in k]
+    params = [k for k in dp if "running" not in k]
+    r = dict(loss_kernels=lk, loss_plain=lp, loss=abs(lk - lp) / abs(lp),
+             grad=_rel_l2(gk, gp, held), param=_rel_l2(dk, dp, params),
+             buffer=_rel_l2(dk, dp, buffers), held=len(held), noise=len(noise))
+    bars = dict(TRAIN_AGREE_BARS["float32"])
+    if bf16:
+        # the bf16 plain units' own distance from the float64 step: the bf16
+        # kernels must lie no further from the bf16 plain units than that
+        floor = dict(loss=abs(lp - l64) / abs(l64), grad=_rel_l2(gp, g64, held),
+                     buffer=_rel_l2(dp, d64, buffers))
+        r["floor"] = floor
+        per = {k: _rel_l2(gk, gp, [k]) for k in held}
+        r["grad_worst"] = max(per.values())
+        r["grad_worst_tensor"] = max(per, key=per.get)
+        r["grad_tensors_beyond_5e-2"] = sum(v > VARIANT_BF16_GRAD_BAR for v in per.values())
+        bars = {k: max(bars[k], floor[k]) for k in floor}
+    print(f"  variant_agree {label}: loss kernels {lk:.9g} plain {lp:.9g}; relative differences: "
+          f"loss {r['loss']:.3e}, gradients {r['grad']:.3e} ({r['held']} tensors, {r['noise']} "
+          f"noise tensors left out), parameter changes {r['param']:.3e} (printed, not held), "
+          f"BatchNorm buffer changes {r['buffer']:.3e}", flush=True)
+    if bf16:
+        print(f"  variant_agree bfloat16: the bf16 plain units against the float64 step "
+              f"(the bars): loss {floor['loss']:.3e}, gradients {floor['grad']:.3e}, buffer "
+              f"changes {floor['buffer']:.3e}; per gradient tensor, kernels against plain: "
+              f"worst {r['grad_worst']:.3e} ({r['grad_worst_tensor']}), "
+              f"{r['grad_tensors_beyond_5e-2']} of {len(per)} beyond 5e-2", flush=True)
+    for k in ("loss", "grad", "buffer"):
+        check(r[k] <= bars[k], f"variant_agree {label}: {k} differs by {r[k]:.3e} > {bars[k]:.3e}")
+    return r, gk
+
+
+def optimizer_agree(grads: dict) -> dict:
+    """Each of the eight optimizers: one step on the full network's
+    gradients (the fused_update step's, `grads`) on the card and on the CPU,
+    from parameters of zero, so that the parameters afterwards are the
+    update itself (from float32 parameters of order 1, the difference of
+    two steps' results quantises an update of ~lr to the parameters' ulps,
+    ~1e-4 of it); the updates within OPTIMIZER_BAR relative L2."""
+    from carla_driving_rl_agent_torch.utils.optimizers import OPTIMIZERS, get_optimizer_by_name
+    names = [k for k in grads if "@" not in k]
+    out = {}
+    for opt_name in sorted(OPTIMIZERS):
+        deltas = []
+        for dev in ("cuda", "cpu"):
+            ps = [torch.nn.Parameter(torch.zeros(grads[k].shape, device=dev)) for k in names]
+            opt = get_optimizer_by_name(opt_name, ps, 3e-4)
+            for p, k in zip(ps, names):
+                p.grad = grads[k].to(dev, torch.float32).contiguous()
+            opt.step()
+            deltas.append({k: p.detach().cpu() for k, p in zip(names, ps)})
+        out[opt_name] = _rel_l2(deltas[0], deltas[1], names)
+        check(out[opt_name] <= OPTIMIZER_BAR,
+              f"optimizer {opt_name}: card and CPU updates differ by {out[opt_name]:.3e}")
+    print("  the eight optimizers, one step on the full network's gradients, card against "
+          "CPU, relative L2 of the update: " + ", ".join(f"{k} {v:.3e}" for k, v in out.items()),
+          flush=True)
+    return out
+
+
+def train_variants_phase(root: str, seq: dict) -> tuple:
+    """Stage s1 at the shipped geometry with fused units, 2 updates (a depth
+    cut) of each update scheme and of the bfloat16 network from a fresh
+    seeded network; train env-steps/s beside `seq` (phase train_fused's);
+    the split backbone states' checkpoint reloads equal; then variant_agree
+    and, after the four, optimizer_agree on the fused_update step's
+    gradients.  Returns (summary, launches by variant)."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent
+    from carla_driving_rl_agent_torch.curriculum import stages
+    out, launches = {}, {}
+    for label, kw in VARIANTS:
+        stage = stages.stage_s1(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                                num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+                                weights_dir=os.path.join(root, label),
+                                env_overrides=dict(fused_step=True, device="cuda"), **kw)
+        stage.init()
+        summary = _train_epoch(stage, CUT_UPDATES, f"train_variants {label}", TRAIN_STEPS // 4)
+        launches[label] = summary.pop("launches")
+        print(f"  train env-steps/s, {label} / sequential (phase train_fused): "
+              f"{summary['env_steps_per_s']:.1f} / {seq['env_steps_per_s']:.1f} "
+              f"({summary['env_steps_per_s'] / seq['env_steps_per_s']:.3f})", flush=True)
+        agent = stage.agent
+        if label == "two_step_split_adam":
+            fresh = CARLAgent(stage.env, agent.config, name=agent.name,
+                              weights_dir=os.path.dirname(agent.base_path))
+            fresh.load()
+            for a, b in zip(agent.optimizers["dynamics"], fresh.optimizers["dynamics"]):
+                s1, s2 = a.state_dict(), b.state_dict()
+                check(all(torch.equal(s1["state"][i][x], s2["state"][i][x])
+                          for i in s1["state"] for x in ("exp_avg", "exp_avg_sq")),
+                      "the split backbone Adam states reload equal")
+            check(not all(torch.equal(x["exp_avg"], y["exp_avg"]) for x, y in zip(
+                agent.optimizers["dynamics"][0].state_dict()["state"].values(),
+                agent.optimizers["dynamics"][1].state_dict()["state"].values())),
+                "the two phases' backbone Adam states differ")
+            print("  two_step_split_adam: the checkpoint's two backbone Adam states reload "
+                  "equal", flush=True)
+        summary["agree"], grads = variant_agree(stage.env, label, kw)
+        if label == "fused_update":
+            fused_grads = grads
+        out[label] = summary
+        del stage, agent
+    out["optimizers"] = optimizer_agree(fused_grads)
+    return out, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write the run's numbers to this JSON file")
@@ -2673,6 +3062,9 @@ def main(argv=None) -> int:
     with Phase("unit") as p:
         summary["unit"] = unit_phase(kernels)
     summary["phases"]["unit"] = p.seconds
+    with Phase("unit_bf16") as p:
+        summary["unit_bf16"] = unit_bf16_phase(kernels)
+    summary["phases"]["unit_bf16"] = p.seconds
     with tempfile.TemporaryDirectory() as out_dir, Phase("slice_fused") as p:
         fused_agent = stages.build_eval_agent("test", TOWN, STEPS, WEIGHTS, device="cuda",
                                               fused_units=True)
@@ -2781,6 +3173,21 @@ def main(argv=None) -> int:
             root, {"no NPCs": agent.env, "stage s3's 50/50 NPCs": s3_env})
         launches["train_variants"] = summary["variants"]["train"].pop("launches")
     summary["phases"]["variants"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("train_variants") as p:
+        summary["train_variants"], by_variant = train_variants_phase(root,
+                                                                     summary["train_fused"])
+        for label, c in by_variant.items():
+            launches[f"train_variants_{label}"] = c
+        print("  train env-steps/s, s1 sequential unfused / fused units / " + " / ".join(
+            label for label, _ in VARIANTS) + ": " + " / ".join(
+            f"{summary[k]['env_steps_per_s']:.1f}" for k in ("train", "train_fused"))
+            + " / " + " / ".join(f"{summary['train_variants'][label]['env_steps_per_s']:.1f}"
+                                 for label, _ in VARIANTS), flush=True)
+        for label, _ in VARIANTS:
+            print(f"  seconds per update, {label}: " + ", ".join(
+                f"{part} {v:.4f}" for part, v in
+                summary["train_variants"][label]["parts_mean_s"].items()), flush=True)
+    summary["phases"]["train_variants"] = p.seconds
     print(f"  phases: {sum(summary['phases'].values()):.1f} s", flush=True)
     if args.profile:
         with Phase("profile") as p:
@@ -2796,18 +3203,20 @@ def main(argv=None) -> int:
     late_root.cleanup()
 
     for name, kr in kernels.items():
-        # the unit kernels run on the training path with fused_units=True
-        path = "train_fused" if name.startswith("shuffle_unit") else "train"
+        # the unit kernels run on the training path with fused_units=True,
+        # their bf16 instantiations with the bfloat16 network
+        path = ("train_variants_bfloat16" if name.endswith("_bf16") else
+                "train_fused" if name.startswith("shuffle_unit") else "train")
         kr["launches"] = launches[path][name]
         check(kr["launches"] > 0, f"{name} was not launched on the {path} path")
-        kr["launches_by_path"] = {path: c[name] for path, c in launches.items()}
+        kr["launches_by_path"] = {path: c.get(name, 0) for path, c in launches.items()}
     # what each kernel costs a training update beyond its bound: launches per
     # update x (ms - bound_ms), the unit kernels summed over their maps
     excess = {}
     for name, kr in kernels.items():
-        per_update = kr["launches"] / TRAIN_UPDATES
+        per_update = kr["launches"] / (CUT_UPDATES if name.endswith("_bf16") else TRAIN_UPDATES)
         if name.startswith("shuffle_unit"):
-            n = UNIT_N["rollout" if name == "shuffle_unit_infer" else "train"]
+            n = UNIT_N["rollout" if name.startswith("shuffle_unit_infer") else "train"]
             rows = [kr["by_shape"][f"{n}x{h}x{w}x{c}"] for h, w, c, _ in UNIT_MAPS]
             per_pass = sum(u * (t["ms"] - t["bound_ms"]) for (*_, u), t in zip(UNIT_MAPS, rows))
             excess[name] = per_update / UNITS_PER_PASS * per_pass / 1e3

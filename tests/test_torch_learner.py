@@ -437,11 +437,16 @@ def test_stage_s1_run2(tmp_path):
         assert (tmp_path / d / "config.json").exists()
 
 
-def test_unported_options_raise(env):
-    for kw in (dict(fused_update=True), dict(compute_dtype="bfloat16"),
-               dict(two_step_update=True), dict(optimizer="sgd")):
-        with pytest.raises(NotImplementedError):
-            CARLAgent(env, CARLAgentConfig(network=TINY_NET, **kw))
+@pytest.mark.parametrize("kw", [dict(fused_update=True, two_step_update=True),
+                                dict(fused_update=True, two_step_split_adam=True),
+                                dict(optimizer="lbfgs"),
+                                dict(repeat_action=2, rollout_block=True)])
+def test_refused_options_raise(env, kw):
+    """What the JAX package refuses, the port refuses: fused_update with a
+    two-step scheme, an unknown optimizer, repeat_action with the block
+    rollout."""
+    with pytest.raises(ValueError):
+        CARLAgent(env, CARLAgentConfig(network=TINY_NET, **kw))
 
 
 def test_cli_fused_units_smoke(tmp_path, monkeypatch):

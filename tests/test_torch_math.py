@@ -134,5 +134,11 @@ def test_adam_matches_optax(rng, steps):
 
 
 def test_other_optimizers_raise():
-    with pytest.raises(NotImplementedError, match="adam"):
-        get_optimizer_by_name("rmsprop", [torch.nn.Parameter(torch.zeros(2))])
+    """A name outside the JAX registry's eight raises ValueError, as the
+    JAX registry does; the seven besides Adam are ported (each held
+    against optax in test_torch_learner_options.py)."""
+    p = [torch.nn.Parameter(torch.zeros(2))]
+    with pytest.raises(ValueError, match="Cannot find optimizer"):
+        get_optimizer_by_name("lbfgs", p)
+    for name in ("adadelta", "adagrad", "adamax", "ftrl", "nadam", "rmsprop", "sgd"):
+        assert isinstance(get_optimizer_by_name(name, p), torch.optim.Optimizer), name
