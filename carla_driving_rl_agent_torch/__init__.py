@@ -8,14 +8,18 @@ host modules it needs (envs/town.py, native/route_planner.cpp).
 Layout mirrors the JAX package so that each module has an obvious
 counterpart:
   envs/       — towns, routes, weather, dynamics, the batched world, CARLAEnv
-                and its variants, spaces, sensors
+                and its variants, spaces, sensors; the toy and fake envs
   ops/        — the CUDA kernels' wrappers (render, physics, ShuffleNet unit)
                 and their plain PyTorch versions; the analytic renderer
-  models/     — ShuffleNetV2 + feature nets + GRUs + Beta policy
+  models/     — ShuffleNetV2 + feature nets + GRUs + Beta policy; the
+                generic MLP networks with Gaussian and Categorical heads
   augment/    — the image augmentations and the learner's training pipeline
-  agents/     — CARLAgent: rollouts, the PPO learner, the evaluation
+  agents/     — CARLAgent: rollouts, the PPO learner, the evaluation; the
+                generic PPOAgent and RandomAgent
+  parallel/   — data parallelism over worlds (torch.distributed)
   curriculum/ — the five stages and the one-town evaluation
-  utils/      — activations, checkpoint reading, kernel builds
+  utils/      — activations, checkpoints, kernel builds, math, optimizers,
+                schedules, summaries, profiling, FLOP counts
   native/     — the C++ route planner (g++, ctypes)
   csrc/       — CUDA C++ kernels (nvcc, ctypes)
 
@@ -48,17 +52,23 @@ def resolve_device(device=None) -> torch.device:
 
 
 def __getattr__(name):
-    """Lazy top-level exports (the JAX package's __init__.py:69-74) without
+    """Lazy top-level exports (the JAX package's __init__.py:59-81) without
     import-time cost."""
     lazy = {
         "CARLAgent": "carla_driving_rl_agent_torch.agents.carla_agent",
         "CARLAgentConfig": "carla_driving_rl_agent_torch.agents.carla_agent",
+        "PPOAgent": "carla_driving_rl_agent_torch.agents.ppo",
+        "PPOConfig": "carla_driving_rl_agent_torch.agents.ppo",
+        "RandomAgent": "carla_driving_rl_agent_torch.agents.base",
+        "Agent": "carla_driving_rl_agent_torch.agents.base",
         "CARLAEnv": "carla_driving_rl_agent_torch.envs.carla_env",
         "CARLAEnvConfig": "carla_driving_rl_agent_torch.envs.carla_env",
+        "FakeCARLAEnvironment": "carla_driving_rl_agent_torch.envs.fake",
         "CARLACollectWrapper": "carla_driving_rl_agent_torch.envs.wrappers",
         "CARLAPlayWrapper": "carla_driving_rl_agent_torch.envs.wrappers",
         "CARLABenchmark": "carla_driving_rl_agent_torch.envs.wrappers",
         "CARLANetwork": "carla_driving_rl_agent_torch.models.carla_network",
+        "PPONetwork": "carla_driving_rl_agent_torch.models.networks",
         "Stage": "carla_driving_rl_agent_torch.curriculum.stages",
         "DynamicParameter": "carla_driving_rl_agent_torch.utils.schedules",
     }

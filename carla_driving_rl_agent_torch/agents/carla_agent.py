@@ -51,6 +51,15 @@ fresh reparameterised sample, models/distributions.Beta.rsample),
 `repeat_action` on the per-step rollout, `seed_regularization` and
 `updates_per_dispatch` (learn).  CARLAgentConfig.check raises only where
 the JAX package refuses.
+
+With a `mesh` (parallel/mesh.WorldMesh, the JAX package's world mesh,
+carla_agent.py:815-822, 859-866) each process steps its shard of the
+worlds: the env draws for every world and keeps this rank's rows
+(CARLAEnv.sharded), the policy's samples likewise; the trajectories and the
+bootstrap inputs are all-gathered, and every rank runs the same update over
+the global minibatches, so that R ranks compute what one process does.
+The evaluation shards its worlds the same way.  `learn` logs every
+update's host metrics to the Summary (`log_mode`, JAX :913-918).
 """
 
 from __future__ import annotations
@@ -76,12 +85,14 @@ from carla_driving_rl_agent_torch.envs.carla_env import (
 from carla_driving_rl_agent_torch.models.carla_network import CARLANetwork
 from carla_driving_rl_agent_torch.models.distributions import Beta
 from carla_driving_rl_agent_torch.models.layers import init_flax_
+from carla_driving_rl_agent_torch.parallel import mesh as mesh_mod
 from carla_driving_rl_agent_torch.utils import checkpoint as ckpt
 from carla_driving_rl_agent_torch.utils import math as um
 from carla_driving_rl_agent_torch.utils import traces as trace_io
 from carla_driving_rl_agent_torch.utils.optimizers import (
     OPTIMIZERS, get_optimizer_by_name, set_learning_rate)
 from carla_driving_rl_agent_torch.utils.schedules import DynamicParameter
+from carla_driving_rl_agent_torch.utils.summary import Summary
 
 
 # the port's checkpoints; the tracked weights/ holds the JAX package's
@@ -191,13 +202,27 @@ class CARLAgent:
     resets)."""
 
     def __init__(self, env: CARLAEnv, config: Optional[CARLAgentConfig] = None,
-                 name: str = "carla", weights_dir: Optional[str] = None):
+                 name: str = "carla", weights_dir: Optional[str] = None,
+                 mesh: Optional[mesh_mod.WorldMesh] = None,
+                 log_mode: Optional[str] = "summary", log_dir: Optional[str] = None):
         self.env = env
         self.config = cfg = config or CARLAgentConfig()
         cfg.check()
         self.name = name
         # checkpoints and evaluation records, default weights-torch/<name>
         self.base_path = os.path.join(weights_dir or DEFAULT_WEIGHTS_DIR, name)
+        # worlds sharded over the mesh's ranks; None: one process
+        self.mesh = mesh
+        if mesh is not None and env.device != mesh.device:
+            raise ValueError(f"the env runs on {env.device}, this rank on {mesh.device}")
+        # rank 0 writes the run's summaries, by default into logs/ beside the
+        # weights root (the checkout's logs/, the JAX package's, for the
+        # default root)
+        if log_dir is None:
+            root = os.path.dirname(os.path.abspath(self.base_path))
+            log_dir = os.path.join(os.path.dirname(root), "logs")
+        self.summary = Summary(mode=log_mode if mesh is None or mesh.rank == 0 else None,
+                               name=name, log_dir=log_dir)
         spec = dict(cfg.network or {})
         net = CARLANetwork(
             num_actions=env.config.num_actions,
@@ -237,6 +262,9 @@ class CARLAgent:
             dynamics=((make("dynamics", dyn_lr), make("dynamics", dyn_lr))
                       if cfg.two_step_split_adam else make("dynamics", dyn_lr)))
         self.update_step = 0
+        if mesh is not None:
+            # every rank starts from rank 0's network
+            mesh.broadcast_(self._replicated())
         # seconds of the last update's parts, each ended by a synchronise
         self.last_timings: Dict[str, float] = {}
         self.last_trials: Dict[str, np.ndarray] = {}
@@ -306,16 +334,48 @@ class CARLAgent:
         `expert_rollout`, else the old policy's samples, per step or in
         blocks.  Returns (env_states', Trajectory, final_obs)."""
         cfg, net, gen = self.config, self.network, self.generator
-        if cfg.expert_rollout:
-            return rollout_mod.run_rollout(self.env, self._expert_log_prob_fn(), env_states,
-                                           cfg.rollout_steps, expert_fn=self._expert_fn())
-        if cfg.rollout_block:
-            return rollout_mod.run_rollout_blocks(
-                self.env, lambda net_in, n: net.predict(net_in, gen, num_samples=n),
-                env_states, cfg.rollout_steps)
-        return rollout_mod.run_rollout(
-            self.env, lambda net_in: net.predict(net_in, gen), env_states,
-            cfg.rollout_steps, repeat_action=cfg.repeat_action)
+        kw = self._sampler(cfg.num_envs)
+        with self.env.sharded(self.mesh, cfg.num_envs):
+            if cfg.expert_rollout:
+                return rollout_mod.run_rollout(self.env, self._expert_log_prob_fn(),
+                                               env_states, cfg.rollout_steps,
+                                               expert_fn=self._expert_fn())
+            if cfg.rollout_block:
+                return rollout_mod.run_rollout_blocks(
+                    self.env,
+                    lambda net_in, n: net.predict(net_in, gen, num_samples=n, **kw),
+                    env_states, cfg.rollout_steps)
+            return rollout_mod.run_rollout(
+                self.env, lambda net_in: net.predict(net_in, gen, **kw), env_states,
+                cfg.rollout_steps, repeat_action=cfg.repeat_action)
+
+    def _sampler(self, total: int) -> dict:
+        """The predicts' keyword arguments in a sharded run of `total`
+        worlds: a sampler that gathers the Beta parameters of every rank's
+        worlds, draws the samples for all of them (the draws one process
+        takes) and cuts them to this rank's rows; none in one process."""
+        mesh = self.mesh
+        if mesh is None:
+            return {}
+
+        def sample(dist: Beta, gen, n):
+            full = Beta(alpha=mesh.gather_rows(dist.alpha, total),
+                        beta=mesh.gather_rows(dist.beta, total))
+            x = full.sample(gen) if n is None else full.sample_n(gen, n)
+            return mesh.rows(x, total, dim=x.dim() - 2)
+        return dict(sampler=sample)
+
+    def _local(self, n: int) -> int:
+        """How many of n worlds this process steps."""
+        if self.mesh is None:
+            return n
+        lo, hi = self.mesh.shard(n)
+        return hi - lo
+
+    def _replicated(self) -> list:
+        """The tensors every rank of a mesh holds alike: the network's
+        parameters and buffers and the optimizers' states."""
+        return mesh_mod.replicated_tensors(self.network, self.optimizers.values())
 
     def _expert_fn(self):
         """expert_fn(env_states) of the expert rollout: the expert's actions
@@ -324,6 +384,8 @@ class CARLAgent:
         env = self.env
         profiles = expert_mod.behaviour_profiles(expert_mod.mixed_behaviour_ids(
             self.config.expert_behaviour_mix, self.config.num_envs, env.device))
+        if self.mesh is not None:
+            profiles = self.mesh.rows(profiles, self.config.num_envs)
         return lambda states: expert_mod.expert_action(
             states.world, env.params, env.town, env.routes, ignore_traffic_light=True,
             profile=profiles)
@@ -535,9 +597,15 @@ class CARLAgent:
         cfg = self.config
         t0 = time.perf_counter()
         env_states, traj, final_obs = self._rollout(env_states)
+        last_action = env_states.last_action
+        if self.mesh is not None:
+            # every rank's worlds, for the same update on every rank
+            traj = self.mesh.gather_rows(traj, cfg.num_envs, dim=1)
+            final_obs, last_action = self.mesh.gather_rows((final_obs, last_action),
+                                                           cfg.num_envs)
         self._sync()
         t1 = time.perf_counter()
-        data = self.targets(traj, final_obs, env_states.last_action, hyper["adv_scale"])
+        data = self.targets(traj, final_obs, last_action, hyper["adv_scale"])
         n = cfg.rollout_steps * cfg.num_envs
         n_mb = max(1, n // cfg.batch_size)
         self._sync()
@@ -607,7 +675,8 @@ class CARLAgent:
         full_float32()
         cfg = self.config
         if env_states is None:
-            env_states, _ = self.env.reset_batch(cfg.num_envs)
+            with self.env.sharded(self.mesh, cfg.num_envs):
+                env_states, _ = self.env.reset_batch(self._local(cfg.num_envs))
         history = []
         chunk = max(1, int(cfg.updates_per_dispatch))
         for first in range(0, num_updates, chunk):
@@ -629,12 +698,20 @@ class CARLAgent:
                     p.on_episode()
                 env_states, (names, values) = self.train_iteration(env_states, hyper,
                                                                    host=False)
-                pending.append((self.update_step, names, values, dict(self.last_timings)))
+                extra = dict(self.last_timings)
+                if self.mesh is not None:
+                    # the replicas' largest difference from rank 0 after the
+                    # update, which leaves every rank with rank 0's tensors
+                    extra["replica_drift"] = self.mesh.replica_drift_(self._replicated())
+                pending.append((self.update_step, names, values, extra))
             rows = torch.stack([v for _, _, v, _ in pending]).tolist()
-            for (step, names, _, timings), row in zip(pending, rows):
+            for (step, names, _, extra), row in zip(pending, rows):
                 metrics = dict(zip(names, row))
-                metrics.update({f"seconds_{k}": v for k, v in timings.items()})
+                metrics.update({k if k == "replica_drift" else f"seconds_{k}": v
+                                for k, v in extra.items()})
                 history.append(metrics)
+                self.summary.log(**metrics)
+                self.summary.write_summaries()
                 if callback is not None:
                     callback(step, metrics)
         return env_states, history
@@ -841,7 +918,21 @@ class CARLAgent:
         fused_step) and one frame push (env.push_block_frame_batch).
         Returns the per-world accumulators of each world's FIRST episode;
         with NPCs also how it ended (hit_vehicle, hit_pedestrian,
-        hit_other) and the active vehicles and walkers it started with."""
+        hit_other) and the active vehicles and walkers it started with.
+        With a mesh, this process steps its shard of the worlds (its rows
+        of `draws`, and of every draw), and the accumulators of all worlds
+        are gathered."""
+        mesh = self.mesh
+        if draws is not None and mesh is not None:
+            draws = mesh.rows(draws, num_worlds)
+        with self.env.sharded(mesh, num_worlds):
+            acc = self._eval_rollout(self._local(num_worlds), timesteps, draws,
+                                     **self._sampler(num_worlds))
+        return acc if mesh is None else mesh.gather_rows(acc, num_worlds)
+
+    def _eval_rollout(self, num_worlds: int, timesteps: int, draws, **kw) -> dict:
+        """CARLAgent.rollout of `num_worlds` worlds of this process; `kw`
+        reach the predicts."""
         env, net = self.env, self.network
         gen = env.generator
         states, obs = env.reset(draws) if draws is not None else env.reset_batch(num_worlds)
@@ -881,7 +972,7 @@ class CARLAgent:
             slot = T - 1                # every world's newest frame after the reset
             for _ in range(timesteps // block):
                 net_in = {f"state_{k}": v for k, v in env.observe(states).items()}
-                action01 = net.predict(net_in, gen, num_samples=block)["action"]
+                action01 = net.predict(net_in, gen, num_samples=block, **kw)["action"]
                 states, reward, term, trunc, info, did_reset = env.step_physics_block(
                     states, convert_action(action01))
                 states = states._replace(last_action=action01[-1])
@@ -893,7 +984,7 @@ class CARLAgent:
         else:
             for _ in range(timesteps):
                 net_in = {f"state_{k}": v for k, v in obs.items()}
-                pred = net.predict(net_in, gen)
+                pred = net.predict(net_in, gen, **kw)
                 states, obs, reward, term, trunc, info = env.step(
                     states, convert_action(pred["action"]))
                 acc, typed = accumulate(acc, typed, reward, term, trunc, info)
@@ -952,7 +1043,8 @@ class CARLAgent:
             record[f"{k}_mean"] = float(np.mean(v)) if len(v) else 0.0
             record[f"{k}_std"] = float(np.std(v)) if len(v) else 0.0
 
-        os.makedirs(eval_dir, exist_ok=True)
-        with open(os.path.join(eval_dir, f"{name}.json"), "w") as f:
-            json.dump(record, f, indent=2)
+        if self.mesh is None or self.mesh.rank == 0:
+            os.makedirs(eval_dir, exist_ok=True)
+            with open(os.path.join(eval_dir, f"{name}.json"), "w") as f:
+                json.dump(record, f, indent=2)
         return record

@@ -151,9 +151,13 @@ class Stage:
         weights_dir = args.pop("weights_dir", DEFAULT_WEIGHTS_DIR)
         load = args.pop("load", False)
         load_full = args.pop("load_full", True)
+        mesh = args.pop("mesh", None)
+        log_mode = args.pop("log_mode", "summary")
+        log_dir = args.pop("log_dir", None)
         cfg = CARLAgentConfig(**{k: v for k, v in args.items()
                                  if k in CARLAgentConfig.__dataclass_fields__})
-        self.agent = CARLAgent(self.env, cfg, name=name, weights_dir=weights_dir)
+        self.agent = CARLAgent(self.env, cfg, name=name, weights_dir=weights_dir, mesh=mesh,
+                               log_mode=log_mode, log_dir=log_dir)
         if load and any(os.path.exists(os.path.join(self.agent.base_path, f))
                         for f in ("network.pt", "params.msgpack")):
             self.agent.load(full=load_full)

@@ -31,6 +31,8 @@ one-camera observation also holds `past_control` and `command`.
 
 from __future__ import annotations
 
+import contextlib
+
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
@@ -176,9 +178,35 @@ class CARLAEnv:
         self._physics_consts = None
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.shard = None       # (mesh, worlds in all) in a sharded run
 
     def seed(self, seed: int) -> None:
         self.generator.manual_seed(seed)
+
+    @contextlib.contextmanager
+    def sharded(self, mesh, total: int):
+        """Within the block, this process steps its rows of `total` worlds
+        laid out over `mesh` (parallel/mesh.WorldMesh), and every draw of
+        the env's generator is drawn for all `total` worlds and cut to this
+        rank's rows, so that each world draws as it would in one process.
+        A None mesh leaves the env unsharded."""
+        prev, self.shard = self.shard, (None if mesh is None else (mesh, total))
+        try:
+            yield
+        finally:
+            self.shard = prev
+
+    def _rows(self, n: int, draw, dim: int = 0):
+        """draw(m) for m = n worlds, or in a sharded run for all worlds,
+        each tensor cut to this rank's rows along `dim`."""
+        if self.shard is None:
+            return draw(n)
+        mesh, total = self.shard
+        lo, hi = mesh.shard(total)
+        if n != hi - lo:
+            raise ValueError(f"{n} worlds drawn where this rank holds {hi - lo} of {total}")
+        return world_mod.map_tensors(lambda t: t.narrow(dim, lo, hi - lo).contiguous(),
+                                     draw(total))
 
     # ---- spaces (reference core/carla_env.py:18-24,128-131), of one world ----
     @property
@@ -293,15 +321,19 @@ class CARLAEnv:
 
     def reset_draws(self, n: int) -> ResetDraws:
         """`n` episode resets drawn from the env's generator."""
-        return world_mod.reset_draws(self.generator, n, self.params, self.routes, self.town)
+        return self._rows(n, lambda m: world_mod.reset_draws(self.generator, m, self.params,
+                                                             self.routes, self.town))
 
     def npc_step_draws(self, world: WorldState) -> Optional[traffic.NPCStepDraws]:
         """The NPC tick's draws for `world` from the env's generator; None
         (and nothing drawn) without NPCs."""
         if not self.params.has_npcs:
             return None
-        return traffic.npc_step_draws(self.generator, self.town, world.town_id,
-                                      self.params.v_max, self.params.p_max)
+        v, p = self.params.v_max, self.params.p_max
+        # one row of uniforms per world, scaled by its town
+        u = self._rows(world.town_id.shape[0], lambda m: torch.rand(
+            (m, v + 3 * p), generator=self.generator, device=self.device))
+        return traffic.step_draws_from_uniforms(u, self.town, world.town_id, v, p)
 
     def observe(self, state: EnvState) -> dict:
         """Stacked observation dict, image scaled to [0, 1]
@@ -437,11 +469,12 @@ class CARLAEnv:
         row (K, B)."""
         k, n = actions.shape[0], actions.shape[1]
         if npc_draws is None and self.params.has_npcs:
-            npc_draws = traffic.block_npc_step_uniforms(self.generator, k, n, self.params.v_max,
-                                                        self.params.p_max, self.device)
+            npc_draws = self._rows(n, lambda m: traffic.block_npc_step_uniforms(
+                self.generator, k, m, self.params.v_max, self.params.p_max, self.device), dim=1)
         if draws is None:
-            draws = world_mod.block_reset_draws(self.generator, k, n, self.params, self.routes,
-                                                self.weather_table, self.town)
+            draws = self._rows(n, lambda m: world_mod.block_reset_draws(
+                self.generator, k, m, self.params, self.routes, self.weather_table, self.town),
+                dim=1)
         if self.config.fused_step:
             out = physics_ops.step_physics_block(states.world, actions, self.params, self.town,
                                                  self.routes, draws, self.physics_consts())
@@ -512,8 +545,9 @@ class CARLAEnv:
 def convert_action(action01: torch.Tensor, low: float = -1.0,
                    high: float = 1.0) -> torch.Tensor:
     """Beta samples in [0, 1] -> env action range
-    (reference rl/agents/ppo.py:158-163)."""
-    return action01 * (high - low) + low
+    (reference rl/agents/ppo.py:158-163), in the world's float32 (a
+    float64 network's samples included)."""
+    return (action01 * (high - low) + low).to(torch.float32)
 
 
 class CARLAEnvDiscrete:

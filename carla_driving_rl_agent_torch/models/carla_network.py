@@ -190,8 +190,12 @@ class CARLANetwork(nn.Module):
     # ---- forward passes (JAX carla_network.py:180-203) ----
     def dynamics_apply(self, obs: Dict[str, torch.Tensor], training: bool = False):
         """The dynamics feature; in training mode the BatchNorms use and fold
-        the batch statistics."""
+        the batch statistics.  A network held in float64 (.double(), for
+        comparisons free of float32 rounding) takes its float inputs in
+        float64."""
         self.dynamics.train(training)
+        if next(self.parameters()).dtype == torch.float64:
+            obs = {k: v.double() if v.is_floating_point() else v for k, v in obs.items()}
         return self.dynamics(obs)
 
     def policy_apply(self, feat: torch.Tensor, training: bool = False,
@@ -206,7 +210,7 @@ class CARLANetwork(nn.Module):
 
     @torch.no_grad()
     def predict(self, obs: Dict[str, torch.Tensor], gen: torch.Generator,
-                num_samples: Optional[int] = None) -> dict:
+                num_samples: Optional[int] = None, sampler=None) -> dict:
         """Rollout-time prediction (reference core/networks.py:181-193):
         dynamics -> old_policy sample + value, in inference mode.  `obs`
         holds state_image (B, T, H, W, C), state_road, state_vehicle and
@@ -214,12 +218,17 @@ class CARLANetwork(nn.Module):
         never wired into its graph and is not read here either.  With
         `num_samples=n`, action and log_prob have a leading (n,) axis: n iid
         draws from one forward pass, for the block rollout (the stacked
-        observation is constant between frame pushes)."""
+        observation is constant between frame pushes).  `sampler(dist, gen,
+        num_samples)`, when given, draws the samples instead (the sharded
+        rollout's, which draws for every rank's worlds: parallel/mesh.py)."""
         feat = self.dynamics_apply(obs)
         pol = self.policy_apply(feat, old=True)
         val = self.value_apply(feat)
         dist: Beta = pol["dist"]
-        sample = dist.sample(gen) if num_samples is None else dist.sample_n(gen, num_samples)
+        if sampler is not None:
+            sample = sampler(dist, gen, num_samples)
+        else:
+            sample = dist.sample(gen) if num_samples is None else dist.sample_n(gen, num_samples)
         action = dist.clip(sample)
         return dict(action=action, mean=dist.mean(), std=dist.stddev(),
                     log_prob=dist.log_prob(action), value=val["value"],

@@ -1,6 +1,8 @@
-"""The Beta policy distribution (reference core/networks.py:128-144).
+"""The policy distributions: Beta (reference core/networks.py:128-144),
+and the diagonal Gaussian and factored Categorical of the generic networks
+(reference rl/networks/networks.py:74-100).
 
-Counterpart of `Beta` in carla_driving_rl_agent_tpu/models/distributions.py.
+Counterpart of carla_driving_rl_agent_tpu/models/distributions.py.
 torch.distributions.Beta cannot take a generator, so `sample` draws the two
 Gamma variates itself (Marsaglia-Tsang) from an explicit torch.Generator.
 `rsample` is the reparameterised draw of the policy objective's
@@ -10,6 +12,7 @@ differentiates its Gamma variates implicitly, and so does `_ImplicitGamma`.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -127,3 +130,75 @@ class Beta:
         a, b = self.alpha, self.beta
         s = a + b
         return torch.sqrt(a * b / (s * s * (s + 1.0)))
+
+
+@dataclass
+class Gaussian:
+    """Diagonal Gaussian for unbounded Box spaces (reference
+    rl/networks/networks.py:93-100).  Its log_prob is per action
+    dimension, as the JAX package's."""
+
+    mu: torch.Tensor
+    log_std: torch.Tensor
+
+    def sample(self, gen: torch.Generator) -> torch.Tensor:
+        noise = torch.randn(self.mu.shape, generator=gen, device=self.mu.device,
+                            dtype=self.mu.dtype)
+        return self.mu + torch.exp(self.log_std) * noise
+
+    def clip(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        var = torch.exp(2.0 * self.log_std)
+        return -0.5 * (torch.square(x - self.mu) / var
+                       + 2.0 * self.log_std + math.log(2.0 * math.pi))
+
+    def entropy(self) -> torch.Tensor:
+        return 0.5 * (1.0 + math.log(2.0 * math.pi)) + self.log_std
+
+    def mean(self) -> torch.Tensor:
+        return self.mu
+
+    def stddev(self) -> torch.Tensor:
+        return torch.exp(self.log_std)
+
+
+@dataclass
+class Categorical:
+    """Categorical over the last axis of `logits` (..., num_actions,
+    num_classes), factored over the action components (reference
+    rl/networks/networks.py:74-88).  Samples are class indices as floats."""
+
+    logits: torch.Tensor
+
+    def sample(self, gen: torch.Generator) -> torch.Tensor:
+        p = torch.softmax(self.logits, dim=-1)
+        flat = p.reshape(-1, p.shape[-1])
+        idx = torch.multinomial(flat, 1, generator=gen)[:, 0]
+        return idx.reshape(p.shape[:-1]).to(torch.float32)
+
+    def clip(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        logp = torch.log_softmax(self.logits, dim=-1)
+        return torch.gather(logp, -1, x.to(torch.int64)[..., None])[..., 0]
+
+    def entropy(self) -> torch.Tensor:
+        logp = torch.log_softmax(self.logits, dim=-1)
+        return -torch.sum(torch.exp(logp) * logp, dim=-1)
+
+    def _classes(self) -> torch.Tensor:
+        return torch.arange(self.logits.shape[-1], dtype=self.logits.dtype,
+                            device=self.logits.device)
+
+    def mean(self) -> torch.Tensor:
+        p = torch.softmax(self.logits, dim=-1)
+        return torch.sum(p * self._classes(), dim=-1)
+
+    def stddev(self) -> torch.Tensor:
+        p = torch.softmax(self.logits, dim=-1)
+        c = self._classes()
+        m = torch.sum(p * c, dim=-1, keepdim=True)
+        return torch.sqrt(torch.sum(p * torch.square(c - m), dim=-1))

@@ -159,6 +159,27 @@ def params_from_jax(params, batch_stats) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def ppo_params_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The models.networks.PPONetwork state_dict of the JAX package's
+    PPONetwork parameter tree (components policy, old_policy, value):
+    Dense kernels (in, out) -> Linear weights (out, in), LayerNorm
+    scale/bias -> weight/bias, the Gaussian head's log_std as it is."""
+    sd: Dict[str, torch.Tensor] = {}
+    for comp in ("policy", "old_policy", "value"):
+        for path, arr in _leaves(params[comp]):
+            mod, leaf = ".".join((comp,) + path[:-1]), path[-1]
+            arr = np.asarray(arr)
+            if leaf == "kernel":
+                sd[f"{mod}.weight"] = _tensor(arr.T)
+            elif leaf == "scale":
+                sd[f"{mod}.weight"] = _tensor(arr)
+            elif leaf in ("bias", "log_std"):
+                sd[f"{mod}.{leaf}"] = _tensor(arr)
+            else:
+                raise KeyError(f"unexpected parameter {comp}/{'/'.join(path)}")
+    return sd
+
+
 def refuse_tracked(path: str) -> None:
     """Raise if `path` lies under the checkout's tracked weights/ directory
     (the reference's checkpoints and records): the port writes under

@@ -4,9 +4,13 @@ Counterpart of carla_driving_rl_agent_tpu/utils/math.py (formulas from the
 reference: GAE and returns rl/utils.py:57-84 and rl/agents/ppo.py:692-727,
 decompose_number rl/utils.py:140-151, sp_norm rl/utils.py:344-349,
 kl_divergence rl/utils.py:459-464, per-tensor gradient clipping
-rl/utils.py:120-121, polyak averaging rl/utils.py:105-117).  The recurrences
-run as Python loops over the rollout's steps, in the JAX scans' operation
-order.
+rl/utils.py:120-121, polyak averaging rl/utils.py:105-117, the
+single-trajectory discount_cumsum / gae / rewards_to_go rl/utils.py:57-84,
+normalize_tensor rl/utils.py:338-341, cosine_similarity
+rl/environments/carla/tools/utils.py:30-67).  The recurrences run as Python
+loops over the rollout's steps, in the JAX scans' operation order (the
+JAX discount_cumsum is an associative scan: the same sums in another
+order).
 """
 
 from __future__ import annotations
@@ -14,6 +18,52 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+
+
+EPSILON = 1e-7  # the reference's clip and normalisation bound
+
+
+def discount_cumsum(x: torch.Tensor, discount: float) -> torch.Tensor:
+    """Reverse discounted cumulative sum along axis 0:
+    y[t] = x[t] + discount * y[t + 1]
+    (scipy.signal.lfilter([1], [1, -discount], x[::-1])[::-1])."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    out = torch.empty_like(x)
+    carry = torch.zeros_like(x[0])
+    for t in range(x.shape[0] - 1, -1, -1):
+        carry = x[t] + discount * carry
+        out[t] = carry
+    return out
+
+
+def rewards_to_go(rewards: torch.Tensor, discount: float) -> torch.Tensor:
+    """Discounted returns of `rewards` with the bootstrap value appended,
+    the bootstrap element dropped (reference rl/utils.py:75-84)."""
+    return discount_cumsum(rewards, discount)[:-1]
+
+
+def gae(rewards: torch.Tensor, values: torch.Tensor, gamma: float, lambda_: float,
+        normalize: bool = False) -> torch.Tensor:
+    """Generalized Advantage Estimation over one trajectory: `rewards` and
+    `values` of length T + 1, the bootstrap appended (reference
+    rl/utils.py:62-72)."""
+    deltas = rewards[:-1] + gamma * values[1:] - values[:-1]
+    adv = deltas if lambda_ == 0.0 else discount_cumsum(deltas, gamma * lambda_)
+    return normalize_tensor(adv) if normalize else adv
+
+
+def normalize_tensor(x: torch.Tensor, eps: float = EPSILON) -> torch.Tensor:
+    """Zero mean, unit (population) standard deviation."""
+    x = torch.as_tensor(x, dtype=torch.float32)
+    return (x - torch.mean(x)) / (torch.std(x, correction=0) + eps)
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor, dim: int = -1,
+                      eps: float = 1e-8) -> torch.Tensor:
+    """cos(a, b) along `dim`, the norms' product floored at eps."""
+    na = torch.linalg.vector_norm(a, dim=dim)
+    nb = torch.linalg.vector_norm(b, dim=dim)
+    return torch.sum(a * b, dim=dim) / torch.clamp(na * nb, min=eps)
 
 
 def batched_gae(rewards: torch.Tensor, values: torch.Tensor, dones: torch.Tensor,

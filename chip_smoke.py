@@ -62,7 +62,8 @@ Phases, each printed with its seconds:
                launches per chunk;
   9. train   — stage s1 at the shipped geometry (32 worlds, 128-step block
                rollouts, batch 64, sequential float32 update, fused_step)
-               for one epoch of 5 updates from a fresh seeded network: the
+               for one epoch of 3 updates (the shipped epoch has 5: a depth cut
+               for time) from a fresh seeded network: the
                metrics, the parameters moved, the kernel launches per
                update, env-steps/s and the four parts of an update, then
                the checkpoint saved and reloaded;
@@ -176,7 +177,7 @@ Phases, each printed with its seconds:
                bfloat16 ulps, then each timed beside its bound (2-byte
                activations, the products at the bf16 tensor rate) with its
                device launches per call and device ms per stage;
- 29. train_variants — at stage s1's geometry with fused units, 2 updates
+ 29. train_variants — at stage s1's geometry with fused units, 1 update
                each of fused_update, two_step_update, two_step_split_adam
                and compute_dtype "bfloat16" (the sequential update): finite
                losses, train env-steps/s beside phase 13's, the parts of an
@@ -192,7 +193,33 @@ Phases, each printed with its seconds:
                full network's gradients on the card against the CPU (the
                update within 1e-6 relative L2).  Every update's timings are
                read when it ran (learn keeps each update's parts with its
-               metrics), so the phases keep updates_per_dispatch's default.
+               metrics), so the phases keep updates_per_dispatch's default;
+ 30. generic_ppo — the generic PPOAgent on PointNavEnv (32 envs x 64
+               steps, batch 256, 64-unit MLPs) with each adapter: a bounded
+               Box (Beta), an unbounded Box (Gaussian), a MultiDiscrete
+               (Categorical): one update on the card against the same update
+               on the CPU from the same parameters and injected draws
+               (metrics within 1e-4 relative, parameter changes within 1e-3
+               relative L2), then 8 updates on the card: updates/s and the
+               first and last reward_mean;
+ 31. dp_train — stage s1 at full width (fused_step, fused units, 32
+               worlds, 2 updates) over 2 gloo ranks on the one card
+               (parallel/mesh.py: 16 worlds per rank, every draw drawn for
+               all 32 worlds, the trajectories gathered, the same update on
+               both ranks), deterministic kernels: the ranks equal (drift 0
+               before any repair); the run bit for bit equal to a one-process
+               run whose predicts run in the ranks' shards; against phase
+               13's plain one-process run the first rollout's rewards and
+               flags at train_agree's loss bar, the parameters after 2 updates
+               reported; each rank's launches of rows 1, 3, 4, 5 and 6; train
+               env-steps/s of both runs;
+ 32. summary_flops — one s1 update with fused units from phase 13's
+               network, its rollout cut to 32 steps, with the Summary
+               writing events.jsonl, under utils/profiling's device trace
+               (a Chrome trace that must name the unit kernels); its
+               analytic FLOPs (utils/flops.py) over its seconds: the MFU
+               against the FP32 peak, printed beside the card's name and
+               power limit.
 Each training phase prints the mean reward per step, the episodes that
 ended, the NPCs per world, train env-steps/s and the four parts of an
 update.  With --profile, a last phase breaks an evaluation window (without
@@ -233,9 +260,8 @@ import torch
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): FP32 outside the
 # tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
-PEAK_FP32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
+from carla_driving_rl_agent_torch.utils.flops import (  # noqa: E402
+    PEAK_BF16_FLOPS, PEAK_BYTES_PER_S, PEAK_FP32_FLOPS)
 
 # Float operations of the render function, counted from csrc/render.cuh
 # where each is done the fewest times the function allows (an add,
@@ -304,7 +330,8 @@ def reference(traffic: str = "no") -> str:
 METRICS = ("collision_rate", "similarity", "waypoint_distance", "speed",
            "total_reward", "timesteps")
 ENV_WORLDS, ENV_CHUNK, ENV_CHUNKS = 1024, 32, 5
-TRAIN_UPDATES, TRAIN_WORLDS, TRAIN_STEPS, TRAIN_BATCH = 5, 32, 128, 64
+# 3 updates per s1 epoch (the shipped epoch is 5: a depth cut for time)
+TRAIN_UPDATES, TRAIN_WORLDS, TRAIN_STEPS, TRAIN_BATCH = 3, 32, 128, 64
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1611,7 +1638,8 @@ def env_phase() -> dict:
 
 
 def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
-                 frames_per_update: int = TRAIN_STEPS // 4, render_kernel: bool = True) -> dict:
+                 frames_per_update: int = TRAIN_STEPS // 4, render_kernel: bool = True,
+                 snapshot_after: int = 0) -> dict:
     """Run2 of `stage` for one epoch of `updates` updates after stage.init,
     with the launch counts set to 0 just before: the metrics finite, every
     parameter group moved, `physics_per_update` physics-kernel block
@@ -1621,16 +1649,29 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
     fused units a pass of the 13 stride-1 units per predict (inference) and
     per minibatch (forward and backward).  Prints and returns what it
     measured.  With `render_kernel` False (another render_mode) no render
-    launch is expected."""
+    launch is expected.  With `snapshot_after` = k the network's tensors
+    before the epoch and after update k, and the first rollout's rewards
+    and flags, are kept (for dp_train)."""
     agent = stage.agent
     fused_units = agent.config.fused_units
     check(agent.config.rollout_steps == TRAIN_STEPS, "128-step rollouts")
     before = {k: v.detach().clone() for k, v in agent.network.state_dict().items()}
     history = []
     torch.cuda.synchronize()
+    snapshot, rollouts = {}, []
+
+    def callback(step, m):
+        history.append(m)
+        if len(history) == snapshot_after:
+            snapshot.update({k: v.detach().cpu().clone()
+                             for k, v in agent.network.state_dict().items()})
+    if snapshot_after:
+        agent._rollout = _recording(agent._rollout, rollouts)
     _zero_counts()
     t0 = time.perf_counter()
-    stage.run2(1, callback=lambda step, m: history.append(m))
+    stage.run2(1, callback=callback)
+    if snapshot_after:
+        del agent._rollout
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     counts = _counts()
@@ -1700,13 +1741,17 @@ def _train_epoch(stage, updates: int, label: str, physics_per_update: int,
         f"{g} {v:.3e}" for g, v in moved.items()), flush=True)
     return dict(seconds=seconds, env_steps_per_s=sps, launches=counts,
                 parts_mean_s={k: float(np.mean(v)) for k, v in parts.items()},
-                parts_s=parts, moved=moved, history=history)
+                parts_s=parts, moved=moved, history=history, snapshot=snapshot,
+                snapshot_before={k: v.cpu() for k, v in before.items()} if snapshot else {},
+                first_rollout=rollouts[0] if rollouts else None)
 
 
 def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
-    """Stage s1 at the shipped geometry for one epoch (5 updates), from a
+    """Stage s1 at the shipped geometry for one epoch (TRAIN_UPDATES), from a
     fresh seeded network, with the backbone's stride-1 units unfused or on
-    the unit kernels; returns (stage, summary)."""
+    the unit kernels; returns (stage, summary), with fused units the
+    network after DP_UPDATES updates in summary["snapshot"] (dp_train's
+    one-process run)."""
     from carla_driving_rl_agent_torch.agents.carla_agent import CARLAgent
     from carla_driving_rl_agent_torch.curriculum import stages
     stage = stages.stage_s1(episodes=TRAIN_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
@@ -1716,7 +1761,8 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
                             env_overrides=dict(fused_step=True, device="cuda"))
     stage.init()
     agent = stage.agent
-    summary = _train_epoch(stage, TRAIN_UPDATES, "train", TRAIN_STEPS // 4)
+    summary = _train_epoch(stage, TRAIN_UPDATES, "train", TRAIN_STEPS // 4,
+                           snapshot_after=DP_UPDATES if fused_units else 0)
     after = agent.network.state_dict()
 
     # the checkpoint reloads equal
@@ -1738,9 +1784,11 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
     return stage, summary
 
 
-# the depth of train_s2, train_s3_fused, train_s4, train_s5_fused and
-# train_expert_fused (a cut for time)
+# the depth of train_s2, train_s3_fused, train_s4, train_s5_fused,
+# train_expert_fused and variants (a cut for time), and of each variant of
+# train_variants
 CUT_UPDATES = 2
+VARIANT_UPDATES = 1
 
 
 def _traffic_numbers(stage, summary: dict, label: str) -> dict:
@@ -2927,8 +2975,8 @@ def optimizer_agree(grads: dict) -> dict:
 
 
 def train_variants_phase(root: str, seq: dict) -> tuple:
-    """Stage s1 at the shipped geometry with fused units, 2 updates (a depth
-    cut) of each update scheme and of the bfloat16 network from a fresh
+    """Stage s1 at the shipped geometry with fused units, VARIANT_UPDATES
+    updates (a depth cut) of each update scheme and of the bfloat16 network from a fresh
     seeded network; train env-steps/s beside `seq` (phase train_fused's);
     the split backbone states' checkpoint reloads equal; then variant_agree
     and, after the four, optimizer_agree on the fused_update step's
@@ -2937,12 +2985,14 @@ def train_variants_phase(root: str, seq: dict) -> tuple:
     from carla_driving_rl_agent_torch.curriculum import stages
     out, launches = {}, {}
     for label, kw in VARIANTS:
-        stage = stages.stage_s1(episodes=CUT_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
-                                num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+        stage = stages.stage_s1(episodes=VARIANT_UPDATES, timesteps=512,
+                                batch_size=TRAIN_BATCH, num_envs=TRAIN_WORLDS,
+                                rollout_block=True, fused_units=True,
                                 weights_dir=os.path.join(root, label),
                                 env_overrides=dict(fused_step=True, device="cuda"), **kw)
         stage.init()
-        summary = _train_epoch(stage, CUT_UPDATES, f"train_variants {label}", TRAIN_STEPS // 4)
+        summary = _train_epoch(stage, VARIANT_UPDATES, f"train_variants {label}",
+                               TRAIN_STEPS // 4)
         launches[label] = summary.pop("launches")
         print(f"  train env-steps/s, {label} / sequential (phase train_fused): "
               f"{summary['env_steps_per_s']:.1f} / {seq['env_steps_per_s']:.1f} "
@@ -2970,6 +3020,360 @@ def train_variants_phase(root: str, seq: dict) -> tuple:
         del stage, agent
     out["optimizers"] = optimizer_agree(fused_grads)
     return out, launches
+
+
+# ----------------------------------------------------------------------
+# the generic PPOAgent, data parallelism over worlds, summaries, profiling
+# and FLOPs
+# ----------------------------------------------------------------------
+
+# tests/test_generic_ppo.py::test_learns_point_nav's configuration
+PPO_CFG = dict(num_envs=32, rollout_steps=64, batch_size=256, policy_lr=1e-3, value_lr=1e-3,
+               gamma=0.99, lambda_=0.95, entropy_regularization=0.01, seed=1,
+               network=dict(policy=dict(units=64, num_layers=2),
+                            value=dict(units=64, num_layers=2)))
+PPO_UPDATES = 8
+# card against CPU on one update from the same draws: the metrics at
+# train_agree's float32 loss bar, the parameter changes (relative L2 over
+# every tensor; float32 MLPs, no BatchNorm, no noise-level gradient)
+PPO_AGREE_BARS = dict(metric=1e-4, param=1e-3)
+
+
+def _ppo_envs() -> dict:
+    """PointNavEnv with a bounded Box (Beta), an unbounded Box (Gaussian)
+    and a MultiDiscrete (Categorical, as JAX's
+    tests/test_generic_ppo.py::test_discrete_action_space builds it)."""
+    from carla_driving_rl_agent_torch.envs import spaces
+    from carla_driving_rl_agent_torch.envs.toy import PointNavEnv
+
+    class Unbounded(PointNavEnv):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.action_space = spaces.Box(low=-np.inf, high=np.inf, shape=(2,))
+
+    class Discrete(PointNavEnv):
+        def __init__(self, bins=4, **kw):
+            super().__init__(**kw)
+            self.bins = bins
+            self.action_space = spaces.MultiDiscrete(nvec=[bins, bins])
+
+        def step(self, state, action, draws=None, gen=None):
+            return super().step(state, action.to(torch.float32) / (self.bins - 1) * 2.0 - 1.0,
+                                draws, gen)
+    return dict(beta=PointNavEnv(max_steps=80), gaussian=Unbounded(max_steps=80),
+                categorical=Discrete(max_steps=80))
+
+
+def _ppo_draws(agent, gen: torch.Generator) -> tuple:
+    """A start and one update's injected draws (samples, resets,
+    permutation) for `agent`'s distribution, on the CPU."""
+    from carla_driving_rl_agent_torch.envs.toy import PointNavDraws
+    cfg, env = agent.config, agent.env
+    S, B, A = cfg.rollout_steps, cfg.num_envs, agent.num_actions
+    if agent.distribution == "beta":
+        samples = 0.05 + 0.9 * torch.rand((S, B, A), generator=gen)
+    elif agent.distribution == "gaussian":
+        samples = torch.randn((S, B, A), generator=gen)
+    else:
+        samples = torch.randint(0, env.bins, (S, B, A), generator=gen).to(torch.float32)
+    resets = [env.reset_draws(gen, B) for _ in range(S)]
+    start = env.reset_draws(gen, B)
+    return start, dict(samples=samples, resets=resets,
+                       perm=torch.randperm(S * B, generator=gen))
+
+
+def generic_ppo_phase(root: str) -> dict:
+    """PPOAgent on PointNavEnv on the card with each distribution: one
+    update on the card against the same update on the CPU from the same
+    injected draws and parameters, then PPO_UPDATES updates on the card,
+    timed, with the first and last updates' reward_mean."""
+    from carla_driving_rl_agent_torch.agents.carla_agent import full_float32
+    from carla_driving_rl_agent_torch.agents.ppo import PPOAgent, PPOConfig
+    from carla_driving_rl_agent_torch.envs.toy import PointNavDraws
+    full_float32()
+    hyper = dict(clip_ratio=0.2, entropy=0.01, adv_scale=2.0)
+    out = {}
+    for label, env in _ppo_envs().items():
+        agents = [PPOAgent(env, PPOConfig(**PPO_CFG), device=d, log_mode=None,
+                           weights_dir=root) for d in ("cuda", "cpu")]
+        check(agents[0].distribution == label, f"{label}: adapter {agents[0].distribution}")
+        start, draws = _ppo_draws(agents[1], torch.Generator().manual_seed(5))
+        before = {k: v.cpu().clone() for k, v in agents[1].network.state_dict().items()}
+        runs = []
+        for a in agents:
+            dev = a.device
+            to = lambda t: t.to(dev)  # noqa: E731
+            states, _ = env.reset(PointNavDraws(to(start.pos), to(start.goal)))
+            _, m = a.train_iteration(states, hyper, draws=dict(
+                samples=to(draws["samples"]), perm=to(draws["perm"]),
+                resets=[PointNavDraws(to(r.pos), to(r.goal)) for r in draws["resets"]]))
+            runs.append((m, {k: v.cpu() - before[k] for k, v in a.network.state_dict().items()}))
+        (mg, dg), (mc, dc) = runs
+        metric = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+        param = _rel_l2(dg, dc, list(dc))
+        print(f"  generic_ppo {label}: one update card vs CPU from the same draws: metrics "
+              f"{metric:.3e} (relative), parameter changes {param:.3e} (relative L2)",
+              flush=True)
+        check(metric <= PPO_AGREE_BARS["metric"], f"generic_ppo {label} metrics {metric:.3e}")
+        check(param <= PPO_AGREE_BARS["param"], f"generic_ppo {label} parameters {param:.3e}")
+        agent = PPOAgent(env, PPOConfig(**PPO_CFG), device="cuda", log_mode=None,
+                         weights_dir=root)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, hist = agent.learn(PPO_UPDATES)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        for m in hist:
+            check(all(math.isfinite(v) for v in m.values()), f"generic_ppo {label}: {m}")
+        steps = PPO_CFG["num_envs"] * PPO_CFG["rollout_steps"]
+        out[label] = dict(metric=metric, param=param, updates_per_s=PPO_UPDATES / secs,
+                          env_steps_per_s=PPO_UPDATES * steps / secs,
+                          reward_mean_first=hist[0]["reward_mean"],
+                          reward_mean_last=hist[-1]["reward_mean"])
+        print(f"  generic_ppo {label}: {PPO_UPDATES} updates of {PPO_CFG['num_envs']} envs x "
+              f"{PPO_CFG['rollout_steps']} steps in {secs:.3f} s: "
+              f"{out[label]['updates_per_s']:.3f} updates/s, "
+              f"{out[label]['env_steps_per_s']:.1f} env-steps/s; reward_mean update 1 "
+              f"{hist[0]['reward_mean']:.4f}, update {PPO_UPDATES} {hist[-1]['reward_mean']:.4f}",
+              flush=True)
+    return out
+
+
+# dp_train: stage s1 over two gloo ranks on the one card, TRAIN_WORLDS
+# worlds, DP_UPDATES updates, against the same updates in one process
+DP_RANKS, DP_UPDATES = 2, 2
+
+
+def deterministic(on: bool = True) -> None:
+    """Deterministic kernels (cuDNN's deterministic algorithms, and PyTorch's
+    deterministic implementations where an op has one): the replicas of a
+    data-parallel run must compute the same update, as the JAX package's
+    replicated GSPMD program does; a card update is otherwise not bitwise
+    reproducible."""
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    torch.backends.cudnn.deterministic = on
+    torch.backends.cudnn.benchmark = False
+
+
+def _s1_stage(device, weights_dir: str, load: bool, mesh=None):
+    """Stage s1 at full width with fused_step and fused units, its summaries
+    off, optionally loading weights_dir/stage-s1."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    stage = stages.stage_s1(episodes=DP_UPDATES, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+                            weights_dir=weights_dir, mesh=mesh, log_mode=None, load=load,
+                            env_overrides=dict(fused_step=True, device=str(device)))
+    stage.init()
+    return stage
+
+
+def _recording(rollout, rollouts: list):
+    """`rollout` (an agent's _rollout) keeping each trajectory's rewards
+    and flags in `rollouts`."""
+    def recording(states):
+        out = rollout(states)
+        traj = out[1]
+        rollouts.append((traj.reward.cpu(), traj.terminated.cpu(), traj.truncated.cpu()))
+        return out
+    return recording
+
+
+def _learn(stage, updates: int) -> dict:
+    """`updates` updates of the stage's agent (no checkpoint written), with
+    the launch counts set to 0 just before; the first update's rollout
+    rewards and flags kept."""
+    history, rollouts = [], []
+    agent = stage.agent
+    agent._rollout = _recording(agent._rollout, rollouts)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    agent.learn(updates, callback=lambda step, m: history.append(m))
+    torch.cuda.synchronize()
+    del agent._rollout
+    return dict(seconds=time.perf_counter() - t0, counts=_counts(), history=history,
+                rollout=rollouts[0],
+                state={k: v.detach().cpu().clone()
+                       for k, v in agent.network.state_dict().items()})
+
+
+def _chunk_predicts(agent, chunks: int) -> None:
+    """Make `agent`'s predicts run their forward pass in `chunks` slices of
+    the worlds, the ranks' shards, and sample for all worlds at once: in
+    one process, the numbers a data-parallel run of `chunks` ranks
+    computes."""
+    from carla_driving_rl_agent_torch.models.distributions import Beta
+    net = agent.network
+
+    def predict(obs, gen, num_samples=None):
+        B = obs["state_image"].shape[0]
+        parts = []
+        for r in range(chunks):
+            rows = slice(B * r // chunks, B * (r + 1) // chunks)
+            feat = net.dynamics_apply({k: v[rows] for k, v in obs.items()})
+            parts.append((net.policy_apply(feat, old=True)["dist"], net.value_apply(feat)))
+        dists = [d for d, _ in parts]
+        full = Beta(alpha=torch.cat([d.alpha for d in dists]),
+                    beta=torch.cat([d.beta for d in dists]))
+        sample = full.sample(gen) if num_samples is None else full.sample_n(gen, num_samples)
+        action = full.clip(sample)
+        return dict(action=action, log_prob=full.log_prob(action),
+                    value=torch.cat([v["value"] for _, v in parts]))
+    net.predict = torch.no_grad()(predict)
+
+
+def _dp_rank(mesh, town, weights_dir: str) -> dict:
+    """One rank of dp_train."""
+    from carla_driving_rl_agent_torch.envs import town as town_mod
+    deterministic()
+    town_mod._TOWN_CACHE.setdefault(TOWN, town)      # the parent's build
+    out = _learn(_s1_stage(mesh.device, weights_dir, False, mesh), DP_UPDATES)
+    out["shard"] = mesh.shard(TRAIN_WORLDS)
+    return out
+
+
+def dp_train_phase(single: dict, root: str) -> dict:
+    """Stage s1 at full width (fused_step, fused units, TRAIN_WORLDS worlds,
+    DP_UPDATES updates from a fresh seeded network) over DP_RANKS gloo
+    ranks on the one card: each rank steps its shard, every draw is drawn
+    for all worlds, the trajectories are gathered and every rank runs the
+    same update.  With deterministic kernels in the ranks and in a
+    one-process run whose predicts run their forward pass in the ranks'
+    shards (_chunk_predicts), held: the ranks equal (no drift before any
+    repair); the data-parallel run bit for bit equal to that one-process
+    run, parameters and metrics; and against the plain one-process run
+    (`single`: train_fused's network before and after its first DP_UPDATES
+    updates and its first rollout), the first rollout's rewards and flags
+    at train_agree's float32 loss bar (its forward passes over 32 worlds
+    round otherwise than the ranks' over 16; the update amplifies that
+    rounding, so the parameters after DP_UPDATES updates are reported, not
+    held, beside the chunked one-process run's distance from the plain
+    one).  Each rank's kernel launches; train env-steps/s of both runs."""
+    from carla_driving_rl_agent_torch.envs import town as town_mod
+    from carla_driving_rl_agent_torch.parallel import mesh as mesh_mod
+    deterministic()
+    before = single["before"]
+    single = dict(single, state=single["snapshot"], rollout=single["first_rollout"])
+    try:
+        chunked_stage = _s1_stage("cuda", root, False)
+        _chunk_predicts(chunked_stage.agent, DP_RANKS)
+        chunked = _learn(chunked_stage, DP_UPDATES)
+        t0 = time.perf_counter()
+        ranks = mesh_mod.spawn_ranks(_dp_rank, DP_RANKS, "gloo",
+                                     args=(town_mod.get_town(TOWN), root))
+        wall = time.perf_counter() - t0
+    finally:
+        deterministic(False)
+    held = [k for k in before if "running" not in k]
+    delta = lambda run: {k: run["state"][k] - before[k] for k in held}  # noqa: E731
+    bar = TRAIN_AGREE_BARS["float32"]["loss"]
+    out = dict(ranks=[], wall_s=wall)
+    metrics = ("reward_mean", "loss_policy", "loss_value", "entropy", "ratio", "kl")
+    for r, res in enumerate(ranks):
+        c = res["counts"]
+        frames = TRAIN_STEPS // 4
+        check(c["step_physics_block"] == DP_UPDATES * frames and c["step_physics_batch"] == 0,
+              f"dp_train rank {r}: physics launches {c}")
+        check(c["render_planes"] == DP_UPDATES * frames + 1, f"dp_train rank {r}: render {c}")
+        for k in ("shuffle_unit_infer", "shuffle_unit_train", "shuffle_unit_train_bwd"):
+            check(c[k] == {"shuffle_unit_infer": frames + 1}.get(k, 2 * TRAIN_WORLDS
+                                                                   * TRAIN_STEPS // TRAIN_BATCH)
+                  * DP_UPDATES * UNITS_PER_PASS, f"dp_train rank {r}: {k} launches {c[k]}")
+        drift = max(m["replica_drift"] for m in res["history"])
+        same = sum(not torch.equal(res["state"][k], chunked["state"][k]) for k in before)
+        same_m = max(abs(m[k] - n[k]) / max(abs(n[k]), 1e-12)
+                     for m, n in zip(res["history"], chunked["history"]) for k in metrics)
+        rw, term, trunc = res["rollout"]
+        lo, hi = res["shard"]
+        srw, sterm, strunc = (t[:, lo:hi] for t in single["rollout"])
+        reward = float((rw - srw).abs().max() / srw.abs().max())
+        flags = int((term != sterm).sum() + (trunc != strunc).sum())
+        param = _rel_l2(delta(res), delta(single), held)
+        sps = DP_UPDATES * TRAIN_WORLDS * TRAIN_STEPS / sum(
+            v for m in res["history"] for k, v in m.items() if k.startswith("seconds_"))
+        print(f"  dp_train rank {r} (worlds {lo}..{hi - 1}): replica drift {drift:.3e}; "
+              f"against the chunked one-process run: {same} tensors differ, metrics by "
+              f"{same_m:.3e} (relative); against the plain one-process run: first rollout's rewards "
+              f"{reward:.3e} (of the largest), {flags} flags differ, parameter changes after "
+              f"{DP_UPDATES} updates {param:.3e} (relative L2, reported); {sps:.1f} train "
+              f"env-steps/s; launches " + ", ".join(f"{k} {v}" for k, v in c.items() if v),
+              flush=True)
+        check(drift == 0.0, f"dp_train rank {r}: replica drift {drift:.3e}")
+        # the metrics are means over the gathered rollout: float32 sums in
+        # another order at most
+        check(same == 0 and same_m <= 1e-6,
+              f"dp_train rank {r}: {same} tensors and metrics by {same_m:.3e} differ from "
+              f"the chunked one-process run")
+        check(reward <= bar and flags == 0,
+              f"dp_train rank {r}: first rollout's rewards {reward:.3e}, flags {flags}")
+        out["ranks"].append(dict(drift=drift, reward=reward, param=param,
+                                 env_steps_per_s=sps, seconds=res["seconds"], launches=c))
+    for k, v in ranks[0]["state"].items():
+        check(torch.equal(ranks[1]["state"][k], v), f"dp_train: ranks differ in {k}")
+    floor = _rel_l2(delta(chunked), delta(single), held)
+    one = single["env_steps_per_s"]
+    out.update(chunk_vs_plain_param=floor, one_process_env_steps_per_s=one)
+    print(f"  dp_train: both ranks equal after every update; the plain against the chunked "
+          f"one-process run (deterministic kernels): parameter changes {floor:.3e} "
+          f"(relative L2), first update's losses "
+          f"{max(abs(m[k] - n[k]) / abs(n[k]) for m, n in zip(chunked['history'][:1], single['history'][:1]) for k in ('loss_policy', 'loss_value')):.3e}; "
+          f"train env-steps/s one process {one:.1f}, {DP_RANKS} ranks on one card "
+          f"{out['ranks'][0]['env_steps_per_s']:.1f} (each rank's update clock); "
+          f"{wall:.1f} s of wall time with the ranks' start", flush=True)
+    return out
+
+
+# the traced update's rollout: 32 steps of s1's 128 (a depth cut: a trace
+# of the whole update holds ~0.7 GB of events)
+TRACE_ROLLOUT_STEPS = 32
+
+
+def summary_flops_phase(network: dict, root: str) -> dict:
+    """One s1 update (fused units, a TRACE_ROLLOUT_STEPS-step rollout, from
+    the `network` tensors of phase train_fused) with the Summary on
+    (events.jsonl under `root`) and under utils/profiling.device_trace (a
+    Chrome trace that must name the unit kernels); the update's analytic
+    FLOPs (utils/flops.train_chunk_flops at s1's geometry) over its
+    measured seconds against the FP32 peak: its MFU."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.utils import flops, profiling
+    stage = stages.stage_s1(episodes=1, timesteps=512, batch_size=TRAIN_BATCH,
+                            num_envs=TRAIN_WORLDS, rollout_block=True, fused_units=True,
+                            rollout_steps=TRACE_ROLLOUT_STEPS, weights_dir=root,
+                            log_dir=os.path.join(root, "logs"),
+                            env_overrides=dict(fused_step=True, device="cuda"))
+    stage.init()
+    agent = stage.agent
+    agent.network.load_state_dict(network)
+    with profiling.device_trace(os.path.join(root, "trace"), name="s1-update") as prof:
+        with profiling.annotate("s1 update"):
+            _, hist = agent.learn(1)
+    events = os.path.join(agent.summary.dir, "events.jsonl")
+    check(os.path.exists(events), "the update wrote no events.jsonl")
+    with open(events) as f:
+        records = [json.loads(line) for line in f]
+    check(len(records) == 1 and "reward_mean" in records[0], f"events.jsonl: {records}")
+    names = {"k_pw": False, "k_dw_train": False, "s1 update": False}
+    with open(prof.trace_path) as f:
+        for line in f:
+            for n in names:
+                names[n] = names[n] or n in line
+    check(all(names.values()), f"the trace names {names}")
+    cfg = agent.config
+    hw = tuple(agent.env.config.image_shape[:2])
+    # train_chunk_flops counts a predict per rollout step; the block rollout
+    # predicts once per past_obs_freq steps
+    per_step = flops.carla_predict_flops(image_hw=hw) * cfg.num_envs
+    skipped = cfg.rollout_steps - cfg.rollout_steps // agent.env.config.past_obs_freq
+    fl = flops.train_chunk_flops(1, cfg.rollout_steps, cfg.num_envs,
+                                 opt_steps=cfg.optimization_steps, image_hw=hw) - skipped * per_step
+    secs = sum(v for k, v in hist[0].items() if k.startswith("seconds_"))
+    mfu = fl / secs / flops.PEAK_FP32_FLOPS
+    print(f"  summary_flops: events.jsonl {len(records[0])} keys; trace "
+          f"{os.path.getsize(prof.trace_path)} bytes naming the unit kernels; the s1 update "
+          f"(traced) {fl:.4e} FLOPs in {secs:.3f} s: {fl / secs / 1e12:.3f} TFLOP/s", flush=True)
+    return dict(flops=fl, seconds=secs, mfu=mfu, events_keys=len(records[0]),
+                trace_bytes=os.path.getsize(prof.trace_path))
 
 
 def main(argv=None) -> int:
@@ -3088,6 +3492,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as out_dir, Phase("train_fused") as p:
         stage_fused, summary["train_fused"] = train_phase(out_dir, fused_units=True)
         launches["train_fused"] = summary["train_fused"].pop("launches")
+        # dp_train's one-process run: the first DP_UPDATES updates
+        dp_single = dict(before=summary["train_fused"].pop("snapshot_before"),
+                         snapshot=summary["train_fused"].pop("snapshot"),
+                         first_rollout=summary["train_fused"].pop("first_rollout"),
+                         history=summary["train_fused"]["history"][:DP_UPDATES],
+                         env_steps_per_s=summary["train_fused"]["env_steps_per_s"])
         print("  seconds per update, fused_units on / off: " + ", ".join(
             f"{k} {summary['train_fused']['parts_mean_s'][k]:.4f} / "
             f"{summary['train']['parts_mean_s'][k]:.4f}" for k in summary["train"]["parts_mean_s"])
@@ -3188,6 +3598,24 @@ def main(argv=None) -> int:
                 f"{part} {v:.4f}" for part, v in
                 summary["train_variants"][label]["parts_mean_s"].items()), flush=True)
     summary["phases"]["train_variants"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("generic_ppo") as p:
+        summary["generic_ppo"] = generic_ppo_phase(root)
+    summary["phases"]["generic_ppo"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("dp_train") as p:
+        summary["dp_train"] = dp_train_phase(dp_single, root)
+        for r, res in enumerate(summary["dp_train"]["ranks"]):
+            launches[f"dp_train_rank{r}"] = res.pop("launches")
+    summary["phases"]["dp_train"] = p.seconds
+    with tempfile.TemporaryDirectory() as root, Phase("summary_flops") as p:
+        _zero_counts()
+        summary["summary_flops"] = summary_flops_phase(stage_fused.agent.network.state_dict(),
+                                                       root)
+        launches["summary_flops"] = _counts()
+        print(f"  mfu {summary['summary_flops']['mfu']:.6f} of the FP32 peak "
+              f"({PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), the traced s1 update with fused units "
+              f"({TRACE_ROLLOUT_STEPS}-step rollout); "
+              f"card {smi}", flush=True)
+    summary["phases"]["summary_flops"] = p.seconds
     print(f"  phases: {sum(summary['phases'].values()):.1f} s", flush=True)
     if args.profile:
         with Phase("profile") as p:
@@ -3214,7 +3642,8 @@ def main(argv=None) -> int:
     # update x (ms - bound_ms), the unit kernels summed over their maps
     excess = {}
     for name, kr in kernels.items():
-        per_update = kr["launches"] / (CUT_UPDATES if name.endswith("_bf16") else TRAIN_UPDATES)
+        per_update = kr["launches"] / (VARIANT_UPDATES if name.endswith("_bf16")
+                                       else TRAIN_UPDATES)
         if name.startswith("shuffle_unit"):
             n = UNIT_N["rollout" if name.startswith("shuffle_unit_infer") else "train"]
             rows = [kr["by_shape"][f"{n}x{h}x{w}x{c}"] for h, w, c, _ in UNIT_MAPS]

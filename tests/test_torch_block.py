@@ -31,6 +31,7 @@ from carla_driving_rl_agent_tpu.envs.weather import TEST_WEATHERS, weather_ids
 from carla_driving_rl_agent_torch.agents import rollout as trollout
 from carla_driving_rl_agent_torch.envs import world as tworld
 from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv, CARLAEnvConfig, EnvState
+from torch_learner_common import one_thread  # noqa: F401  (one PyTorch thread)
 
 B, STEPS, BLOCK = 8, 16, 4
 COMMON = dict(town_names=("Town02",), num_routes=8, max_timesteps=7,

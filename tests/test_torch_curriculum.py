@@ -765,7 +765,7 @@ def test_learn_two_updates_with_traffic(block):
                            spawn=dict(vehicles=5, pedestrians=10), **SMALL_ENV)
     agent = CARLAgent(env, CARLAgentConfig(network=TINY_NET, num_envs=4, rollout_steps=8,
                                            batch_size=16, rollout_block=block),
-                      name="t", weights_dir="unused")
+                      name="t", weights_dir="unused", log_mode=None)
     before = {k: v.clone() for k, v in agent.network.state_dict().items()}
     states, history = agent.learn(2)
     assert len(history) == 2 and agent.update_step == 2

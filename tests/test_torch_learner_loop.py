@@ -43,7 +43,7 @@ SMALL = dict(num_envs=2, rollout_steps=4, batch_size=8, rollout_block=True)
 
 def _tiny_agent(env, tmp, **cfg):
     return CARLAgent(env, CARLAgentConfig(network=TINY_NET, **cfg), name="t",
-                     weights_dir=str(tmp))
+                     weights_dir=str(tmp), log_mode=None)
 
 
 def test_repeat_action_rollout_matches_jax():

@@ -36,7 +36,7 @@ from test_torch_learner_variants import env, one_thread_module  # noqa: F401  (n
 
 def _tiny_agent(env, tmp, **cfg):
     return CARLAgent(env, CARLAgentConfig(network=TINY_NET, **cfg), name="t",
-                     weights_dir=str(tmp))
+                     weights_dir=str(tmp), log_mode=None)
 
 
 @pytest.mark.parametrize("name", sorted(OPTIMIZERS))

@@ -29,6 +29,7 @@ from carla_driving_rl_agent_torch.models.carla_network import CARLANetwork
 from carla_driving_rl_agent_torch.models.distributions import Beta, sample_gamma
 from carla_driving_rl_agent_torch.models.shufflenet import ShuffleNetV2
 from carla_driving_rl_agent_torch.utils import checkpoint as ckpt
+from torch_learner_common import one_thread  # noqa: F401  (one PyTorch thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WEIGHTS = os.path.join(REPO, "weights", "safe-s5")

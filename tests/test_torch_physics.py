@@ -36,6 +36,7 @@ from carla_driving_rl_agent_tpu.envs.carla_env import CARLAEnvConfig as JEnvConf
 from carla_driving_rl_agent_torch.curriculum import stages
 from carla_driving_rl_agent_torch.envs import world as tworld
 from carla_driving_rl_agent_torch.ops import physics as P
+from torch_learner_common import one_thread  # noqa: F401  (one PyTorch thread)
 
 COMMON = dict(town_names=("Town02",), num_routes=8, max_route_len=128, max_timesteps=24)
 INT_FIELDS = ("route_id", "wp_idx", "town_id", "weather_id", "timestep", "episode",

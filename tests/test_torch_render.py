@@ -44,6 +44,7 @@ from carla_driving_rl_agent_torch.envs import traffic as ttraffic
 from carla_driving_rl_agent_torch.envs import world as tworld
 from carla_driving_rl_agent_torch.ops import render as R
 from carla_driving_rl_agent_torch.utils.build import csrc, load_library
+from torch_learner_common import one_thread  # noqa: F401  (one PyTorch thread)
 
 N_WORLDS = 4
 

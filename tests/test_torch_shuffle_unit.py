@@ -38,6 +38,7 @@ from carla_driving_rl_agent_torch.models.shufflenet import ShuffleUnit, channel_
 from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
 from carla_driving_rl_agent_torch.utils.build import csrc, load_library
 from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax
+from torch_learner_common import one_thread  # noqa: F401  (one PyTorch thread)
 
 SHAPES = {"even": (4, 5, 6, 16), "odd": (3, 4, 7, 18)}
 NAMES = ("x",) + SU.UnitOperands._fields

@@ -36,6 +36,7 @@ from carla_driving_rl_agent_torch.envs import town as ttown
 from carla_driving_rl_agent_torch.envs import traffic as ttraffic
 from carla_driving_rl_agent_torch.envs import world as tworld
 from carla_driving_rl_agent_torch.ops import physics as P
+from torch_learner_common import one_thread  # noqa: F401  (one PyTorch thread)
 
 B = 8
 ULP2 = 2.5e-7
