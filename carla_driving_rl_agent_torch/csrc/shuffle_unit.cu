@@ -46,19 +46,28 @@
 // two runs give the same bits.  Everything is in true float32
 // (or float64), as the plain version computes on the card with TF32 off.
 // In bfloat16 (storage type S = bf16, compute type T = float; see
-// shuffle_unit.cuh) x, out, the output gradient and gx are stored in bf16
-// and converted on load, W1 and W3 rounded to bf16 as the weight panel is
-// loaded (no conversion launch); everything in shared memory and every other
-// array stays float32, so the plan and the shared-memory sizes are the
-// float32 ones.  The products keep float32 CUDA-core FMAs: their bf16
-// operands are exact in float32.
+// shuffle_unit.cuh) x, out, the output gradient and gx are stored in bf16,
+// W1 and W3 rounded to bf16 as the weight panel is loaded (no conversion
+// launch); the statistics, the saved tensors and every other array stay
+// float32.  The bf16 training kernels (`k_pw`'s four training modes and
+// `k_wgrad`) run their products on the tensor cores with
+// mma.sync.m16n8k16 (bf16 operands from shared memory by ldmatrix, float32
+// sums in registers): the weight panel and the pixel operand sit in shared
+// memory as bf16; an operand that the JAX function keeps in float32 enters
+// as its exact split into three bf16 terms (shuffle_unit.cuh `split3`):
+// g_u in W3^T g_u, g_z1 in dW1, and both operands of dW3 (six cross terms).
+// The bf16 backward keeps g_u, b2n and g_z1 channel-major ([channel][pixel],
+// `pixel_pitch`) and its first launch copies the branch input there, so that
+// `k_wgrad` loads every operand by 16-byte cp.async.  Inference in bf16
+// keeps the float32 CUDA-core loop over float32 shared memory.
 //
 // What bounds it on the H100: the function moves ~0.1 GB and does ~1-4
-// GFLOP per call at N = 256, 0.03-0.06 ms at the card's peaks (operations
-// at the two smaller maps, bytes at the largest); the products are
-// CUDA-core FP32 (no tensor cores, for parity with the plain version), and
-// the stages move the saved and intermediate tensors the bound does not
-// count.  The times stand beside the bounds in PERF.md.
+// GFLOP per call at N = 256, 0.03-0.06 ms at the card's peaks in float32
+// (operations at the two smaller maps, bytes at the largest; the float32
+// products are CUDA-core FP32, for parity with the plain version); in bf16
+// the products at the tensor-core rate leave the bytes as the bound,
+// 0.005-0.026 ms.  Both move the saved and intermediate tensors the bound
+// does not count.  The times stand beside the bounds in PERF.md.
 //
 // Built by utils/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -75,8 +84,6 @@ using namespace cdrl::unit;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
-constexpr int WL = WCHUNK + 4;        // weight gradients: shared row pitch
-constexpr int WS = 3;                 // weight gradients: cp.async ring depth
 
 enum ChannelStage { CH_DW, CH_BN3B, CH_DWB };
 
@@ -128,11 +135,54 @@ __device__ __forceinline__ void cp_async(T* dst, const T* src, bool valid) {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(n));
 }
 
+// cp.async of 16 bytes into shared memory: the first `bytes` from src, the
+// rest zeros (src and dst on 16 bytes).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+
 __device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 tiles of bf16 from shared memory: lanes 8i .. 8i + 7 give the
+// addresses of tile i's rows (16 bytes each); kTrans transposes each tile.
+// Register i holds tile i: lane l its row l / 4, columns 2 (l % 4) and the
+// next (transposed: that column's two rows).
+template <bool kTrans>
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const bf16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (kTrans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(s)
+                 : "memory");
+}
+
+// d += A . B on the tensor cores: A 16 x 16 (row-major fragment a), B
+// 16 x 8 (column-major fragment b0, b1), bf16 operands, float32 sums.  d[0],
+// d[1]: row l / 4, columns 2 (l % 4) and the next; d[2], d[3]: row l / 4 + 8.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two float32 values that are bf16 values as one bf16x2 word, a in the low
+// half (the lower address).
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  return __byte_perm(__float_as_uint(a), __float_as_uint(b), 0x7632);
 }
 
 template <class T>
@@ -230,22 +280,26 @@ __device__ __forceinline__ T sum16(const T* v, int count) {
 // PW1_BACK: the branch half of gx = W1^T g_z1, with g_z1 from g_pre1 and z1
 // (written out, and summed: the gradient of b1).
 // PW3_INFER: act(BN3(W3 . b2n + b3)) on the running statistics, written to
-// the branch's shuffled output channels.
-enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK, PW3_INFER };
-
+// the branch's shuffled output channels.  (PwMode, shuffle_unit.cuh.)
 
 // A block owns output channels m0 .. m0 + 63 of the pixel tiles tb .. te - 1.
 // Lanes: in the products thread (ty, tx) holds rows ty * 4 + i and pixels
 // tx * 4 + j, a warp covering 4 x 8 of them (one shared wavefront per
 // operand and step); the loader holds channels lr, lr + 16 of a chunk at
 // pixels lc + 16 j; in the epilogue warp w owns rows w + 8 i, lane l
-// pixels l and l + 32.
+// pixels l and l + 32.  On the tensor cores (bf16 training) warp w owns
+// rows (w % 4) * 16 .. + 15 and pixels (w / 4) * 32 .. + 31 as four 16 x 8
+// fragments, the panel and the pixel operand are bf16 and load by ldmatrix
+// with .trans (both are [k][...]), and PW3_BACK's g_u enters as three tiles,
+// its split terms; g_u, b2n and g_z1 are written channel-major.
 template <class T, class S, int kMode>
 __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   constexpr bool kW1 = kMode == PW1_INFER || kMode == PW1_TRAIN || kMode == PW1_BACK;
   constexpr bool kBack = kMode == PW3_BACK || kMode == PW1_BACK;
   constexpr bool kStats = kMode == PW1_TRAIN || kMode == PW3_TRAIN;
   constexpr bool kInfer = kMode == PW1_INFER || kMode == PW3_INFER;
+  constexpr bool kTC = pw_tensor_cores<T, S>(kMode);
+  constexpr int NT = kMode == PW3_BACK ? 3 : 1;   // tensor cores: tiles of the pixel operand
   const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -259,10 +313,14 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   const int64_t te = tb + a.tpb < n_tiles ? tb + a.tpb : n_tiles;
   const bool side = kBack && ot == 0;
   const T inv_m = T(1.0 / static_cast<double>(g.p));
+  const int64_t pp = pixel_pitch(g.p);
 
   T* panel = smem<T>();                    // [kpad][PMP]: A(m0 + m, k)
   T* bs = panel + kpad * PMP;              // [2][PK][PTILE]: the pixel operand
-  T* ots = bs + 2 * PK * PTILE;            // [PM][OTP]: the output tile
+  bf16* hpanel = smem<bf16>();             // tensor cores: [kpad][PMH]
+  bf16* hbs = hpanel + kpad * PMH;         // tensor cores: [2][NT][PK][PTH]
+  T* ots = kTC ? reinterpret_cast<T*>(hbs + 2 * NT * PK * PTH)
+               : bs + 2 * PK * PTILE;      // [PM][OTP]: the output tile
   T* prm = ots + PM * OTP;                 // [6][hc]: the operand's per-channel constants
   T* bsum = prm + 6 * hc;                  // [hc]: the operand's sums (backward)
   T* epi = bsum + hc;                      // [5][PM]: the epilogue's per-row constants
@@ -273,8 +331,12 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   // backward), W's are its columns
   for (int e = tid; e < kpad * PM; e += kThreads) {
     const int k = kBack ? e / PM : e % kpad, m = kBack ? e % PM : e / kpad, mm = m0 + m;
-    panel[k * PMP + m] =
-        k < hc && mm < hc ? round_to<S>(kBack ? wm[k * hc + mm] : wm[mm * hc + k]) : T(0);
+    if constexpr (kTC)
+      hpanel[k * PMH + m] =
+          narrow<S>(k < hc && mm < hc ? (kBack ? wm[k * hc + mm] : wm[mm * hc + k]) : T(0));
+    else
+      panel[k * PMP + m] =
+          k < hc && mm < hc ? round_to<S>(kBack ? wm[k * hc + mm] : wm[mm * hc + k]) : T(0);
   }
   for (int k = tid; k < hc; k += kThreads) {
     bsum[k] = T(0);
@@ -372,7 +434,8 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
       }
     }
   };
-  auto stage = [&](const Cols& cl, int chunk, T* dst) {
+  // chunk `chunk` of tile t into dst (tensor cores: into buffer `buf`)
+  auto stage = [&](const Cols& cl, int chunk, T* dst, int buf, int64_t t) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int k = chunk * PK + lr + 16 * h;
@@ -399,18 +462,43 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
         T* keep = kMode == PW3_BACK ? o.gu : o.gz1;
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (k < hc && cl.h[j] >= 0) keep[cl.h[j] + k * hw] = v[j];
+          if (k < hc && cl.h[j] >= 0) {
+            if constexpr (kTC) keep[k * pp + t * PTILE + lc + 16 * j] = v[j];
+            else keep[cl.h[j] + k * hw] = v[j];
+          }
         T s = ((v[0] + v[1]) + v[2]) + v[3];
         for (int off = 8; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off, 16);
         if (lc == 0 && k < hc) bsum[k] += s;
       }
       // g_z1 enters the gx product rounded to S; its saved copy and its sum
       // (dW1, db1) are not
+      if constexpr (kTC) {
+        // the other operands are bf16 values already; g_u as its split terms
+        bf16* d = hbs + (buf * NT * PK + lr + 16 * h) * PTH + lc;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dst[(lr + 16 * h) * PTILE + lc + 16 * j] = kMode == PW1_BACK ? round_to<S>(v[j]) : v[j];
+        for (int j = 0; j < 4; ++j) {
+          if constexpr (kMode == PW3_BACK) {
+            const Split3 y = split3(v[j]);
+            d[16 * j] = narrow<S>(y.hi);
+            d[PK * PTH + 16 * j] = narrow<S>(y.mid);
+            d[2 * PK * PTH + 16 * j] = narrow<S>(y.lo);
+          } else {
+            d[16 * j] = narrow<S>(v[j]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          dst[(lr + 16 * h) * PTILE + lc + 16 * j] = kMode == PW1_BACK ? round_to<S>(v[j]) : v[j];
+      }
     }
   };
+  // the tensor cores' lanes: ldmatrix row offsets of the panel (rows k) and
+  // of the pixel operand (rows k), and the warp's rows and pixels
+  const int l8 = lane >> 3, r8 = lane & 7;
+  const int ak = r8 + (l8 >> 1) * 8, am = (l8 & 1) * 8;
+  const int bk = r8 + (l8 & 1) * 8, bn = (l8 >> 1) * 8;
+  const int wrow = (warp & 3) * 16, wpix = (warp >> 2) * 32;
 
   if (tid < PTILE) fill_cb(tb, 0);
   __syncthreads();
@@ -420,7 +508,7 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
     const int cur = static_cast<int>(t - tb) & 1;
     const int* cbh = cb + 2 * cur * PTILE;
     if (tid < PTILE && t + 1 < te) fill_cb(t + 1, cur ^ 1);
-    stage(cur_cols, 0, bs);
+    stage(cur_cols, 0, bs, 0, t);
     __syncthreads();
     if (t + 1 < te) next_cols = cols_of(cur ^ 1);
     T acc[4][4];
@@ -432,28 +520,71 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
       // the next chunk's loads (or the next tile's first) fly during this one
       if (c + 1 < n_chunks) load_raw(cur_cols, c + 1);
       else if (t + 1 < te) load_raw(next_cols, 0);
-      const T* A = panel + c * PK * PMP;
-      const T* B = bs + (c & 1) * PK * PTILE;
+      if constexpr (kTC) {
+        const bf16* A = hpanel + c * PK * PMH;
+        const bf16* B = hbs + (c & 1) * NT * PK * PTH;
+#pragma unroll
+        for (int ks = 0; ks < PK; ks += 16) {
+          uint32_t af[4];
+          ldsm_x4<true>(af, A + (ks + ak) * PMH + wrow + am);
+#pragma unroll
+          for (int term = 0; term < NT; ++term) {
+            uint32_t bf[2][4];
+            const bf16* Bt = B + (term * PK + ks + bk) * PTH + wpix + bn;
+            ldsm_x4<true>(bf[0], Bt);
+            ldsm_x4<true>(bf[1], Bt + 16);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_bf16(acc[j], af, bf[j >> 1][2 * (j & 1)], bf[j >> 1][2 * (j & 1) + 1]);
+          }
+        }
+      } else {
+        const T* A = panel + c * PK * PMP;
+        const T* B = bs + (c & 1) * PK * PTILE;
 #pragma unroll 8
-      for (int kk = 0; kk < PK; ++kk) {
-        T av[4], bv[4];
-        load4(A + kk * PMP + ty * 4, av);
-        load4(B + kk * PTILE + tx * 4, bv);
+        for (int kk = 0; kk < PK; ++kk) {
+          T av[4], bv[4];
+          load4(A + kk * PMP + ty * 4, av);
+          load4(B + kk * PTILE + tx * 4, bv);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+            for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+        }
       }
-      if (c + 1 < n_chunks) stage(cur_cols, c + 1, bs + ((c + 1) & 1) * PK * PTILE);
+      if (c + 1 < n_chunks) stage(cur_cols, c + 1, bs + ((c + 1) & 1) * PK * PTILE, (c + 1) & 1, t);
       __syncthreads();
     }
+    if constexpr (kTC) {
+      const int row = wrow + (lane >> 2), col = wpix + 2 * (lane & 3);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) store4(ots + (ty * 4 + i) * OTP + tx * 4, acc[i]);
+      for (int j = 0; j < 4; ++j) {
+        *reinterpret_cast<float2*>(ots + row * OTP + col + 8 * j) =
+            make_float2(acc[j][0], acc[j][1]);
+        *reinterpret_cast<float2*>(ots + (row + 8) * OTP + col + 8 * j) =
+            make_float2(acc[j][2], acc[j][3]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) store4(ots + (ty * 4 + i) * OTP + tx * 4, acc[i]);
+    }
     __syncthreads();
     // epilogue: coalesced along the pixels.  Each lane's values of a row
     // (pixels lane, lane + 32; the second valid only with the first) join
     // its running moments as one batch (Chan et al.): one division per tile.
     const bool ok[2] = {cbh[lane] >= 0, cbh[lane + 32] >= 0};
+    // tensor cores: PW3_BACK's z2 loaded together, before the stores (a load
+    // after a store waits for it: the pointers may alias)
+    T z2v[8][2];
+    if constexpr (kTC && kMode == PW3_BACK) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int oo = m0 + warp + 8 * i, col = lane + 32 * h;
+          z2v[i][h] = oo < hc && ok[h] ? o.z2[cbh[col] + oo * hw] : T(0);
+        }
+    }
     const T nb2 = T(ok[0]) + T(ok[1]);
     const T f = kStats && ok[0] ? nb2 / (cnt + nb2) : T(0);
 #pragma unroll
@@ -480,8 +611,14 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
           o.u[ih] = v[h];
         } else if (kMode == PW3_BACK) {
           o.gb2n[ih] = v[h];
-          const T xh2 = (o.z2[ih] - epi[r]) * epi[PM + r];
-          o.b2n[ih] = epi[2 * PM + r] * xh2 + epi[3 * PM + r];
+          T z2i;
+          if constexpr (kTC) z2i = z2v[i][h];
+          else z2i = o.z2[ih];
+          const T xh2 = (z2i - epi[r]) * epi[PM + r];
+          if constexpr (kTC)
+            o.b2n[oo * pp + t * PTILE + col] = epi[2 * PM + r] * xh2 + epi[3 * PM + r];
+          else
+            o.b2n[ih] = epi[2 * PM + r] * xh2 + epi[3 * PM + r];
           s1[i] += v[h];
           s2[i] += v[h] * xh2;
         } else {
@@ -737,7 +874,8 @@ __global__ void __launch_bounds__(kThreads) k_out_train(Call a) {
 }
 
 // Backward 1: BN3's sums (sum g_a3 xh3, sum g_a3), and the shortcut half of
-// gx, the unshuffled output gradient.
+// gx, the unshuffled output gradient; in bf16 also the branch input copied
+// channel-major (xb) for k_wgrad's 16-byte loads.
 template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_bn3_back(Call a) {
   const Ops<T, S> o(a);
@@ -751,12 +889,18 @@ __global__ void __launch_bounds__(kThreads) k_bn3_back(Call a) {
   int nn = n0 + static_cast<int>(threadIdx.x) / hw, r = static_cast<int>(threadIdx.x) % hw;
   while (nn < n1) {
     const int64_t base = static_cast<int64_t>(nn) * g.c * hw + r;
+    // the branch input, loaded with the other loads (a load after the
+    // stores below would wait for them: the pointers may alias)
+    S xv = S();
+    if constexpr (sizeof(S) < sizeof(T)) xv = o.x[base + (hc + k) * hw];
     T xh;
     const T ga = ga3_v(o.u[(static_cast<int64_t>(nn) * hc + k) * hw + r],
                        T(wide(o.gout[base + dk * hw])), m3, r3, g3, be3, o.leak, &xh);
     s[0] += ga * xh;
     s[1] += ga;
     o.out[base + k * hw] = o.gout[base + ds * hw];
+    if constexpr (sizeof(S) < sizeof(T))
+      o.xb[k * pixel_pitch(g.p) + static_cast<int64_t>(nn) * hw + r] = xv;
     for (r += kThreads; r >= hw; r -= hw) ++nn;
   }
   const int64_t ns = a.n_s;
@@ -843,17 +987,170 @@ __global__ void __launch_bounds__(kThreads) k_dw_back(Call a) {
 // the weight gradients
 // ---------------------------------------------------------------------------
 
+// The bf16 weight gradients' partial 64 x 64 tile of one pixel segment on
+// the tensor cores.  A (g_u or g_z1) and, for dW3, B (b2n) arrive
+// channel-major in float32 by 16-byte cp.async in a WS-deep ring; dW1's B,
+// the branch input, arrives channel-major in bf16.  While the products of
+// chunk c run, chunk c + 1 is split into the other of two buffers of bf16
+// tiles (split3: three of A, three of B; dW1's B copied as it is), so each
+// chunk takes one barrier.  dW1 = g_z1 . x takes A's three terms against
+// B; dW3 = g_u . b2n the six cross terms of add_product.  Warp w owns rows
+// (w % 4) * 16 .. + 15 and columns (w / 4) * 32 .. + 31.
+__device__ void wgrad_tc(const Ops<float, bf16>& o, const Geo& g, int which, int o0, int k0,
+                         int64_t c0, int64_t c1, float* mine) {
+  const int hc = g.hc, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t pp = pixel_pitch(g.p);
+  const float* A = which == 0 ? o.gu : o.gz1;
+  constexpr int RS = WTILE * WCHUNK;   // a float32 tile of the ring
+  constexpr int TS = WTILE * WP;       // a bf16 tile of the split terms
+  float* ring = smem<float>();                                     // [WS][2][WTILE][WCHUNK]
+  bf16* terms = reinterpret_cast<bf16*>(ring + WS * 2 * RS);       // [2][6][WTILE][WP]
+  // the pixels of a 16-byte piece at q of chunk c that lie before p (0-n)
+  auto count = [&](int64_t c, int q, int n) {
+    const int64_t left = g.p - c * WCHUNK - q;
+    return static_cast<int>(left < 0 ? 0 : left < n ? left : n);
+  };
+  auto issue = [&](int64_t c, int st) {
+    float* as = ring + st * 2 * RS;
+    const int64_t q0 = c * WCHUNK;
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {     // 64 rows x 8 pieces of 4 pixels
+      const int e = tid + u * kThreads, row = e >> 3, q = 4 * (e & 7);
+      const int na = o0 + row < hc ? count(c, q, 4) : 0;
+      cp_async16(as + row * WCHUNK + q, na ? A + (o0 + row) * pp + q0 + q : A, 4 * na);
+      if (which == 0) {
+        const int nb = k0 + row < hc ? count(c, q, 4) : 0;
+        cp_async16(as + RS + row * WCHUNK + q, nb ? o.b2n + (k0 + row) * pp + q0 + q : o.b2n,
+                   4 * nb);
+      }
+    }
+    if (which == 1) {                 // 64 rows x 4 pieces of 8 pixels
+      const int row = tid >> 2, q = 8 * (tid & 3);
+      const int nb = k0 + row < hc ? count(c, q, 8) : 0;
+      bf16* bs = reinterpret_cast<bf16*>(as + RS);
+      cp_async16(bs + row * WCHUNK + q, nb ? o.xb + (k0 + row) * pp + q0 + q : o.xb, 2 * nb);
+    }
+  };
+  // a float32 tile's split into three bf16 tiles at dst, dst + TS, dst + 2 TS
+  auto split_tile = [&](const float* src, bf16* dst) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = tid + u * kThreads, row = e >> 3, q = 4 * (e & 7);
+      const float4 v = *reinterpret_cast<const float4*>(src + row * WCHUNK + q);
+      const Split3 x = split3(v.x), y = split3(v.y), z = split3(v.z), w = split3(v.w);
+      bf16* d = dst + row * WP + q;
+      *reinterpret_cast<uint2*>(d) = make_uint2(pack_bf16(x.hi, y.hi), pack_bf16(z.hi, w.hi));
+      *reinterpret_cast<uint2*>(d + TS) =
+          make_uint2(pack_bf16(x.mid, y.mid), pack_bf16(z.mid, w.mid));
+      *reinterpret_cast<uint2*>(d + 2 * TS) =
+          make_uint2(pack_bf16(x.lo, y.lo), pack_bf16(z.lo, w.lo));
+    }
+  };
+  // ring slot st's chunk into term buffer buf
+  auto split = [&](int st, int buf) {
+    const float* as = ring + st * 2 * RS;
+    bf16* dst = terms + buf * 6 * TS;
+    split_tile(as, dst);
+    if (which == 0) {
+      split_tile(as + RS, dst + 3 * TS);
+    } else {
+      const int row = tid >> 2, q = 8 * (tid & 3);
+      const bf16* bs = reinterpret_cast<const bf16*>(as + RS);
+      *reinterpret_cast<uint4*>(dst + 3 * TS + row * WP + q) =
+          *reinterpret_cast<const uint4*>(bs + row * WCHUNK + q);
+    }
+  };
+  // ldmatrix row offsets of A (rows o) and B (rows k), both [row][pixel]
+  const int l8 = lane >> 3, r8 = lane & 7;
+  const int ar = r8 + (l8 & 1) * 8, ac = (l8 >> 1) * 8;
+  const int br = r8 + (l8 >> 1) * 8, bc = (l8 & 1) * 8;
+  const int wrow = (warp & 3) * 16, wcol = (warp >> 2) * 32;
+  float acc[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+  // acc += A term . B term over the warp's four 16 x 8 fragments
+  auto prod = [&](const uint32_t* af, const uint32_t (*bf)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      mma_bf16(acc[j], af, bf[j >> 1][2 * (j & 1)], bf[j >> 1][2 * (j & 1) + 1]);
+  };
+  // the products of the chunk in term buffer buf
+  auto products = [&](int buf) {
+    const bf16* at = terms + buf * 6 * TS;
+    const bf16* bt = at + 3 * TS;
+#pragma unroll
+    for (int ks = 0; ks < WCHUNK; ks += 16) {
+      uint32_t af[3][4], bf[3][2][4];
+#pragma unroll
+      for (int tm = 0; tm < 3; ++tm)
+        ldsm_x4<false>(af[tm], at + tm * TS + (wrow + ar) * WP + ks + ac);
+      if (which == 0) {
+#pragma unroll
+        for (int tm = 0; tm < 3; ++tm)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            ldsm_x4<false>(bf[tm][hf], bt + tm * TS + (wcol + 16 * hf + br) * WP + ks + bc);
+        prod(af[0], bf[0]);   // hi * hi
+        prod(af[0], bf[1]);   // hi * mid
+        prod(af[1], bf[0]);   // mid * hi
+        prod(af[0], bf[2]);   // hi * lo
+        prod(af[1], bf[1]);   // mid * mid
+        prod(af[2], bf[0]);   // lo * hi
+      } else {
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          ldsm_x4<false>(bf[0][hf], bt + (wcol + 16 * hf + br) * WP + ks + bc);
+        prod(af[0], bf[0]);
+        prod(af[1], bf[0]);
+        prod(af[2], bf[0]);
+      }
+    }
+  };
+
+  // chunks c0 .. c0 + WS - 1 in flight, chunk c0 split into buffer 0
+#pragma unroll
+  for (int st = 0; st < WS; ++st) {
+    if (c0 + st < c1) issue(c0 + st, st);
+    cp_commit();
+  }
+  cp_wait<WS - 1>();
+  __syncthreads();
+  if (c0 < c1) split(0, 0);
+  for (int64_t c = c0; c < c1; ++c) {
+    const int i = static_cast<int>(c - c0);
+    cp_wait<WS - 2>();
+    // chunk c + 1 has landed, chunk c is split, chunk c - 1's products are
+    // done; chunk c's ring slot is free
+    __syncthreads();
+    if (c + WS < c1) issue(c + WS, i % WS);
+    cp_commit();
+    if (c + 1 < c1) split((i + 1) % WS, (i + 1) & 1);
+    products(i & 1);
+  }
+  cp_wait<0>();
+  const int row = wrow + (lane >> 2), col = wcol + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    *reinterpret_cast<float2*>(mine + row * WTILE + col + 8 * j) =
+        make_float2(acc[j][0], acc[j][1]);
+    *reinterpret_cast<float2*>(mine + (row + 8) * WTILE + col + 8 * j) =
+        make_float2(acc[j][2], acc[j][3]);
+  }
+}
+
 // dW[o][k] = sum_p A[o][p] B[k][p]: dW3 (A = g_u, B = b2n) and dW1 (A = g_z1,
 // B = the branch input), block = (product, segment, 64 x 64 tile), tile
 // fastest so that the blocks of one pixel segment run together.  Partials
 // part[((w * tiles + tile) * nseg + seg) * 4096 + e]; the last block of each
 // group of gsz segments adds its group's in order, and the last group of a
-// tile adds the groups' in order into dW, rounded to S.  With S = bf16 the
-// branch input of dW1 is loaded and converted by the threads (cp.async
-// copies 4 bytes or more); every other operand goes by cp.async.
+// tile adds the groups' in order into dW, rounded to S.  In float32 and
+// float64 both operands go by cp.async and each thread holds a 4 x 4
+// register tile; in bf16 the tensor cores compute the partial (wgrad_tc).
 template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
-  constexpr bool kConvert = sizeof(S) != sizeof(T);
+  constexpr bool kTC = sizeof(S) < sizeof(T);
   constexpr int TT = WTILE * WTILE;
   const Ops<T, S> o(a);
   const Geo g = geometry(a);
@@ -885,55 +1182,58 @@ __global__ void __launch_bounds__(kThreads) k_wgrad(Call a) {
       const int row = lr + kWarps * i;
       const bool va = v && o0 + row < hc, vb = v && k0 + row < hc;
       cp_async(as + (st * WTILE + row) * WL + lp, va ? pa + (o0 + row) * hw : A, va);
-      if (kConvert && which == 1)
-        bs[(st * WTILE + row) * WL + lp] = vb ? T(wide(o.x[ob + (k0 + row) * hw])) : T(0);
-      else
-        cp_async(bs + (st * WTILE + row) * WL + lp, vb ? pb + (k0 + row) * hw : B, vb);
+      cp_async(bs + (st * WTILE + row) * WL + lp, vb ? pb + (k0 + row) * hw : B, vb);
     }
   };
 
   T acc[4][4];
+  if constexpr (!kTC) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
+      for (int j = 0; j < 4; ++j) acc[i][j] = T(0);
 #pragma unroll
-  for (int s = 0; s < WS - 1; ++s) {
-    if (c0 + s < c1) issue(c0 + s, s);
-    cp_commit();
-  }
-  for (int64_t c = c0; c < c1; ++c) {
-    const int i = static_cast<int>(c - c0);
-    cp_wait<WS - 2>();
-    __syncthreads();
-    if (c + WS - 1 < c1) issue(c + WS - 1, (i + WS - 1) % WS);
-    cp_commit();
-    const T* sa = as + (i % WS) * WTILE * WL;
-    const T* sb = bs + (i % WS) * WTILE * WL;
-#pragma unroll
-    for (int kk = 0; kk < WCHUNK; kk += 4) {
-      T av[4][4], bv[4][4];
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii) load4(sa + (ty + 16 * ii) * WL + kk, av[ii]);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) load4(sb + (tx + 16 * jj) * WL + kk, bv[jj]);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-          for (int jj = 0; jj < 4; ++jj) acc[ii][jj] += av[ii][u] * bv[jj][u];
+    for (int s = 0; s < WS - 1; ++s) {
+      if (c0 + s < c1) issue(c0 + s, s);
+      cp_commit();
     }
+    for (int64_t c = c0; c < c1; ++c) {
+      const int i = static_cast<int>(c - c0);
+      cp_wait<WS - 2>();
+      __syncthreads();
+      if (c + WS - 1 < c1) issue(c + WS - 1, (i + WS - 1) % WS);
+      cp_commit();
+      const T* sa = as + (i % WS) * WTILE * WL;
+      const T* sb = bs + (i % WS) * WTILE * WL;
+#pragma unroll
+      for (int kk = 0; kk < WCHUNK; kk += 4) {
+        T av[4][4], bv[4][4];
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) load4(sa + (ty + 16 * ii) * WL + kk, av[ii]);
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) load4(sb + (tx + 16 * jj) * WL + kk, bv[jj]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj) acc[ii][jj] += av[ii][u] * bv[jj][u];
+      }
+    }
+    cp_wait<0>();
   }
-  cp_wait<0>();
 
   T* part = o.partial;
   const int64_t ts = static_cast<int64_t>(which) * tiles + tile;
   T* mine = part + (ts * a.nseg + seg) * TT;
+  if constexpr (kTC) {
+    wgrad_tc(o, g, which, o0, k0, c0, c1, mine);
+  } else {
 #pragma unroll
-  for (int ii = 0; ii < 4; ++ii)
+    for (int ii = 0; ii < 4; ++ii)
 #pragma unroll
-    for (int jj = 0; jj < 4; ++jj) mine[(ty + 16 * ii) * WTILE + tx + 16 * jj] = acc[ii][jj];
+      for (int jj = 0; jj < 4; ++jj) mine[(ty + 16 * ii) * WTILE + tx + 16 * jj] = acc[ii][jj];
+  }
 
   const int ngroups = (a.nseg + a.gsz - 1) / a.gsz, grp = seg / a.gsz;
   const int s0 = grp * a.gsz, s1 = min(s0 + a.gsz, a.nseg);
@@ -1033,9 +1333,9 @@ int train_fwd(const Call& a, cudaStream_t s) {
   const int64_t total = static_cast<int64_t>(g.n) * g.hc * g.hw;
   const int64_t ogrid = (total + kThreads - 1) / kThreads;
   Errors err;
-  launch(err, k_pw<T, S, PW1_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_pw<T, S, PW1_TRAIN>, pw_grid(a), pw_launch_smem<T, S>(g.hc, PW1_TRAIN), s, a);
   launch(err, k_dw_train<T, S>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 1, sizeof(T)), s, a);
-  launch(err, k_pw<T, S, PW3_TRAIN>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_pw<T, S, PW3_TRAIN>, pw_grid(a), pw_launch_smem<T, S>(g.hc, PW3_TRAIN), s, a);
   launch(err, k_out_train<T, S>, static_cast<int>(ogrid < 2048 ? ogrid : 2048),
          4 * g.hc * sizeof(T), s, a);
   return static_cast<int>(err.first);
@@ -1048,10 +1348,10 @@ int train_bwd(const Call& a, cudaStream_t s) {
   const int nt = (g.hc + WTILE - 1) / WTILE;
   Errors err;
   launch(err, k_bn3_back<T, S>, cgrid, 0, s, a);
-  launch(err, k_pw<T, S, PW3_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
+  launch(err, k_pw<T, S, PW3_BACK>, pw_grid(a), pw_launch_smem<T, S>(g.hc, PW3_BACK), s, a);
   launch(err, k_dw_back<T, S>, cgrid, channel_smem_bytes(g.h, g.w, a.ipb, 3, sizeof(T)), s, a);
-  launch(err, k_pw<T, S, PW1_BACK>, pw_grid(a), pw_smem_bytes(g.hc, sizeof(T)), s, a);
-  launch(err, k_wgrad<T, S>, 2 * nt * nt * a.nseg, sizeof(T) * 2 * WS * WTILE * WL, s, a);
+  launch(err, k_pw<T, S, PW1_BACK>, pw_grid(a), pw_launch_smem<T, S>(g.hc, PW1_BACK), s, a);
+  launch(err, k_wgrad<T, S>, 2 * nt * nt * a.nseg, wgrad_smem_bytes<T, S>(), s, a);
   return static_cast<int>(err.first);
 }
 

@@ -34,6 +34,15 @@
 // W3 as the products load them (JAX's operands are their bf16 copies), BN2's
 // output b2n before the W3 product, the output, the gradient of z1 before
 // the gx product, gx, and dW1 and dW3.
+//
+// The bf16 training kernels take their 1x1 products and weight gradients
+// on the tensor cores (bf16 operands, float32 sums).  An operand that the
+// JAX function keeps in float32 (g_u in W3^T g_u, g_z1 in dW1, both of dW3)
+// enters as its split into three bf16 terms, hi + mid + lo, which is exact
+// (`split3`); each product of two bf16 values is exact in float32, so the
+// products differ from float32 ones only in the order of their sums (and,
+// for dW3, in the three smallest cross terms, below 2^-23 of the product:
+// `add_product`).  The host build sums the same terms.
 #pragma once
 
 #include <cmath>
@@ -67,12 +76,15 @@ CDRL_HD float bf16_bits_to_float(uint16_t b) {
   return f;
 }
 
+// The bits of float32 u rounded to bfloat16 (to nearest even), as float32
+// bits; a value that rounds past the largest finite one becomes infinite.
+CDRL_HD uint32_t bf16_rn_bits(uint32_t u) { return (u + 0x7fffu + ((u >> 16) & 1u)) & 0xffff0000u; }
+
 CDRL_HD uint16_t float_to_bf16_bits(float f) {
   uint32_t u;
   memcpy(&u, &f, 4);
   if ((u & 0x7fffffffu) > 0x7f800000u) return uint16_t((u >> 16) | 0x40u);   // NaN stays NaN
-  u += 0x7fffu + ((u >> 16) & 1u);
-  return uint16_t(u >> 16);
+  return uint16_t(bf16_rn_bits(u) >> 16);
 }
 
 CDRL_HD float wide(float v) { return v; }
@@ -112,6 +124,73 @@ CDRL_HD S narrow(T v) { return Narrow<S, T>::of(v); }
 // v rounded to S and back: a rounding point of the bf16 unit, exact for S = T
 template <class S, class T>
 CDRL_HD T round_to(T v) { return wide(narrow<S>(v)); }
+
+CDRL_HD float float_of_bits(uint32_t u) {
+  float f;
+  memcpy(&f, &u, 4);
+  return f;
+}
+
+// v rounded to bfloat16 (to nearest even) and back, except that a finite v
+// whose rounding would overflow is truncated toward zero instead (the
+// largest finite float32 value rounds up to infinity).
+CDRL_HD float bf16_part(float v) {
+  uint32_t u;
+  memcpy(&u, &v, 4);
+  uint32_t r = bf16_rn_bits(u);
+  if ((r & 0x7f800000u) == 0x7f800000u && (u & 0x7f800000u) != 0x7f800000u) r = u & 0xffff0000u;
+  return float_of_bits(r);
+}
+
+// A float32 value as the sum of three bfloat16 values.
+struct Split3 {
+  float hi, mid, lo;
+};
+
+// v = hi + mid + lo exactly, each term a bfloat16 value: hi = bf16(v), mid =
+// bf16(v - hi), lo = v - hi - mid (both differences are exact in float32:
+// each term keeps the next 8 significant bits).  Exact for v = 0 and |v| >=
+// 2^-110; below that lo falls under bf16's subnormal spacing (2^-133).
+// |mid| <= 2^-8 |v| and |lo| <= 2^-16 |v| (2^-7 and 2^-15 where hi was
+// truncated).
+CDRL_HD Split3 split3(float v) {
+  Split3 t;
+  t.hi = bf16_part(v);
+  const float r = v - t.hi;
+  uint32_t u;
+  memcpy(&u, &r, 4);
+  t.mid = float_of_bits(bf16_rn_bits(u));   // |r| <= 2^-7 |v|: no overflow
+  t.lo = r - t.mid;
+  return t;
+}
+
+// s + a * b as the products of the bf16 unit's tensor cores take it: for S =
+// T the plain s + a * b; for S = bf16 with a bfloat16 a, b enters as its
+// split and the three products (each exact in float32) are added to s in
+// turn, hi, mid, lo; with `both` a is float32 too and split as well, and the
+// six largest of the nine cross products are added, hi*hi, hi*mid, mid*hi,
+// hi*lo, mid*mid, lo*hi (the three left out come to about 2^-23 |a b|).
+template <class S, class T, bool both = false>
+CDRL_HD T add_product(T s, T a, T b) {
+  if constexpr (sizeof(S) == sizeof(T)) {
+    return s + a * b;
+  } else {
+    const Split3 y = split3(b);
+    if constexpr (!both) {
+      s += a * y.hi;
+      s += a * y.mid;
+      return s + a * y.lo;
+    } else {
+      const Split3 x = split3(a);
+      s += x.hi * y.hi;
+      s += x.hi * y.mid;
+      s += x.mid * y.hi;
+      s += x.hi * y.lo;
+      s += x.mid * y.mid;
+      return s + x.lo * y.hi;
+    }
+  }
+}
 
 constexpr int PTILE = 64;  // pixels per tile of the 1x1 products
 constexpr int PM = 64;     // output channels per block of the 1x1 products
@@ -159,7 +238,9 @@ struct UnitArgs {
   void* gpre1;        // backward scratch (N, hc, H, W): gradient of BN1's output
   void* gu;           // backward scratch (N, hc, H, W): gradient of u
   void* b2n;          // backward scratch (N, hc, H, W): BN2's output; inference: z1
-  void* gz1;          // backward scratch (N, hc, H, W): gradient of z1
+  void* gz1;          // backward scratch (N, hc, H, W): gradient of z1 (gu, b2n
+                      // and gz1 channel-major in bf16, as xb)
+  void* xb;           // bf16 backward scratch (hc, pixel_pitch(P)): the branch input
   void* dw1;          // backward: (hc, hc)
   void* ddw;          // backward: (hc, 9)
   void* dw3;          // backward: (hc, hc)
@@ -478,16 +559,62 @@ CDRL_HD void merge(const T* n, const T* mean, const T* m2, int64_t nb, int64_t p
 constexpr int PK = 32;           // 1x1 products: channels per chunk of the pixel operand
 constexpr int OTP = PTILE + 4;   // 1x1 products: row pitch of the output tile
 constexpr int PMP = PM + 4;      // 1x1 products: row pitch of the weight panel
+// the bf16 tensor-core products: row pitches (in bf16 values) of the weight
+// panel and of the pixel operand, 16 bytes past a multiple of 128 so that
+// the eight rows of an ldmatrix read fall in distinct banks
+constexpr int PMH = PM + 8;
+constexpr int PTH = PTILE + 8;
+constexpr int WL = WCHUNK + 4;   // weight gradients: shared row pitch
+constexpr int WS = 3;            // weight gradients: cp.async ring depth
+constexpr int WP = WCHUNK + 8;   // bf16 weight gradients: row pitch of the split terms' tiles
 constexpr int64_t SMEM_LIMIT = 232448;   // the dynamic shared memory a block may opt into
+
+// The 1x1 products' modes (shuffle_unit.cu k_pw).
+enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK, PW3_INFER };
 
 // Dynamic shared memory of a 1x1-product block of hc channels of `tsize`
 // bytes: the weight panel, the operand's double buffer, the output tile,
-// the per-channel and per-row constants and the pixel offsets.
-inline int64_t pw_smem_bytes(int hc, int64_t tsize) {
+// the per-channel and per-row constants and the pixel offsets.  With
+// `terms` > 0 the bf16 tensor-core layout: the panel and `terms` tiles of
+// the pixel operand (its split terms) in bf16, the rest in float32.
+inline int64_t pw_smem_bytes(int hc, int64_t tsize, int terms = 0) {
   const int kpad = (hc + PK - 1) / PK * PK;
-  return tsize * (int64_t(kpad) * PMP + 2 * PK * PTILE + PM * OTP + 7 * hc + 5 * PM) +
+  const int64_t rest = PM * OTP + 7 * hc + 5 * PM;
+  if (terms > 0)
+    return 2 * (int64_t(kpad) * PMH + 2 * terms * PK * PTH) + 4 * rest +
+           4 * PTILE * int64_t(sizeof(int));
+  return tsize * (int64_t(kpad) * PMP + 2 * PK * PTILE + rest) +
          4 * PTILE * int64_t(sizeof(int));
 }
+
+// Whether a k_pw mode of storage S over compute T runs on the tensor cores:
+// the bf16 training modes.
+template <class T, class S>
+CDRL_HD constexpr bool pw_tensor_cores(int mode) {
+  return sizeof(S) < sizeof(T) && mode != PW1_INFER && mode != PW3_INFER;
+}
+
+// A k_pw launch's dynamic shared memory (the pixel operand of PW3_BACK, g_u,
+// enters as three split terms).
+template <class T, class S>
+inline int64_t pw_launch_smem(int hc, int mode) {
+  if (pw_tensor_cores<T, S>(mode)) return pw_smem_bytes(hc, sizeof(T), mode == PW3_BACK ? 3 : 1);
+  return pw_smem_bytes(hc, sizeof(T));
+}
+
+// A k_wgrad launch's dynamic shared memory: the cp.async ring of both
+// operands; in bf16 its float32 tiles (pitch WCHUNK) and two buffers of the
+// split terms' bf16 tiles (pitch WP), three of each operand.
+template <class T, class S>
+inline int64_t wgrad_smem_bytes() {
+  if (sizeof(S) < sizeof(T)) return 4 * 2 * WS * WTILE * WCHUNK + 2 * 2 * 6 * WTILE * WP;
+  return sizeof(T) * 2 * WS * WTILE * WL;
+}
+
+// Row pitch, in pixels, of the bf16 backward's channel-major scratch (g_u,
+// b2n, g_z1 and the branch input as [channel][pixel]): a multiple of 8, so
+// that every row starts on 16 bytes.
+CDRL_HD int64_t pixel_pitch(int64_t p) { return (p + 7) / 8 * 8; }
 
 // Dynamic shared memory of a channel stage: `arrays` padded planes of
 // `tsize` bytes per image of a pass, then the index maps.
@@ -504,6 +631,7 @@ struct Ops {
   const T *w1, *w3, *b1, *g1, *be1, *dw, *dwb, *g2, *be2, *b3, *g3, *be3;
   const T *m1, *v1, *m2, *v2, *m3, *v3;
   S* out;
+  S* xb;
   T *stats, *z1, *z2, *u, *gb2n, *gpre1, *gu, *b2n, *gz1, *dw1, *ddw, *dw3, *dvec, *partial;
   int* counters;
   T eps, leak;
@@ -515,7 +643,7 @@ struct Ops {
         g2((const T*)a.g2), be2((const T*)a.be2), b3((const T*)a.b3),
         g3((const T*)a.g3), be3((const T*)a.be3), m1((const T*)a.m1), v1((const T*)a.v1),
         m2((const T*)a.m2), v2((const T*)a.v2), m3((const T*)a.m3), v3((const T*)a.v3),
-        out((S*)a.out), stats((T*)a.stats), z1((T*)a.z1),
+        out((S*)a.out), xb((S*)a.xb), stats((T*)a.stats), z1((T*)a.z1),
         z2((T*)a.z2), u((T*)a.u), gb2n((T*)a.gb2n), gpre1((T*)a.gpre1), gu((T*)a.gu),
         b2n((T*)a.b2n), gz1((T*)a.gz1), dw1((T*)a.dw1), ddw((T*)a.ddw), dw3((T*)a.dw3),
         dvec((T*)a.dvec), partial((T*)a.partial), counters((int*)a.counters),

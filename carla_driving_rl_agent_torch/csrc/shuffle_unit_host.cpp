@@ -7,7 +7,8 @@
 // and the weight-gradient definitions are the kernels'; only the order of
 // the parallel sums differs (sequential here).  Also the bfloat16 unit
 // (dtype 2): bf16 storage and float32 compute, rounded at the kernels'
-// points (shuffle_unit.cuh).
+// points, its products summed over the split terms that the kernels'
+// tensor cores take (shuffle_unit.cuh `add_product`).
 
 #include <vector>
 
@@ -41,11 +42,12 @@ void channel_stats(const Geo& g, const T* t, int k, T* mean, T* var) {
   block_stats(g.p, g.hw, [&](int64_t q) { return t[at(g, q, k, g.hc)]; }, mean, var);
 }
 
-// u[o] = sum_k w[o][k] v[k] with w rounded to the storage type S
+// u[o] = sum_k w[o][k] v[k] with w rounded to the storage type S (in bf16
+// over v's split terms)
 template <class S, class T>
 T dot_row(const T* w, const T* v, int hc, int o) {
   T s = T(0);
-  for (int k = 0; k < hc; ++k) s += round_to<S>(w[o * hc + k]) * v[k];
+  for (int k = 0; k < hc; ++k) s = add_product<S>(s, round_to<S>(w[o * hc + k]), v[k]);
   return s;
 }
 
@@ -160,10 +162,11 @@ void train_bwd(const UnitArgs& a) {
       dv[D_B3 * hc + k] += gu[k];
     }
     for (int oo = 0; oo < hc; ++oo)
-      for (int k = 0; k < hc; ++k) o.dw3[oo * hc + k] += gu[oo] * b2n[k];
+      for (int k = 0; k < hc; ++k)
+        o.dw3[oo * hc + k] = add_product<S, T, true>(o.dw3[oo * hc + k], gu[oo], b2n[k]);
     for (int k = 0; k < hc; ++k) {
       T s = T(0);
-      for (int oo = 0; oo < hc; ++oo) s += round_to<S>(o.w3[oo * hc + k]) * gu[oo];
+      for (int oo = 0; oo < hc; ++oo) s = add_product<S>(s, round_to<S>(o.w3[oo * hc + k]), gu[oo]);
       const int64_t i = at(g, q, k, hc);
       o.gb2n[i] = s;
       dv[D_G2 * hc + k] += s * (o.z2[i] - o.m2[k]) * rstd(o.v2[k], o.eps);
@@ -205,11 +208,13 @@ void train_bwd(const UnitArgs& a) {
       o.out[at(g, q, k, g.c)] = o.gout[at(g, q, shuffle_dest(g.c, k), g.c)];
     }
     for (int oo = 0; oo < hc; ++oo)
-      for (int i = 0; i < hc; ++i) o.dw1[oo * hc + i] += gz1[oo] * v[i];
+      for (int i = 0; i < hc; ++i)
+        o.dw1[oo * hc + i] = add_product<S>(o.dw1[oo * hc + i], v[i], gz1[oo]);
     // g_z1 enters the gx product rounded to S; dW1 and db1 take it unrounded
     for (int i = 0; i < hc; ++i) {
       T s = T(0);
-      for (int oo = 0; oo < hc; ++oo) s += round_to<S>(o.w1[oo * hc + i]) * round_to<S>(gz1[oo]);
+      for (int oo = 0; oo < hc; ++oo)
+        s = add_product<S>(s, round_to<S>(o.w1[oo * hc + i]), round_to<S>(gz1[oo]));
       o.out[at(g, q, hc + i, g.c)] = narrow<S>(s);
     }
   }
@@ -291,4 +296,54 @@ extern "C" int cdrl_unit_infer_launch_host(int n, int c, int h, int w, int sms, 
   out[2] = pw_smem_bytes(hc, tsize);
   out[3] = channel_smem_bytes(h, w, pl.ipi, 1, tsize);
   return 0;
+}
+
+// The training stages' launches of a unit of c channels at n x h x w on a
+// card of `sms` SMs, as shuffle_unit.cu's `train_fwd` and `train_bwd` make
+// them, for dtype 0 float32, 1 float64, 2 bfloat16: out = {blocks of each
+// 1x1 product, blocks of each channel stage, the dynamic shared memory in
+// bytes of PW1_TRAIN, PW3_TRAIN, PW3_BACK and PW1_BACK's blocks, of the
+// forward's and the backward's depthwise blocks, blocks of the weight
+// gradients, a weight-gradient block's dynamic shared memory}.  Returns 0,
+// or the PlanError that refuses the shape.
+extern "C" int cdrl_unit_train_launch_host(int n, int c, int h, int w, int sms, int dtype,
+                                           int64_t* out) {
+  Plan pl;
+  const int err = make_plan(n, c, h, w, sms, &pl);
+  if (err) return err;
+  const int hc = c / 2, nt = cdiv(hc, WTILE);
+  const int64_t tsize = dtype == 1 ? 8 : 4;
+  out[0] = int64_t(cdiv(hc, PM)) * pl.n_pb;
+  out[1] = int64_t(pl.n_s) * hc;
+  for (int m = PW1_TRAIN; m <= PW1_BACK; ++m)
+    out[2 + m - PW1_TRAIN] = dtype == 0   ? pw_launch_smem<float, float>(hc, m)
+                             : dtype == 1 ? pw_launch_smem<double, double>(hc, m)
+                                          : pw_launch_smem<float, bf16>(hc, m);
+  out[6] = channel_smem_bytes(h, w, pl.ipb, 1, tsize);
+  out[7] = channel_smem_bytes(h, w, pl.ipb, 3, tsize);
+  out[8] = 2 * int64_t(nt) * nt * pl.nseg;
+  out[9] = dtype == 0   ? wgrad_smem_bytes<float, float>()
+           : dtype == 1 ? wgrad_smem_bytes<double, double>()
+                        : wgrad_smem_bytes<float, bf16>();
+  return 0;
+}
+
+// v[i] as hi[i] + mid[i] + lo[i] (split3), i < count.
+extern "C" void cdrl_unit_split_host(const float* v, int64_t count, float* hi, float* mid,
+                                     float* lo) {
+  for (int64_t i = 0; i < count; ++i) {
+    const Split3 t = split3(v[i]);
+    hi[i] = t.hi;
+    mid[i] = t.mid;
+    lo[i] = t.lo;
+  }
+}
+
+// out[i] = s[i] + a[i] * b[i] as the bf16 tensor-core products take it
+// (add_product with S = bf16; `both`: a float32 too), i < count.
+extern "C" void cdrl_unit_product_host(const float* s, const float* a, const float* b,
+                                       int64_t count, int both, float* out) {
+  for (int64_t i = 0; i < count; ++i)
+    out[i] = both ? add_product<bf16, float, true>(s[i], a[i], b[i])
+                  : add_product<bf16, float>(s[i], a[i], b[i]);
 }

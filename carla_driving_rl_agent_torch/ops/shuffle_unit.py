@@ -40,7 +40,14 @@ output, the gradient of z1 before the gx product, gx, and dW1 and dW3
 points; in bfloat16 the plain training unit is an autograd.Function of the
 plain forward and the plain backward, as the kernels' is.  The
 1x1 products are computed in the kernels' own bodies, never by cuBLAS or
-cuDNN.  The kernels' arithmetic lives in csrc/shuffle_unit.cuh, which
+cuDNN: in float32 and float64 by CUDA-core FMAs, in the bfloat16 training
+kernels on the tensor cores (mma.sync, bf16 operands, float32 sums), where
+an operand that the JAX function keeps in float32 (the gradient of u in
+W3^T g_u, the gradient of z1 in dW1, both operands of dW3) enters as its
+exact split into three bfloat16 terms, so the products equal float32 ones
+up to the order of the sums.  What bounds the bfloat16 kernels is then
+their memory traffic and the latency of their stages, not the products
+(PERF.md).  The kernels' arithmetic lives in csrc/shuffle_unit.cuh, which
 csrc/shuffle_unit_host.cpp also builds with g++, so that the CPU tests
 (tests/test_torch_shuffle_unit.py) hold the kernels' math against the plain
 version and the JAX package.
@@ -247,8 +254,8 @@ class _UnitTrainPlain(torch.autograd.Function):
 
 _POINTERS = ("x", "w1", "b1", "g1", "be1", "dw", "dwb", "g2", "be2", "w3", "b3", "g3",
              "be3", "m1", "v1", "m2", "v2", "m3", "v3", "gout", "out", "stats", "z1",
-             "z2", "u", "gb2n", "gpre1", "gu", "b2n", "gz1", "dw1", "ddw", "dw3", "dvec",
-             "partial", "counters")
+             "z2", "u", "gb2n", "gpre1", "gu", "b2n", "gz1", "xb", "dw1", "ddw", "dw3",
+             "dvec", "partial", "counters")
 
 
 class _Args(ctypes.Structure):
@@ -392,21 +399,27 @@ def _bwd_args(x: torch.Tensor, gout: torch.Tensor, ops: UnitOperands, leak: floa
               stats: torch.Tensor, saved, scratch_size: Tuple[int, int]):
     """The backward kernel's arguments, its gradients in (x, UnitOperands)
     order and the tensors to keep alive until it has run; `scratch_size` is
-    `_scratch`'s (partials, counters) at x's shape."""
+    `_scratch`'s (partials, counters) at x's shape.  In bfloat16 the
+    scratch's g_u, b2n and g_z1 are channel-major, (hc, pitch) with the
+    pixels' pitch a multiple of 8 (csrc/shuffle_unit.cuh `pixel_pitch`), and
+    a sixth slot holds the branch input so (xb, bfloat16)."""
     n, c, h, w = x.shape
     hc = c // 2
-    act = n * hc * h * w
+    bf16 = x.dtype == torch.bfloat16
+    act = hc * -(-n * h * w // 8) * 8 if bf16 else n * hc * h * w
+    slots = 6 if bf16 else 5
     new = lambda size: torch.empty(size, dtype=_compute_dtype(x), device=x.device)
     gx = torch.empty_like(x)
     flat = new(2 * hc * hc + 9 * hc + len(DVEC) * hc)
-    scratch = new(5 * act + scratch_size[0])
+    scratch = new(slots * act + scratch_size[0])
     counters = torch.empty(scratch_size[1], dtype=torch.int32, device=x.device)
     z1, z2, u = saved
     base, size = scratch.data_ptr(), scratch.element_size()
     at = lambda i: base + i * act * size
     args = _pack(x, ops, leak, stats, inputs=dict(gout=gout, z1=z1, z2=z2, u=u),
                  out=gx.data_ptr(), gb2n=at(0), gpre1=at(1), gu=at(2), b2n=at(3), gz1=at(4),
-                 partial=at(5), counters=counters.data_ptr(), dw1=flat.data_ptr(),
+                 xb=at(5) if bf16 else None,
+                 partial=at(slots), counters=counters.data_ptr(), dw1=flat.data_ptr(),
                  ddw=flat.data_ptr() + hc * hc * size,
                  dw3=flat.data_ptr() + (hc * hc + 9 * hc) * size,
                  dvec=flat.data_ptr() + (2 * hc * hc + 9 * hc) * size)

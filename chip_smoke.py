@@ -174,9 +174,13 @@ Phases, each printed with its seconds:
                tensors) against their bfloat16 plain versions at the three
                maps, N = 128 for inference and 256 for the forward and the
                backward: relative L2 <= 5e-3 per tensor and max |diff| in
-               bfloat16 ulps, then each timed beside its bound (2-byte
-               activations, the products at the bf16 tensor rate) with its
-               device launches per call and device ms per stage;
+               bfloat16 ulps, two training calls equal bits, then each
+               timed beside its bound (2-byte activations, the products at
+               the bf16 tensor rate) with its device launches per call and
+               device ms per stage, the training kernels beside the float32
+               kernels of the same call; the training instantiations' SASS:
+               tensor-core (HMMA) instructions in every bf16 k_pw training
+               mode and in k_wgrad<float, bf16>, none in float32's;
  29. train_variants — at stage s1's geometry with fused units, 1 update
                each of fused_update, two_step_update, two_step_split_adam
                and compute_dtype "bfloat16" (the sequential update): finite
@@ -246,6 +250,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -460,28 +465,37 @@ def _short(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _cuobjdump(lib_path: str):
+    """(SASS, resource usage) of the built library `lib_path`, read once with
+    the toolkit's cuobjdump; None when cuobjdump is missing."""
+    from carla_driving_rl_agent_torch.utils.build import _nvcc
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    return tuple(subprocess.run([tool, flag, lib_path], capture_output=True, text=True,
+                                check=True).stdout for flag in ("-sass", "-res-usage"))
+
+
 def kernel_sass(lib_path: str, kernel: str) -> dict:
     """Static SASS facts of the kernel whose mangled name holds `kernel` in
     the built library `lib_path`, read with the toolkit's cuobjdump: its
     instructions, its calls into the compiler's IEEE slow-path subroutines
     (division, reciprocal, square root outside their fast range), its
-    special-function (MUFU) instructions and its registers.  Empty when
-    cuobjdump is missing."""
+    special-function (MUFU) instructions, its tensor-core (HMMA)
+    instructions and its registers.  Empty when cuobjdump is missing."""
     import re
-    from carla_driving_rl_agent_torch.utils.build import _nvcc
-    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
-    if not os.path.exists(tool):
+    dump = _cuobjdump(lib_path)
+    if dump is None:
         return {}
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
-                          check=True).stdout
+    sass, res = dump
     body = next(f for f in re.split(r"\n\s+Function : ", sass)[1:]
                 if kernel in f.split("\n")[0])
     ops = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", body)
-    res = subprocess.run([tool, "-res-usage", lib_path], capture_output=True, text=True,
-                         check=True).stdout
     regs = re.search(rf"Function [^\n]*{kernel}[^\n]*\n\s*REG:(\d+)", res)
     return dict(instructions=len(ops), slow_path_calls=sum(o.startswith("CALL") for o in ops),
                 mufu=sum(o.startswith("MUFU") for o in ops),
+                hmma=sum(o.startswith("HMMA") for o in ops),
                 registers=int(regs.group(1)) if regs else None)
 
 
@@ -1308,8 +1322,10 @@ def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4,
                   bf16: bool = False) -> tuple:
     """Least time for one unit-kernel call: the bytes its function must move
     (each input read once, each output written once) over the memory rate,
-    or its float operations over the FP32 peak (the tensor cores are off for
-    parity with the plain version), whichever is larger.  The function is
+    or its float operations over the card's peak for their type, whichever
+    is larger.  In float32 and float64 the products count at the FP32 peak
+    (the kernels keep them on the CUDA cores, for parity with the plain
+    version).  The function is
     the JAX kernel's: the forward takes x and writes out and the batch
     statistics, the backward takes x and the output gradient and writes the
     gradients.  The tensors the port's forward saves for its backward (z1,
@@ -1319,7 +1335,9 @@ def unit_bound_ms(kind: str, n: int, h: int, w: int, c: int, itemsize: int = 4,
     W1^T g_z1, dW1) 8 hc^2 and its two depthwise passes 36 hc.  With
     `bf16` the activations (x, out, the output gradient, gx) and W1, W3 and
     their gradients take 2 bytes, the rest 4, and the products count at the
-    bf16 tensor rate, the depthwise at the FP32 rate."""
+    bf16 tensor rate (the bf16 training kernels run them on the tensor
+    cores; the extra products over a float32 operand's split terms are the
+    kernels' cost, not the function's), the depthwise at the FP32 rate."""
     hc = c // 2
     p = n * h * w
     act = p * c * (2 if bf16 else itemsize)
@@ -2693,12 +2711,52 @@ def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return float(ulps.max()), float((ulps > 1.0).float().mean())
 
 
+# the bf16 kernels' readings before their products moved to the tensor
+# cores (PERF.md section 6, rows 5b and 6b, on an H100 80GB HBM3 at 700 W):
+# the forward's out and the backward's gradients, relative L2 against the
+# bf16 plain versions
+UNIT_BF16_BEFORE = dict(out=4.1e-5, grad=1.2e-4)
+# the k_pw modes of the training forward and backward (PwMode,
+# csrc/shuffle_unit.cuh) and the mangled storage type of each instantiation
+UNIT_TRAIN_MODES = (1, 2, 3, 4)
+UNIT_STORAGE = dict(bf16="13__nv_bfloat16", float32="f")
+
+
+def unit_tensor_cores() -> dict:
+    """The tensor-core (HMMA) instructions of each training instantiation of
+    k_pw and k_wgrad in the built unit library, in bfloat16 and float32
+    (cuobjdump); the bf16 ones must have them, the float32 ones none (their
+    products stay CUDA-core FMAs, as before the bf16 redesign), and the
+    bf16 inference modes keep the float32 loop."""
+    from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
+    lib = SU._kernel_lib()._name
+    names = {f"k_pw<{dt}, mode {m}>": f"4k_pwIf{code}Li{m}E"
+             for dt, code in UNIT_STORAGE.items() for m in (0,) + UNIT_TRAIN_MODES + (5,)}
+    names.update({f"k_wgrad<{dt}>": f"7k_wgradIf{code}E" for dt, code in UNIT_STORAGE.items()})
+    hmma = {}
+    for label, mangled in names.items():
+        sass = kernel_sass(lib, mangled)
+        check(bool(sass), "cuobjdump reads the unit kernels' SASS")
+        hmma[label] = sass["hmma"]
+    for label, count in hmma.items():
+        trains = not any(f"mode {m}" in label for m in (0, 5))
+        want_tc = label.startswith(("k_pw<bf16", "k_wgrad<bf16")) and trains
+        check((count > 0) == want_tc, f"{label}: {count} HMMA instructions "
+                                      f"({'tensor cores' if want_tc else 'none'} expected)")
+    print("  unit kernels' HMMA instructions: " + ", ".join(f"{k} {v}" for k, v in hmma.items()),
+          flush=True)
+    return hmma
+
+
 def unit_bf16_phase(kernels: dict) -> dict:
     """The unit kernels in bfloat16 against their bfloat16 plain versions
     at the three full-width maps: inference at N = 128 (a rollout predict),
     the forward and the backward at N = 256 (a minibatch), the backward on
-    the forward kernel's statistics and saved tensors.  Each timed beside
-    its bf16 bound, with its launches per call and device ms per stage."""
+    the forward kernel's statistics and saved tensors; two training calls
+    on the same inputs give the same bits.  Each timed beside its bf16
+    bound, with its launches per call and device ms per stage, and the
+    training kernels beside the float32 kernels of the same call on the
+    same inputs in float32.  Then the tensor cores' SASS check."""
     from carla_driving_rl_agent_torch.agents.carla_agent import full_float32
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     full_float32()
@@ -2743,20 +2801,32 @@ def unit_bf16_phase(kernels: dict) -> dict:
                   f"bf16 forward kernel at ({n}, {shape}): out {r_out:.3e}, stats {r_stats:.3e}")
             err["fwd"] = max(err["fwd"], float((out.float() - p_out.float()).abs().max()),
                              float((stats - p_stats).abs().max()))
-            ms = cuda_ms(lambda: SU._train_fwd_kernel(x, ops, unit.leak), iters=20)
+            again = SU._train_fwd_kernel(x, ops, unit.leak)
+            check(all(torch.equal(a, b) for a, b in zip((out, stats) + tuple(saved),
+                                                        again[:2] + tuple(again[2]))),
+                  f"bf16 forward kernel at ({n}, {shape}): two calls give the same bits")
+            del again
+            fwd = lambda: SU._train_fwd_kernel(x, ops, unit.leak)
+            ms = cuda_ms(fwd, iters=20)
             plain_ms = cuda_ms(lambda: SU._plain(x, ops, unit.leak), iters=10)
             bound, by = unit_bound_ms("fwd", n, h, w, c, bf16=True)
+            # the float32 kernel of the same call, on the same inputs in float32
+            xf, gf = x.float(), gout.float()
+            fwd32 = lambda: SU._train_fwd_kernel(xf, ops, unit.leak)
+            ms32 = cuda_ms(fwd32, iters=20)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                        rel_l2=max(r_out, r_stats), max_ulps=ulps, share_over_1ulp=share,
-                       units=units)
-            row.update(_unit_stages("fwd", lambda: SU._train_fwd_kernel(x, ops, unit.leak),
-                                    f"bf16 ({n}, {shape})"))
+                       units=units, float32_ms=ms32)
+            row.update(_unit_stages("fwd", fwd, f"bf16 ({n}, {shape})"))
+            row["float32_stage_device_ms"] = _unit_stages(
+                "fwd", fwd32, f"float32 ({n}, {shape})")["stage_device_ms"]
             full["fwd"][f"{n}x{shape}"] = row
             print(f"  unit bf16 train forward ({n}, {c}, {h}, {w}): relative L2 out "
-                  f"{r_out:.3e} (max {ulps:.0f} bf16 ulps, {share:.2e} beyond 1), stats "
-                  f"{r_stats:.3e}; kernel "
-                  f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bound:.6f} ms ({by})",
-                  flush=True)
+                  f"{r_out:.3e} (max {ulps:.0f} bf16 ulps, {share:.2e} beyond 1; before the "
+                  f"tensor cores <= {UNIT_BF16_BEFORE['out']:.1e}), stats {r_stats:.3e}; two "
+                  f"calls equal bits; kernel {ms:.6f} ms, float32 kernel {ms32:.6f} ms "
+                  f"(bf16 / float32 {ms / ms32:.3f}), plain {plain_ms:.6f} ms, bound "
+                  f"{bound:.6f} ms ({by})", flush=True)
             bwd = lambda: SU.shuffle_unit_train_bwd(x, gout, ops, unit.leak, stats, saved)
             bwd_plain = lambda: SU.shuffle_unit_train_bwd_plain(x, gout, ops, unit.leak,
                                                                 stats, saved)
@@ -2769,18 +2839,31 @@ def unit_bf16_phase(kernels: dict) -> dict:
                                                   f"({n}, {shape})", UNIT_BF16_BAR, UNIT_BF16_BAR)
             ulps, share = _bf16_ulps(got[0], ref[0])
             err["bwd"] = max(err["bwd"], diff)
+            by_tensor = {name: _rel(a, b) for name, a, b in
+                         zip(("x",) + SU.UnitOperands._fields, got, ref) if name not in UNIT_NOISE}
+            top = sorted(by_tensor.items(), key=lambda kv: -kv[1])[:3]
+            check(all(torch.equal(a, b) for a, b in zip(got, bwd())),
+                  f"bf16 backward kernel at ({n}, {shape}): two calls give the same bits")
             ms, plain_ms = cuda_ms(bwd, iters=20), cuda_ms(bwd_plain, iters=10)
             bound, by = unit_bound_ms("bwd", n, h, w, c, bf16=True)
+            _, stats32, saved32 = fwd32()
+            bwd32 = lambda: SU.shuffle_unit_train_bwd(xf, gf, ops, unit.leak, stats32, saved32)
+            ms32 = cuda_ms(bwd32, iters=20)
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, rel_l2=worst,
-                       noise=noise, gx_max_ulps=ulps, gx_share_over_1ulp=share, units=units)
+                       noise=noise, gx_max_ulps=ulps, gx_share_over_1ulp=share, units=units,
+                       float32_ms=ms32, rel_l2_by_tensor=by_tensor)
             row.update(_unit_stages("bwd", bwd, f"bf16 ({n}, {shape})"))
+            row["float32_stage_device_ms"] = _unit_stages(
+                "bwd", bwd32, f"float32 ({n}, {shape})")["stage_device_ms"]
             full["bwd"][f"{n}x{shape}"] = row
             print(f"  unit bf16 train backward ({n}, {c}, {h}, {w}): gradients' relative L2 "
-                  f"<= {worst:.3e} (gx max {ulps:.0f} bf16 ulps, {share:.2e} beyond 1), noise "
-                  f"tensors {noise:.3e} of "
-                  f"the largest; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-                  f"{bound:.6f} ms ({by})", flush=True)
-            del x, gout, out, stats, saved, got, ref
+                  f"<= {worst:.3e} (" + ", ".join(f"{k} {v:.2e}" for k, v in top)
+                  + f"; before the tensor cores <= {UNIT_BF16_BEFORE['grad']:.1e}; "
+                  f"gx max {ulps:.0f} bf16 ulps, {share:.2e} beyond 1), noise tensors "
+                  f"{noise:.3e} of the largest; two calls equal bits; kernel {ms:.6f} ms, "
+                  f"float32 kernel {ms32:.6f} ms (bf16 / float32 {ms / ms32:.3f}), plain "
+                  f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by})", flush=True)
+            del x, gout, out, stats, saved, got, ref, xf, gf, stats32, saved32
     h, w, c, _ = UNIT_MAPS[0]
     src = "carla_driving_rl_agent_torch/csrc/shuffle_unit.cu"
     pallas = "carla_driving_rl_agent_tpu/ops/shuffle_unit_pallas.py"
@@ -2794,6 +2877,7 @@ def unit_bf16_phase(kernels: dict) -> dict:
                              bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None,
                              by_shape=full[kind], launches_per_call=t["launches_per_call"])
     print("  unit bf16 kernels: library call: none computes a ShuffleNet unit", flush=True)
+    full["hmma"] = unit_tensor_cores()
     return full
 
 

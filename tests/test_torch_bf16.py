@@ -1,8 +1,13 @@
 """compute_dtype "bfloat16" in the port against the JAX package on the CPU,
 all in bfloat16:
 
+  * the split of a float32 value into three bf16 terms that the bf16
+    kernels' tensor cores take (shuffle_unit.cuh `split3`: exact, each term
+    a bf16 value) and the products summed over those terms
+    (`add_product`), against float64;
   * the unit kernels' bf16 arithmetic (csrc/shuffle_unit.cuh built with
-    g++) against the port's bf16 plain unit: the inference, the training
+    g++, its products over the split terms) against the port's bf16 plain
+    unit: the inference, the training
     forward, its batch statistics and the backward (relative L2 per tensor
     <= 1e-3; measured 0 for the outputs and gx, <= 3e-6 elsewhere; the four
     tensors whose true gradient is 0 held to 1e-3 of the unit's largest
@@ -48,7 +53,7 @@ from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax
 from test_torch_imitation import jax_trees
 from test_torch_learner import HYPER, T, H, W, TINY_NET, _jself
 from test_torch_learner_variants import env, one_thread_module  # noqa: F401  (no town)
-from test_torch_shuffle_unit import (NAMES, NOISE, SHAPES, Case, _infer_host, _nchw,
+from test_torch_shuffle_unit import (NAMES, NOISE, SHAPES, Case, _host_lib, _infer_host, _nchw,
                                      _train_host)
 
 BF = torch.bfloat16
@@ -107,6 +112,76 @@ def _plain_train(x, unit, gout):
     for m in mods:
         m.grad = None
     return out.detach(), stats, grads
+
+
+def _bits(v) -> np.ndarray:
+    return np.asarray(v, np.float32).view(np.uint32)
+
+
+def _split_host(v: np.ndarray):
+    v = np.ascontiguousarray(v, np.float32)
+    hi, mid, lo = (np.empty_like(v) for _ in range(3))
+    _host_lib().cdrl_unit_split_host(v.ctypes.data, v.size, hi.ctypes.data, mid.ctypes.data,
+                                     lo.ctypes.data)
+    return hi, mid, lo
+
+
+# bit patterns: +-0, the smallest normal, bf16 rounding ties (the low 16
+# bits 0x8000, even and odd bit 16), the values beside them, values whose
+# rounding carries into the exponent, and the largest finite value, whose
+# bf16 rounding to nearest would be infinite
+SPLIT_EDGES = np.array([0x00000000, 0x80000000, 0x00800000, 0x3F808000, 0x3F818000, 0x3F807FFF,
+                        0x3F808001, 0xBF818000, 0x3FFFFFFF, 0x3FFF8000, 0x7F7F8000, 0x7F7F7FFF,
+                        0x7F7FFFFF, 0xFF7FFFFF, 0x0D000001, 0x4B7FFFFF], np.uint32)
+
+
+@pytest.mark.parametrize("values", ["edges", "powers_of_two", "random"])
+def test_split_into_three_bf16_terms_is_exact(values):
+    """split3(v) = hi + mid + lo exactly in float64, each term a bf16 value
+    (its low 16 bits 0), |mid| <= 2^-7 |v| and |lo| <= 2^-15 |v|: over the
+    edge cases, every power of two from 2^-110 to 2^127 of both signs, and
+    random values across the exponent range above 2^-110 (where lo keeps
+    all its bits: below, bf16's subnormal spacing cuts it)."""
+    if values == "edges":
+        v = SPLIT_EDGES.view(np.float32)
+    elif values == "powers_of_two":
+        p = np.ldexp(1.0, np.arange(-110, 128)).astype(np.float32)
+        v = np.concatenate([p, -p])
+    else:
+        rng = np.random.default_rng(16)
+        bits = (rng.integers(0, 2, 20000, dtype=np.uint32) << 31
+                | rng.integers(17, 255, 20000, dtype=np.uint32) << 23
+                | rng.integers(0, 1 << 23, 20000, dtype=np.uint32))
+        v = bits.astype(np.uint32).view(np.float32)
+    hi, mid, lo = _split_host(v)
+    for t in (hi, mid, lo):
+        assert np.isfinite(t).all() and not (_bits(t) & 0xFFFF).any()
+    total = hi.astype(np.float64) + mid.astype(np.float64) + lo.astype(np.float64)
+    np.testing.assert_array_equal(total, v.astype(np.float64))
+    mag = np.abs(v.astype(np.float64))
+    assert (np.abs(mid) <= 2.0 ** -7 * mag).all() and (np.abs(lo) <= 2.0 ** -15 * mag).all()
+
+
+@pytest.mark.parametrize("both", [False, True], ids=["bf16_by_float32", "float32_by_float32"])
+def test_products_over_split_terms(both):
+    """add_product (the bf16 kernels' products, g++ build) against float64
+    s + a * b: a bf16 a against a float32 b's three terms, each product
+    exact, three float32 additions (<= 2^-22 of |s| + |a b|); two float32
+    operands' six largest cross terms, the three dropped and six additions
+    (<= 2^-20 of |s| + |a b|)."""
+    rng = np.random.default_rng(17)
+    k = 10000
+    s = rng.normal(0.0, 1.0, k).astype(np.float32)
+    a = (rng.normal(0.0, 1.0, k) * np.exp2(rng.integers(-20, 20, k))).astype(np.float32)
+    if not both:
+        a = _bf16(a)
+    b = (rng.normal(0.0, 1.0, k) * np.exp2(rng.integers(-20, 20, k))).astype(np.float32)
+    out = np.empty(k, np.float32)
+    _host_lib().cdrl_unit_product_host(s.ctypes.data, a.ctypes.data, b.ctypes.data, k, int(both),
+                                       out.ctypes.data)
+    s64, ab = s.astype(np.float64), a.astype(np.float64) * b.astype(np.float64)
+    err = np.abs(out - (s64 + ab)) / (np.abs(s64) + np.abs(ab))
+    assert err.max() <= 2.0 ** (-20 if both else -22), err.max()
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))

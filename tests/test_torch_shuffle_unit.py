@@ -55,6 +55,10 @@ def _host_lib() -> ctypes.CDLL:
                                            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
     sigs["cdrl_unit_plan_host"] = (ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.POINTER(SU._Plan)])
     sigs["cdrl_unit_infer_launch_host"] = (ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    sigs["cdrl_unit_train_launch_host"] = (ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    sigs["cdrl_unit_split_host"] = (None, [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3)
+    sigs["cdrl_unit_product_host"] = (None, [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
+                                                                      ctypes.c_void_p])
     return load_library(
         "shuffle_unit_host", [csrc("shuffle_unit_host.cpp")], "g++", sigs,
         extra_deps=[csrc("shuffle_unit.cuh")], extra_flags=["-ffp-contract=off"])
@@ -442,6 +446,44 @@ def test_plan_covers_the_inference_stages(h, w, c):
             assert dw_blocks == pl.n_si * hc and (pl.n_si - 1) * pl.ipi < n <= pl.n_si * pl.ipi
             assert 0 < pw_smem <= SMEM_LIMIT and 0 < dw_smem <= SMEM_LIMIT, (n, tsize)
         assert min(CH_OWN * 256 // (h * w), CH_FILL * 256 // ((h + 2) * (w + 2))) >= 1
+
+
+SM_SHARED = 233472     # the H100's shared memory per SM
+BLOCK_RESERVED = 1024  # the shared memory the card keeps for each resident block
+
+
+@pytest.mark.parametrize("dtype", [0, 1, 2], ids=["float32", "float64", "bfloat16"])
+@pytest.mark.parametrize("h, w, c", MAPS)
+def test_plan_covers_the_training_stages(h, w, c, dtype):
+    """The training forward's and backward's launches (shuffle_unit.cu
+    `train_fwd`, `train_bwd`, the g++ build of their sizes) at every batch
+    in PLAN_N: the 1x1 products and the weight gradients cover their tiles,
+    every block's shared memory fits the card's opt-in limit, and in float32
+    and in bfloat16 (the tensor-core layout: bf16 panel and pixel operand,
+    three tiles of g_u's split terms in PW3_BACK; the weight gradients'
+    float32 ring and two buffers of split tiles) two product blocks and two weight-gradient
+    blocks fit one SM, as the plan assumes."""
+    hc = c // 2
+    kpad = -(-hc // 32) * 32
+    rest = 4 * (64 * 68 + 7 * hc + 5 * 64) + 4 * 64 * 4
+    for n in PLAN_N:
+        err, pl = _plan_host(n, c, h, w)
+        assert err == 0
+        out = np.zeros(10, np.int64)
+        assert _host_lib().cdrl_unit_train_launch_host(n, c, h, w, SMS, dtype,
+                                                       out.ctypes.data) == 0
+        pw_blocks, ch_blocks, *pw_smem = (int(v) for v in out[:6])
+        dw_fwd, dw_bwd, wg_blocks, wg_smem = (int(v) for v in out[6:])
+        assert pw_blocks == -(-hc // 64) * pl.n_pb and ch_blocks == pl.n_s * hc
+        assert wg_blocks == 2 * (-(-hc // WTILE)) ** 2 * pl.nseg
+        for smem in pw_smem + [dw_fwd, dw_bwd, wg_smem]:
+            assert 0 < smem <= SMEM_LIMIT, (n, dtype, smem)
+        if dtype == 2:
+            assert pw_smem == [2 * (kpad * 72 + 2 * t * 32 * 72) + rest for t in (1, 1, 3, 1)]
+            assert wg_smem == 4 * 2 * 3 * 64 * 32 + 2 * 2 * 6 * 64 * 40
+        if dtype != 1:
+            for smem in pw_smem + [wg_smem]:
+                assert 2 * (smem + BLOCK_RESERVED) <= SM_SHARED, (n, dtype, smem)
 
 
 def test_plan_refuses_what_the_kernels_do_not_take():

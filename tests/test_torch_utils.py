@@ -155,3 +155,21 @@ def test_python_route_bank_matches_jax():
     jb2 = jroute.build_route_bank(town, use_native=False, origin_spawns=origins, **kw)
     np.testing.assert_array_equal(tb2.xy, jb2.xy)
     assert set(tb2.origin_spawn.tolist()) <= set(origins)
+
+
+def test_utils_package_names_match_jax():
+    """The port's `utils` package exposes the five names of the JAX
+    package's: the math and activations modules, DynamicParameter and the
+    optimizer registry with the same keys; one optimizer built by name
+    takes a step."""
+    import carla_driving_rl_agent_tpu.utils as jutils
+    from carla_driving_rl_agent_torch.utils import (OPTIMIZERS, DynamicParameter,
+                                                    activations, get_optimizer_by_name, math)
+    assert math is tm and callable(activations.leaky_relu6)
+    assert sorted(OPTIMIZERS) == sorted(jutils.OPTIMIZERS)
+    assert DynamicParameter.create(0.5)() == 0.5
+    p = torch.nn.Parameter(torch.ones(3))
+    opt = get_optimizer_by_name("adam", [p], 1e-2)
+    p.grad = torch.ones(3)
+    opt.step()
+    assert torch.all(p < 1.0)
