@@ -58,16 +58,21 @@
 // g_u in W3^T g_u, g_z1 in dW1, and both operands of dW3 (six cross terms).
 // The bf16 backward keeps g_u, b2n and g_z1 channel-major ([channel][pixel],
 // `pixel_pitch`) and its first launch copies the branch input there, so that
-// `k_wgrad` loads every operand by 16-byte cp.async.  Inference in bf16
-// keeps the float32 CUDA-core loop over float32 shared memory.
+// `k_wgrad` loads every operand by 16-byte cp.async.  Inference in bf16 is
+// one launch (`k_infer_bf16`): a block per band of rows of an image keeps
+// a1 (float32) and b2n (bf16) in shared memory, recomputes the halo rows'
+// a1, and runs both products on the tensor cores; there is no statistic to
+// merge, so nothing needs a second launch.
 //
 // What bounds it on the H100: the function moves ~0.1 GB and does ~1-4
 // GFLOP per call at N = 256, 0.03-0.06 ms at the card's peaks in float32
 // (operations at the two smaller maps, bytes at the largest; the float32
 // products are CUDA-core FP32, for parity with the plain version); in bf16
 // the products at the tensor-core rate leave the bytes as the bound,
-// 0.005-0.026 ms.  Both move the saved and intermediate tensors the bound
-// does not count.  The times stand beside the bounds in PERF.md.
+// 0.003-0.026 ms.  The three-launch and training kernels move the saved and
+// intermediate tensors the bound does not count; bf16 inference moves x
+// (its halo rows twice) and out, and each block reads both weight panels
+// from L2.  The times stand beside the bounds in PERF.md.
 //
 // Built by utils/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -298,8 +303,9 @@ __global__ void __launch_bounds__(kThreads, 2) k_pw(Call a) {
   constexpr bool kBack = kMode == PW3_BACK || kMode == PW1_BACK;
   constexpr bool kStats = kMode == PW1_TRAIN || kMode == PW3_TRAIN;
   constexpr bool kInfer = kMode == PW1_INFER || kMode == PW3_INFER;
-  constexpr bool kTC = pw_tensor_cores<T, S>(kMode);
+  constexpr bool kTC = pw_tensor_cores<T, S>();
   constexpr int NT = kMode == PW3_BACK ? 3 : 1;   // tensor cores: tiles of the pixel operand
+  static_assert(!kInfer || sizeof(S) == sizeof(T), "bf16 inference is k_infer_bf16");
   const Ops<T, S> o(a);
   const Geo g = geometry(a);
   const int hc = g.hc, hw = g.hw, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -803,12 +809,13 @@ __global__ void __launch_bounds__(kThreads) k_dw_train(Call a) {
   }
 }
 
-// Inference: b2n = BN2(depthwise(a1) + dwb) on the running statistics,
-// written over a1 (each plane of a1 is read only by its own block, into
+// Inference in float32 and float64: b2n = BN2(depthwise(a1) + dwb) on the
+// running statistics, written over a1 (each plane of a1 is read only by its own block, into
 // shared memory, before that block writes it), and the shortcut's channel
 // k copied to its shuffled channel.
 template <class T, class S>
 __global__ void __launch_bounds__(kThreads) k_dw_infer(Call a) {
+  static_assert(sizeof(S) == sizeof(T), "bf16 inference is k_infer_bf16");
   const Ops<T, S> o(a);
   const Geo g = geometry(a);
   T* pad = smem<T>();
@@ -841,9 +848,328 @@ __global__ void __launch_bounds__(kThreads) k_dw_infer(Call a) {
     __syncthreads();
 #pragma unroll 4
     for (int e = tid; e < np * hw; e += kThreads)
-      o.b2n[base + b.og[e]] =
-          round_to<S>(dw_bn(wt, bias, pad + b.oc[e], b.pitch, m2, r2, g2, be2));
+      o.b2n[base + b.og[e]] = dw_bn(wt, bias, pad + b.oc[e], b.pitch, m2, r2, g2, be2);
   }
+}
+
+// ---------------------------------------------------------------------------
+// bf16 inference: one launch, a block per band of rows (k_infer_bf16)
+// ---------------------------------------------------------------------------
+
+// Row r's len(r) bf16 values from src(r) to dst(r) (generic pointers:
+// shared memory to shared or device memory) for each of `rows` rows: a warp
+// per row, lanes over its values, 2 bytes each (a row of a bf16 NCHW plane
+// starts on 2 bytes only, in device memory as in the staging), U values a
+// lane loaded before the first is stored.
+template <class Row>
+__device__ __forceinline__ void copy_values(int rows, Row row) {
+  constexpr int U = 8;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  for (int r = threadIdx.x >> 5; r < rows; r += nw) {
+    const uint16_t* src;
+    uint16_t* dst;
+    int len;
+    row(r, &src, &dst, &len);
+    for (int v0 = lane; v0 < len; v0 += 32 * U) {
+      uint16_t t[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v0 + 32 * u < len) t[u] = src[v0 + 32 * u];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v0 + 32 * u < len) dst[v0 + 32 * u] = t[u];
+    }
+  }
+}
+
+// Row r's len(r) <= maxlen bf16 values at src(r) into shared memory at
+// dst(r) (on 16 bytes) by cp.async: the aligned 16-byte pieces of device
+// memory that hold them, first to last, so that value p sits at dst(r) +
+// (src(r) mod 16) + 2 p; every copy issued before the first lands.
+template <class Row>
+__device__ __forceinline__ void stage_rows(int rows, int maxlen, Row row) {
+  const int pieces = (2 * maxlen + 15) / 16 + 1;
+  for (int e = threadIdx.x; e < rows * pieces; e += blockDim.x) {
+    const int r = e / pieces, i = e - r * pieces;
+    const char* src;
+    char* dst;
+    int len;
+    row(r, &src, &dst, &len);
+    const uintptr_t g = reinterpret_cast<uintptr_t>(src), as = g & ~uintptr_t(15);
+    if (i <= static_cast<int>((g + 2 * uintptr_t(len) - 1 - as) >> 4))
+      cp_async16(dst + 16 * i, reinterpret_cast<const char*>(as) + 16 * i, 16);
+  }
+}
+
+// A weight matrix (hc x hc float32, [out][in]) into a bf16 panel [m][k] of
+// kpad rows of pitch ppitch, rounded to bf16 (JAX's operand is its bf16
+// copy) and zero outside hc x hc.  The block's threads take the panel's
+// runs of 4 values (k = 4 q), consecutive threads consecutive runs, U runs
+// each with every load in flight together (16-byte loads where the rows
+// allow them).
+__device__ __forceinline__ void load_panel(bf16* panel, const float* wm, int hc, int kpad,
+                                           int ppitch) {
+  constexpr int U = 8;
+  const int nt = blockDim.x, quads = kpad / 4, total = kpad * quads;
+  const bool vec = hc % 4 == 0 && (reinterpret_cast<uintptr_t>(wm) & 15) == 0;
+  for (int e0 = threadIdx.x; e0 < total; e0 += U * nt) {
+    float4 v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * nt, m = e / quads, k = 4 * (e - m * quads);
+      v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (e >= total || m >= hc || k >= hc) continue;
+      const float* r = wm + static_cast<int64_t>(m) * hc + k;
+      if (vec) {
+        v[u] = *reinterpret_cast<const float4*>(r);
+      } else {
+        v[u].x = r[0];
+        if (k + 1 < hc) v[u].y = r[1];
+        if (k + 2 < hc) v[u].z = r[2];
+        if (k + 3 < hc) v[u].w = r[3];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = e0 + u * nt, m = e / quads, k = 4 * (e - m * quads);
+      if (e >= total) continue;
+      __nv_bfloat162 b[2] = {__floats2bfloat162_rn(v[u].x, v[u].y),
+                             __floats2bfloat162_rn(v[u].z, v[u].w)};
+      *reinterpret_cast<uint2*>(panel + m * ppitch + k) = *reinterpret_cast<const uint2*>(b);
+    }
+  }
+}
+
+// D = A . B on the tensor cores over the tiles of one block: A a bf16 panel
+// [m][k] of pitch ap (ldmatrix), B bf16 [k][pixel] of pitch bp
+// (ldmatrix.trans), kpad deep.  Warp w of nw takes the tiles w, w + nw, ... of
+// mt x pt tiles of 16 rows and 32 pixels, four 16 x 8 fragments each, and
+// hands each tile's sums to tile(row, col, acc): acc[j][0..1] at row `row`,
+// pixels col + 8 j and the next; acc[j][2..3] at row + 8.
+template <class Tile>
+__device__ __forceinline__ void tc_tiles(const bf16* A, int ap, const bf16* B, int bp, int kpad,
+                                         int mt, int pt, Tile tile) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int l8 = lane >> 3, r8 = lane & 7;
+  const int ar = r8 + (l8 & 1) * 8, ac = (l8 >> 1) * 8;
+  const int bk = r8 + (l8 & 1) * 8, bn = (l8 >> 1) * 8;
+  for (int t = warp; t < mt * pt; t += nw) {
+    const int m0 = (t % mt) * 16, p0 = (t / mt) * 32;
+    float acc[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.0f;
+#pragma unroll 2
+    for (int ks = 0; ks < kpad; ks += 16) {
+      uint32_t af[4], bf[2][4];
+      ldsm_x4<false>(af, A + (m0 + ar) * ap + ks + ac);
+      const bf16* bt = B + (ks + bk) * bp + p0 + bn;
+      ldsm_x4<true>(bf[0], bt);
+      ldsm_x4<true>(bf[1], bt + 16);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        mma_bf16(acc[j], af, bf[j >> 1][2 * (j & 1)], bf[j >> 1][2 * (j & 1) + 1]);
+    }
+    tile(m0 + (lane >> 2), p0 + 2 * (lane & 3), acc);
+  }
+}
+
+// k_infer_bf16's per-channel constants, rows of its [UNIT_CONSTS][hc] table
+// in shared memory (shuffle_unit.cuh `infer_layout`): the depthwise's 9
+// taps, its bias, BN2's running mean, rstd, scale and bias; then for each
+// 1x1 product (K_BN1: W1, K_BN3: W3) its bias and its BatchNorm's running
+// mean, rstd, scale and bias.
+enum UnitConst { K_DW = 0, K_DWB = 9, K_M2, K_R2, K_G2, K_BE2, K_BN1, K_BN3 = K_BN1 + 5 };
+
+__device__ __forceinline__ float unit_const(const Ops<float, bf16>& o, int r, int k) {
+  if (r < K_DWB) return o.dw[k * 9 + r];
+  const bool w1 = r < K_BN3;
+  switch (r < K_BN1 ? r : K_BN1 + (r - K_BN1) % 5) {
+    case K_DWB: return o.dwb[k];
+    case K_M2: return o.m2[k];
+    case K_R2: return rstd(o.v2[k], o.eps);
+    case K_G2: return o.g2[k];
+    case K_BE2: return o.be2[k];
+    case K_BN1: return w1 ? o.b1[k] : o.b3[k];
+    case K_BN1 + 1: return w1 ? o.m1[k] : o.m3[k];
+    case K_BN1 + 2: return rstd(w1 ? o.v1[k] : o.v3[k], o.eps);
+    case K_BN1 + 3: return w1 ? o.g1[k] : o.g3[k];
+    default: return w1 ? o.be1[k] : o.be3[k];
+  }
+}
+
+
+// bf16 inference, the whole unit in one launch (row 4c: the JAX kernels
+// with cd = bfloat16, `_make_infer_kernel` / `_make_infer_halo_kernel`).
+// Block b owns band b % nb of image b / nb (rows [y0, y1), shuffle_unit.cuh
+// `band_rows`, `infer_layout`; the whole image at the backbone's maps,
+// bands of rows at taller ones, `infer_band`) and keeps z1, a1 and b2n in shared memory,
+// as the TPU kernel keeps them in VMEM, so that only x and out cross device
+// memory:
+//   1. the branch input of the rows [e0, e1) and the band's shortcut half
+//      staged in a1's region by cp.async (stage_rows: a bf16 NCHW plane
+//      starts on 2 bytes only, hw x 2 bytes being 990, 276 or 72 at the
+//      backbone's maps, so its rows go as the aligned 16-byte pieces that
+//      hold them), and while they land the weight panels (W1, and W3 where
+//      both fit; rounded to bf16 as they load) and the per-channel
+//      constants; then x into place as bf16 [k][p] and the shortcut to its
+//      shuffled channels (copy_values), and a1's region zeroed;
+//   2. z1 = W1 . x on the tensor cores (mma.sync m16n8k16, bf16 operands
+//      by ldmatrix, float32 sums; both operands are bf16 values, so every
+//      product is exact), a1 = act(BN1(z1 + b1)) on the running statistics
+//      into zero-padded float32 planes (the halo rows recomputed: (rb + 2)
+//      / rb of the W1 product);
+//   3. (W3 over W1's panel when only one fits) the depthwise on the CUDA
+//      cores, b2n = BN2(z2) rounded to bf16 over the branch input;
+//   4. u = W3 . b2n on the tensor cores, act(BN3(u + b3)) in bf16 into an
+//      output tile in a1's region;
+//   5. the tile to the branch's shuffled channels, rows of values in
+//      consecutive lanes.
+// A block is 512 threads (2 * kThreads), alone on its SM.
+// Nothing crosses blocks, so two calls give the same bits.  What bounds it:
+// x and out are the function's bytes (0.003-0.009 ms at N = 128 on the
+// H100), but each block also reads both float32 weight panels from L2, and
+// a block's stages wait on one another's latencies (PERF.md).
+__global__ void __launch_bounds__(2 * kThreads) k_infer_bf16(Call a) {
+  const Ops<float, bf16> o(a);
+  const Geo g = geometry(a);
+  const int hc = g.hc, w = g.w, hw = g.hw, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = nt >> 5;
+  const InferLayout L = infer_layout(hc, g.h, w, a.rb, a.panels);
+  const int n = blockIdx.x / a.nb;
+  const Band b = band_rows(g.h, a.rb, blockIdx.x % a.nb);
+  const int pe = (b.e1 - b.e0) * w, pb = (b.y1 - b.y0) * w;
+  unsigned char* base = smem<unsigned char>();
+  bf16* p1 = reinterpret_cast<bf16*>(base);
+  bf16* p3 = a.panels == 2 ? p1 + L.kpad * L.ppitch : p1;
+  bf16* xs = reinterpret_cast<bf16*>(base + L.x_off);
+  float* a1 = reinterpret_cast<float*>(base + L.a_off);
+  bf16* st = reinterpret_cast<bf16*>(base + L.a_off);   // the output tile, over a1
+  float* cst = reinterpret_cast<float*>(base + L.c_off);
+  int16_t* poff = reinterpret_cast<int16_t*>(base + L.t_off);
+  int16_t* coff = poff + L.xcols;
+  const int64_t img = static_cast<int64_t>(n) * g.c * hw, at0 = static_cast<int64_t>(b.y0) * w;
+  const bf16* xn = o.x + img;
+  bf16* on = o.out + img;
+
+  // 1. loads: x's rows (r < hc) and the shortcut's (r >= hc) staged, then
+  // copied into xs and into out's shortcut channels; the constants, the
+  // pixel tables; a1's region zeroed (its padding) once the staging is read
+  auto src_row = [&](int r, int* len) {
+    *len = r < hc ? pe : pb;
+    return r < hc ? xn + static_cast<int64_t>(hc + r) * hw + b.e0 * w
+                  : xn + static_cast<int64_t>(r - hc) * hw + at0;
+  };
+  auto staged = [&](int r) {
+    return base + L.a_off + (r < hc ? int64_t(r) * L.spx : int64_t(hc) * L.spx + (r - hc) * L.sps);
+  };
+  stage_rows(2 * hc, pe, [&](int r, const char** s, char** d, int* len) {
+    *s = reinterpret_cast<const char*>(src_row(r, len));
+    *d = reinterpret_cast<char*>(staged(r));
+  });
+  cp_commit();
+  load_panel(p1, o.w1, hc, L.kpad, L.ppitch);
+  if (a.panels == 2) load_panel(p3, o.w3, hc, L.kpad, L.ppitch);
+  for (int e = tid; e < UNIT_CONSTS * hc; e += nt) {
+    const int r = e / hc;
+    cst[e] = unit_const(o, r, e - r * hc);
+  }
+  for (int e = tid; e < (L.kpad - hc) * L.xpitch / 8; e += nt)
+    reinterpret_cast<uint4*>(xs + hc * L.xpitch)[e] = make_uint4(0u, 0u, 0u, 0u);
+  for (int p = tid; p < L.xcols; p += nt)
+    poff[p] = p < pe ? (p / w + b.e0 - b.y0 + 1) * L.apitch + p % w + 1 : -1;
+  for (int p = tid; p < pb; p += nt) coff[p] = (p / w + 1) * L.apitch + p % w + 1;
+  cp_wait<0>();
+  __syncthreads();
+  copy_values(2 * hc, [&](int r, const uint16_t** s, uint16_t** d, int* len) {
+    const uintptr_t at = reinterpret_cast<uintptr_t>(src_row(r, len));
+    *s = reinterpret_cast<const uint16_t*>(staged(r) + (at & 15));
+    *d = reinterpret_cast<uint16_t*>(
+        r < hc ? xs + r * L.xpitch
+               : on + static_cast<int64_t>(shuffle_dest(g.c, r - hc)) * hw + at0);
+  });
+  __syncthreads();
+  for (int64_t e = tid; e < (L.c_off - L.a_off) / 16; e += nt)
+    reinterpret_cast<uint4*>(base + L.a_off)[e] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+
+  // 2. a1 = act(BN1(W1 . x + b1))
+  const int mt = L.kpad / 16;
+  tc_tiles(p1, L.ppitch, xs, L.xpitch, L.kpad, mt, (pe + 31) / 32,
+           [&](int row, int col, float (&acc)[4][4]) {
+#pragma unroll
+             for (int h = 0; h < 2; ++h) {
+               const int m = row + 8 * h;
+               if (m >= hc) continue;
+               const float* c = cst + K_BN1 * hc + m;   // b1, m1, rstd1, g1, be1
+#pragma unroll
+               for (int j = 0; j < 4; ++j)
+#pragma unroll
+                 for (int i = 0; i < 2; ++i) {
+                   const int p = col + 8 * j + i;
+                   if (p < pe)
+                     a1[m * L.aplane + poff[p]] = bn_act(acc[j][2 * h + i] + c[0], c[hc],
+                                                         c[2 * hc], c[3 * hc], c[4 * hc], o.leak);
+                 }
+             }
+           });
+  __syncthreads();
+
+  // 3. b2n = BN2(depthwise(a1) + dwb) rounded to bf16, over x
+  if (a.panels == 1) load_panel(p3, o.w3, hc, L.kpad, L.ppitch);
+  for (int k = warp; k < hc; k += nw) {
+    float wt[9];
+#pragma unroll
+    for (int t = 0; t < 9; ++t) wt[t] = cst[(K_DW + t) * hc + k];
+    const float bias = cst[K_DWB * hc + k], m2 = cst[K_M2 * hc + k], r2 = cst[K_R2 * hc + k],
+                g2 = cst[K_G2 * hc + k], be2 = cst[K_BE2 * hc + k];
+    const float* plane = a1 + k * L.aplane;
+    bf16* dst = xs + k * L.xpitch;
+    constexpr int U = 4;   // pixels a lane computes before it stores
+    for (int p0 = lane; p0 < pb; p0 += 32 * U) {
+      bf16 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (p0 + 32 * u < pb)
+          v[u] = narrow<bf16>(dw_bn(wt, bias, plane + coff[p0 + 32 * u], L.apitch, m2, r2, g2,
+                                    be2));
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (p0 + 32 * u < pb) dst[p0 + 32 * u] = v[u];
+    }
+  }
+  __syncthreads();
+
+  // 4. act(BN3(W3 . b2n + b3)) into the output tile
+  tc_tiles(p3, L.ppitch, xs, L.xpitch, L.kpad, mt, (pb + 31) / 32,
+           [&](int row, int col, float (&acc)[4][4]) {
+#pragma unroll
+             for (int h = 0; h < 2; ++h) {
+               const int m = row + 8 * h;
+               if (m >= hc) continue;
+               const float* c = cst + K_BN3 * hc + m;   // b3, m3, rstd3, g3, be3
+               bf16* dst = st + m * L.spitch;
+#pragma unroll
+               for (int j = 0; j < 4; ++j)
+#pragma unroll
+                 for (int i = 0; i < 2; ++i) {
+                   const int p = col + 8 * j + i;
+                   if (p < pb)
+                     dst[p] = narrow<bf16>(bn_act(acc[j][2 * h + i] + c[0], c[hc], c[2 * hc],
+                                                  c[3 * hc], c[4 * hc], o.leak));
+                 }
+             }
+           });
+  __syncthreads();
+
+  // 5. the tile to out
+  copy_values(hc, [&](int m, const uint16_t** s, uint16_t** d, int* len) {
+    *s = reinterpret_cast<const uint16_t*>(st + m * L.spitch);
+    *d = reinterpret_cast<uint16_t*>(on + static_cast<int64_t>(shuffle_dest(g.c, hc + m)) * hw +
+                                     at0);
+    *len = pb;
+  });
 }
 
 // Training: out = shuffle(concat(shortcut, act(BN3(u)))).
@@ -1326,6 +1652,18 @@ int infer(const Call& a, cudaStream_t s) {
   return static_cast<int>(err.first);
 }
 
+// bf16 inference: one launch of k_infer_bf16 (PLAN_BAND when no band of the
+// map fits a block's shared memory).
+int infer_bf16(const Call& a, cudaStream_t s) {
+  if (a.rb == 0) return -PLAN_BAND;
+  Errors err;
+  err.first = cudaFuncSetAttribute(k_infer_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   a.ismem);
+  k_infer_bf16<<<a.n * a.nb, 2 * kThreads, a.ismem, s>>>(a);
+  err();
+  return static_cast<int>(err.first);
+}
+
 template <class T, class S>
 int train_fwd(const Call& a, cudaStream_t s) {
   const Geo g = geometry(a);
@@ -1397,7 +1735,7 @@ extern "C" int cdrl_unit_infer(const UnitArgs* args, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return dtype == 0   ? run(infer<float, float>, args, s)
          : dtype == 1 ? run(infer<double, double>, args, s)
-                      : run(infer<float, bf16>, args, s);
+                      : run(infer_bf16, args, s);
 }
 
 extern "C" int cdrl_unit_train_fwd(const UnitArgs* args, int dtype, void* stream) {

@@ -35,14 +35,17 @@
 // output b2n before the W3 product, the output, the gradient of z1 before
 // the gx product, gx, and dW1 and dW3.
 //
-// The bf16 training kernels take their 1x1 products and weight gradients
-// on the tensor cores (bf16 operands, float32 sums).  An operand that the
-// JAX function keeps in float32 (g_u in W3^T g_u, g_z1 in dW1, both of dW3)
+// Every bf16 kernel takes its 1x1 products and weight gradients on the
+// tensor cores (bf16 operands, float32 sums).  In inference both operands
+// are bf16 values already (x and W1; b2n and W3).  An operand that the JAX
+// function keeps in float32 (g_u in W3^T g_u, g_z1 in dW1, both of dW3)
 // enters as its split into three bf16 terms, hi + mid + lo, which is exact
 // (`split3`); each product of two bf16 values is exact in float32, so the
 // products differ from float32 ones only in the order of their sums (and,
 // for dW3, in the three smallest cross terms, below 2^-23 of the product:
-// `add_product`).  The host build sums the same terms.
+// `add_product`).  The host build sums the same terms.  bf16 inference is
+// one launch over bands of rows (`infer_layout`, `band_rows`); the host
+// build walks the same bands.
 #pragma once
 
 #include <cmath>
@@ -230,14 +233,16 @@ struct UnitArgs {
   const void* gout;   // backward: gradient of out, (N, C, H, W)
   void* out;          // inference / forward: out; backward: gx
   void* stats;        // forward: (6, hc) rows m1 v1 m2 v2 m3 v3
-  void* z1;           // forward: saved z1; inference: a1 scratch, then b2n
-                      // in place (z1 and b2n the same buffer); backward: in
+  void* z1;           // forward: saved z1; float32 / float64 inference: a1
+                      // scratch, then b2n in place (z1 and b2n the same
+                      // buffer); backward: in
   void* z2;           // forward: saved z2; backward: in
   void* u;            // forward: saved u; backward: in
   void* gb2n;         // backward scratch (N, hc, H, W): gradient of b2n
   void* gpre1;        // backward scratch (N, hc, H, W): gradient of BN1's output
   void* gu;           // backward scratch (N, hc, H, W): gradient of u
-  void* b2n;          // backward scratch (N, hc, H, W): BN2's output; inference: z1
+  void* b2n;          // backward scratch (N, hc, H, W): BN2's output; float32 /
+                      // float64 inference: z1
   void* gz1;          // backward scratch (N, hc, H, W): gradient of z1 (gu, b2n
                       // and gz1 channel-major in bf16, as xb)
   void* xb;           // bf16 backward scratch (hc, pixel_pitch(P)): the branch input
@@ -272,10 +277,15 @@ struct Plan {
   int gsz;            // weight gradients: segments per first-level merge
   int n_counters;     // int32 ticket counters a call needs
   int64_t partial;    // elements of the scratch that holds every stage's partials
+  int rb;             // bf16 inference: rows per band (0: no band fits the shared memory)
+  int nb;             // bf16 inference: bands per image
+  int panels;         // bf16 inference: weight panels resident together (1: W3 replaces W1)
+  int ismem;          // bf16 inference: a block's dynamic shared memory in bytes
 };
 
-// Why make_plan refuses a shape (0: it does not).
-enum PlanError { PLAN_OK, PLAN_EMPTY, PLAN_INDEX, PLAN_MAP, PLAN_COUNTERS };
+// Why make_plan refuses a shape (0: it does not); PLAN_BAND refuses bf16
+// inference alone.
+enum PlanError { PLAN_OK, PLAN_EMPTY, PLAN_INDEX, PLAN_MAP, PLAN_COUNTERS, PLAN_BAND };
 
 constexpr int cdiv(int64_t a, int64_t b) { return static_cast<int>((a + b - 1) / b); }
 
@@ -293,6 +303,106 @@ CDRL_HD int planes_per_pass(int h, int w, int ipb) {
   return pl < ipb ? pl : ipb;
 }
 
+constexpr int64_t SMEM_LIMIT = 232448;   // the dynamic shared memory a block may opt into
+
+// bf16 inference (shuffle_unit.cu k_infer_bf16): a block owns rows [y0, y1)
+// of one image, band b of rb rows (an image's last band may be shorter, and
+// a band as tall as the image has no halo), and computes a1 on the rows
+// [e0, e1): its own and the halo row above and below where they lie inside
+// the image.
+struct Band {
+  int y0, y1, e0, e1;
+};
+
+CDRL_HD Band band_rows(int h, int rb, int b) {
+  Band r;
+  r.y0 = b * rb;
+  r.y1 = r.y0 + rb < h ? r.y0 + rb : h;
+  r.e0 = r.y0 > 0 ? r.y0 - 1 : 0;
+  r.e1 = r.y1 < h ? r.y1 + 1 : h;
+  return r;
+}
+
+// A row pitch in bf16 values of at least v: a multiple of 8 (ldmatrix reads
+// rows of 16 bytes, on 16 bytes) whose eighth is odd, so that the eight rows
+// of one ldmatrix read fall in distinct banks.
+CDRL_HD int ldsm_pitch(int v) {
+  const int e = (v + 7) / 8;
+  return 8 * (e % 2 ? e : e + 1);
+}
+
+CDRL_HD int64_t align16(int64_t v) { return (v + 15) / 16 * 16; }
+
+// The dynamic shared memory of a k_infer_bf16 block of rb-row bands, in
+// bytes from its start, each region on 16 bytes:
+//   * panels: `panels` bf16 weight panels [m][k] of kpad x ppitch, W1 and
+//     W3 (with one, W3 replaces W1 after the W1 product);
+//   * xs at x_off: bf16 [k][pixel], kpad x xpitch: the branch input of the
+//     rows [e0, e1) (xcols pixel columns, a multiple of 8), then b2n of the
+//     band: the products' pixel operand, rows hc .. kpad - 1 zero (the
+//     products' 32-pixel tiles may read past a row's columns, into the next
+//     row or a1's region: only pixels past the band's come from there);
+//   * a1 at a_off: first the staging of x's rows [e0, e1) (hc rows of spx
+//     bytes) and of the band's shortcut rows (hc rows of sps bytes), the
+//     aligned 16-byte pieces of device memory that hold them; then float32,
+//     hc zero-padded planes of (rb + 2) x apitch, a1 of the rows y0 - 1 ..
+//     y0 + rb (zero outside the image); then the output tile in bf16, hc
+//     rows of spitch;
+//   * constants at c_off: float32 [UNIT_CONSTS][hc], per channel the
+//     depthwise's 9 taps, dwb, m2, rstd2, g2, be2, then b1, m1, rstd1, g1,
+//     be1 and b3, m3, rstd3, g3, be3 (the epilogues');
+//   * tables at t_off: the a1 offset of each pixel column of xs (xcols
+//     int16), the depthwise centre of each band pixel (rb * w int16; a
+//     plane of a1 holds at most (h + 2) (w + 2) <= 3072 values, make_plan's
+//     PLAN_MAP).
+constexpr int UNIT_CONSTS = 24;
+
+struct InferLayout {
+  int kpad, ppitch, xcols, xpitch, apitch, aplane, spitch, spx, sps;
+  int64_t x_off, a_off, c_off, t_off, bytes;
+};
+
+CDRL_HD InferLayout infer_layout(int hc, int h, int w, int rb, int panels) {
+  InferLayout l;
+  const int ext = rb + 2 < h ? rb + 2 : h;   // the most rows of a1 a band computes
+  l.kpad = (hc + 15) / 16 * 16;
+  l.ppitch = ldsm_pitch(l.kpad);
+  l.xcols = (ext * w + 7) / 8 * 8;
+  l.xpitch = ldsm_pitch(l.xcols);
+  l.apitch = w + 2;
+  l.aplane = (rb + 2) * l.apitch;
+  l.spitch = rb * w;
+  l.spx = static_cast<int>(align16(2 * ext * w + 31));   // the pieces of ext * w values
+  l.sps = static_cast<int>(align16(2 * rb * w + 31));
+  l.x_off = align16(int64_t(panels) * l.kpad * l.ppitch * 2);
+  l.a_off = align16(l.x_off + int64_t(l.kpad) * l.xpitch * 2);
+  const int64_t planes = int64_t(hc) * l.aplane * 4, staged = int64_t(hc) * (l.spx + l.sps);
+  l.c_off = align16(l.a_off + (planes > staged ? planes : staged));
+  l.t_off = l.c_off + 4 * int64_t(UNIT_CONSTS) * hc;
+  l.bytes = l.t_off + 2 * (int64_t(l.xcols) + int64_t(rb) * w);
+  return l;
+}
+
+// bf16 inference's bands, a block of 512 threads each: the whole image
+// where it fits (no halo to recompute: the backbone's three maps), else the
+// tallest band that fits (a taller map); both weight panels resident where
+// they fit, else one; rb = 0 when not even a band of one row fits.
+inline void infer_band(int hc, int h, int w, Plan* pl) {
+  for (int whole = 1; whole >= 0; --whole)
+    for (int panels = 2; panels >= 1; --panels)
+      for (int rb = h; rb >= (whole ? h : 1); --rb) {
+        const int64_t bytes = infer_layout(hc, h, w, rb, panels).bytes;
+        if (bytes <= SMEM_LIMIT) {
+          pl->rb = rb;
+          pl->nb = cdiv(h, rb);
+          pl->panels = panels;
+          pl->ismem = static_cast<int>(bytes);
+          return;
+        }
+      }
+  pl->rb = pl->nb = pl->panels = pl->ismem = 0;
+}
+
 // The plan of a unit of c channels at n x h x w on a card of `sms` SMs:
 //   * products: n_pb blocks of tpb 64-pixel tiles for each 64-channel
 //     tile, about two blocks per SM, and never more blocks than one
@@ -306,6 +416,7 @@ CDRL_HD int planes_per_pass(int h, int w, int ipb) {
 //     64 x 64 output tile of the two gradients, at most two blocks per SM
 //     (one wave: the kernel holds 2 blocks per SM), merged in groups of gsz
 //     segments, then across the groups.
+//   * bf16 inference: n x nb blocks of rb-row bands (`infer_band`).
 inline int make_plan(int n, int c, int h, int w, int sms, Plan* pl) {
   const int hc = c / 2;
   if (n <= 0 || hc <= 0 || h <= 0 || w <= 0) return PLAN_EMPTY;
@@ -340,6 +451,7 @@ inline int make_plan(int n, int c, int h, int w, int sms, Plan* pl) {
   const int64_t ch = 12 * int64_t(hc) * pl->n_s;
   const int64_t wg = 2 * int64_t(wtiles) * (pl->nseg + groups) * WTILE * WTILE;
   pl->partial = pw > ch ? (pw > wg ? pw : wg) : (ch > wg ? ch : wg);
+  infer_band(hc, h, w, pl);
   return PLAN_OK;
 }
 
@@ -567,7 +679,6 @@ constexpr int PTH = PTILE + 8;
 constexpr int WL = WCHUNK + 4;   // weight gradients: shared row pitch
 constexpr int WS = 3;            // weight gradients: cp.async ring depth
 constexpr int WP = WCHUNK + 8;   // bf16 weight gradients: row pitch of the split terms' tiles
-constexpr int64_t SMEM_LIMIT = 232448;   // the dynamic shared memory a block may opt into
 
 // The 1x1 products' modes (shuffle_unit.cu k_pw).
 enum PwMode { PW1_INFER, PW1_TRAIN, PW3_TRAIN, PW3_BACK, PW1_BACK, PW3_INFER };
@@ -587,18 +698,18 @@ inline int64_t pw_smem_bytes(int hc, int64_t tsize, int terms = 0) {
          4 * PTILE * int64_t(sizeof(int));
 }
 
-// Whether a k_pw mode of storage S over compute T runs on the tensor cores:
-// the bf16 training modes.
+// Whether k_pw of storage S over compute T runs on the tensor cores: in
+// bf16 (its training modes; bf16 inference is k_infer_bf16).
 template <class T, class S>
-CDRL_HD constexpr bool pw_tensor_cores(int mode) {
-  return sizeof(S) < sizeof(T) && mode != PW1_INFER && mode != PW3_INFER;
+CDRL_HD constexpr bool pw_tensor_cores() {
+  return sizeof(S) < sizeof(T);
 }
 
 // A k_pw launch's dynamic shared memory (the pixel operand of PW3_BACK, g_u,
 // enters as three split terms).
 template <class T, class S>
 inline int64_t pw_launch_smem(int hc, int mode) {
-  if (pw_tensor_cores<T, S>(mode)) return pw_smem_bytes(hc, sizeof(T), mode == PW3_BACK ? 3 : 1);
+  if (pw_tensor_cores<T, S>()) return pw_smem_bytes(hc, sizeof(T), mode == PW3_BACK ? 3 : 1);
   return pw_smem_bytes(hc, sizeof(T));
 }
 

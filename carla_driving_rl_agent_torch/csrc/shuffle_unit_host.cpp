@@ -8,8 +8,11 @@
 // the parallel sums differs (sequential here).  Also the bfloat16 unit
 // (dtype 2): bf16 storage and float32 compute, rounded at the kernels'
 // points, its products summed over the split terms that the kernels'
-// tensor cores take (shuffle_unit.cuh `add_product`).
+// tensor cores take (shuffle_unit.cuh `add_product`).  Inference walks the
+// bands of rows of k_infer_bf16, the halo rows' a1 recomputed (in float32
+// and float64 a band is the whole image).
 
+#include <algorithm>
 #include <vector>
 
 #include "shuffle_unit.cuh"
@@ -56,46 +59,52 @@ void branch_of(const Ops<T, S>& o, const Geo& g, int64_t q, std::vector<T>* v) {
   for (int k = 0; k < g.hc; ++k) (*v)[k] = wide(o.x[at(g, q, g.hc + k, g.c)]);
 }
 
-// Inference in the card's three stages: a1 = act(BN1(W1 . branch + b1));
-// per channel and image, b2n = BN2(depthwise(a1) + dwb) from a zero-padded
-// plane of a1, written over it, and the shortcut's copy; then
-// act(BN3(W3 . b2n + b3)) to the branch's shuffled channels.
+// Inference band by band (rb rows, shuffle_unit.cuh `band_rows`): a1 =
+// act(BN1(W1 . branch + b1)) on the band's rows and its halo rows inside the
+// image, into zero-padded planes of rb + 2 rows; b2n = BN2(depthwise(a1) +
+// dwb) rounded to S on the band's rows; act(BN3(W3 . b2n + b3)) to the
+// branch's shuffled channels and the shortcut's copy.  Needs no scratch.
+// In bf16 the bands are k_infer_bf16's; in float32 and float64 one band is
+// the whole image, and each value is computed as the three-launch kernels
+// compute it.
 template <class T, class S>
-void infer(const UnitArgs& a) {
+void infer(const UnitArgs& a, int rb) {
   const Ops<T, S> o(a);
   const Geo g = geometry(a);
-  const int hc = g.hc, pitch = g.w + 2;
-  std::vector<T> v(hc), plane((g.h + 2) * pitch);
-  for (int64_t q = 0; q < g.p; ++q) {
-    branch_of(o, g, q, &v);
-    for (int k = 0; k < hc; ++k)
-      o.z1[at(g, q, k, hc)] = bn_act(dot_row<S>(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
-                                     rstd(o.v1[k], o.eps), o.g1[k], o.be1[k], o.leak);
-  }
+  const int hc = g.hc, w = g.w, ap = w + 2, plane = (rb + 2) * ap;
+  std::vector<T> a1(static_cast<size_t>(hc) * plane), b2n(static_cast<size_t>(hc) * rb * w),
+      v(hc);
   for (int n = 0; n < g.n; ++n)
-    for (int k = 0; k < hc; ++k) {
-      const int64_t base = (static_cast<int64_t>(n) * hc + k) * g.hw;
-      for (int y = 0; y < g.h + 2; ++y)
-        for (int x = 0; x < pitch; ++x) {
-          const bool in = y >= 1 && y <= g.h && x >= 1 && x <= g.w;
-          plane[y * pitch + x] = in ? o.z1[base + (y - 1) * g.w + x - 1] : T(0);
+    for (int band = 0; band < cdiv(g.h, rb); ++band) {
+      const Band b = band_rows(g.h, rb, band);
+      std::fill(a1.begin(), a1.end(), T(0));
+      for (int y = b.e0; y < b.e1; ++y)
+        for (int x = 0; x < w; ++x) {
+          branch_of(o, g, static_cast<int64_t>(n) * g.hw + y * w + x, &v);
+          for (int k = 0; k < hc; ++k)
+            a1[k * plane + (y - b.y0 + 1) * ap + x + 1] =
+                bn_act(dot_row<S>(o.w1, v.data(), hc, k) + o.b1[k], o.m1[k],
+                       rstd(o.v1[k], o.eps), o.g1[k], o.be1[k], o.leak);
         }
-      const T r2 = rstd(o.v2[k], o.eps);
-      for (int r = 0; r < g.hw; ++r)
-        o.b2n[base + r] = round_to<S>(dw_bn(o.dw + k * 9, o.dwb[k], plane.data() +
-                                            (r / g.w + 1) * pitch + r % g.w + 1, pitch,
-                                            o.m2[k], r2, o.g2[k], o.be2[k]));
-      const int64_t img = static_cast<int64_t>(n) * g.c * g.hw;
-      for (int r = 0; r < g.hw; ++r)
-        o.out[img + shuffle_dest(g.c, k) * g.hw + r] = o.x[img + k * g.hw + r];
+      const int pb = (b.y1 - b.y0) * w;
+      for (int k = 0; k < hc; ++k) {
+        const T r2 = rstd(o.v2[k], o.eps);
+        for (int p = 0; p < pb; ++p)
+          b2n[k * pb + p] = round_to<S>(dw_bn(o.dw + k * 9, o.dwb[k],
+                                              a1.data() + k * plane + (p / w + 1) * ap + p % w + 1,
+                                              ap, o.m2[k], r2, o.g2[k], o.be2[k]));
+      }
+      for (int p = 0; p < pb; ++p) {
+        const int64_t q = static_cast<int64_t>(n) * g.hw + b.y0 * w + p;
+        for (int k = 0; k < hc; ++k) v[k] = b2n[k * pb + p];
+        for (int k = 0; k < hc; ++k) {
+          o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
+              narrow<S>(bn_act(dot_row<S>(o.w3, v.data(), hc, k) + o.b3[k], o.m3[k],
+                               rstd(o.v3[k], o.eps), o.g3[k], o.be3[k], o.leak));
+          o.out[at(g, q, shuffle_dest(g.c, k), g.c)] = o.x[at(g, q, k, g.c)];
+        }
+      }
     }
-  for (int64_t q = 0; q < g.p; ++q) {
-    for (int k = 0; k < hc; ++k) v[k] = o.b2n[at(g, q, k, hc)];
-    for (int k = 0; k < hc; ++k)
-      o.out[at(g, q, shuffle_dest(g.c, hc + k), g.c)] =
-          narrow<S>(bn_act(dot_row<S>(o.w3, v.data(), hc, k) + o.b3[k], o.m3[k],
-                           rstd(o.v3[k], o.eps), o.g3[k], o.be3[k], o.leak));
-  }
 }
 
 template <class T, class S>
@@ -232,9 +241,16 @@ void dispatch(const UnitArgs* args, int dtype) {
   else F<float, bf16>::run(*args);
 }
 
+// bf16 inference in the plan's bands (a shape no band fits runs nothing:
+// the kernel refuses it), float32 and float64 in one band per image
 template <class T, class S>
 struct Infer {
-  static void run(const UnitArgs& a) { infer<T, S>(a); }
+  static void run(const UnitArgs& a) {
+    Plan pl;
+    infer_band(a.c / 2, a.h, a.w, &pl);
+    const int rb = sizeof(S) < sizeof(T) ? pl.rb : a.h;
+    if (rb > 0) infer<T, S>(a, rb);
+  }
 };
 template <class T, class S>
 struct TrainFwd {
@@ -249,6 +265,12 @@ struct TrainBwd {
 
 extern "C" void cdrl_unit_infer_host(const UnitArgs* args, int dtype) {
   dispatch<Infer>(args, dtype);
+}
+
+// bf16 inference in bands of `rb` rows, whatever the plan's band (a band
+// taller than the image is the whole image).
+extern "C" void cdrl_unit_infer_bands_host(const UnitArgs* args, int rb) {
+  infer<float, bf16>(*args, rb);
 }
 
 extern "C" void cdrl_unit_train_fwd_host(const UnitArgs* args, int dtype) {
@@ -295,6 +317,25 @@ extern "C" int cdrl_unit_infer_launch_host(int n, int c, int h, int w, int sms, 
   out[1] = int64_t(pl.n_si) * hc;
   out[2] = pw_smem_bytes(hc, tsize);
   out[3] = channel_smem_bytes(h, w, pl.ipi, 1, tsize);
+  return 0;
+}
+
+// bf16 inference's launch of a unit of c channels at n x h x w on a card of
+// `sms` SMs, as shuffle_unit.cu's `infer_bf16` makes it: out = {blocks,
+// rows per band, bands per image, weight panels resident together, a
+// block's dynamic shared memory in bytes} (a block is 512 threads).  Returns 0, or
+// the PlanError that refuses the shape (PLAN_BAND when no band fits).
+extern "C" int cdrl_unit_infer_bf16_launch_host(int n, int c, int h, int w, int sms,
+                                                int64_t* out) {
+  Plan pl;
+  const int err = make_plan(n, c, h, w, sms, &pl);
+  if (err) return err;
+  if (pl.rb == 0) return PLAN_BAND;
+  out[0] = int64_t(n) * pl.nb;
+  out[1] = pl.rb;
+  out[2] = pl.nb;
+  out[3] = pl.panels;
+  out[4] = pl.ismem;
   return 0;
 }
 

@@ -7,7 +7,9 @@ split, 1x1 conv + BN + leaky ReLU6, 3x3 depthwise SAME + BN, 1x1 conv + BN +
 act, concat, channel shuffle (models/shufflenet.ShuffleUnit with stride 1).
 
   * `shuffle_unit_infer(x, unit)`: BatchNorm on the running statistics
-    (csrc/shuffle_unit.cu, 3 launches per call: W1, the depthwise, W3).
+    (csrc/shuffle_unit.cu, 3 launches per call in float32 and float64: W1,
+    the depthwise, W3; in bfloat16 one, a block per band of rows with a1
+    and b2n in shared memory).
   * `shuffle_unit_train(x, unit)`: training mode; returns (out, stats), the
     three BatchNorms' batch mean and BIASED variance in branch order as a
     (6, hc) tensor (rows m1 v1 m2 v2 m3 v3), which feed the running
@@ -40,12 +42,12 @@ output, the gradient of z1 before the gx product, gx, and dW1 and dW3
 points; in bfloat16 the plain training unit is an autograd.Function of the
 plain forward and the plain backward, as the kernels' is.  The
 1x1 products are computed in the kernels' own bodies, never by cuBLAS or
-cuDNN: in float32 and float64 by CUDA-core FMAs, in the bfloat16 training
-kernels on the tensor cores (mma.sync, bf16 operands, float32 sums), where
-an operand that the JAX function keeps in float32 (the gradient of u in
-W3^T g_u, the gradient of z1 in dW1, both operands of dW3) enters as its
-exact split into three bfloat16 terms, so the products equal float32 ones
-up to the order of the sums.  What bounds the bfloat16 kernels is then
+cuDNN: in float32 and float64 by CUDA-core FMAs, in the bfloat16 kernels on
+the tensor cores (mma.sync, bf16 operands, float32 sums), where an operand
+that the JAX function keeps in float32 (the gradient of u in W3^T g_u, the
+gradient of z1 in dW1, both operands of dW3) enters as its exact split
+into three bfloat16 terms, so the products equal float32 ones up to the
+order of the sums.  What bounds the bfloat16 kernels is then
 their memory traffic and the latency of their stages, not the products
 (PERF.md).  The kernels' arithmetic lives in csrc/shuffle_unit.cuh, which
 csrc/shuffle_unit_host.cpp also builds with g++, so that the CPU tests
@@ -270,7 +272,8 @@ class _Plan(ctypes.Structure):
     kernels' split of a call into blocks."""
     _fields_ = ([(n, ctypes.c_int) for n in ("tpb", "n_pb", "ipb", "n_s", "ipi", "n_si", "cps",
                                                "nseg", "gsz", "n_counters")]
-                + [("partial", ctypes.c_int64)])
+                + [("partial", ctypes.c_int64)]
+                + [(n, ctypes.c_int) for n in ("rb", "nb", "panels", "ismem")])
 
 
 # the kernels' storage dtypes; bfloat16 computes in float32
@@ -278,7 +281,8 @@ _DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # cdrl::unit::PlanError, why the kernels' plan refuses a shape
 _REFUSED = {1: "x is empty", 2: "x has 2^31 elements or more; the kernels index with 32-bit ints",
             3: "the map does not fit the depthwise stages' shared planes",
-            4: "the unit needs more ticket counters than the kernels have"}
+            4: "the unit needs more ticket counters than the kernels have",
+            5: "no band of the map's rows fits the bfloat16 inference kernel's shared memory"}
 
 
 def _refuse(code: int, shape) -> None:
@@ -369,9 +373,13 @@ def _pack(x: torch.Tensor, ops: UnitOperands, leak: float, bn_stats=None, inputs
 
 def _infer_args(x: torch.Tensor, unit) -> Tuple[_Args, torch.Tensor, tuple]:
     """The inference kernel's arguments, its output and the tensors to keep
-    alive until it has run."""
+    alive until it has run.  bfloat16 needs no scratch (k_infer_bf16 keeps a1
+    and b2n in shared memory)."""
     n, c, h, w = x.shape
     out = torch.empty_like(x)
+    if x.dtype == torch.bfloat16:
+        return _pack(x, unit_operands(unit), unit.leak, running_stats(unit),
+                     out=out.data_ptr()), out, ()
     # a1, then b2n over it (csrc/shuffle_unit.cu k_dw_infer)
     a1 = torch.empty((n, c // 2, h, w), dtype=_compute_dtype(x), device=x.device)
     args = _pack(x, unit_operands(unit), unit.leak, running_stats(unit),

@@ -172,15 +172,20 @@ Phases, each printed with its seconds:
  28. unit_bf16 — the three unit kernels in bfloat16 (bf16 x, out, output
                gradient and gx; float32 parameters, statistics and saved
                tensors) against their bfloat16 plain versions at the three
-               maps, N = 128 for inference and 256 for the forward and the
-               backward: relative L2 <= 5e-3 per tensor and max |diff| in
-               bfloat16 ulps, two training calls equal bits, then each
-               timed beside its bound (2-byte activations, the products at
-               the bf16 tensor rate) with its device launches per call and
-               device ms per stage, the training kernels beside the float32
-               kernels of the same call; the training instantiations' SASS:
-               tensor-core (HMMA) instructions in every bf16 k_pw training
-               mode and in k_wgrad<float, bf16>, none in float32's;
+               maps, N = 128 and 248 for inference (one launch per call of
+               k_infer_bf16; also at two taller maps, N = 8, where it runs
+               bands of rows) and 256 for the forward and the backward:
+               relative L2 <= 1e-4 for inference (above which the plain
+               version with one rounding point moved must read) and <= 5e-3
+               per tensor for training, max |diff| in bfloat16 ulps, two
+               calls equal bits, then each timed beside its bound
+               (2-byte activations, the products at the bf16 tensor rate)
+               with its device launches per call and device ms per stage
+               (inference also device ms per call, a CUDA graph), beside the
+               float32 kernels of the same call; the SASS: tensor-core
+               (HMMA) instructions in every bf16 k_pw training mode, in
+               k_wgrad<float, bf16> and in k_infer_bf16, none in float32's,
+               and no bf16 instantiation of the three-launch inference;
  29. train_variants — at stage s1's geometry with fused units, 1 update
                each of fused_update, two_step_update, two_step_split_adam
                and compute_dtype "bfloat16" (the sequential update): finite
@@ -2696,10 +2701,45 @@ def variants_phase(root: str, envs: dict) -> dict:
 
 
 
-# phase unit_bf16's bar: relative L2 per tensor of each bf16 kernel against
-# its bf16 plain version (the same rounding points; float32 sums in other
-# orders can put a value on the other side of a bf16 rounding boundary)
+# phase unit_bf16's bar: relative L2 per tensor of each bf16 training kernel
+# against its bf16 plain version (the same rounding points; float32 sums in
+# other orders can put a value on the other side of a bf16 rounding boundary)
 UNIT_BF16_BAR = 5e-3
+
+
+# phase unit_bf16's bar for bf16 inference: relative L2 against the bf16
+# plain version.  Inference has no statistics and its products are exact,
+# so only the order of the float32 sums differs; each control below, the
+# plain version with one of JAX's rounding points moved, must read above it
+UNIT_BF16_INFER_BAR = 1e-4
+# maps whose whole image no k_infer_bf16 block holds, so that the kernel runs
+# bands of rows with their halo rows: (h, w, c), bands of 10 rows with a last
+# of 3 (both weight panels), of 2 rows with a last of 1 (one panel)
+UNIT_BF16_BAND_MAPS = ((13, 45, 116), (7, 12, 464))
+
+
+def _unit_bf16_infer_controls(SU, x: torch.Tensor, unit) -> dict:
+    """The bf16 plain inference with one rounding point moved, as a kernel
+    that departed from JAX's function would compute it: b2n left in float32
+    before the W3 product ("b2n_float32"), or a1 rounded to bf16 before the
+    depthwise ("a1_bf16")."""
+    import torch.nn.functional as F
+    ops, run = SU.unit_operands(unit), SU.running_stats(unit)
+    hc = x.shape[1] // 2
+    xs, rnd = SU._rounding(x)
+    bn = lambda z, i, g, b: F.batch_norm(z, run[2 * i], run[2 * i + 1], g, b, False, 0.0,
+                                         SU.BN_EPS)
+    out = {}
+    for name, r_a1, r_b2n in (("b2n_float32", False, False), ("a1_bf16", True, True)):
+        a1 = SU.leaky_relu6(bn(F.conv2d(xs[:, hc:], rnd(ops.w1)[:, :, None, None], ops.b1),
+                               0, ops.g1, ops.be1), unit.leak)
+        a1 = rnd(a1) if r_a1 else a1
+        z2 = F.conv2d(F.pad(a1, (1, 1, 1, 1)), ops.dw.view(hc, 1, 3, 3), ops.dwb, groups=hc)
+        b2n = bn(z2, 1, ops.g2, ops.be2)
+        u = F.conv2d(rnd(b2n) if r_b2n else b2n, rnd(ops.w3)[:, :, None, None], ops.b3)
+        y = SU.leaky_relu6(bn(u, 2, ops.g3, ops.be3), unit.leak)
+        out[name] = SU._shuffle(xs[:, :hc], y).to(x.dtype)
+    return out
 
 
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> tuple:
@@ -2723,24 +2763,33 @@ UNIT_STORAGE = dict(bf16="13__nv_bfloat16", float32="f")
 
 
 def unit_tensor_cores() -> dict:
-    """The tensor-core (HMMA) instructions of each training instantiation of
-    k_pw and k_wgrad in the built unit library, in bfloat16 and float32
-    (cuobjdump); the bf16 ones must have them, the float32 ones none (their
-    products stay CUDA-core FMAs, as before the bf16 redesign), and the
-    bf16 inference modes keep the float32 loop."""
+    """The tensor-core (HMMA) instructions of each instantiation of k_pw and
+    k_wgrad and of k_infer_bf16 in the built unit library (cuobjdump): the
+    bf16 kernels must have them, the float32 ones none (their products stay
+    CUDA-core FMAs, as before the bf16 redesigns); and the three-launch
+    inference's bf16 instantiations (k_pw modes 0 and 5, k_dw_infer) are
+    gone, k_infer_bf16 having taken their place."""
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     lib = SU._kernel_lib()._name
+    modes = dict(float32=(0,) + UNIT_TRAIN_MODES + (5,), bf16=UNIT_TRAIN_MODES)
     names = {f"k_pw<{dt}, mode {m}>": f"4k_pwIf{code}Li{m}E"
-             for dt, code in UNIT_STORAGE.items() for m in (0,) + UNIT_TRAIN_MODES + (5,)}
+             for dt, code in UNIT_STORAGE.items() for m in modes[dt]}
     names.update({f"k_wgrad<{dt}>": f"7k_wgradIf{code}E" for dt, code in UNIT_STORAGE.items()})
+    names["k_infer_bf16"] = "12k_infer_bf16"
+    dump = _cuobjdump(lib)
+    check(dump is not None, "cuobjdump reads the unit kernels' SASS")
+    kernels = [f.split("\n")[0] for f in dump[0].split("Function : ")[1:]]
+    gone = [k for k in kernels if any(m in k for m in ("4k_pwIf13__nv_bfloat16Li0E",
+                                                        "4k_pwIf13__nv_bfloat16Li5E",
+                                                        "10k_dw_inferIf13__nv_bfloat16E"))]
+    check(not gone, f"the three-launch inference's bf16 instantiations are still built: {gone}")
     hmma = {}
     for label, mangled in names.items():
         sass = kernel_sass(lib, mangled)
-        check(bool(sass), "cuobjdump reads the unit kernels' SASS")
+        check(bool(sass), f"cuobjdump finds {label} in the unit kernels' SASS")
         hmma[label] = sass["hmma"]
     for label, count in hmma.items():
-        trains = not any(f"mode {m}" in label for m in (0, 5))
-        want_tc = label.startswith(("k_pw<bf16", "k_wgrad<bf16")) and trains
+        want_tc = "bf16" in label
         check((count > 0) == want_tc, f"{label}: {count} HMMA instructions "
                                       f"({'tensor cores' if want_tc else 'none'} expected)")
     print("  unit kernels' HMMA instructions: " + ", ".join(f"{k} {v}" for k, v in hmma.items()),
@@ -2748,15 +2797,88 @@ def unit_tensor_cores() -> dict:
     return hmma
 
 
+def _unit_bf16_infer(SU, unit, n: int, h: int, w: int, c: int) -> dict:
+    """bf16 inference (one launch of k_infer_bf16 per call) at (n, c, h, w)
+    against its bf16 plain version, two calls equal bits, one device launch
+    per call; timed (CUDA events, and device ms per call in a CUDA graph)
+    beside its bound and beside the float32 kernel of the same call on the
+    same inputs in float32."""
+    shape = f"({n}, {c}, {h}, {w})"
+    x = _unit_inputs(n, h, w, c, torch.float32, seed=30 + n)[0].to(torch.bfloat16)
+    xf = x.float()
+    call, call32 = lambda: SU.shuffle_unit_infer(x, unit), lambda: SU.shuffle_unit_infer(xf, unit)
+    k, p = call(), SU.shuffle_unit_infer_plain(x, unit)
+    check(k.dtype == torch.bfloat16 == p.dtype, "the bf16 inference's output is bf16")
+    check(torch.equal(k, call()), f"bf16 inference kernel at {shape}: two calls give the same bits")
+    r, (ulps, share) = _rel(k, p), _bf16_ulps(k, p)
+    check(r <= UNIT_BF16_INFER_BAR, f"bf16 inference kernel at {shape}: {r:.3e}")
+    controls = {name: _rel(t, p) for name, t in _unit_bf16_infer_controls(SU, x, unit).items()}
+    check(min(controls.values()) > UNIT_BF16_INFER_BAR,
+          f"bf16 inference at {shape}: a moved rounding point reads above the bar {controls}")
+    ms, ms32 = cuda_ms(call, iters=20), cuda_ms(call32, iters=20)
+    device_ms, device_ms32 = graph_ms(call), graph_ms(call32)
+    plain_ms = cuda_ms(lambda: SU.shuffle_unit_infer_plain(x, unit), iters=10)
+    bound, by = unit_bound_ms("infer", n, h, w, c, bf16=True)
+    row = dict(ms=ms, device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               rel_l2=r, control_rel_l2=controls, max_ulps=ulps, share_over_1ulp=share,
+               float32_ms=ms32,
+               float32_device_ms=device_ms32,
+               max_abs_err=float((k.float() - p.float()).abs().max()))
+    row.update(_unit_stages("infer", call, f"bf16 {shape}"))
+    check(row["launches_per_call"] == 1, f"bf16 inference at {shape}: "
+                                         f"{row['launches_per_call']} device launches per call")
+    print(f"  unit bf16 infer {shape}: relative L2 {r:.3e} (bar {UNIT_BF16_INFER_BAR:.0e}; "
+          f"controls " + ", ".join(f"{k} {v:.3e}" for k, v in controls.items())
+          + f"), max |diff| {ulps:.0f} bf16 ulps "
+          f"({share:.2e} of the values beyond 1); two calls equal bits; kernel {ms:.6f} ms, "
+          f"device {device_ms:.6f} ms per call; float32 kernel {ms32:.6f} ms, device "
+          f"{device_ms32:.6f} ms (bf16 / float32 device {device_ms / device_ms32:.3f}); plain "
+          f"{plain_ms:.6f} ms; bound {bound:.6f} ms ({by}), device {device_ms / bound:.2f}x "
+          f"the bound", flush=True)
+    return row
+
+
+def _unit_bf16_infer_bands(SU, n: int = 8) -> dict:
+    """bf16 inference at UNIT_BF16_BAND_MAPS, where the card's plan takes
+    bands of rows with a shorter last band: against the bf16 plain version
+    (UNIT_BF16_INFER_BAR), two calls equal bits, one launch per call."""
+    import ctypes
+    rows = {}
+    for i, (h, w, c) in enumerate(UNIT_BF16_BAND_MAPS):
+        shape = f"({n}, {c}, {h}, {w})"
+        pl = SU._Plan()
+        check(SU._kernel_lib().cdrl_unit_plan(torch.cuda.current_device(), n, c, h, w,
+                                              ctypes.byref(pl)) == 0, f"the plan takes {shape}")
+        check(1 < pl.nb and pl.rb * pl.nb > h, f"bf16 inference at {shape} runs bands with a "
+                                               f"shorter last one: {pl.nb} of {pl.rb} rows")
+        unit = _random_unit(c, torch.float32, seed=40 + i).eval()
+        x = _unit_inputs(n, h, w, c, torch.float32, seed=40 + i)[0].to(torch.bfloat16)
+        with torch.no_grad():
+            call = lambda: SU.shuffle_unit_infer(x, unit)
+            k, p = call(), SU.shuffle_unit_infer_plain(x, unit)
+            check(torch.equal(k, call()), f"bf16 inference in bands at {shape}: two calls "
+                                          f"give the same bits")
+            r, (ulps, _) = _rel(k, p), _bf16_ulps(k, p)
+            check(r <= UNIT_BF16_INFER_BAR, f"bf16 inference in bands at {shape}: {r:.3e}")
+            launches = graph_launches(call)
+        check(launches == 1, f"bf16 inference in bands at {shape}: {launches} launches per call")
+        rows[shape] = dict(rb=pl.rb, nb=pl.nb, panels=pl.panels, rel_l2=r, max_ulps=ulps,
+                           max_abs_err=float((k.float() - p.float()).abs().max()))
+        print(f"  unit bf16 infer {shape}: {pl.nb} bands of {pl.rb} rows ({pl.panels} weight "
+              f"panels resident), relative L2 {r:.3e}, max |diff| {ulps:.0f} bf16 ulps; two "
+              f"calls equal bits; 1 launch per call", flush=True)
+    return rows
+
+
 def unit_bf16_phase(kernels: dict) -> dict:
     """The unit kernels in bfloat16 against their bfloat16 plain versions
-    at the three full-width maps: inference at N = 128 (a rollout predict),
-    the forward and the backward at N = 256 (a minibatch), the backward on
-    the forward kernel's statistics and saved tensors; two training calls
-    on the same inputs give the same bits.  Each timed beside its bf16
-    bound, with its launches per call and device ms per stage, and the
-    training kernels beside the float32 kernels of the same call on the
-    same inputs in float32.  Then the tensor cores' SASS check."""
+    at the three full-width maps: inference at N = 128 (a rollout predict)
+    and 248 (an evaluation predict), the forward and the backward at N = 256
+    (a minibatch), the backward on the forward kernel's statistics and saved
+    tensors; two calls on the same inputs give the same bits.  Each timed
+    beside its bf16 bound, with its launches per call and device ms per
+    stage, and beside the float32 kernel of the same call on the same inputs
+    in float32.  Then the tensor cores' SASS check."""
     from carla_driving_rl_agent_torch.agents.carla_agent import full_float32
     from carla_driving_rl_agent_torch.ops import shuffle_unit as SU
     full_float32()
@@ -2767,26 +2889,12 @@ def unit_bf16_phase(kernels: dict) -> dict:
         ops = SU.unit_operands(unit)
         shape = f"{h}x{w}x{c}"
         with torch.no_grad():
-            n = UNIT_N["rollout"]
-            x = _unit_inputs(n, h, w, c, torch.float32, seed=30 + n)[0].to(torch.bfloat16)
             unit.eval()
-            k, p = SU.shuffle_unit_infer(x, unit), SU.shuffle_unit_infer_plain(x, unit)
-            check(k.dtype == torch.bfloat16 == p.dtype, "the bf16 inference's output is bf16")
-            r, (ulps, share) = _rel(k, p), _bf16_ulps(k, p)
-            check(r <= UNIT_BF16_BAR, f"bf16 inference kernel at ({n}, {shape}): {r:.3e}")
-            err["infer"] = max(err["infer"], float((k.float() - p.float()).abs().max()))
-            ms = cuda_ms(lambda: SU.shuffle_unit_infer(x, unit), iters=20)
-            plain_ms = cuda_ms(lambda: SU.shuffle_unit_infer_plain(x, unit), iters=10)
-            bound, by = unit_bound_ms("infer", n, h, w, c, bf16=True)
-            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, rel_l2=r,
-                       max_ulps=ulps, share_over_1ulp=share, units=units)
-            row.update(_unit_stages("infer", lambda: SU.shuffle_unit_infer(x, unit),
-                                    f"bf16 ({n}, {shape})"))
-            full["infer"][f"{n}x{shape}"] = row
-            print(f"  unit bf16 infer ({n}, {c}, {h}, {w}): relative L2 {r:.3e}, max |diff| "
-                  f"{ulps:.0f} bf16 ulps ({share:.2e} of the values beyond 1); kernel "
-                  f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound "
-                  f"{bound:.6f} ms ({by}), {ms / bound:.2f}x the bound", flush=True)
+            for n in (UNIT_N["rollout"], UNIT_N["evaluate"]):
+                row = _unit_bf16_infer(SU, unit, n, h, w, c)
+                row["units"] = units
+                err["infer"] = max(err["infer"], row.pop("max_abs_err"))
+                full["infer"][f"{n}x{shape}"] = row
             n = UNIT_N["train"]
             x, gout = (t.to(torch.bfloat16) for t in
                        _unit_inputs(n, h, w, c, torch.float32, seed=30 + n + i))
@@ -2864,6 +2972,8 @@ def unit_bf16_phase(kernels: dict) -> dict:
                   f"float32 kernel {ms32:.6f} ms (bf16 / float32 {ms / ms32:.3f}), plain "
                   f"{plain_ms:.6f} ms, bound {bound:.6f} ms ({by})", flush=True)
             del x, gout, out, stats, saved, got, ref, xf, gf, stats32, saved32
+    full["infer_bands"] = _unit_bf16_infer_bands(SU)
+    err["infer"] = max(err["infer"], max(r["max_abs_err"] for r in full["infer_bands"].values()))
     h, w, c, _ = UNIT_MAPS[0]
     src = "carla_driving_rl_agent_torch/csrc/shuffle_unit.cu"
     pallas = "carla_driving_rl_agent_tpu/ops/shuffle_unit_pallas.py"

@@ -11,7 +11,9 @@ all in bfloat16:
     forward, its batch statistics and the backward (relative L2 per tensor
     <= 1e-3; measured 0 for the outputs and gx, <= 3e-6 elsewhere; the four
     tensors whose true gradient is 0 held to 1e-3 of the unit's largest
-    gradient);
+    gradient); the inference also in bands of 1, 2 and 3 rows (halo rows
+    recomputed, a last band shorter than the rest) and in one band taller
+    than the image, against the plain unit (<= 1e-3) and JAX's (<= 1e-2);
   * the bf16 plain unit against JAX's shuffle_unit_infer and
     shuffle_unit_train on bf16 inputs (the Pallas kernels in interpret mode,
     cd = bfloat16 and f32 MXU passes): outputs, statistics and gradients,
@@ -34,6 +36,8 @@ median relative L2 of ~1.0 per tensor, and the port's from JAX's by ~0.8
 (tests/bf16_noise_floor.py measures both; ROADMAP.md section 3).
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -53,8 +57,8 @@ from carla_driving_rl_agent_torch.utils.checkpoint import params_from_jax
 from test_torch_imitation import jax_trees
 from test_torch_learner import HYPER, T, H, W, TINY_NET, _jself
 from test_torch_learner_variants import env, one_thread_module  # noqa: F401  (no town)
-from test_torch_shuffle_unit import (NAMES, NOISE, SHAPES, Case, _host_lib, _infer_host, _nchw,
-                                     _train_host)
+from test_torch_shuffle_unit import (BAND_MAPS, NAMES, NOISE, SHAPES, Case, _bf16_launch,
+                                     _host_lib, _infer_host, _nchw, _train_host)
 
 BF = torch.bfloat16
 
@@ -211,6 +215,59 @@ def test_host_build_bf16_matches_plain(shape):
     _hold([t.float() for t in grads], [t.float() for t in p_grads], 1e-3, "host vs plain")
 
 
+def _infer_bands_host(x: torch.Tensor, unit, rows) -> torch.Tensor:
+    """bf16 inference as k_infer_bf16 computes it (g++ build), in bands of
+    `rows` rows, or of the kernel's plan's ("plan")."""
+    if rows == "plan":
+        n, c, h, w = x.shape
+        err, launch = _bf16_launch(n, c, h, w)
+        assert err == 0
+        rows = launch[1]
+    args, out, _keep = SU._infer_args(x, unit)
+    _host_lib().cdrl_unit_infer_bands_host(ctypes.byref(args), rows)
+    return out
+
+
+@pytest.mark.parametrize("rows", ["plan", 1, 2, 3, "taller"])
+@pytest.mark.parametrize("shape", sorted(SHAPES))
+def test_host_bf16_inference_bands_match_plain(shape, rows):
+    """bf16 inference in bands of rows (g++ build of k_infer_bf16's
+    arithmetic: each band's a1 from its rows and the halo rows inside the
+    image, b2n on its rows) against the bf16 plain unit, relative L2 <=
+    1e-3: the plan's band (the whole image at these sizes), bands of 1, 2
+    and 3 rows (H = 5 and 4: the last band shorter at 2 and 3 rows), and
+    one image in a band taller than it."""
+    n, h, w, c = SHAPES[shape]
+    rb = rows
+    if rows == "taller":
+        n, rb = 1, h + 3
+    unit = _bf16_unit(c, seed=c + 7).eval()
+    g = torch.Generator().manual_seed(c + 8)
+    x = (3.0 * torch.rand((n, c, h, w), generator=g)).to(BF)
+    with torch.no_grad():
+        got, want = _infer_bands_host(x, unit, rb), SU.shuffle_unit_infer_plain(x, unit)
+    assert got.dtype == BF
+    assert _rel(got.float(), want.float()) <= 1e-3
+
+
+@pytest.mark.parametrize("h, w, c", BAND_MAPS)
+def test_host_bf16_inference_in_the_plans_bands_matches_plain(h, w, c):
+    """At a map whose whole image no block holds, the host build's bf16
+    inference (cdrl_unit_infer_host) walks the plan's bands, the last one
+    shorter (10 rows then 3 with both panels; 2 rows then 1 with one), and
+    matches the bf16 plain unit, relative L2 <= 1e-3."""
+    n = 2
+    err, (_, rb, nb, _, _) = _bf16_launch(n, c, h, w)
+    assert err == 0 and 1 < nb and rb * nb > h
+    unit = _bf16_unit(c, seed=c + 9).eval()
+    g = torch.Generator().manual_seed(c + 10)
+    x = (3.0 * torch.rand((n, c, h, w), generator=g)).to(BF)
+    with torch.no_grad():
+        got, want = _infer_host(x, unit), SU.shuffle_unit_infer_plain(x, unit)
+    assert got.dtype == BF
+    assert _rel(got.float(), want.float()) <= 1e-3
+
+
 @pytest.fixture(scope="module")
 def bf16_case():
     """One unit (Case's random parameters, N, H, W, C = 4, 5, 6, 16) and
@@ -276,6 +333,18 @@ def test_plain_bf16_unit_matches_jax(bf16_case):
     assert _rel(out.float(), _nchw(case.train)) <= 1e-2
     assert _rel(stats, case.stats) <= 1e-2
     _hold([t.float() for t in grads], case.grads, 1e-2, "plain bf16 vs JAX")
+
+
+@pytest.mark.parametrize("rows", ["plan", 2])
+def test_host_bf16_inference_bands_match_jax(bf16_case, rows):
+    """bf16 inference in the plan's band and in bands of 2 rows (g++ build
+    of k_infer_bf16's arithmetic) against JAX's Pallas unit with cd =
+    bfloat16 in interpret mode, relative L2 <= 1e-2."""
+    case = bf16_case
+    unit = case.port_unit(fused=True).eval()
+    with torch.no_grad():
+        got = _infer_bands_host(_nchw(case.x).to(BF), unit, rows)
+    assert _rel(got.float(), _nchw(case.infer)) <= 1e-2
 
 
 @pytest.fixture(scope="module")

@@ -19,7 +19,11 @@ through the linear W3): their gradients are rounding noise of ~1e-6
 against ~10-60 for the others, and are held absolutely, to 1e-5 of the
 unit's largest gradient.  The float64 instantiation of the host build is
 held to the plain version in float64 at 1e-10.  The `cuda`-marked test
-holds the kernels against the plain versions on the card and skips here.
+holds the kernels against the plain versions on the card and skips here;
+so does the one that holds bf16 inference's kernel (k_infer_bf16) at whole
+images and at bands of rows (BAND_MAPS), whose band plan (`_bf16_launch`)
+and arithmetic in bands (tests/test_torch_bf16.py) the CPU tests hold
+through the g++ build.
 """
 
 import ctypes
@@ -56,6 +60,9 @@ def _host_lib() -> ctypes.CDLL:
     sigs["cdrl_unit_plan_host"] = (ctypes.c_int, [ctypes.c_int] * 5 + [ctypes.POINTER(SU._Plan)])
     sigs["cdrl_unit_infer_launch_host"] = (ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_void_p])
     sigs["cdrl_unit_train_launch_host"] = (ctypes.c_int, [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    sigs["cdrl_unit_infer_bf16_launch_host"] = (ctypes.c_int,
+                                                [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    sigs["cdrl_unit_infer_bands_host"] = (None, [ctypes.POINTER(SU._Args), ctypes.c_int])
     sigs["cdrl_unit_split_host"] = (None, [ctypes.c_void_p, ctypes.c_int64] + [ctypes.c_void_p] * 3)
     sigs["cdrl_unit_product_host"] = (None, [ctypes.c_void_p] * 3 + [ctypes.c_int64, ctypes.c_int,
                                                                       ctypes.c_void_p])
@@ -486,6 +493,95 @@ def test_plan_covers_the_training_stages(h, w, c, dtype):
                 assert 2 * (smem + BLOCK_RESERVED) <= SM_SHARED, (n, dtype, smem)
 
 
+def _parent_inference_plan(n: int, c: int, h: int, w: int) -> tuple:
+    """(tpb, n_pb, ipi, n_si) of the float32 and float64 inference stages as
+    make_plan computed them before bf16 inference had a kernel of its own."""
+    hc, tiles = c // 2, -(-n * h * w // PTILE)
+    tpb = max(-(-tiles * -(-hc // 64) // (2 * SMS)), -(-tiles // PGROUP ** 2), 1)
+    per_pass = min(CH_OWN * 256 // (h * w), CH_FILL * 256 // ((h + 2) * (w + 2)), n)
+    ipi = min(2 * per_pass, n)
+    return tpb, -(-tiles // tpb), ipi, -(-n // ipi)
+
+
+def _ldsm_pitch(v: int) -> int:
+    e = -(-v // 8)
+    return 8 * (e if e % 2 else e + 1)
+
+
+def _infer_bf16_bytes(hc: int, h: int, w: int, rb: int, panels: int) -> int:
+    """k_infer_bf16's dynamic shared memory (shuffle_unit.cuh `infer_layout`):
+    the bf16 panels, the pixel operand of the halo-extended band (pixel
+    columns a multiple of 8), a1's zero-padded float32 planes (or, where
+    larger, the staging of x's and the shortcut's rows: the aligned 16-byte
+    pieces that hold them), 24 constants per channel and the two pixel
+    tables (int16), the first three regions on 16 bytes."""
+    a16 = lambda v: -(-v // 16) * 16
+    kpad = -(-hc // 16) * 16
+    xcols = -(-min(rb + 2, h) * w // 8) * 8
+    x_off = a16(panels * kpad * _ldsm_pitch(kpad) * 2)
+    a_off = a16(x_off + kpad * _ldsm_pitch(xcols) * 2)
+    staged = hc * (a16(2 * min(rb + 2, h) * w + 31) + a16(2 * rb * w + 31))
+    c_off = a16(a_off + max(hc * (rb + 2) * (w + 2) * 4, staged))
+    return c_off + 4 * 24 * hc + 2 * (xcols + rb * w)
+
+
+def _bf16_launch(n: int, c: int, h: int, w: int):
+    """(PlanError, [blocks, rows per band, bands per image, panels, shared
+    memory]) of k_infer_bf16 (512 threads a block) through the g++ build."""
+    out = np.zeros(5, np.int64)
+    err = _host_lib().cdrl_unit_infer_bf16_launch_host(n, c, h, w, SMS, out.ctypes.data)
+    return err, [int(v) for v in out]
+
+
+# maps whose whole image no block's shared memory holds: bands of 10 rows,
+# the last of 3, both panels; bands of 2 rows, the last of 1, one panel
+BAND_MAPS = [(13, 45, 116), (7, 12, 464)]
+
+
+@pytest.mark.parametrize("h, w, c", MAPS + BAND_MAPS)
+def test_plan_covers_the_bf16_inference_bands(h, w, c):
+    """bf16 inference's one launch (shuffle_unit.cu `infer_bf16`, g++ build
+    of its plan) at every batch in PLAN_N: a block per band of every image,
+    the bands covering every row of the image once and each band's halo
+    rows within its shared memory (at most rb + 2 rows of a1, the output
+    tile inside a1's planes); the band and the panels are the first that
+    fit, both panels before one: the whole image, else the tallest band
+    (the shared memory recomputed here); and the float32 and float64
+    inference stages keep the plan they had before bf16 inference had a
+    kernel of its own."""
+    hc = c // 2
+    fits = [(panels, rb) for bands in ([h], range(h, 0, -1)) for panels in (2, 1)
+            for rb in bands if _infer_bf16_bytes(hc, h, w, rb, panels) <= SMEM_LIMIT]
+    for n in PLAN_N:
+        err, (blocks, rb, nb, panels, smem) = _bf16_launch(n, c, h, w)
+        assert err == 0
+        assert (panels, rb) == fits[0], n
+        assert (rb == h) == ((h, w, c) in MAPS)
+        assert nb == -(-h // rb) and blocks == n * nb
+        assert smem == _infer_bf16_bytes(hc, h, w, rb, panels) <= SMEM_LIMIT
+        covered = [y for b in range(nb) for y in range(b * rb, min(h, b * rb + rb))]
+        assert covered == list(range(h))
+        assert hc * rb * w * 2 <= hc * (rb + 2) * (w + 2) * 4
+        err, pl = _plan_host(n, c, h, w)
+        assert err == 0 and (pl.tpb, pl.n_pb, pl.ipi, pl.n_si) == _parent_inference_plan(n, c, h, w)
+        for tsize in (4, 8):
+            out = np.zeros(4, np.int64)
+            assert _host_lib().cdrl_unit_infer_launch_host(n, c, h, w, SMS, tsize,
+                                                           out.ctypes.data) == 0
+            assert int(out[0]) == -(-hc // 64) * pl.n_pb and int(out[1]) == pl.n_si * hc
+
+
+def test_bf16_inference_refuses_a_map_no_band_fits():
+    """A map the float32 kernels take but no bf16 band fits (hc = 256, one
+    row of 1022 pixels: the pixel operand alone is over 500 KB) raises."""
+    shape = (1, 512, 1, 1022)
+    assert _plan_host(*shape)[0] == 0
+    err, _ = _bf16_launch(*shape)
+    assert err == 5
+    with pytest.raises(ValueError, match="bfloat16 inference"):
+        SU._refuse(err, shape)
+
+
 def test_plan_refuses_what_the_kernels_do_not_take():
     for shape, why in (((2, 16, 60, 60), "depthwise"), ((4, 1024, 3, 3), "counters"),
                        ((0, 16, 5, 6), "empty")):
@@ -528,6 +624,39 @@ def test_cuda_kernels_match_plain():
         top = max(float(r.abs().max()) for r in ref)
         for name, a, b in zip(NAMES, grads, ref):
             assert float((a - b).abs().max()) <= 10 * tol * top, name
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_inference_kernel_matches_plain():
+    """On the card: bf16 inference, one launch of k_infer_bf16 per call,
+    against the bf16 plain version (relative L2 <= 1e-4, chip_smoke.py's
+    UNIT_BF16_INFER_BAR) at small units (C / 2 odd and even), at the first
+    backbone map (a whole image per block, both panels) and at the two
+    BAND_MAPS (bands of 10 rows with a last band of 3, both panels; bands
+    of 2 rows with a last band of 1, one panel shared by both products);
+    two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cases = [(3, 18, 4, 7), (4, 16, 5, 6), (2, 116, 11, 45)] + [(3, c, h, w)
+                                                               for h, w, c in BAND_MAPS]
+    for n, c, h, w in cases:
+        err, (_, rb, nb, _, _) = _bf16_launch(n, c, h, w)
+        assert err == 0 and (nb > 1) == ((h, w, c) in BAND_MAPS) and (rb * nb > h) == (nb > 1)
+        g = torch.Generator().manual_seed(c)
+        unit = ShuffleUnit(c, c, 1, fused=True)
+        with torch.no_grad():
+            for p in unit.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) * 0.3)
+        unit = unit.cuda().eval()
+        x = (3.0 * torch.rand((n, c, h, w), generator=g)).to(torch.bfloat16).cuda()
+        before = SU.shuffle_unit_infer.launches_bf16
+        with torch.no_grad():
+            got, again = SU.shuffle_unit_infer(x, unit), SU.shuffle_unit_infer(x, unit)
+            want = SU.shuffle_unit_infer_plain(x, unit)
+        assert SU.shuffle_unit_infer.launches_bf16 == before + 2
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+        rel = float((got.double() - want.double()).norm() / want.double().norm())
+        assert rel <= 1e-4, (n, c, h, w, rel)
 
 
 @pytest.mark.cuda
