@@ -194,6 +194,12 @@ class CARLAgentConfig:
             raise ValueError("block rollout composes with repeat_action=1 only")
 
 
+def eval_worlds(trials: int) -> int:
+    """The worlds an evaluation of `trials` trials steps: oversampled, so
+    that at least `trials` valid episodes survive the filter."""
+    return max(trials + 8, int(trials * 1.25))
+
+
 class CARLAgent:
     """Owns the network, the three optimizers (policy, value, dynamics; with
     two_step_split_adam the dynamics entry is a pair, one per phase), the
@@ -1012,8 +1018,7 @@ class CARLAgent:
             seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=self.env.generator,
                                      device=self.env.device))
 
-        # oversample worlds so >= trials valid episodes survive the filter
-        num_worlds = max(trials + 8, int(trials * 1.25))
+        num_worlds = eval_worlds(trials)
         # trial i starts from its own stream, keyed by (seed, i) as the JAX
         # package folds i into its reset key: its town, weather, route and
         # light offset do not depend on `trials`

@@ -26,12 +26,13 @@ from __future__ import annotations
 import json
 import os
 import random as py_random
+import time
 import warnings
 from typing import List, Optional, Union
 
 from carla_driving_rl_agent_torch import REPO_ROOT
 from carla_driving_rl_agent_torch.agents.carla_agent import (
-    DEFAULT_WEIGHTS_DIR, CARLAgent, CARLAgentConfig)
+    DEFAULT_WEIGHTS_DIR, CARLAgent, CARLAgentConfig, eval_worlds)
 from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv, CARLAEnvConfig
 from carla_driving_rl_agent_torch.envs.town import get_town
 from carla_driving_rl_agent_torch.envs.weather import (
@@ -399,7 +400,8 @@ def evaluate(mode: str, town: str, seeds: list, traffic: str, steps: int = 512,
              trials: int = 50, weights: str = "stage-s5",
              weights_dir: Optional[str] = None,
              evaluation_dir: Optional[str] = None, device=None,
-             env_overrides: Optional[dict] = None) -> List[dict]:
+             env_overrides: Optional[dict] = None,
+             timings: Optional[dict] = None) -> List[dict]:
     """Evaluate `weights` on one scenario (a town, a traffic level of
     TRAFFIC_SPECS) for each seed, writing one JSON per seed named
     `{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}` (into
@@ -407,10 +409,27 @@ def evaluate(mode: str, town: str, seeds: list, traffic: str, steps: int = 512,
     weights are read from `weights_dir`, default weights/).  Returns the
     records.  `env_overrides`: structural env flags the checkpoint was
     trained with (e.g. dict(lateral_obs=True)).  Equivalent to
-    build_eval_agent() then CARLAgent.evaluate() per seed."""
+    build_eval_agent() then CARLAgent.evaluate() per seed.  `timings`, when
+    given, receives the seconds of the town's build (`town_seconds`, 0 once
+    the process holds the town), of the env's and agent's
+    (`build_seconds`), and per seed of the evaluation (`seconds`) with its
+    env-steps/s (`env_steps_per_s`, the evaluation's worlds x steps over
+    those seconds)."""
+    t0 = time.perf_counter()
+    get_town(town)
+    t1 = time.perf_counter()
     agent = build_eval_agent(mode, town, steps, weights, weights_dir, device, traffic=traffic,
                              env_overrides=env_overrides)
-    return [agent.evaluate(
-        name=f"{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}",
-        timesteps=steps, trials=trials, initial_seed=seed,
-        evaluation_dir=evaluation_dir) for seed in seeds]
+    t2 = time.perf_counter()
+    records, seconds = [], []
+    for seed in seeds:
+        t = time.perf_counter()
+        records.append(agent.evaluate(
+            name=f"{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-{seed}",
+            timesteps=steps, trials=trials, initial_seed=seed,
+            evaluation_dir=evaluation_dir))
+        seconds.append(time.perf_counter() - t)
+    if timings is not None:
+        timings.update(town_seconds=t1 - t0, build_seconds=t2 - t1, seconds=seconds,
+                       env_steps_per_s=[eval_worlds(trials) * steps / s for s in seconds])
+    return records

@@ -37,15 +37,20 @@ from carla_driving_rl_agent_torch.curriculum import stages
 
 METRICS = ("collision_rate", "similarity", "waypoint_distance", "speed", "total_reward",
            "timesteps")
+# the means held against a record, and the bar in standard errors; collision
+# rate and total reward are printed, not held
+HELD_METRICS, Z_BAR = ("similarity", "speed", "timesteps"), 4.0
 # the recorded evaluations' shape
 MODE, STEPS, TRIALS, RECORD_SEED = "test", 512, 50, 42
 
 
 def z_score(record: dict, ref: dict, metric: str) -> float:
     """(record's mean - ref's mean) / SE of `metric`, with SE ref's standard
-    deviation over the square root of its trials (nan when it is 0)."""
+    deviation over the square root of its trials; when that is 0, 0 for
+    equal means and an infinity of the difference's sign otherwise."""
     se = ref[f"{metric}_std"] / math.sqrt(len(ref[metric]))
-    return (record[f"{metric}_mean"] - ref[f"{metric}_mean"]) / se if se > 0 else float("nan")
+    diff = record[f"{metric}_mean"] - ref[f"{metric}_mean"]
+    return diff / se if se > 0 else math.copysign(math.inf, diff) if diff else 0.0
 
 
 def z_pooled(a: dict, b: dict, metric: str) -> float:

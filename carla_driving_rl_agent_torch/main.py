@@ -9,7 +9,8 @@ agent, and the evaluation sweep, on one GPU.
     python -m carla_driving_rl_agent_torch.main --curriculum --epochs 30,16,12,10,10 --block
     python -m carla_driving_rl_agent_torch.main --standard --epochs 78 --block
     python -m carla_driving_rl_agent_torch.main --evaluate [--weights safe-s5] \
-        [--steps 512] [--trials 50]
+        [--steps 512] [--trials 50] [--towns Town04 Town06] \
+        [--references weights/safe-s5/evaluation]
     python -m carla_driving_rl_agent_torch.main --record [--weights stage-s5] \
         [--steps 512] [--trials 3] [--record-dir record]
 
@@ -52,7 +53,10 @@ stage-sN-<epoch>) of the checkout, never into the tracked weights/.
 --evaluate` (run_evaluation, main.py:229-240): the 48 scenarios, 2 weather
 modes x 8 towns x 3 traffic levels, at seed 42, of the checkpoint
 weights/<weights>; one record per scenario under
-weights-torch/<weights>/evaluation/.
+weights-torch/<weights>/evaluation/.  `--towns` runs the sweep over those
+towns only (the sweep in pieces); `--references DIR` holds each scenario
+against the record of the same name in DIR, 4 standard errors on
+similarity, speed and timesteps, and exits non-zero if one lies farther.
 
 `--record` is the counterpart of `main.py --record` (run_record,
 main.py:265-269): stage s5's env on Town03 with regular traffic, the agent
@@ -74,6 +78,7 @@ import warnings
 
 from carla_driving_rl_agent_torch.curriculum import stages
 from carla_driving_rl_agent_torch.envs.wrappers import record_episodes
+from carla_driving_rl_agent_torch.evaluate_seeds import HELD_METRICS, METRICS, Z_BAR, z_score
 from carla_driving_rl_agent_torch.utils.checkpoint import refuse_tracked
 from carla_driving_rl_agent_torch.utils.schedules import ExponentialDecay
 
@@ -243,22 +248,44 @@ def run_standard(epochs: int, num_envs: int = NUM_ENVS, block: bool = False,
 
 
 def run_evaluation(weights: str = "stage-s5", steps: int = 512, trials: int = 50,
-                   device=None, lateral: bool = False) -> None:
-    """The full sweep (reference main.py:94-101): 8 towns x 3 traffic
-    levels x 2 weather modes, seed 42; `lateral` for a checkpoint trained
-    with the lateral observation (JAX main.py:165-166)."""
+                   device=None, lateral: bool = False, towns=stages.EVAL_TOWNS,
+                   weights_dir: str = None, references: str = None) -> list:
+    """The full sweep (reference main.py:94-101): 2 weather modes x `towns`
+    (the 8 evaluation towns) x 3 traffic levels, seed 42; `lateral` for a
+    checkpoint trained with the lateral observation (JAX main.py:165-166).
+    Prints one JSON line per scenario: stages.evaluate's timings (the
+    town's build, 0 after its first scenario; the env's and agent's build;
+    the evaluation's seconds and env-steps/s) and the means.  With
+    `references`, a directory of records named as the sweep's (the JAX
+    package's are under weights/<weights>/evaluation/), each line also
+    holds the z-scores (port - record) / SE of the six metrics, and after
+    the sweep it raises if similarity, speed or timesteps lies more than
+    Z_BAR standard errors from its record.  Returns the lines' dicts."""
     overrides = dict(lateral_obs=True) if lateral else None
+    rows = []
     for mode in ("train", "test"):
-        for town in stages.EVAL_TOWNS:
+        for town in towns:
             for traffic in stages.TRAFFIC_SPECS:
-                t0 = time.perf_counter()
+                timings = {}
                 rec = stages.evaluate(mode=mode, town=town, seeds=[42], traffic=traffic,
                                       steps=steps, trials=trials, weights=weights,
-                                      device=device, env_overrides=overrides)[0]
-                print(json.dumps(dict(mode=mode, town=town, traffic=traffic,
-                                      seconds=round(time.perf_counter() - t0, 3),
-                                      **{k: v for k, v in rec.items() if k.endswith("_mean")})),
-                      flush=True)
+                                      weights_dir=weights_dir, device=device,
+                                      env_overrides=overrides, timings=timings)[0]
+                row = dict(mode=mode, town=town, traffic=traffic, **timings,
+                           **{k: v for k, v in rec.items() if k.endswith("_mean")})
+                if references:
+                    name = f"{weights}-{mode}-{steps}-{trials}-{town}-{traffic}-42.json"
+                    with open(os.path.join(references, name)) as f:
+                        ref = json.load(f)
+                    row["z"] = {m: z_score(rec, ref, m) for m in METRICS}
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+    far = [f"{r['mode']} {r['town']} {r['traffic']} {m} {r['z'][m]:+.3f}"
+           for r in rows if "z" in r for m in HELD_METRICS if not abs(r["z"][m]) <= Z_BAR]
+    if far:
+        raise RuntimeError(f"{len(far)} means lie more than {Z_BAR} standard errors from "
+                           f"their records: " + "; ".join(far))
+    return rows
 
 
 def run_record(weights: str = "stage-s5", timesteps: int = 512, trials: int = 3,
@@ -303,6 +330,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trials", type=int, default=None,
                     help="--evaluate: trials per scenario (default 50); --record: "
                          "episodes (default 3)")
+    ap.add_argument("--towns", nargs="+", default=list(stages.EVAL_TOWNS),
+                    choices=stages.EVAL_TOWNS, help="--evaluate: the towns of the sweep")
+    ap.add_argument("--references", default=None,
+                    help="--evaluate: hold each scenario against the record of its name in "
+                         "this directory (e.g. weights/safe-s5/evaluation)")
     ap.add_argument("--record-dir", default=os.path.join(stages.REPO_ROOT, "record"),
                     help="--record: the root of the records")
     ap.add_argument("--epochs", default="10",
@@ -345,10 +377,11 @@ def main(argv=None) -> int:
         return 0
     if args.evaluate:
         t0 = time.perf_counter()
-        run_evaluation(args.weights, args.steps, args.trials or 50, device=args.device,
-                       lateral=args.lateral)
-        print(f"evaluation of {args.weights}: 48 scenarios in {time.perf_counter() - t0:.1f} s",
-              flush=True)
+        rows = run_evaluation(args.weights, args.steps, args.trials or 50, device=args.device,
+                              lateral=args.lateral, towns=args.towns,
+                              references=args.references)
+        print(f"evaluation of {args.weights}: {len(rows)} scenarios in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         return 0
     if args.hand_off:
         hand_off(*args.hand_off, weights_dir=args.weights_dir)

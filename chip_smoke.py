@@ -93,19 +93,19 @@ Phases, each printed with its seconds:
                the card against the plain versions on the CPU;
  15. train_s2 — first, `--fused-step` with stages s2 and s4 must raise
                before any training; then stage s2 (50 walkers, 50
-               origins) at the shipped geometry, unfused, for 2 updates
+               origins) at the shipped geometry, unfused, for 1 update
                (a depth cut), from the tracked weights/stage-s1 copied into
                a temporary weights root and handed off (main.hand_off): the
                loaded network equal to the checkpoint, the update step 150,
                no physics-kernel launch (the plain block steps NPC worlds),
                32 render launches per update and one at the reset;
  16. train_s3_fused — stage s3 (50 vehicles, 50 walkers, the training
-               weathers) with fused_units=True for 2 updates (a depth cut),
+               weathers) with fused_units=True for 1 update (a depth cut),
                handed train_s2's checkpoint: network and Adam states equal
                to it before the first update, the unit kernels' launches,
                8 actor rows, training weathers drawn;
  17. train_s4 — stage s4 (s3's traffic and weathers, the training
-               augmentation at aug_intensity 1.0), unfused, for 2 updates,
+               augmentation at aug_intensity 1.0), unfused, for 1 update,
                from the tracked weights/stage-s3 handed off: the loaded
                network equal to the checkpoint, update step 290;
  18. augment_agree — the augmentation pipeline on the card against the
@@ -118,8 +118,8 @@ Phases, each printed with its seconds:
                (CUDA events, draws included) and device ms (a CUDA graph),
                and its share of an s4 update;
  19. train_s5_fused — stage s5 (Town03, dense traffic: 100 vehicles, 200
-               walkers, the augmentation) with fused_units=True for 2
-               updates, handed train_s4's checkpoint: network and Adam
+               walkers, the augmentation) with fused_units=True for 1
+               update, handed train_s4's checkpoint: network and Adam
                states equal to it, 8 actor rows;
  20. expert  — the privileged expert (envs/expert.py) drives 32 Town03
                worlds with stage s3's 50/50 NPCs for 128 steps on the
@@ -135,14 +135,14 @@ Phases, each printed with its seconds:
                and the BatchNorm buffer changes within train_agree's
                float32 bars), then one epoch over the traces with fused
                units: ms per update and the unit kernels' launches;
- 22. train_expert_fused — 2 updates of learn with expert_rollout=True and
+ 22. train_expert_fused — 1 update of learn with expert_rollout=True and
                ratio_clamp at stage s1's geometry with fused units: the
                losses finite, the rollout's similarity >= 0.7, one render
                and one predict per step, no physics-kernel launch (the
                per-step env.step), env-steps/s beside train_fused's;
  23. benchmark — CARLABenchmark of safe-s5 with fused units, preset test
                (a new Town02 env per task), tasks empty and regular, 25
-               trials of 1024 steps: the success, collision and timeout
+               trials of 512 steps: the success, collision and timeout
                rates, env-steps/s, the Town02 env's build seconds; the
                route lengths within 1e-4 of a float64 recompute on the
                CPU from the same spawn states, the budgets nocrash_success's;
@@ -160,12 +160,23 @@ Phases, each printed with its seconds:
                ticks each) and 13 x 128 unit-inference launches; similarity,
                speed and timesteps within 4 standard errors of the per-step
                record; env-steps/s beside phase 12's per-step evaluation;
+ 26b. eval_towns — the same evaluation on Town04, a multi-lane town (two
+               lanes per direction, built on the host in a process of its
+               own from the start of the script): with dense traffic per
+               step and fused units, and without traffic in blocks
+               (fused_step, fused units: the physics kernel with the road
+               half-width of two lanes), each within 4 standard errors of
+               its record (similarity, speed, timesteps), with its render,
+               physics and unit-inference launches; then 6 dense-traffic
+               steps of 8 Town04 worlds on the card against the CPU (phase
+               5's bars), whose NPC vehicles must change lanes (counted
+               from the NPC states before and after each step);
  27. variants — the analytic renderer (render_mode="rasterizer") on the
                card against the same code on the CPU from the same states:
                32 Town03 worlds without NPCs and with stage s3's fleet, the
                three cameras at 'fast' and the one camera at 'full' with
                depth_modulate (bytes equal on >= 99.9 %, depth within one
-               level), each timed per frame; then 2 stage-s1 updates with
+               level), each timed per frame; then 1 stage-s1 update with
                the rasterizer, the shaped reward and the lateral
                observation (fused units; the physics kernel computes the
                default reward only): finite losses, train env-steps/s;
@@ -212,14 +223,14 @@ Phases, each printed with its seconds:
                relative L2), then 8 updates on the card: updates/s and the
                first and last reward_mean;
  31. dp_train — stage s1 at full width (fused_step, fused units, 32
-               worlds, 2 updates) over 2 gloo ranks on the one card
+               worlds, 1 update) over 2 gloo ranks on the one card
                (parallel/mesh.py: 16 worlds per rank, every draw drawn for
                all 32 worlds, the trajectories gathered, the same update on
                both ranks), deterministic kernels: the ranks equal (drift 0
                before any repair); the run bit for bit equal to a one-process
                run whose predicts run in the ranks' shards; against phase
                13's plain one-process run the first rollout's rewards and
-               flags at train_agree's loss bar, the parameters after 2 updates
+               flags at train_agree's loss bar, the parameters after the update
                reported; each rank's launches of rows 1, 3, 4, 5 and 6; train
                env-steps/s of both runs;
  32. summary_flops — one s1 update with fused units from phase 13's
@@ -253,11 +264,13 @@ device it exits non-zero at once and prints no result.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import dataclasses
 import functools
 import json
 import math
+import multiprocessing
 import os
 import shutil
 import subprocess
@@ -330,13 +343,13 @@ TRIALS = 50
 TRAFFIC_LEVELS = ("regular", "dense")
 
 
-def scenario(traffic: str = "no") -> str:
-    """The evaluation's record name of the Town03 scenario with `traffic`."""
-    return f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{TOWN}-{traffic}-{SEED}"
+def scenario(traffic: str = "no", town: str = TOWN) -> str:
+    """The evaluation's record name of the scenario of `town` with `traffic`."""
+    return f"{WEIGHTS}-test-{STEPS}-{TRIALS}-{town}-{traffic}-{SEED}"
 
 
-def reference(traffic: str = "no") -> str:
-    return os.path.join("weights", WEIGHTS, "evaluation", f"{scenario(traffic)}.json")
+def reference(traffic: str = "no", town: str = TOWN) -> str:
+    return os.path.join("weights", WEIGHTS, "evaluation", f"{scenario(traffic, town)}.json")
 METRICS = ("collision_rate", "similarity", "waypoint_distance", "speed",
            "total_reward", "timesteps")
 ENV_WORLDS, ENV_CHUNK, ENV_CHUNKS = 1024, 32, 5
@@ -793,6 +806,27 @@ def _hold_npcs(gpu_npc, cpu_npc, where: str) -> float:
     return worst
 
 
+# the town tables that npc_lane_changes reads
+LANE_TABLES = ("wp_next", "wp_left", "wp_right")
+
+
+def npc_lane_changes(tables: dict, town_id, before, after, active) -> np.ndarray:
+    """The lane changes of the NPC vehicles in one tick, (left, right),
+    from their waypoints before (B, V) and after it (traffic.step_npcs): a
+    vehicle changed lanes when its new waypoint is neither its old one nor
+    one of that one's successors, but the left (right) neighbour of one of
+    them.  `tables` holds the town bank's LANE_TABLES as numpy arrays;
+    `active` (B, V) masks the vehicles counted."""
+    t = np.asarray(town_id)[:, None, None]
+    before, after = np.asarray(before), np.asarray(after)[..., None]
+    nxt = tables["wp_next"][t[..., 0], before]                     # (B, V, successors)
+    cand = np.concatenate([before[..., None],
+                           np.where(nxt >= 0, nxt, before[..., None])], axis=-1)
+    kept = (cand == after).any(-1)
+    return np.array([int((np.asarray(active) & ~kept & (tables[f][t, cand] == after).any(-1)
+                          ).sum()) for f in ("wp_left", "wp_right")])
+
+
 def agree_block_traffic(gpu, blocks: int = 3, n: int = 8,
                         what: str = "stage s3's traffic") -> dict:
     """GPU vs CPU on the block path with traffic (stage s3's env: Town03,
@@ -861,13 +895,17 @@ def agree_block_traffic(gpu, blocks: int = 3, n: int = 8,
                 image_within_2=worst_img)
 
 
-def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
-    """GPU vs CPU with NPC traffic: the env `gpu` (Town03, dense) and its
-    CPU twin stepped from the same reset, NPC-tick and auto-reset draws and
-    actions; NPC indices and masks, the collision flags and the terminated
-    flags equal, NPC floats within 1e-3 (float32 trig of the two devices
-    differs in the last bits), rewards as in agree_phase, frames within 2
-    u8 on > 99 %."""
+def agree_traffic(gpu, steps: int = 6, n: int = 8) -> dict:
+    """GPU vs CPU with NPC traffic: the env `gpu` (Town03 or, in
+    eval_towns, Town04, dense) and its CPU twin stepped from the same
+    reset, NPC-tick and auto-reset draws and actions; NPC indices and
+    masks, the collision flags and the terminated flags equal, NPC floats
+    within 1e-3 (float32 trig of the two devices differs in the last bits),
+    rewards as in agree_phase, frames within 2 u8 on > 99 %.  Returns the
+    NPC vehicles' lane changes over the steps, (left, right), counted from
+    the CPU's states before and after each step (npc_lane_changes; worlds
+    that restart in a step are not counted in it), the worst NPC float
+    difference and image share."""
     from carla_driving_rl_agent_torch.envs import world as world_mod
     from carla_driving_rl_agent_torch.envs.carla_env import CARLAEnv
     cpu_env = CARLAEnv(gpu.config, device="cpu")
@@ -877,15 +915,21 @@ def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
     dg = gpu.reset_draws(n)
     sg, _ = gpu.reset(dg)
     sc, _ = cpu_env.reset(to_cpu(dg))
-    worst_img, worst_npc = 1.0, 0.0
+    tables = {f: getattr(cpu_env.town, f).numpy() for f in LANE_TABLES}
+    worst_img, worst_npc, lanes = 1.0, 0.0, np.zeros(2, np.int64)
     for i in range(steps + 1):
         worst_npc = max(worst_npc, _hold_npcs(sg.world.npc, sc.world.npc, f"step {i}"))
         if i == steps:
             break
         a = torch.as_tensor(rng.uniform(-1.0, 1.0, (n, 2)).astype(np.float32))
         nd, dg = gpu.npc_step_draws(sg.world), gpu.reset_draws(n)
+        before = sc.world
         sg, _, rg, tg, _, ig = gpu.step(sg, a.to(gpu.device), draws=dg, npc_draws=nd)
-        sc, _, rc, tc, _, ic = cpu_env.step(sc, a, draws=to_cpu(dg), npc_draws=to_cpu(nd))
+        sc, _, rc, tc, uc, ic = cpu_env.step(sc, a, draws=to_cpu(dg), npc_draws=to_cpu(nd))
+        kept = ~(tc | uc).numpy()[:, None]
+        lanes += npc_lane_changes(tables, before.town_id.numpy(), before.npc.veh_wp.numpy(),
+                                  sc.world.npc.veh_wp.numpy(),
+                                  (before.npc.veh_active.numpy() > 0) & kept)
         check(torch.equal(tg.cpu(), tc), "terminated flags GPU vs CPU with traffic")
         for k in ("hit_vehicle", "hit_pedestrian", "hit_other"):
             check(torch.equal(ig[k].cpu(), ic[k]), f"{k} GPU vs CPU")
@@ -895,9 +939,14 @@ def agree_traffic(gpu, steps: int = 6, n: int = 8) -> None:
         worst_img = min(worst_img, float((diff <= 2).float().mean()))
     check(worst_img > 0.99, f"image stacks GPU vs CPU with traffic: {worst_img:.6f} within 2")
     npc = sg.world.npc
-    print(f"  dense traffic {steps} steps x {n} worlds ({float(npc.veh_active.sum()) / n:.1f} "
-          f"vehicles, {float(npc.ped_active.sum()) / n:.1f} walkers per world): NPC floats "
-          f"max |diff| {worst_npc:.3e}, images within 2 u8 {worst_img:.6f}", flush=True)
+    (town,) = gpu.params.town_names
+    print(f"  {town} dense traffic {steps} steps x {n} worlds "
+          f"({float(npc.veh_active.sum()) / n:.1f} vehicles, "
+          f"{float(npc.ped_active.sum()) / n:.1f} walkers per world): NPC floats "
+          f"max |diff| {worst_npc:.3e}, images within 2 u8 {worst_img:.6f}; NPC lane changes "
+          f"left {lanes[0]}, right {lanes[1]}", flush=True)
+    return dict(lane_changes=lanes.tolist(), npc_max_abs_diff=worst_npc,
+                image_within_2=worst_img)
 
 
 def agree_phase(agent, steps: int = 6, n: int = 8) -> None:
@@ -951,8 +1000,9 @@ HELD_METRICS = ("similarity", "speed", "timesteps")
 
 
 def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") -> dict:
-    """The shipped evaluation of safe-s5 on Town03 with `agent`, whose env
-    has the `traffic` level (its fused_units decides the backbone's path,
+    """The shipped evaluation of safe-s5 on the town of `agent`'s env (Town03
+    but in eval_towns), whose env has the `traffic` level (its fused_units
+    decides the backbone's path,
     its rollout_block whether it evaluates per step or in blocks of 4
     steps), beside the recorded evaluation of that scenario; with
     `unfused`, the means of an unfused (or per-step) run are printed
@@ -965,7 +1015,8 @@ def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") 
     _zero_counts()
     t0 = time.perf_counter()
     check(agent.env.params.has_npcs == (traffic != "no"), f"the env's traffic is not {traffic}")
-    record = agent.evaluate(name=scenario(traffic), timesteps=STEPS, trials=TRIALS,
+    (town,) = agent.env.params.town_names
+    record = agent.evaluate(name=scenario(traffic, town), timesteps=STEPS, trials=TRIALS,
                             initial_seed=SEED, evaluation_dir=out_dir)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -992,7 +1043,7 @@ def slice_phase(agent, out_dir: str, unfused: dict = None, traffic: str = "no") 
               f"unit inference launches {units} != {UNITS_PER_PASS} x {predicts} predicts")
     else:
         check(units == 0, f"unfused evaluation launched the unit kernel {units} times")
-    with open(reference(traffic)) as f:
+    with open(reference(traffic, town)) as f:
         ref = json.load(f)
     for m in METRICS:
         v = np.asarray(record[m], np.float64)
@@ -1808,9 +1859,9 @@ def train_phase(out_dir: str, fused_units: bool = False) -> tuple:
 
 
 # the depth of train_s2, train_s3_fused, train_s4, train_s5_fused,
-# train_expert_fused and variants (a cut for time), and of each variant of
-# train_variants
-CUT_UPDATES = 2
+# train_expert_fused and variants: one update each (a cut for time, from
+# two, which makes room for eval_towns)
+CUT_UPDATES = 1
 VARIANT_UPDATES = 1
 
 
@@ -2516,7 +2567,10 @@ def train_expert_fused_phase(root: str) -> tuple:
     return stage, summary
 
 
-BENCH_TASKS, BENCH_TRIALS, BENCH_STEPS = ("empty", "regular"), 25, 1024
+# 512 steps per trial, the evaluation's episode length (a cut for time from
+# NoCrash's 1024, which makes room for eval_towns: the rates are printed,
+# not held)
+BENCH_TASKS, BENCH_TRIALS, BENCH_STEPS = ("empty", "regular"), 25, 512
 
 
 def _route_lengths_numpy(world, routes) -> np.ndarray:
@@ -2641,6 +2695,61 @@ def eval_block_phase(out_dir: str, per_step: dict) -> dict:
     on, off = out["env_steps_per_s"], per_step["env_steps_per_s"]
     print(f"  evaluation env-steps/s, fused units, blocks / per step: {on:.1f} / {off:.1f} "
           f"({on / off:.3f})", flush=True)
+    return out
+
+
+# eval_towns: the larger multi-lane town (two lanes per direction)
+EVAL_TOWN = "Town04"
+
+
+def timed_town_build(name: str) -> tuple:
+    """(the town `name`'s TownData, the seconds its build took): run in a
+    process of its own from the start of the script, so that the host's
+    minutes of numpy overlap the phases before eval_towns."""
+    from carla_driving_rl_agent_torch.envs.town import build_town
+    t0 = time.perf_counter()
+    return build_town(name), time.perf_counter() - t0
+
+
+def eval_towns_phase(out_dir: str, town_build) -> dict:
+    """The safe-s5 evaluation (test weathers, 62 worlds x 512 steps) on
+    EVAL_TOWN, each within 4 SE of its record: with dense traffic per step
+    and fused units (the render kernel on multi-lane traffic packs, unit
+    inference), and without traffic in blocks with fused_step and fused
+    units (the physics kernel with the town's road half-width of two
+    lanes); then a few dense ticks on 8 worlds, card against CPU
+    (agree_traffic), whose NPC vehicles must change lanes.  `town_build`
+    is the future of timed_town_build(EVAL_TOWN), whose town enters the
+    port's town cache.  Returns the town's build seconds and the seconds
+    this phase waited for it, each evaluation's numbers and launches, and
+    the agreement's."""
+    from carla_driving_rl_agent_torch.curriculum import stages
+    from carla_driving_rl_agent_torch.envs import town as town_mod
+    t0 = time.perf_counter()
+    town, build_s = town_build.result()
+    waited_s = time.perf_counter() - t0
+    road_half = town_mod._TOWN_CACHE.setdefault(EVAL_TOWN, town).road_half
+    print(f"  {EVAL_TOWN} build {build_s:.3f} s in a process of its own, {waited_s:.3f} s of "
+          f"it waited for here (road half-width {road_half} m)", flush=True)
+    check(road_half > town_mod.LANE_WIDTH + 1.0,
+          f"{EVAL_TOWN} is not multi-lane: road half-width {road_half}")
+    dense = stages.build_eval_agent("test", EVAL_TOWN, STEPS, WEIGHTS, device="cuda",
+                                    fused_units=True, traffic="dense")
+    block = stages.build_eval_agent("test", EVAL_TOWN, STEPS, WEIGHTS, device="cuda",
+                                    fused_units=True, rollout_block=True,
+                                    env_overrides=dict(fused_step=True))
+    check(float(block.env.town.road_half[0]) == float(np.float32(road_half)),
+          "the physics kernel's road half-width")
+    out = dict(build_s=build_s, waited_s=waited_s,
+               dense=slice_phase(dense, out_dir, traffic="dense"),
+               block=slice_phase(block, out_dir))
+    out["agree"] = agree_traffic(dense.env)
+    check(sum(out["agree"]["lane_changes"]) > 0, f"no NPC changed lanes on {EVAL_TOWN}")
+    for k in ("dense", "block"):
+        c = out[k]["launches"]
+        print(f"  {EVAL_TOWN} {k}: launches per evaluation: render {c['render_planes']}, "
+              f"physics {c['step_physics_block']}, unit inference {c['shuffle_unit_infer']}; "
+              f"{out[k]['env_steps_per_s']:.1f} env-steps/s", flush=True)
     return out
 
 
@@ -3334,8 +3443,9 @@ def generic_ppo_phase(root: str) -> dict:
 
 
 # dp_train: stage s1 over two gloo ranks on the one card, TRAIN_WORLDS
-# worlds, DP_UPDATES updates, against the same updates in one process
-DP_RANKS, DP_UPDATES = 2, 2
+# worlds, DP_UPDATES updates, against the same updates in one process (one
+# update: a cut for time from two, which makes room for eval_towns)
+DP_RANKS, DP_UPDATES = 2, 1
 
 
 def deterministic(on: bool = True) -> None:
@@ -3590,6 +3700,9 @@ def main(argv=None) -> int:
 
     summary = dict(phases={})
     kernels: dict = {}
+    town_builder = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    town_build = town_builder.submit(timed_town_build, EVAL_TOWN)
     with Phase("device") as p:
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3772,6 +3885,13 @@ def main(argv=None) -> int:
         summary["eval_block"] = eval_block_phase(out_dir, summary["slice_fused"])
         launches["evaluate_block"] = summary["eval_block"].pop("launches")
     summary["phases"]["eval_block"] = p.seconds
+    with tempfile.TemporaryDirectory() as out_dir, Phase("eval_towns") as p:
+        summary["eval_towns"] = eval_towns_phase(out_dir, town_build)
+        town_builder.shutdown()
+        for k in ("dense", "block"):
+            launches[f"evaluate_{EVAL_TOWN.lower()}_{k}"] = \
+                summary["eval_towns"][k].pop("launches")
+    summary["phases"]["eval_towns"] = p.seconds
     with tempfile.TemporaryDirectory() as root, Phase("variants") as p:
         summary["variants"] = variants_phase(
             root, {"no NPCs": agent.env, "stage s3's 50/50 NPCs": s3_env})

@@ -118,6 +118,42 @@ def test_evaluation_trials_draw_from_their_own_streams(tiny_root, tmp_path):
     assert len(set(seen[1].route_id.tolist())) > 1
 
 
+
+def test_evaluation_sweep_holds_each_scenario(tiny_root, monkeypatch, tmp_path, capsys):
+    """main.run_evaluation over one town: 2 weather modes x 3 traffic
+    levels, one record each under weights-torch/ and one line each printed
+    with its timings and means; held against its own records every z-score
+    is 0, and against records whose similarity lies 5 standard errors off,
+    it raises after the sweep, naming each such scenario."""
+    import json
+    from carla_driving_rl_agent_torch import main as cli
+    from carla_driving_rl_agent_torch.agents import carla_agent as CA
+    monkeypatch.setattr(CA, "DEFAULT_WEIGHTS_DIR", str(tiny_root / "weights-torch"))
+    kw = dict(steps=2, trials=2, device="cpu", towns=("Town02",),
+              weights_dir=str(tiny_root / "weights"))
+    rows = cli.run_evaluation("tiny", **kw)
+    assert [json.loads(line) for line in capsys.readouterr().out.splitlines()] == rows
+    assert [(r["mode"], r["traffic"]) for r in rows] == [
+        (m, t) for m in ("train", "test") for t in ("no", "regular", "dense")]
+    for r in rows:
+        assert r["town_seconds"] >= 0 and r["build_seconds"] > 0 and "z" not in r
+        assert r["env_steps_per_s"][0] == 10 * 2 / r["seconds"][0]
+        assert r["similarity_mean"] > 0
+    records = tiny_root / "weights-torch" / "tiny" / "evaluation"
+    assert len(list(records.glob("tiny-*-2-2-Town02-*-42.json"))) == 6
+    held = cli.run_evaluation("tiny", references=str(records), **kw)
+    assert all(v == 0.0 for r in held for v in r["z"].values())
+    off = tmp_path / "off"
+    off.mkdir()
+    for path in records.glob("*.json"):
+        rec = json.loads(path.read_text())
+        se = rec["similarity_std"] / len(rec["similarity"]) ** 0.5
+        rec["similarity_mean"] -= 5.0 * se if se > 0 else 0.0
+        (off / path.name).write_text(json.dumps(rec))
+    with pytest.raises(RuntimeError, match="standard errors") as err:
+        cli.run_evaluation("tiny", references=str(off), **kw)
+    assert "test Town02 dense similarity +5.000" in str(err.value)
+
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "carla_driving_rl_agent_tpu")
 
 _NO_JAX = f"""

@@ -31,6 +31,7 @@ from carla_driving_rl_agent_torch.envs import world as tworld
 from carla_driving_rl_agent_torch.envs.carla_env import (
     CARLAEnv, CARLAEnvConfig, convert_action)
 from carla_driving_rl_agent_torch.models.carla_network import CARLANetwork
+from carla_driving_rl_agent_torch.ops.render import pack_geometry_banked
 from carla_driving_rl_agent_torch.utils.checkpoint import load_network_weights
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,8 +75,16 @@ def _draws(jenv, jstate, batch):
 
 @pytest.fixture(scope="module")
 def rollout():
-    jenv = JEnv(JEnvConfig(world=jworld.WorldParams(**COMMON), render_mode="pallas"))
-    tenv = CARLAEnv(CARLAEnvConfig(world=tworld.WorldParams(**COMMON)), device="cpu")
+    return run_rollout(COMMON)
+
+
+def run_rollout(common: dict) -> list:
+    """STEPS steps of B worlds of the world configuration `common` on both
+    sides, the JAX loop's samples and reset draws fed to the port: per step
+    the JAX and the port's network outputs, rewards, flags, world floats
+    and image stacks, and the port's render pack of the step's frame."""
+    jenv = JEnv(JEnvConfig(world=jworld.WorldParams(**common), render_mode="pallas"))
+    tenv = CARLAEnv(CARLAEnvConfig(world=tworld.WorldParams(**common)), device="cpu")
     P = serialization.msgpack_restore(open(os.path.join(WEIGHTS, "params.msgpack"), "rb").read())
     S = serialization.msgpack_restore(open(os.path.join(WEIGHTS, "batch_stats.msgpack"), "rb").read())
     jnet = JNet(**SPEC)
@@ -122,16 +131,27 @@ def rollout():
                    trunc=ttrunc.numpy(), image=tstate.image_stack.numpy(),
                    x=tstate.world.x.numpy(), v=tstate.world.v.numpy(),
                    route=tstate.world.route_id.numpy(), ids=tstate.stack_ids.numpy(),
-                   obs_image=tobs["image"].numpy())))
+                   obs_image=tobs["image"].numpy(),
+                   geom=pack_geometry_banked(tenv.town, tstate.world,
+                                             tenv.weather_params[tstate.world.weather_id],
+                                             n_actors=tenv.n_actors))))
     return log
 
 
 def test_rollout_exercised_auto_resets(rollout):
+    check_rollout_exercised_auto_resets(rollout)
+
+
+def check_rollout_exercised_auto_resets(rollout):
     n_done = sum(int(np.sum(s["j"]["term"] | s["j"]["trunc"])) for s in rollout)
     assert n_done >= B, f"only {n_done} episode ends in {STEPS} steps"
 
 
 def test_rewards_and_flags(rollout):
+    check_rewards_and_flags(rollout)
+
+
+def check_rewards_and_flags(rollout):
     for i, s in enumerate(rollout):
         for k in ("term", "trunc", "route", "ids"):
             np.testing.assert_array_equal(s["t"][k], s["j"][k], f"step {i} {k}")
@@ -149,6 +169,10 @@ def test_image_stacks(rollout):
 
 
 def test_network_outputs(rollout):
+    check_network_outputs(rollout)
+
+
+def check_network_outputs(rollout):
     for i, s in enumerate(rollout):
         for k in ("mean", "std", "log_prob", "value"):
             np.testing.assert_allclose(s["t"][k], s["j"][k], rtol=0, atol=1e-3,

@@ -48,16 +48,22 @@ INFO_FLOATS = ("speed", "similarity", "distance_to_next_waypoint",
 ULP2 = 2.5e-7
 
 
-def _jenv(fused):
-    return JEnv(JEnvConfig(world=jworld.WorldParams(**COMMON), render_mode="zeros",
+def _jenv(fused, common):
+    return JEnv(JEnvConfig(world=jworld.WorldParams(**common), render_mode="zeros",
                            fused_step=fused))
+
+
+def physics_envs(common: dict) -> tuple:
+    """JAX's fused and XLA envs, the port's params, town and routes of the
+    world configuration `common`."""
+    tp = tworld.WorldParams(**common)
+    town, routes = tworld.build_world_data(tp, "cpu")
+    return _jenv(True, common), _jenv(False, common), tp, town, routes
 
 
 @pytest.fixture(scope="module")
 def envs():
-    tp = tworld.WorldParams(**COMMON)
-    town, routes = tworld.build_world_data(tp, "cpu")
-    return _jenv(True), _jenv(False), tp, town, routes
+    return physics_envs(COMMON)
 
 
 def _jstep_fn(env):
@@ -115,6 +121,14 @@ def _assert_step(out, jout, where):
 
 @pytest.mark.parametrize("batch", [32, 128])
 def test_physics_step_matches_jax(envs, batch):
+    physics_step_vs_jax(envs, batch)
+
+
+def physics_step_vs_jax(envs, batch):
+    """30 steps of `batch` worlds (24-step episodes, so every world
+    restarts): JAX's fused Pallas step (interpret mode) and XLA step
+    against the port's plain version and the kernel's g++ build, each from
+    the JAX state at the one-step bar, and free-running at 1e-4."""
     jfused, jxla, tp, town, routes = envs
     fused_step, xla_step = _jstep_fn(jfused), _jstep_fn(jxla)
     states, _ = jax.jit(lambda k, c: _bind_reset(jfused, k, c, batch))(

@@ -28,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from carla_driving_rl_agent_tpu.envs import traffic as jtraffic
 from carla_driving_rl_agent_tpu.envs import world as jworld
 from carla_driving_rl_agent_tpu.envs.dynamics import tgather
@@ -121,15 +122,14 @@ def assert_npc(tn, jn, atol, where):
             np.testing.assert_allclose(got, want, rtol=ULP2, atol=atol, err_msg=f"{where} {f}")
 
 
-def _setup(banks, case):
-    towns, nv, npd, crossing, running = CASES[case]
-    jt, tt = banks[towns]
-    rng = np.random.default_rng(len(case))
-    tid = rng.integers(0, len(towns), B).astype(np.int32)
-    # egos on spawn points, so that the 20 m keep-out deactivates some vehicles
+def _setup(jt, n_towns, seed):
+    """Each world's town, its ego on a spawn point (so that the 20 m
+    keep-out deactivates some vehicles), and the generator after them."""
+    rng = np.random.default_rng(seed)
+    tid = rng.integers(0, n_towns, B).astype(np.int32)
     spawn = np.array([rng.integers(0, int(jt.num_spawn[t])) for t in tid])
     ego = np.asarray(jt.spawn_xy)[tid, spawn].astype(np.float32)
-    return towns, nv, npd, crossing, running, jt, tt, tid, ego, rng
+    return tid, ego, rng
 
 
 def _jax_init(jt, tid, ego, nv, npd, crossing, running, key):
@@ -143,7 +143,14 @@ def _jax_init(jt, tid, ego, nv, npd, crossing, running, key):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_init_npcs_matches_jax(banks, case):
-    towns, nv, npd, crossing, running, jt, tt, tid, ego, _ = _setup(banks, case)
+    towns, nv, npd, crossing, running = CASES[case]
+    init_npcs_vs_jax(*banks[towns], len(towns), nv, npd, crossing, running, seed=len(case))
+
+
+def init_npcs_vs_jax(jt, tt, n_towns, nv, npd, crossing=0.0, running=0.0, seed=0):
+    """The spawn of `nv` vehicles and `npd` walkers in B worlds over the
+    bank's `n_towns` towns from JAX's keys, held to the one-tick bar."""
+    tid, ego, _ = _setup(jt, n_towns, seed)
     jn, draws = _jax_init(jt, tid, ego, nv, npd, crossing, running, jax.random.PRNGKey(1))
     tn = ttraffic.init_npcs(draws, tt, _t(tid), torch.from_numpy(ego), nv, npd,
                             crossing=crossing, running=running)
@@ -165,8 +172,19 @@ def test_step_npcs_matches_jax(banks, case):
     """24 ticks of JAX, each tick of the port from the JAX state held to
     the one-tick bar, and the port free-running the first 10 ticks held to
     1e-4.  Half the walkers start near their goal, so that they reach it
-    and draw new ones; the egos drive through the traffic."""
-    towns, nv, npd, crossing, running, jt, tt, tid, ego, rng = _setup(banks, case)
+    and draw new ones; the egos drive through the traffic.  On these
+    one-lane towns no vehicle changes lanes."""
+    towns, nv, npd, crossing, running = CASES[case]
+    changes = step_npcs_vs_jax(*banks[towns], len(towns), nv, npd, crossing, running,
+                               seed=len(case))
+    assert changes == (0, 0), changes
+
+
+def step_npcs_vs_jax(jt, tt, n_towns, nv, npd, crossing=0.0, running=0.0, seed=0):
+    """24 ticks of JAX's step_npcs against the port's, as
+    test_step_npcs_matches_jax describes; returns JAX's lane changes over
+    them, (left, right), as chip_smoke.npc_lane_changes counts them."""
+    tid, ego, rng = _setup(jt, n_towns, seed)
     v_max, p_max = max(nv, 1), max(npd, 1)
     jn, _ = _jax_init(jt, tid, ego, nv, npd, crossing, running, jax.random.PRNGKey(2))
     near = rng.uniform(-1.5, 1.5, (B, p_max, 2)).astype(np.float32)
@@ -185,6 +203,8 @@ def test_step_npcs_matches_jax(banks, case):
     key = jax.random.PRNGKey(3)
     free = to_torch_npc(jn)
     moved = reached = 0
+    changes = np.zeros(2, np.int64)
+    tables = {f: np.asarray(getattr(jt, f)) for f in chip_smoke.LANE_TABLES}
     for i in range(24):
         key, k = jax.random.split(key)
         keys = jax.random.split(k, B)
@@ -203,6 +223,9 @@ def test_step_npcs_matches_jax(banks, case):
             assert_npc(free, jnext, 1e-4, f"free tick {i}")
         moved += int((np.asarray(jnext.veh_wp) != np.asarray(jn.veh_wp)).sum())
         reached += int((np.asarray(jnext.ped_goal) != np.asarray(jn.ped_goal)).any(-1).sum())
+        changes += chip_smoke.npc_lane_changes(tables, tid, np.asarray(jn.veh_wp),
+                                               np.asarray(jnext.veh_wp),
+                                               np.asarray(jn.veh_active) > 0)
         jn = jnext
     v = np.asarray(jn.veh_v)[np.asarray(jn.veh_active) > 0]
     assert reached > 0, reached
@@ -211,6 +234,7 @@ def test_step_npcs_matches_jax(banks, case):
         assert v.max() > 0.5 and (v < 0.05).any(), "no vehicle drove, or none was held"
     else:
         assert v.size == 0 and not np.asarray(jn.veh_v).any(), "an inactive vehicle moved"
+    return tuple(int(c) for c in changes)
 
 
 WORLD = dict(town_names=("Town02",), num_routes=8, max_timesteps=6, weather_ids=(1, 5, 9),

@@ -41,13 +41,19 @@ FLOAT_FIELDS = ("x", "y", "yaw", "v", "throttle", "brake", "steer", "similarity"
                 "sim_time", "total_reward", "collision_penalty")
 
 
-@pytest.fixture(scope="module")
-def data():
-    jp = jworld.WorldParams(**COMMON)
-    tp = tworld.WorldParams(**COMMON)
+def world_data(common: dict) -> tuple:
+    """(JAX params, port params, JAX town, JAX routes, port town, port
+    routes) of the world configuration `common`, each side's own build."""
+    jp = jworld.WorldParams(**common)
+    tp = tworld.WorldParams(**common)
     jtown_dev, jroutes = jworld.build_world_data(jp)
     ttown_dev, troutes = tworld.build_world_data(tp, "cpu")
     return jp, tp, jtown_dev, jroutes, ttown_dev, troutes
+
+
+@pytest.fixture(scope="module")
+def data():
+    return world_data(COMMON)
 
 
 def test_weather_tables_equal():
@@ -80,6 +86,10 @@ def test_route_bank_equal(data):
 
 
 def test_device_banks_equal(data):
+    device_banks_equal(data)
+
+
+def device_banks_equal(data):
     _, _, jt, jr, tt, tr = data
     for name, a in tt._asdict().items():
         np.testing.assert_array_equal(a.numpy(), np.asarray(getattr(jt, name)), name)
@@ -151,6 +161,13 @@ def _assert_obs(tp, jp, ts, js, tt, jt, tr, jr, atol, where):
 
 
 def test_reset_and_step_match_jax(data, rng):
+    reset_and_step_vs_jax(data, rng)
+
+
+def reset_and_step_vs_jax(data, rng):
+    """Reset, then 10 steps of random forward actions with auto-resets:
+    each step of the port from the JAX state at the one-step bar, the
+    port's free run at 1e-4, the vector observation beside each."""
     jp, tp, jt, jr, tt, tr = data
     keys = jax.random.split(jax.random.PRNGKey(0), B)
     js = jax.jit(jax.vmap(lambda k: jworld.reset_world(k, jp, jt, jr)))(keys)
