@@ -68,7 +68,6 @@ import json
 import math
 import os
 import secrets
-import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
@@ -91,6 +90,7 @@ from carla_driving_rl_agent_torch.utils import math as um
 from carla_driving_rl_agent_torch.utils import traces as trace_io
 from carla_driving_rl_agent_torch.utils.optimizers import (
     OPTIMIZERS, get_optimizer_by_name, set_learning_rate)
+from carla_driving_rl_agent_torch.utils.profiling import span, timed
 from carla_driving_rl_agent_torch.utils.schedules import DynamicParameter
 from carla_driving_rl_agent_torch.utils.summary import Summary
 
@@ -465,34 +465,36 @@ class CARLAgent:
         the agent's generator, shared by its T frames (JAX vmaps the
         pipeline with in_axes=(None, 0, None)), statistics per frame.  With
         aug_intensity 0 nothing is drawn."""
-        keys = ("advantages", "returns", "log_prob", "action", "speed", "similarity",
-                "road", "vehicle", "navigation")
-        mb = {k: data[k][idx] for k in keys}
-        img = rollout_mod.gather_image_stacks(data["traj"], data["step"][idx],
-                                              data["env"][idx], data["timeline"])
-        ry, rx = self.env.config.upsample
-        img = planes_to_image(img, ry, rx).to(torch.float32) / 255.0
-        img = simclr.augment(self.generator, img, self.config.aug_intensity)
-        mb["obs"] = dict(state_image=img, state_road=mb["road"],
-                         state_vehicle=mb["vehicle"], state_navigation=mb["navigation"],
-                         action=mb["action"])
-        return mb
+        with span("minibatch.gather"):
+            keys = ("advantages", "returns", "log_prob", "action", "speed", "similarity",
+                    "road", "vehicle", "navigation")
+            mb = {k: data[k][idx] for k in keys}
+            img = rollout_mod.gather_image_stacks(data["traj"], data["step"][idx],
+                                                  data["env"][idx], data["timeline"])
+            ry, rx = self.env.config.upsample
+            img = planes_to_image(img, ry, rx).to(torch.float32) / 255.0
+            img = simclr.augment(self.generator, img, self.config.aug_intensity)
+            mb["obs"] = dict(state_image=img, state_road=mb["road"],
+                             state_vehicle=mb["vehicle"], state_navigation=mb["navigation"],
+                             action=mb["action"])
+            return mb
 
     def _apply(self, group: str, grads, clip_norm: float, opt=None) -> None:
         """One optimizer step (the group's, or `opt`) of a parameter group
         on its per-tensor clipped gradients, then polyak averaging with the
         pre-step values."""
-        params = self.params[group]
-        opt = opt or self.optimizers[group]
-        old = ([p.detach().clone() for p in params]
-               if self.config.polyak < 1.0 and group != "dynamics" else None)
-        for p, g in zip(params, um.clip_gradients(grads, clip_norm)):
-            p.grad = g
-        opt.step()
-        opt.zero_grad(set_to_none=True)
-        if old is not None:
-            # the reference averages both heads (rl/agents/ppo.py:264-275)
-            um.polyak_average_(params, old, self.config.polyak)
+        with span("step.apply"):
+            params = self.params[group]
+            opt = opt or self.optimizers[group]
+            old = ([p.detach().clone() for p in params]
+                   if self.config.polyak < 1.0 and group != "dynamics" else None)
+            for p, g in zip(params, um.clip_gradients(grads, clip_norm)):
+                p.grad = g
+            opt.step()
+            opt.zero_grad(set_to_none=True)
+            if old is not None:
+                # the reference averages both heads (rl/agents/ppo.py:264-275)
+                um.polyak_average_(params, old, self.config.polyak)
 
     def _dynamics_optimizers(self) -> tuple:
         """(the policy phase's, the value phase's) backbone optimizer: one
@@ -502,7 +504,9 @@ class CARLAgent:
 
     def _grads(self, loss: torch.Tensor, groups, retain_graph: bool = False):
         params = [p for g in groups for p in self.params[g]]
-        grads = torch.autograd.grad(loss, params, allow_unused=True, retain_graph=retain_graph)
+        with span("step.backward"):
+            grads = torch.autograd.grad(loss, params, allow_unused=True,
+                                        retain_graph=retain_graph)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
         out, i = {}, 0
         for g in groups:
@@ -516,46 +520,52 @@ class CARLAgent:
         of the policy objective, each tensor clipped, then one Adam step of
         each."""
         cfg, net = self.config, self.network
-        feat = net.dynamics_apply(batch["obs"], training=True)
-        pol = net.policy_apply(feat, training=True)
-        total, aux = self._policy_objective(pol, batch, hyper)
-        grads = self._grads(total, ("policy", "dynamics"))
-        # old_policy <- policy BEFORE the step (rl/agents/ppo.py:238-252):
-        # the next rollout samples from the policy of one minibatch ago
-        net.update_old_policy()
-        self._apply("policy", grads["policy"], cfg.clip_norm[0])
-        if cfg.update_dynamics:
-            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
-                        self._dynamics_optimizers()[0])
-        aux["loss_total"] = total.detach()
-        return aux
+        with span("minibatch.policy_step"):
+            with span("step.forward"):
+                feat = net.dynamics_apply(batch["obs"], training=True)
+                pol = net.policy_apply(feat, training=True)
+                total, aux = self._policy_objective(pol, batch, hyper)
+            grads = self._grads(total, ("policy", "dynamics"))
+            # old_policy <- policy BEFORE the step (rl/agents/ppo.py:238-252):
+            # the next rollout samples from the policy of one minibatch ago
+            with span("step.old_policy"):
+                net.update_old_policy()
+            self._apply("policy", grads["policy"], cfg.clip_norm[0])
+            if cfg.update_dynamics:
+                self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
+                            self._dynamics_optimizers()[0])
+            aux["loss_total"] = total.detach()
+            return aux
 
     def value_step(self, batch: dict) -> dict:
         """One value-phase step (JAX carla_agent.py:755-785): the backbone's
         second clipped Adam step of the minibatch pair, through the same
         dynamics Adam state as the policy phase."""
         cfg, net = self.config, self.network
-        feat = net.dynamics_apply(batch["obs"], training=True)
-        val = net.value_apply(feat, training=True)
-        total, aux = self._value_objective(val, batch)
-        grads = self._grads(total, ("value", "dynamics"))
-        self._apply("value", grads["value"], cfg.clip_norm[1])
-        if cfg.update_dynamics:
-            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
-                        self._dynamics_optimizers()[1])
-        # the JAX learner reports the phase's total as loss_value
-        return dict(loss_value=total.detach())
+        with span("minibatch.value_step"):
+            with span("step.forward"):
+                feat = net.dynamics_apply(batch["obs"], training=True)
+                val = net.value_apply(feat, training=True)
+                total, aux = self._value_objective(val, batch)
+            grads = self._grads(total, ("value", "dynamics"))
+            self._apply("value", grads["value"], cfg.clip_norm[1])
+            if cfg.update_dynamics:
+                self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2],
+                            self._dynamics_optimizers()[1])
+            # the JAX learner reports the phase's total as loss_value
+            return dict(loss_value=total.detach())
 
     def _joint_forward(self, batch: dict, hyper: dict):
         """One training-mode pass of the backbone on a minibatch, both heads
         on its feature: (policy objective, value objective, the policy's
         metrics).  The BatchNorms fold the batch statistics once."""
         net = self.network
-        feat = net.dynamics_apply(batch["obs"], training=True)
-        p_total, aux = self._policy_objective(net.policy_apply(feat, training=True), batch,
-                                              hyper)
-        v_total, _ = self._value_objective(net.value_apply(feat, training=True), batch)
-        return p_total, v_total, aux
+        with span("step.forward"):
+            feat = net.dynamics_apply(batch["obs"], training=True)
+            p_total, aux = self._policy_objective(net.policy_apply(feat, training=True),
+                                                  batch, hyper)
+            v_total, _ = self._value_objective(net.value_apply(feat, training=True), batch)
+            return p_total, v_total, aux
 
     def fused_step(self, batch: dict, hyper: dict) -> dict:
         """One fused_update step (JAX carla_agent.py:510-569): the gradients
@@ -563,15 +573,17 @@ class CARLAgent:
         once, one step of each; old_policy becomes the policy from before
         the step.  Reports the value objective's total as loss_value."""
         cfg = self.config
-        p_total, v_total, aux = self._joint_forward(batch, hyper)
-        grads = self._grads(p_total + v_total, ("policy", "value", "dynamics"))
-        self.network.update_old_policy()
-        self._apply("policy", grads["policy"], cfg.clip_norm[0])
-        self._apply("value", grads["value"], cfg.clip_norm[1])
-        if cfg.update_dynamics:
-            self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
-        aux.update(loss_value=v_total.detach(), loss_total=(p_total + v_total).detach())
-        return aux
+        with span("minibatch.fused_step"):
+            p_total, v_total, aux = self._joint_forward(batch, hyper)
+            grads = self._grads(p_total + v_total, ("policy", "value", "dynamics"))
+            with span("step.old_policy"):
+                self.network.update_old_policy()
+            self._apply("policy", grads["policy"], cfg.clip_norm[0])
+            self._apply("value", grads["value"], cfg.clip_norm[1])
+            if cfg.update_dynamics:
+                self._apply("dynamics", grads["dynamics"], cfg.clip_norm[2])
+            aux.update(loss_value=v_total.detach(), loss_total=(p_total + v_total).detach())
+            return aux
 
     def two_step(self, batch: dict, hyper: dict) -> dict:
         """One two_step_update or two_step_split_adam step (JAX
@@ -581,66 +593,70 @@ class CARLAgent:
         policy objective's gradient first, through one optimizer or (split)
         one per phase."""
         cfg = self.config
-        p_total, v_total, aux = self._joint_forward(batch, hyper)
-        gp = self._grads(p_total, ("policy", "dynamics"), retain_graph=True)
-        gv = self._grads(v_total, ("value", "dynamics"))
-        self.network.update_old_policy()
-        self._apply("policy", gp["policy"], cfg.clip_norm[0])
-        self._apply("value", gv["value"], cfg.clip_norm[1])
-        if cfg.update_dynamics:
-            opt_p, opt_v = self._dynamics_optimizers()
-            self._apply("dynamics", gp["dynamics"], cfg.clip_norm[2], opt_p)
-            self._apply("dynamics", gv["dynamics"], cfg.clip_norm[2], opt_v)
-        aux.update(loss_value=v_total.detach(), loss_total=(p_total + v_total).detach())
-        return aux
+        with span("minibatch.fused_step"):
+            p_total, v_total, aux = self._joint_forward(batch, hyper)
+            gp = self._grads(p_total, ("policy", "dynamics"), retain_graph=True)
+            gv = self._grads(v_total, ("value", "dynamics"))
+            with span("step.old_policy"):
+                self.network.update_old_policy()
+            self._apply("policy", gp["policy"], cfg.clip_norm[0])
+            self._apply("value", gv["value"], cfg.clip_norm[1])
+            if cfg.update_dynamics:
+                opt_p, opt_v = self._dynamics_optimizers()
+                self._apply("dynamics", gp["dynamics"], cfg.clip_norm[2], opt_p)
+                self._apply("dynamics", gv["dynamics"], cfg.clip_norm[2], opt_v)
+            aux.update(loss_value=v_total.detach(), loss_total=(p_total + v_total).detach())
+            return aux
 
     def train_iteration(self, env_states: EnvState, hyper: dict, host: bool = True):
         """Rollout + targets + the minibatch steps (the policy phase and the
         value phase, or the fused or two-step scheme).  Returns
         (env_states', metrics), the metrics as floats, or with host=False as
-        one tensor on the device and their names; self.last_timings holds
-        the parts' seconds."""
+        one tensor on the device and their names; self.last_timings holds the
+        seconds of the phases' spans (`update.rollout`, `update.targets`,
+        `update.policy` and `update.value`, or `update.fused`), each ended by
+        a synchronise."""
         cfg = self.config
-        t0 = time.perf_counter()
-        env_states, traj, final_obs = self._rollout(env_states)
-        last_action = env_states.last_action
-        if self.mesh is not None:
-            # every rank's worlds, for the same update on every rank
-            traj = self.mesh.gather_rows(traj, cfg.num_envs, dim=1)
-            final_obs, last_action = self.mesh.gather_rows((final_obs, last_action),
-                                                           cfg.num_envs)
-        self._sync()
-        t1 = time.perf_counter()
-        data = self.targets(traj, final_obs, last_action, hyper["adv_scale"])
+        with timed("update.rollout") as t_rollout:
+            env_states, traj, final_obs = self._rollout(env_states)
+            last_action = env_states.last_action
+            if self.mesh is not None:
+                # every rank's worlds, for the same update on every rank
+                traj = self.mesh.gather_rows(traj, cfg.num_envs, dim=1)
+                final_obs, last_action = self.mesh.gather_rows((final_obs, last_action),
+                                                               cfg.num_envs)
+            self._sync()
+        with timed("update.targets") as t_targets:
+            data = self.targets(traj, final_obs, last_action, hyper["adv_scale"])
+            self._sync()
         n = cfg.rollout_steps * cfg.num_envs
         n_mb = max(1, n // cfg.batch_size)
-        self._sync()
-        t2 = time.perf_counter()
 
         def minibatches(epochs):
             perm = torch.randperm(n, generator=self.generator, device=self.env.device)
             return (self.gather_batch(data, perm[m * cfg.batch_size:(m + 1) * cfg.batch_size])
                     for _ in range(epochs) for m in range(n_mb))
 
+        timings = dict(rollout=t_rollout.seconds, targets=t_targets.seconds)
         if cfg.fused_update or cfg.two_step_update or cfg.two_step_split_adam:
             # one permutation, optimization_steps[0] epochs over it (JAX
             # :571-572, :684-685)
             step = self.fused_step if cfg.fused_update else self.two_step
-            p_metrics = v_metrics = [step(b, hyper)
-                                     for b in minibatches(cfg.optimization_steps[0])]
-            self._sync()
-            self.last_timings = dict(rollout=t1 - t0, targets=t2 - t1,
-                                     update=time.perf_counter() - t2)
+            with timed("update.fused") as t_update:
+                p_metrics = v_metrics = [step(b, hyper)
+                                         for b in minibatches(cfg.optimization_steps[0])]
+                self._sync()
+            timings["update"] = t_update.seconds
         else:
-            p_metrics = [self.policy_step(b, hyper)
-                         for b in minibatches(cfg.optimization_steps[0])]
-            self._sync()
-            t3 = time.perf_counter()
-            v_metrics = [self.value_step(b) for b in minibatches(cfg.optimization_steps[1])]
-            self._sync()
-            t4 = time.perf_counter()
-            self.last_timings = dict(rollout=t1 - t0, targets=t2 - t1, policy=t3 - t2,
-                                     value=t4 - t3)
+            with timed("update.policy") as t_policy:
+                p_metrics = [self.policy_step(b, hyper)
+                             for b in minibatches(cfg.optimization_steps[0])]
+                self._sync()
+            with timed("update.value") as t_value:
+                v_metrics = [self.value_step(b) for b in minibatches(cfg.optimization_steps[1])]
+                self._sync()
+            timings.update(policy=t_policy.seconds, value=t_value.seconds)
+        self.last_timings = timings
 
         st = data["stats"]
 
@@ -702,8 +718,9 @@ class CARLAgent:
                 for p in (self.policy_lr, self.value_lr, self.dynamics_lr,
                           self.clip_ratio, self.entropy_strength, self.adv_scale):
                     p.on_episode()
-                env_states, (names, values) = self.train_iteration(env_states, hyper,
-                                                                   host=False)
+                with span("update"):
+                    env_states, (names, values) = self.train_iteration(env_states, hyper,
+                                                                       host=False)
                 extra = dict(self.last_timings)
                 if self.mesh is not None:
                     # the replicas' largest difference from rank 0 after the
@@ -977,23 +994,28 @@ class CARLAgent:
             T = env.config.time_horizon
             slot = T - 1                # every world's newest frame after the reset
             for _ in range(timesteps // block):
-                net_in = {f"state_{k}": v for k, v in env.observe(states).items()}
-                action01 = net.predict(net_in, gen, num_samples=block, **kw)["action"]
-                states, reward, term, trunc, info, did_reset = env.step_physics_block(
-                    states, convert_action(action01))
-                states = states._replace(last_action=action01[-1])
-                for i in range(block):
-                    acc, typed = accumulate(acc, typed, reward[i], term[i], trunc[i],
-                                            {k: v[i] for k, v in info.items()})
-                states = env.push_block_frame_batch(states, did_reset.any(dim=0), slot=slot)
-                slot = (slot + 1) % T
+                with span("eval.block"):
+                    net_in = {f"state_{k}": v for k, v in env.observe(states).items()}
+                    with span("predict"):
+                        action01 = net.predict(net_in, gen, num_samples=block, **kw)["action"]
+                    states, reward, term, trunc, info, did_reset = env.step_physics_block(
+                        states, convert_action(action01))
+                    states = states._replace(last_action=action01[-1])
+                    for i in range(block):
+                        acc, typed = accumulate(acc, typed, reward[i], term[i], trunc[i],
+                                                {k: v[i] for k, v in info.items()})
+                    states = env.push_block_frame_batch(states, did_reset.any(dim=0),
+                                                        slot=slot)
+                    slot = (slot + 1) % T
         else:
             for _ in range(timesteps):
-                net_in = {f"state_{k}": v for k, v in obs.items()}
-                pred = net.predict(net_in, gen, **kw)
-                states, obs, reward, term, trunc, info = env.step(
-                    states, convert_action(pred["action"]))
-                acc, typed = accumulate(acc, typed, reward, term, trunc, info)
+                with span("eval.step"):
+                    net_in = {f"state_{k}": v for k, v in obs.items()}
+                    with span("predict"):
+                        pred = net.predict(net_in, gen, **kw)
+                    states, obs, reward, term, trunc, info = env.step(
+                        states, convert_action(pred["action"]))
+                    acc, typed = accumulate(acc, typed, reward, term, trunc, info)
         if typed:
             acc.update(typed, **counts)
         return acc

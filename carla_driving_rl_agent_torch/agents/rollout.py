@@ -20,6 +20,7 @@ import torch
 from carla_driving_rl_agent_torch.envs.carla_env import (
     CARLAEnv, EnvState, convert_action, newest_frame, ordered_image_stack)
 from carla_driving_rl_agent_torch.envs.world import where_state
+from carla_driving_rl_agent_torch.utils.profiling import span
 
 
 class Trajectory(NamedTuple):
@@ -97,12 +98,13 @@ def run_rollout(env: CARLAEnv, predict_fn: Callable, env_states: EnvState,
     records, frames = [], []
     for step in range(num_steps):
         obs, net_in = _net_input(env, states)
-        if expert_fn is None:
-            pred = predict_fn(net_in)
-            action01 = pred["action"]
-        else:
-            action01 = (expert_fn(states) + 1.0) / 2.0
-            pred = predict_fn(net_in, action01)
+        with span("rollout.predict"):
+            if expert_fn is None:
+                pred = predict_fn(net_in)
+                action01 = pred["action"]
+            else:
+                action01 = (expert_fn(states) + 1.0) / 2.0
+                pred = predict_fn(net_in, action01)
         action_env = convert_action(action01)
         new_states, _, reward, term, trunc, info = env.step(states, action_env, frame_id=step)
         for _ in range(repeat_action - 1):
@@ -158,7 +160,8 @@ def run_rollout_blocks(env: CARLAEnv, predict_fn: Callable, env_states: EnvState
     for b in range(num_steps // block):
         obs_ids = states.stack_ids
         obs, net_in = _net_input(env, states)
-        pred = predict_fn(net_in, block)
+        with span("rollout.predict"):
+            pred = predict_fn(net_in, block)
         action01 = pred["action"]                                  # (block, B, A)
         states, reward, term, trunc, info, did_reset = env.step_physics_block(
             states, convert_action(action01))

@@ -20,6 +20,7 @@ from typing import NamedTuple
 import torch
 
 from carla_driving_rl_agent_torch.augment import augmentations as A
+from carla_driving_rl_agent_torch.utils.profiling import span
 
 # the pipeline's gates in the order of PipelineDraws.gate (JAX simclr.py
 # keys 0, 2, 4, 5, 7, 9 and 11)
@@ -136,5 +137,6 @@ def augment(generator: torch.Generator, image: torch.Tensor, alpha: float) -> to
     if alpha <= 0.0:
         return image
     h, w, c = image.shape[-3:]
-    return carla_augment_pipeline(image, pipeline_draws(generator, image.shape[0], h, w, c),
-                                  alpha)
+    with span("augment"):
+        return carla_augment_pipeline(image, pipeline_draws(generator, image.shape[0], h, w, c),
+                                      alpha)

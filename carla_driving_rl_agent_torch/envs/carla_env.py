@@ -45,6 +45,7 @@ from carla_driving_rl_agent_torch.envs.world import ResetDraws, WorldParams, Wor
 from carla_driving_rl_agent_torch.ops import physics as physics_ops
 from carla_driving_rl_agent_torch.ops import rasterizer
 from carla_driving_rl_agent_torch.ops import render as render_ops
+from carla_driving_rl_agent_torch.utils.profiling import span
 
 RENDER_MODES = ("pallas", "rasterizer", "zeros")
 
@@ -246,25 +247,26 @@ class CARLAEnv:
 
     def render_frame(self, world: WorldState) -> torch.Tensor:
         """(B,) + storage_shape uint8 planar frames of every world."""
-        cfg = self.config
-        if cfg.render_mode == "zeros":
-            return torch.zeros((world.x.shape[0],) + cfg.storage_shape, dtype=torch.uint8,
-                               device=self.device)
-        if cfg.render_mode == "pallas":
-            geom = render_ops.pack_geometry_banked(
-                self.town, world, self.weather_params[world.weather_id],
-                n_actors=self.n_actors)
-            return render_ops.render_planes(geom, with_depth=cfg.stack_depth,
-                                            n_actors=self.n_actors)
-        inputs = self.render_inputs(world)
-        if cfg.cameras == 1:
-            img = rasterizer.render_one_camera(
-                inputs, cfg.image_height, cfg.image_width, cfg.render_quality,
-                stack_depth=cfg.stack_depth, depth_modulate=cfg.depth_modulate)
-        else:
-            img = rasterizer.render_cameras(inputs, cfg.image_height, cfg.image_width,
-                                            cfg.render_quality, return_depth=cfg.stack_depth)
-        return img.permute(0, 3, 1, 2).contiguous()          # full-resolution planes
+        with span("render"):
+            cfg = self.config
+            if cfg.render_mode == "zeros":
+                return torch.zeros((world.x.shape[0],) + cfg.storage_shape, dtype=torch.uint8,
+                                   device=self.device)
+            if cfg.render_mode == "pallas":
+                geom = render_ops.pack_geometry_banked(
+                    self.town, world, self.weather_params[world.weather_id],
+                    n_actors=self.n_actors)
+                return render_ops.render_planes(geom, with_depth=cfg.stack_depth,
+                                                n_actors=self.n_actors)
+            inputs = self.render_inputs(world)
+            if cfg.cameras == 1:
+                img = rasterizer.render_one_camera(
+                    inputs, cfg.image_height, cfg.image_width, cfg.render_quality,
+                    stack_depth=cfg.stack_depth, depth_modulate=cfg.depth_modulate)
+            else:
+                img = rasterizer.render_cameras(inputs, cfg.image_height, cfg.image_width,
+                                                cfg.render_quality, return_depth=cfg.stack_depth)
+            return img.permute(0, 3, 1, 2).contiguous()          # full-resolution planes
 
     def render_inputs(self, world: WorldState) -> rasterizer.RenderInputs:
         """The analytic renderer's inputs of every world: its town's
@@ -338,24 +340,25 @@ class CARLAEnv:
     def observe(self, state: EnvState) -> dict:
         """Stacked observation dict, image scaled to [0, 1]
         (reference core/carla_env.py:301-321)."""
-        ry, rx = self.config.upsample
-        ordered = ordered_image_stack(state.image_stack, state.stack_ids,
-                                      state.stack_slot)
-        img = planes_to_image(ordered, ry, rx)             # (B, T, H, 3W, C)
-        obs = dict(image=img.to(torch.float32) / 255.0,
-                   road=state.road_stack, vehicle=state.vehicle_stack,
-                   navigation=state.nav_stack)
-        if self.config.cameras == 1:
-            # the OneCamera env's current-frame keys: the control (throttle,
-            # brake, steer, reverse; reference environment.py:1103-1104) and
-            # the route's RoadOption one-hot (:1092-1093)
-            w = state.world
-            obs["past_control"] = torch.stack(
-                [w.throttle, w.brake, w.steer, torch.zeros_like(w.steer)], dim=-1)
-            opt = self.routes.option[w.town_id, w.route_id, w.wp_idx]
-            obs["command"] = (opt[:, None] == torch.arange(7, device=self.device)).to(
-                torch.float32)
-        return obs
+        with span("env.observe"):
+            ry, rx = self.config.upsample
+            ordered = ordered_image_stack(state.image_stack, state.stack_ids,
+                                          state.stack_slot)
+            img = planes_to_image(ordered, ry, rx)             # (B, T, H, 3W, C)
+            obs = dict(image=img.to(torch.float32) / 255.0,
+                       road=state.road_stack, vehicle=state.vehicle_stack,
+                       navigation=state.nav_stack)
+            if self.config.cameras == 1:
+                # the OneCamera env's current-frame keys: the control (throttle,
+                # brake, steer, reverse; reference environment.py:1103-1104) and
+                # the route's RoadOption one-hot (:1092-1093)
+                w = state.world
+                obs["past_control"] = torch.stack(
+                    [w.throttle, w.brake, w.steer, torch.zeros_like(w.steer)], dim=-1)
+                opt = self.routes.option[w.town_id, w.route_id, w.wp_idx]
+                obs["command"] = (opt[:, None] == torch.arange(7, device=self.device)).to(
+                    torch.float32)
+            return obs
 
     def step(self, state: EnvState, action: torch.Tensor, frame_id=-1,
              draws: Optional[ResetDraws] = None,
@@ -367,43 +370,49 @@ class CARLAEnv:
         pushed every past_obs_freq steps (reference
         core/carla_env.py:290-299).  `action` is the env action in [-1, 1]^2.
         Returns (state', obs, reward, terminated, truncated, info)."""
-        cfg = self.config
-        B = action.shape[0]
-        if npc_draws is None:
-            npc_draws = self.npc_step_draws(state.world)
-        world, reward, term, trunc, info = world_mod.step_world(
-            state.world, action, self.params, self.town, self.routes, npc_draws)
-        done = term | trunc
-        if draws is None:
-            draws = self.reset_draws(B)
-        fresh_world = world_mod.reset_world(draws, self.routes, episode=world.episode + 1,
-                                            town=self.town, params=self.params)
-        merged = world_mod.where_state(done, fresh_world, world)
-        frame = self.frame_obs(merged)
+        with span("env.step"):
+            cfg = self.config
+            B = action.shape[0]
+            with span("env.draws"):
+                if npc_draws is None:
+                    npc_draws = self.npc_step_draws(state.world)
+            with span("world.step"):
+                world, reward, term, trunc, info = world_mod.step_world(
+                    state.world, action, self.params, self.town, self.routes, npc_draws)
+            done = term | trunc
+            with span("env.draws"):
+                if draws is None:
+                    draws = self.reset_draws(B)
+            with span("world.reset"):
+                fresh_world = world_mod.reset_world(draws, self.routes,
+                                                    episode=world.episode + 1,
+                                                    town=self.town, params=self.params)
+            merged = world_mod.where_state(done, fresh_world, world)
+            frame = self.frame_obs(merged)
 
-        push = (state.world.timestep % cfg.past_obs_freq) == 0      # (B,)
+            push = (state.world.timestep % cfg.past_obs_freq) == 0      # (B,)
 
-        def push_stack(stack, item):
-            rolled = torch.cat([stack[:, 1:], item[:, None]], dim=1)
-            p = push.reshape((B,) + (1,) * (stack.dim() - 1))
-            return torch.where(p, rolled, stack)
+            def push_stack(stack, item):
+                rolled = torch.cat([stack[:, 1:], item[:, None]], dim=1)
+                p = push.reshape((B,) + (1,) * (stack.dim() - 1))
+                return torch.where(p, rolled, stack)
 
-        img_ordered = ordered_image_stack(state.image_stack, state.stack_ids,
-                                          state.stack_slot)
-        fid = torch.full((B,), frame_id, dtype=torch.int64, device=self.device)
-        stepped = EnvState(
-            world=merged,
-            image_stack=push_stack(img_ordered, frame["image"]),
-            road_stack=push_stack(state.road_stack, frame["road"]),
-            vehicle_stack=push_stack(state.vehicle_stack, frame["vehicle"]),
-            nav_stack=push_stack(state.nav_stack, frame["navigation"]),
-            stack_ids=push_stack(state.stack_ids, fid),
-            stack_slot=torch.full((B,), cfg.time_horizon - 1, dtype=torch.int64,
-                                  device=self.device),
-            last_action=state.last_action)
-        fresh_state = self._fresh_state(merged, frame, frame_id)
-        new_state = world_mod.where_state(done, fresh_state, stepped)
-        return new_state, self.observe(new_state), reward, term, trunc, info
+            img_ordered = ordered_image_stack(state.image_stack, state.stack_ids,
+                                              state.stack_slot)
+            fid = torch.full((B,), frame_id, dtype=torch.int64, device=self.device)
+            stepped = EnvState(
+                world=merged,
+                image_stack=push_stack(img_ordered, frame["image"]),
+                road_stack=push_stack(state.road_stack, frame["road"]),
+                vehicle_stack=push_stack(state.vehicle_stack, frame["vehicle"]),
+                nav_stack=push_stack(state.nav_stack, frame["navigation"]),
+                stack_ids=push_stack(state.stack_ids, fid),
+                stack_slot=torch.full((B,), cfg.time_horizon - 1, dtype=torch.int64,
+                                      device=self.device),
+                last_action=state.last_action)
+            fresh_state = self._fresh_state(merged, frame, frame_id)
+            new_state = world_mod.where_state(done, fresh_state, stepped)
+            return new_state, self.observe(new_state), reward, term, trunc, info
 
     # ---- block path (training rollouts) ----
     # The policy's input, the past-observation stack, changes only every
@@ -467,22 +476,24 @@ class CARLAEnv:
         nothing is drawn for them.  Returns (state' after the last tick, reward,
         terminated, truncated, info {speed, similarity}, was_reset), each
         row (K, B)."""
-        k, n = actions.shape[0], actions.shape[1]
-        if npc_draws is None and self.params.has_npcs:
-            npc_draws = self._rows(n, lambda m: traffic.block_npc_step_uniforms(
-                self.generator, k, m, self.params.v_max, self.params.p_max, self.device), dim=1)
-        if draws is None:
-            draws = self._rows(n, lambda m: world_mod.block_reset_draws(
-                self.generator, k, m, self.params, self.routes, self.weather_table, self.town),
-                dim=1)
-        if self.config.fused_step:
-            out = physics_ops.step_physics_block(states.world, actions, self.params, self.town,
-                                                 self.routes, draws, self.physics_consts())
-        else:
-            out = physics_ops.step_physics_block_plain(states.world, actions, self.params,
-                                                       self.town, self.routes, draws,
-                                                       npc_draws)
-        return (states._replace(world=out[0]),) + out[1:]
+        with span("env.physics_block"):
+            k, n = actions.shape[0], actions.shape[1]
+            if npc_draws is None and self.params.has_npcs:
+                npc_draws = self._rows(n, lambda m: traffic.block_npc_step_uniforms(
+                    self.generator, k, m, self.params.v_max, self.params.p_max, self.device),
+                    dim=1)
+            if draws is None:
+                draws = self._rows(n, lambda m: world_mod.block_reset_draws(
+                    self.generator, k, m, self.params, self.routes, self.weather_table,
+                    self.town), dim=1)
+            if self.config.fused_step:
+                out = physics_ops.step_physics_block(states.world, actions, self.params, self.town,
+                                                     self.routes, draws, self.physics_consts())
+            else:
+                out = physics_ops.step_physics_block_plain(states.world, actions, self.params,
+                                                           self.town, self.routes, draws,
+                                                           npc_draws)
+            return (states._replace(world=out[0]),) + out[1:]
 
     def _push_block_vectors(self, state: EnvState, was_reset: torch.Tensor,
                             frame_ids: torch.Tensor, road, vehicle, navigation):
@@ -523,23 +534,24 @@ class CARLAEnv:
         owns its buffer: run_rollout_blocks starts from a fresh ordered
         copy); reset worlds keep stale bytes behind sentinel ids, which
         every reader masks."""
-        B = was_reset.shape[0]
-        T = self.config.time_horizon
-        if isinstance(frame_ids, int):
-            frame_ids = torch.full((B,), frame_ids, dtype=torch.int64, device=self.device)
-        frame = self.frame_obs(states.world)
-        states = self._push_block_vectors(states, was_reset, frame_ids,
-                                          frame["road"], frame["vehicle"],
-                                          frame["navigation"])
-        stack = states.image_stack
-        if slot is not None:
-            k = (slot + 1) % T
-            stack[:, k] = frame["image"]
-            slot_new = torch.full((B,), k, dtype=torch.int64, device=self.device)
-        else:
-            slot_new = (states.stack_slot + 1) % T
-            stack[torch.arange(B, device=self.device), slot_new] = frame["image"]
-        return states._replace(image_stack=stack, stack_slot=slot_new)
+        with span("env.push_block"):
+            B = was_reset.shape[0]
+            T = self.config.time_horizon
+            if isinstance(frame_ids, int):
+                frame_ids = torch.full((B,), frame_ids, dtype=torch.int64, device=self.device)
+            frame = self.frame_obs(states.world)
+            states = self._push_block_vectors(states, was_reset, frame_ids,
+                                              frame["road"], frame["vehicle"],
+                                              frame["navigation"])
+            stack = states.image_stack
+            if slot is not None:
+                k = (slot + 1) % T
+                stack[:, k] = frame["image"]
+                slot_new = torch.full((B,), k, dtype=torch.int64, device=self.device)
+            else:
+                slot_new = (states.stack_slot + 1) % T
+                stack[torch.arange(B, device=self.device), slot_new] = frame["image"]
+            return states._replace(image_stack=stack, stack_slot=slot_new)
 
 
 def convert_action(action01: torch.Tensor, low: float = -1.0,

@@ -27,6 +27,7 @@ from typing import NamedTuple
 import torch
 
 from carla_driving_rl_agent_torch.envs.dynamics import DT, MS_TO_KMH, true_div
+from carla_driving_rl_agent_torch.utils.profiling import span
 
 LIGHT_CYCLE = 24.0
 GREEN_TIME = 10.0
@@ -258,34 +259,35 @@ def init_npcs(draws: NPCResetDraws, town, town_id: torch.Tensor, ego_xy: torch.T
     take goals across the road, a `running` fraction runs at 2.5-3.5 m/s
     instead of walking at 0.8-1.8 m/s (the run speed reuses the draw that
     decides running, as the JAX package does)."""
-    s_idx = draws.spawn
-    v_max = s_idx.shape[1]
-    sxy = _rows(town.spawn_xy, town_id, s_idx)
-    far = _norm(sxy - ego_xy[:, None]) > MIN_EGO_DISTANCE
-    slot = torch.arange(v_max, device=s_idx.device)
-    same = ((s_idx[:, :, None] == s_idx[:, None, :])
-            & (slot[:, None] > slot[None, :])[None])
-    slot_on = (slot < num_vehicles)[None] & far & ~torch.any(same, dim=2)
+    with span("npc.spawn"):
+        s_idx = draws.spawn
+        v_max = s_idx.shape[1]
+        sxy = _rows(town.spawn_xy, town_id, s_idx)
+        far = _norm(sxy - ego_xy[:, None]) > MIN_EGO_DISTANCE
+        slot = torch.arange(v_max, device=s_idx.device)
+        same = ((s_idx[:, :, None] == s_idx[:, None, :])
+                & (slot[:, None] > slot[None, :])[None])
+        slot_on = (slot < num_vehicles)[None] & far & ~torch.any(same, dim=2)
 
-    wxy = _rows(town.wp_xy, town_id, draws.ped_wp)
-    normal = _unit(_rows(town.wp_yaw, town_id, draws.ped_wp))
-    normal = torch.stack([-normal[..., 1], normal[..., 0]], dim=-1)
-    offset = 4.5 + draws.ped_offset * 1.5
-    pxy = wxy + draws.ped_side[..., None] * offset[..., None] * normal
-    p_max = pxy.shape[1]
-    ped_on = (torch.arange(p_max, device=pxy.device) < num_pedestrians)[None]
-    can_cross = (draws.cross < crossing).to(torch.float32)
-    walk = PED_SPEED_MIN + draws.walk * (PED_SPEED_MAX - PED_SPEED_MIN)
-    run = PED_RUN_MIN + draws.run * (PED_RUN_MAX - PED_RUN_MIN)
-    zeros_v = torch.zeros(s_idx.shape, dtype=torch.float32, device=s_idx.device)
-    return NPCState(
-        veh_xy=sxy, veh_yaw=_rows(town.spawn_yaw, town_id, s_idx), veh_v=zeros_v,
-        veh_wp=_rows(town.spawn_wp, town_id, s_idx),
-        veh_active=slot_on.to(torch.float32),
-        ped_xy=pxy, ped_goal=sample_ped_goals(draws.goal, town, town_id, pxy, can_cross),
-        ped_speed=torch.where(draws.run < running, run, walk),
-        ped_active=ped_on.expand(pxy.shape[:2]).to(torch.float32),
-        ped_cross=can_cross)
+        wxy = _rows(town.wp_xy, town_id, draws.ped_wp)
+        normal = _unit(_rows(town.wp_yaw, town_id, draws.ped_wp))
+        normal = torch.stack([-normal[..., 1], normal[..., 0]], dim=-1)
+        offset = 4.5 + draws.ped_offset * 1.5
+        pxy = wxy + draws.ped_side[..., None] * offset[..., None] * normal
+        p_max = pxy.shape[1]
+        ped_on = (torch.arange(p_max, device=pxy.device) < num_pedestrians)[None]
+        can_cross = (draws.cross < crossing).to(torch.float32)
+        walk = PED_SPEED_MIN + draws.walk * (PED_SPEED_MAX - PED_SPEED_MIN)
+        run = PED_RUN_MIN + draws.run * (PED_RUN_MAX - PED_RUN_MIN)
+        zeros_v = torch.zeros(s_idx.shape, dtype=torch.float32, device=s_idx.device)
+        return NPCState(
+            veh_xy=sxy, veh_yaw=_rows(town.spawn_yaw, town_id, s_idx), veh_v=zeros_v,
+            veh_wp=_rows(town.spawn_wp, town_id, s_idx),
+            veh_active=slot_on.to(torch.float32),
+            ped_xy=pxy, ped_goal=sample_ped_goals(draws.goal, town, town_id, pxy, can_cross),
+            ped_speed=torch.where(draws.run < running, run, walk),
+            ped_active=ped_on.expand(pxy.shape[:2]).to(torch.float32),
+            ped_cross=can_cross)
 
 
 def _nearest_in_cone(d_all: torch.Tensor, proj: torch.Tensor, active: torch.Tensor,
@@ -308,91 +310,92 @@ def step_npcs(draws: NPCStepDraws, npc: NPCState, town, town_id: torch.Tensor,
               speed_factor: float = 0.8) -> NPCState:
     """Advance the NPCs of B worlds one tick; the ego's pose (B, 2) and
     speed (B,) are those after its own step."""
-    n_veh = npc.veh_xy.shape[1]
-    # ---- vehicles: advance the target waypoint when close, taking the
-    # drawn successor branch at a lane end
-    target = _rows(town.wp_xy, town_id, npc.veh_wp)
-    dist_t = _norm(target - npc.veh_xy)
-    n_next = _rows(town.wp_num_next, town_id, npc.veh_wp)
-    branch = torch.minimum(draws.branch, torch.clamp(n_next - 1, min=0))
-    nxt = _rows(town.wp_next, town_id, npc.veh_wp, branch)
-    nxt = torch.where(nxt < 0, _rows(town.wp_next, town_id, npc.veh_wp,
-                                     torch.zeros_like(branch)), nxt)
-    nxt = torch.where(nxt < 0, npc.veh_wp, nxt)
-    new_wp = torch.where(dist_t < 2.5, nxt, npc.veh_wp)
+    with span("npc.tick"):
+        n_veh = npc.veh_xy.shape[1]
+        # ---- vehicles: advance the target waypoint when close, taking the
+        # drawn successor branch at a lane end
+        target = _rows(town.wp_xy, town_id, npc.veh_wp)
+        dist_t = _norm(target - npc.veh_xy)
+        n_next = _rows(town.wp_num_next, town_id, npc.veh_wp)
+        branch = torch.minimum(draws.branch, torch.clamp(n_next - 1, min=0))
+        nxt = _rows(town.wp_next, town_id, npc.veh_wp, branch)
+        nxt = torch.where(nxt < 0, _rows(town.wp_next, town_id, npc.veh_wp,
+                                         torch.zeros_like(branch)), nxt)
+        nxt = torch.where(nxt < 0, npc.veh_wp, nxt)
+        new_wp = torch.where(dist_t < 2.5, nxt, npc.veh_wp)
 
-    # the nearest actor (vehicles, the ego, walkers) in the forward and the
-    # backward cone, with its speed
-    fwd = _unit(npc.veh_yaw)
-    all_xy = torch.cat([npc.veh_xy, ego_xy[:, None], npc.ped_xy], dim=1)
-    ones = torch.ones_like(ego_v)[:, None]
-    all_active = torch.cat([npc.veh_active, ones, npc.ped_active], dim=1)
-    all_v = torch.cat([npc.veh_v, ego_v[:, None], torch.zeros_like(npc.ped_active)], dim=1)
-    rel = all_xy[:, None] - npc.veh_xy[:, :, None]              # (B, V, A, 2)
-    d_all = _norm(rel)
-    proj = _dot(rel, fwd[:, :, None])
-    d_hazard, lead_v = _nearest_in_cone(d_all, proj, all_active, all_v)
-    d_back, back_v = _nearest_in_cone(d_all, -proj, all_active, all_v)
+        # the nearest actor (vehicles, the ego, walkers) in the forward and the
+        # backward cone, with its speed
+        fwd = _unit(npc.veh_yaw)
+        all_xy = torch.cat([npc.veh_xy, ego_xy[:, None], npc.ped_xy], dim=1)
+        ones = torch.ones_like(ego_v)[:, None]
+        all_active = torch.cat([npc.veh_active, ones, npc.ped_active], dim=1)
+        all_v = torch.cat([npc.veh_v, ego_v[:, None], torch.zeros_like(npc.ped_active)], dim=1)
+        rel = all_xy[:, None] - npc.veh_xy[:, :, None]              # (B, V, A, 2)
+        d_all = _norm(rel)
+        proj = _dot(rel, fwd[:, :, None])
+        d_hazard, lead_v = _nearest_in_cone(d_all, proj, all_active, all_v)
+        d_back, back_v = _nearest_in_cone(d_all, -proj, all_active, all_v)
 
-    # lane changes (TrafficManager-style; reference behavior_agent.py:189-256):
-    # a blocked vehicle hops to the left lane if it is clear, else to the
-    # right; a vehicle with a faster one close behind yields to the right
-    limit_kmh = _rows(town.wp_speed_limit, town_id, new_wp) * speed_factor
-    blocked = (d_hazard < 18.0) & (lead_v < 0.5 * npc.veh_v + 1.0)
-    tailgated = (d_back < 12.0) & (back_v > npc.veh_v + 1.0)
-    a_idx = torch.arange(all_xy.shape[1], device=all_xy.device)
-    others = ((all_active[:, None, :] > 0)
-              & (a_idx[None, :] != torch.arange(n_veh, device=all_xy.device)[:, None])[None])
+        # lane changes (TrafficManager-style; reference behavior_agent.py:189-256):
+        # a blocked vehicle hops to the left lane if it is clear, else to the
+        # right; a vehicle with a faster one close behind yields to the right
+        limit_kmh = _rows(town.wp_speed_limit, town_id, new_wp) * speed_factor
+        blocked = (d_hazard < 18.0) & (lead_v < 0.5 * npc.veh_v + 1.0)
+        tailgated = (d_back < 12.0) & (back_v > npc.veh_v + 1.0)
+        a_idx = torch.arange(all_xy.shape[1], device=all_xy.device)
+        others = ((all_active[:, None, :] > 0)
+                  & (a_idx[None, :] != torch.arange(n_veh, device=all_xy.device)[:, None])[None])
 
-    def clear(cand_wp):
-        cand_xy = _rows(town.wp_xy, town_id, torch.clamp(cand_wp, min=0))
-        d_cand = _norm(all_xy[:, None] - cand_xy[:, :, None])
-        d_cand = torch.where(others, d_cand, torch.full_like(d_cand, 1e6))
-        return torch.amin(d_cand, dim=2) > 8.0
+        def clear(cand_wp):
+            cand_xy = _rows(town.wp_xy, town_id, torch.clamp(cand_wp, min=0))
+            d_cand = _norm(all_xy[:, None] - cand_xy[:, :, None])
+            d_cand = torch.where(others, d_cand, torch.full_like(d_cand, 1e6))
+            return torch.amin(d_cand, dim=2) > 8.0
 
-    wp_l = _rows(town.wp_left, town_id, new_wp)
-    wp_r = _rows(town.wp_right, town_id, new_wp)
-    go_left = blocked & (wp_l >= 0) & clear(wp_l)
-    go_right = (blocked | tailgated) & ~go_left & (wp_r >= 0) & clear(wp_r)
-    new_wp = torch.where(go_left, wp_l, torch.where(go_right, wp_r, new_wp))
+        wp_l = _rows(town.wp_left, town_id, new_wp)
+        wp_r = _rows(town.wp_right, town_id, new_wp)
+        go_left = blocked & (wp_l >= 0) & clear(wp_l)
+        go_right = (blocked | tailgated) & ~go_left & (wp_r >= 0) & clear(wp_r)
+        new_wp = torch.where(go_left, wp_l, torch.where(go_right, wp_r, new_wp))
 
-    to_t = _rows(town.wp_xy, town_id, new_wp) - npc.veh_xy
-    desired_yaw = torch.atan2(to_t[..., 1], to_t[..., 0])
-    yaw_err = torch.atan2(torch.sin(desired_yaw - npc.veh_yaw),
-                          torch.cos(desired_yaw - npc.veh_yaw))
+        to_t = _rows(town.wp_xy, town_id, new_wp) - npc.veh_xy
+        desired_yaw = torch.atan2(to_t[..., 1], to_t[..., 0])
+        yaw_err = torch.atan2(torch.sin(desired_yaw - npc.veh_yaw),
+                              torch.cos(desired_yaw - npc.veh_yaw))
 
-    # red lights: stop 3-14 m before a junction whose light is not green
-    my_jid = _rows(town.wp_junction_id, town_id, new_wp)
-    my_dj = _rows(town.wp_dist_to_junction, town_id, new_wp)
-    phase = _rows(town.junction_phase, town_id, torch.clamp(my_jid, min=0))
-    light = light_phase_state(sim_time[:, None], phase, npc.veh_yaw)
-    at_red = (my_jid >= 0) & (my_dj < 14.0) & (my_dj > 3.0) & (light != LIGHT_GREEN)
+        # red lights: stop 3-14 m before a junction whose light is not green
+        my_jid = _rows(town.wp_junction_id, town_id, new_wp)
+        my_dj = _rows(town.wp_dist_to_junction, town_id, new_wp)
+        phase = _rows(town.junction_phase, town_id, torch.clamp(my_jid, min=0))
+        light = light_phase_state(sim_time[:, None], phase, npc.veh_yaw)
+        at_red = (my_jid >= 0) & (my_dj < 14.0) & (my_dj > 3.0) & (light != LIGHT_GREEN)
 
-    target_kmh = ttc_target_speed(npc.veh_v, lead_v, d_hazard, limit_kmh)
-    target_speed = true_div(target_kmh, MS_TO_KMH)
-    target_speed = torch.where(at_red, torch.zeros_like(target_speed),
-                               torch.clamp(target_speed, min=0.0))
-    accel = torch.clamp(true_div(target_speed - npc.veh_v, DT), -8.0, 3.0)
-    v_new = torch.clamp(npc.veh_v + accel * DT, min=0.0)
-    yaw_rate = (torch.clamp(2.2 * yaw_err, -1.6, 1.6)
-                * torch.clamp(true_div(v_new, 3.0), max=1.0))
-    yaw_new = npc.veh_yaw + yaw_rate * DT
-    yaw_new = torch.atan2(torch.sin(yaw_new), torch.cos(yaw_new))
-    xy_new = npc.veh_xy + v_new[..., None] * _unit(yaw_new) * DT
+        target_kmh = ttc_target_speed(npc.veh_v, lead_v, d_hazard, limit_kmh)
+        target_speed = true_div(target_kmh, MS_TO_KMH)
+        target_speed = torch.where(at_red, torch.zeros_like(target_speed),
+                                   torch.clamp(target_speed, min=0.0))
+        accel = torch.clamp(true_div(target_speed - npc.veh_v, DT), -8.0, 3.0)
+        v_new = torch.clamp(npc.veh_v + accel * DT, min=0.0)
+        yaw_rate = (torch.clamp(2.2 * yaw_err, -1.6, 1.6)
+                    * torch.clamp(true_div(v_new, 3.0), max=1.0))
+        yaw_new = npc.veh_yaw + yaw_rate * DT
+        yaw_new = torch.atan2(torch.sin(yaw_new), torch.cos(yaw_new))
+        xy_new = npc.veh_xy + v_new[..., None] * _unit(yaw_new) * DT
 
-    act = npc.veh_active > 0
-    # ---- pedestrians: walk toward the goal; a new goal once within 1 m
-    to_goal = npc.ped_goal - npc.ped_xy
-    d_goal = _norm(to_goal)
-    dir_goal = to_goal / torch.clamp(d_goal[..., None], min=1e-3)
-    ped_xy_new = npc.ped_xy + dir_goal * npc.ped_speed[..., None] * DT
-    new_goals = sample_ped_goals(draws.goal, town, town_id, npc.ped_xy, npc.ped_cross)
-    return npc._replace(
-        veh_xy=torch.where(act[..., None], xy_new, npc.veh_xy),
-        veh_yaw=torch.where(act, yaw_new, npc.veh_yaw),
-        veh_v=torch.where(act, v_new, npc.veh_v), veh_wp=new_wp,
-        ped_xy=torch.where(npc.ped_active[..., None] > 0, ped_xy_new, npc.ped_xy),
-        ped_goal=torch.where((d_goal < 1.0)[..., None], new_goals, npc.ped_goal))
+        act = npc.veh_active > 0
+        # ---- pedestrians: walk toward the goal; a new goal once within 1 m
+        to_goal = npc.ped_goal - npc.ped_xy
+        d_goal = _norm(to_goal)
+        dir_goal = to_goal / torch.clamp(d_goal[..., None], min=1e-3)
+        ped_xy_new = npc.ped_xy + dir_goal * npc.ped_speed[..., None] * DT
+        new_goals = sample_ped_goals(draws.goal, town, town_id, npc.ped_xy, npc.ped_cross)
+        return npc._replace(
+            veh_xy=torch.where(act[..., None], xy_new, npc.veh_xy),
+            veh_yaw=torch.where(act, yaw_new, npc.veh_yaw),
+            veh_v=torch.where(act, v_new, npc.veh_v), veh_wp=new_wp,
+            ped_xy=torch.where(npc.ped_active[..., None] > 0, ped_xy_new, npc.ped_xy),
+            ped_goal=torch.where((d_goal < 1.0)[..., None], new_goals, npc.ped_goal))
 
 
 def collision_check(ego_xy: torch.Tensor, ego_yaw: torch.Tensor, npc: NPCState):

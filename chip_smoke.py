@@ -3650,7 +3650,7 @@ def summary_flops_phase(network: dict, root: str) -> dict:
     agent = stage.agent
     agent.network.load_state_dict(network)
     with profiling.device_trace(os.path.join(root, "trace"), name="s1-update") as prof:
-        with profiling.annotate("s1 update"):
+        with profiling.span("s1 update"):
             _, hist = agent.learn(1)
     events = os.path.join(agent.summary.dir, "events.jsonl")
     check(os.path.exists(events), "the update wrote no events.jsonl")

@@ -2,7 +2,7 @@
 records (scalars and their _std, histogram quantiles, image routing, the
 disabled and in-memory modes, the key filter), the FLOP counts at the s1
 and TINY geometries, the five single-trajectory math helpers, the
-profiling helpers, and the Python route planner's Town02 bank.
+device trace with a span, and the Python route planner's Town02 bank.
 
 Tolerances: the records, FLOP counts and route banks exactly (the same
 numpy host code); the math helpers 1e-6 relative + 1e-6 absolute (float32;
@@ -120,20 +120,21 @@ def test_math_helpers_match_jax(rng):
         np.testing.assert_allclose(x.numpy(), np.asarray(y), rtol=1e-6, atol=1e-6)
 
 
-def test_profiling_helpers(tmp_path, capsys):
-    @profiling.profile
-    def work(n):
-        return torch.ones(n).sum()
-    assert float(work(4)) == 4.0
-    assert "[profile] work took" in capsys.readouterr().out
+def test_profiling_helpers(tmp_path):
+    """A span inside device_trace lands in the Chrome trace file on the
+    program spans' track, on the trace's time axis around the operators it
+    held, and is no longer kept."""
     with profiling.device_trace(str(tmp_path), name="t") as prof:
-        with profiling.annotate("region"):
+        with profiling.span("region"):
             torch.mm(torch.ones(8, 8), torch.ones(8, 8))
+    assert profiling.span("off") is profiling.span("again") and profiling.drain() == []
     assert os.path.exists(prof.trace_path)
     with open(prof.trace_path) as f:
-        assert "region" in f.read()
-    assert profiling.block_and_time({"a": [torch.ones(3)]}) >= 0.0
-    assert profiling.block_and_time({}) >= 0.0
+        events = json.load(f)["traceEvents"]
+    (region,) = [e for e in events if e.get("name") == "region"]
+    assert region["pid"] == profiling.TRACK and region["ph"] == "X"
+    (mm,) = [e for e in events if e.get("name") == "aten::mm"]
+    assert region["ts"] <= mm["ts"] and mm["ts"] + mm["dur"] <= region["ts"] + region["dur"]
 
 
 def test_python_route_bank_matches_jax():
